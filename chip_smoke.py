@@ -6,29 +6,51 @@ Run from the root of a checkout, on a machine with one CUDA card (an H100
 for the numbers in PERF.md) and nvcc. Phases, one JSON line each; any
 failure raises and the script exits non-zero without a result line:
 
-  1. probe   torch / CUDA / nvcc versions and nvidia-smi's name, power limit
-  2. build   compile the three kernels (csrc/*.cu) from this checkout
-  3. kernels each kernel against its plain PyTorch version on the card at
-             the serving slice's shapes (qwen2_moe: H 2048, N 1408, E 60,
-             top-4; decode M = 4 slots x 4, prefill M = 256 x 4), with its
-             time beside the plain version's (CUDA events, median of 25).
-             K1 and K2 bitwise; K3 caches bitwise and its output per slot
-             within K3_REL_BOUND of the slot's scale (+1 ulp for bf16)
-  4. parity  full-width qwen2_moe, 2 layers, w8a8_g-1_sym: the same params
-             and tokens through forward_cached on CUDA (kernels) and on the
-             CPU (plain versions): one 256-token prefill chunk + 4 decode
-             steps; logits within PARITY_ULPS bf16 ulps, greedy tokens equal
-  5. serve   the Engine over full qwen2_moe (24 layers, seeded random bf16
-             weights, w8a8_g-1_sym experts) answering 4 requests; every
-             kernel must have launched in this phase
+  1. probe    torch / CUDA / nvcc versions, nvidia-smi's name, power limit
+  2. build    compile the kernels (csrc/*.cu, one nvcc per source, started
+              together) from this checkout
+  3. kernels  each kernel against its plain PyTorch version on the card at
+              the serving shapes (qwen2_moe: H 2048, N 1408, E 60, top-4;
+              decode M = 4 slots x 4, prefill M = 256 x 4), with its time
+              (CUDA events, median of 25) beside the plain version's and
+              beside its bound: the larger of the bytes it must move over
+              3.35 TB/s and its operations over the card's dense peak.
+              K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
+              unpacked codes, K5 against K4 on an all-packed buffer); K3 and
+              K3q caches (codes and scales) bitwise and their output per
+              slot within K3_REL_BOUND of the slot's scale (+1 ulp for bf16).
+              Also the sorted combine's time beside the atomic index_add_'s
+  4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
+              through forward_cached on the CPU (plain versions) and on
+              CUDA (kernels): one 256-token prefill chunk + 4 decode steps;
+              logits within PARITY_BOUND, greedy tokens equal. The inputs
+              are chosen on the CPU run so that every compared position's
+              top-2 margin exceeds PARITY_BOUND (no tie decides the gate).
+              Run for uniform w8a8 + bf16 cache and for mixed-packed + int8
+              KV cache
+  5. storage  mixed (int8-stored) and mixed-packed params of one seed, 4
+              layers, int8 KV cache: prefill + 16 decode steps give bitwise
+              equal logits on the card
+  6. serve    the Engine answering 4 requests over qwen2_moe with seeded
+              random bf16 weights: uniform w8a8 + bf16 cache (4 layers; K1,
+              K2, K3), uniform w4a8 nibble-packed (4 layers; K1, K5, K3) and
+              the full 24 layers with alternating w4a4 / w8a8 experts packed,
+              the shared expert w8a8 and the int8 KV cache (K1, K2, K3q,
+              K4). The launch counts are set to 0 before each serve and read
+              after it; every kernel named must have launched
+  7. bench    the bench_serving entry point, 4 layers, mixed-packed + int8 KV,
+              with its own launch counts (K1, K2, K3q, K4 must be non-zero)
 
-Then a {"kernels": [...]} line, the nvidia-smi line, and last
+Then a {"kernels": [...]} line (each kernel's launches are those of one
+serve, named beside them), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -38,16 +60,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
+_DA_CU = "mxmoe_tpu_torch/csrc/decode_attention.cu"
+_DA_PY = "mxmoe_tpu/serving/decode_attention.py:485"
 KERNEL_SOURCES = {
     "quantize_rows": ("mxmoe_tpu_torch/csrc/act_quant.cu",
                       "mxmoe_tpu/ops/act_quant.py:43"),
     "gmm_w8a8": ("mxmoe_tpu_torch/csrc/gmm_w8a8.cu",
                  "mxmoe_tpu/ops/pallas_gmm.py:376"),
-    "decode_attention_update_stacked": (
-        "mxmoe_tpu_torch/csrc/decode_attention.cu",
-        "mxmoe_tpu/serving/decode_attention.py:485"),
+    "decode_attention_update_stacked": (_DA_CU, _DA_PY),
+    "decode_attention_update_stacked_q8": (_DA_CU, _DA_PY),
+    "gmm_mixed_packed": ("mxmoe_tpu_torch/csrc/gmm_mixed_packed.cu",
+                         "mxmoe_tpu/ops/pallas_gmm.py:1054"),
+    "gmm_w4a8_packed": ("mxmoe_tpu_torch/csrc/gmm_w4a8_packed.cu",
+                        "mxmoe_tpu/ops/pallas_gmm.py:599"),
 }
-# K3 output bound, held per slot b against that slot's own scale
+# K3 / K3q output bound, held per slot b against that slot's own scale
 # max|ref[b]|: |d| <= K3_REL_BOUND * max|ref[b]| for f32 outputs (online
 # softmax sums in another order than the plain version's full softmax), plus
 # one bf16 ulp of the reference element for bf16 outputs (both round the
@@ -55,11 +82,20 @@ KERNEL_SOURCES = {
 # apart). A dropped or added position moves a long slot's outputs by about
 # |v| / length (~5e-4 at 2048 positions), well past both.
 K3_REL_BOUND = 1e-5
-# parity bound on logits: PARITY_ULPS bf16 ulps at max|logits| of the CPU
-# run, and equal greedy tokens. The logits are bf16 and the card's bf16
-# matmuls round at other places; two runs on an H100 read max|d| = 1 ulp
-# (0.03125 at max|logits| ~5.2)
+# parity bound on logits: 4 bf16 ulps at max|logits| of the CPU run, at most
+# 0.125 (4 ulps in [4, 8), where the runs' max|logits| ~5.2 lies), and equal
+# greedy tokens. The logits are bf16 and the card's bf16 matmuls round at
+# other places; runs on an H100 read max|d| = 1 ulp (0.03125)
 PARITY_ULPS = 4
+PARITY_BOUND = 0.125
+# the card's published peaks (H100 SXM, dense): device memory rate and
+# operations per second by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# one PyTorch call that computes the same function, per kernel: none. torch
+# has no per-row-bits quantizer and no grouped int8 product with scales, and
+# no single call writes the cache and attends over it
+LIBRARY_MS = None
 
 
 def emit(phase: str, **kv) -> None:
@@ -145,6 +181,53 @@ def build() -> None:
          library=os.path.relpath(path, HERE))
 
 
+def work_bound(nbytes: float, ops: float, ops_type: str) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops), "ops_type": ops_type,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def quant_rows_work(m: int, k: int, in_bytes: int) -> dict:
+    """K1: the row read once, codes and scale written, ~3 f32 ops a value."""
+    return work_bound(m * k * in_bytes + m * 4 + m * k + m * 4, 3 * m * k, "f32")
+
+
+def gmm_work(gs, k: int, n: int, expert_bytes, out_bytes: int = 2,
+             meta_bytes: int = 0) -> dict:
+    """K2 / K4 / K5 on THIS routing: only experts with rows stream their
+    weights (``expert_bytes[e]``) and scale rows; every routed row is read
+    and written once."""
+    import torch
+
+    live = gs > 0
+    rows = int(gs.sum())
+    e = gs.numel()
+    w = torch.as_tensor(expert_bytes, device=gs.device).expand(e)
+    nbytes = (rows * k + rows * 4 + int(w[live].sum()) + int(live.sum()) * n * 4
+              + e * 4 + meta_bytes + rows * n * out_bytes)
+    return work_bound(nbytes, 2 * rows * k * n, "int8")
+
+
+def decode_attn_work(lengths, valid, s_max, n_h, n_kv, dk, dv, elem_bytes,
+                     cache_pos_bytes) -> dict:
+    """K3 / K3q on THESE lengths: a slot attends min(len, S-1) + 1 positions,
+    all read from the cache except the one it writes (``cache_pos_bytes``
+    per kv head and position)."""
+    nbytes = ops = 0
+    for ln, ok in zip(lengths.tolist(), valid.tolist()):
+        n_pos = min(max(ln, 0), s_max - 1) + 1
+        wrote = bool(ok) and 0 <= ln < s_max
+        nbytes += (n_pos - wrote) * n_kv * cache_pos_bytes        # cache read
+        nbytes += wrote * n_kv * cache_pos_bytes                  # cache write
+        nbytes += (n_h * dk + n_kv * (dk + dv) + n_h * dv) * elem_bytes
+        ops += 2 * n_h * n_pos * (dk + dv)
+    return work_bound(nbytes, ops, "bf16")
+
+
 def _routing_group_sizes(tokens: int, cfg, gen, device):
     import torch
 
@@ -155,39 +238,57 @@ def _routing_group_sizes(tokens: int, cfg, gen, device):
                          cfg.num_experts).group_sizes
 
 
-def kernels_vs_plain() -> dict:
-    """Each kernel vs its plain version; returns per-kernel records."""
+def _require_equal(got, ref, what: str) -> None:
+    import torch
+
+    if not torch.equal(got, ref):
+        d = (got.float() - ref.float()).abs().max().item()
+        raise AssertionError(f"{what}: not bitwise, max|d|={d}")
+
+
+def gmm_kernels_vs_plain(rec: dict) -> None:
+    """K1, K2, K4, K5 at the decode and prefill shapes of both expert GEMMs."""
     import torch
 
     from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
-    from mxmoe_tpu_torch.ops import act_quant, gmm_w8a8 as gmm
-    from mxmoe_tpu_torch.serving import decode_attention as da
+    from mxmoe_tpu_torch.ops import act_quant, gmm_mixed_packed as gmp
+    from mxmoe_tpu_torch.ops import gmm_w4a8_packed as g4p, gmm_w8a8 as gmm
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
-    rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+    # alternating storage, as the mixed serving config: even experts w4 packed
+    pflags = [int(i % 2 == 0) for i in range(e)]
+    pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+    pf_all = torch.ones((e,), dtype=torch.int32, device=dev)
+    blk_all = torch.arange(e, dtype=torch.int32, device=dev)
 
     for regime, tokens in (("decode", 4), ("prefill", 256)):
         m = tokens * cfg.top_k
         gs = _routing_group_sizes(tokens, cfg, gen, dev)
-        # K1 on both GEMM inputs
+        empty = int((gs == 0).sum().item())
+        keep = regime == "decode"
+        # K1 on both GEMM inputs, with per-row bits as a mixed layer gives them
         for k in (h, n):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            bits = torch.full((m,), 8.0, device=dev)
-            q, s = act_quant.quantize_rows(x, bits)
-            qp, sp = act_quant.quantize_rows_plain(x, bits)
-            torch.cuda.synchronize()
-            if not (torch.equal(q, qp) and torch.equal(s, sp)):
-                raise AssertionError(f"K1 not bitwise at {regime} K={k}: "
-                                     f"{(q != qp).sum().item()} codes differ")
+            for label, bits in (("a8", torch.full((m,), 8.0, device=dev)),
+                                ("a4/a8", torch.tensor([4.0, 8.0], device=dev)
+                                 .repeat(m // 2).contiguous())):
+                q, s = act_quant.quantize_rows(x, bits)
+                qp, sp = act_quant.quantize_rows_plain(x, bits)
+                torch.cuda.synchronize()
+                if not (torch.equal(q, qp) and torch.equal(s, sp)):
+                    raise AssertionError(
+                        f"K1 not bitwise at {regime} K={k} bits {label}: "
+                        f"{(q != qp).sum().item()} codes differ")
             t = {"ms": time_ms(lambda: act_quant.quantize_rows(x, bits)),
-                 "plain_ms": time_ms(lambda: act_quant.quantize_rows_plain(x, bits))}
+                 "plain_ms": time_ms(lambda: act_quant.quantize_rows_plain(x, bits)),
+                 **quant_rows_work(m, k, 2)}
             emit("kernels", kernel="quantize_rows", regime=regime, M=m, K=k,
                  bitwise=True, **t)
-            if regime == "decode" and k == h:
+            if keep and k == h:
                 rec["quantize_rows"].update(t)
-        # K2 gate_up and down
         for k, nn in ((h, 2 * n), (n, h)):
             aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                                dtype=torch.int8)
@@ -195,57 +296,228 @@ def kernels_vs_plain() -> dict:
             wq = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
                                dtype=torch.int8)
             wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+            shape = dict(regime=regime, M=m, K=k, N=nn, empty_groups=empty)
+            # K2
             out = gmm.gmm_w8a8(aq, asc, wq, wsc, gs)
             ref = gmm.gmm_w8a8_plain(aq, asc, wq, wsc, gs)
             torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                d = (out.float() - ref.float()).abs().max().item()
-                raise AssertionError(f"K2 not bitwise at {regime} K={k}: max|d|={d}")
+            _require_equal(out, ref, f"K2 vs plain at {regime} K={k}")
             t = {"ms": time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)),
-                 "plain_ms": time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc, gs))}
-            emit("kernels", kernel="gmm_w8a8", regime=regime, M=m, K=k, N=nn,
-                 empty_groups=int((gs == 0).sum().item()), bitwise=True, **t)
-            if regime == "decode" and k == h:
+                 "plain_ms": time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc, gs)),
+                 **gmm_work(gs, k, nn, k * nn)}
+            emit("kernels", kernel="gmm_w8a8", bitwise=True, **shape, **t)
+            if keep and k == h:
                 rec["gmm_w8a8"].update(t)
-            del wq
+            # K4: the packed experts' codes in the 4-bit range; K2 on the
+            # same int8-stored codes is the second reference
+            w4 = torch.randint(-8, 8, (e, k, nn), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wq[::2] = w4[::2]
+            cat, blk = build_ragged_mixed(wq, pflags)
+            blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+            out = gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk)
+            ref = gmp.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk)
+            k2 = gmm.gmm_w8a8(aq, asc, wq, wsc, gs)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K4 vs plain at {regime} K={k}")
+            _require_equal(out, k2, f"K4 vs K2 at {regime} K={k}")
+            per_expert = [k * nn // 2 if f else k * nn for f in pflags]
+            t = {"ms": time_ms(lambda: gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs,
+                                                            pf, blk)),
+                 "plain_ms": time_ms(lambda: gmp.gmm_mixed_packed_plain(
+                     aq, asc, cat, wsc, gs, pf, blk)),
+                 **gmm_work(gs, k, nn, per_expert, meta_bytes=8 * e)}
+            emit("kernels", kernel="gmm_mixed_packed", bitwise=True,
+                 equals_gmm_w8a8=True, packed_experts=sum(pflags),
+                 gmm_w8a8_same_codes_ms=time_ms(
+                     lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)), **shape, **t)
+            if keep and k == h:
+                rec["gmm_mixed_packed"].update(t)
+            del cat, wq
+            # K5: every expert packed; K4 on the same bytes and K2 on the
+            # unpacked codes are the other references
+            packed = pack_int4_halves(w4)
+            out = g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)
+            ref = g4p.gmm_w4a8_packed_plain(aq, asc, packed, wsc, gs)
+            k4 = gmp.gmm_mixed_packed(aq, asc, packed.reshape(-1, nn), wsc, gs,
+                                      pf_all, blk_all)
+            k2 = gmm.gmm_w8a8(aq, asc, w4, wsc, gs)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K5 vs plain at {regime} K={k}")
+            _require_equal(out, k4, f"K5 vs K4 at {regime} K={k}")
+            _require_equal(out, k2, f"K5 vs K2 at {regime} K={k}")
+            t = {"ms": time_ms(lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)),
+                 "plain_ms": time_ms(lambda: g4p.gmm_w4a8_packed_plain(
+                     aq, asc, packed, wsc, gs)),
+                 **gmm_work(gs, k, nn, k * nn // 2)}
+            emit("kernels", kernel="gmm_w4a8_packed", bitwise=True,
+                 equals_gmm_mixed_packed=True, equals_gmm_w8a8=True, **shape, **t)
+            if keep and k == h:
+                rec["gmm_w4a8_packed"].update(t)
+            del packed, w4
 
-    # K3 at the serving cache: B=4 slots, S=2048; lengths 0, mid, full, and
-    # a slot with valid=0; bf16 operands (the serving path's) and f32 ones
+    # the real-quantized shared expert: K1 with one bit width expanded over
+    # the rows, then K2 with one group, for each of its two dense products
+    sn = cfg.shared_expert_intermediate_size
+    a8 = torch.tensor(8.0, device=dev)
+    for regime, rows in (("decode", 4), ("prefill", 256)):
+        one_group = torch.full((1,), rows, dtype=torch.int32, device=dev)
+        for k, nn in ((h, 2 * sn), (sn, h)):
+            x = torch.randn((rows, k), generator=gen, device=dev).to(torch.bfloat16)
+            bits = a8.expand(rows)
+            q, s = act_quant.quantize_rows(x, bits)
+            qp, sp = act_quant.quantize_rows_plain(x, bits)
+            torch.cuda.synchronize()
+            _require_equal(q, qp, f"K1 codes (shared expert) at {regime} K={k}")
+            _require_equal(s, sp, f"K1 scales (shared expert) at {regime} K={k}")
+            emit("kernels", kernel="quantize_rows",
+                 use="shared expert, expanded bits", regime=regime, M=rows, K=k,
+                 bitwise=True,
+                 ms=time_ms(lambda: act_quant.quantize_rows(x, bits)),
+                 plain_ms=time_ms(lambda: act_quant.quantize_rows_plain(x, bits)),
+                 **quant_rows_work(rows, k, 2))
+            aq = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            asc = torch.rand((rows, 1), generator=gen, device=dev) * 0.05
+            wq = torch.randint(-127, 128, (1, k, nn), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wsc = torch.rand((1, 1, nn), generator=gen, device=dev) * 0.01
+            out = gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)
+            ref = gmm.gmm_w8a8_plain(aq, asc, wq, wsc, one_group)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K2 (shared expert) at {regime} K={k}")
+            emit("kernels", kernel="gmm_w8a8", use="shared expert, one group",
+                 regime=regime, M=rows, K=k, N=nn, bitwise=True,
+                 ms=time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
+                 plain_ms=time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc,
+                                                             one_group)),
+                 **gmm_work(one_group, k, nn, k * nn))
+
+
+def combine_vs_index_add() -> None:
+    """What the order-preserving combine costs: ``combine_tokens`` (sorted
+    ``index_put_(accumulate=True)``) beside the atomic ``index_add_`` it
+    replaced, on the same rows, at the decode and prefill sizes."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.ops.dispatch import (combine_tokens, make_dispatch,
+                                              route_topk)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for regime, tokens in (("decode", 4), ("prefill", 256)):
+        logits = torch.randn((tokens, cfg.num_experts), generator=gen, device=dev)
+        disp = make_dispatch(route_topk(logits, cfg.top_k, cfg.norm_topk_prob),
+                             cfg.num_experts)
+        rows = torch.randn((tokens * cfg.top_k, cfg.hidden_size), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        weighted = rows * disp.combine_weights[:, None].to(rows.dtype)
+        idx = disp.token_ids.long()
+
+        def zeros():
+            return torch.zeros((tokens, cfg.hidden_size), dtype=rows.dtype,
+                               device=dev)
+
+        def atomic():
+            return zeros().index_add_(0, idx, weighted)
+
+        def sorted_put():
+            return zeros().index_put_((idx,), weighted, accumulate=True)
+
+        out = combine_tokens(rows, disp, tokens)
+        again = combine_tokens(rows, disp, tokens)
+        torch.cuda.synchronize()
+        _require_equal(out, again, f"combine_tokens twice at {regime}")
+        err = (out.float() - atomic().float()).abs().max().item()
+        emit("combine", regime=regime, tokens=tokens, rows=tokens * cfg.top_k,
+             reproducible=True, max_abs_diff_vs_index_add=err,
+             index_put_ms=time_ms(sorted_put), index_add_ms=time_ms(atomic))
+
+
+def attention_kernels_vs_plain(rec: dict) -> None:
+    """K3 and K3q at the serving cache: B=4 slots, S=2048; lengths 0, mid,
+    full, and a slot with valid=0; bf16 operands (the serving path's) and
+    f32 ones."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.serving import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
     b, s_max, nl, layer = 4, 2048, 2, 1
     n_h, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / hd ** 0.5
     lengths = torch.tensor([0, 700, s_max, 1500], dtype=torch.int32, device=dev)
     valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        ck = torch.randn((nl, b, n_kv, s_max, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        cv = torch.randn((nl, b, n_kv, s_max, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        q = torch.randn((b, n_h, hd), generator=gen, device=dev).to(dtype)
-        kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
-        vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
-        ck2, cv2 = ck.clone(), cv.clone()
-        out, _ = da.decode_attention_update_stacked(q, kn, vn, ck, cv, lengths,
-                                                    layer, valid=valid)
-        ref = da.decode_attention_update_plain(q, kn, vn, ck2, cv2, lengths, layer,
-                                               valid, 1.0 / hd ** 0.5)
-        torch.cuda.synchronize()
-        if not (torch.equal(ck, ck2) and torch.equal(cv, cv2)):
-            raise AssertionError(f"K3 cache write not bitwise ({dtype})")
-        rel = k3_slot_errors(out, ref)
-        err = (out.float() - ref.float()).abs().max().item()
-        t = {"ms": time_ms(lambda: da.decode_attention_update_stacked(
-                 q, kn, vn, ck, cv, lengths, layer, valid=valid)),
-             "plain_ms": time_ms(lambda: da.decode_attention_update_plain(
-                 q, kn, vn, ck2, cv2, lengths, layer, valid, 1.0 / hd ** 0.5))}
-        emit("kernels", kernel="decode_attention_update_stacked", regime="decode",
-             dtype=str(dtype).removeprefix("torch."), B=b, S=s_max,
-             lengths=lengths.tolist(), valid=valid.tolist(), cache_bitwise=True,
-             max_abs_err=err, rel_err_per_slot=rel,
-             slot_scale=ref.float().abs().flatten(1).amax(1).tolist(),
-             bound=f"{K3_REL_BOUND} * max|ref[b]|"
-                   + (" + 1 bf16 ulp" if dtype == torch.bfloat16 else ""), **t)
-        if dtype == torch.bfloat16:
-            rec["decode_attention_update_stacked"].update(max_abs_err=err, **t)
+
+    def bf16_cache():
+        return torch.randn((nl, b, n_kv, s_max, hd), generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    def int8_codes():
+        return torch.randint(-127, 128, (nl, b, n_kv, s_max, hd), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def f32_scales():
+        return torch.rand((nl, b, n_kv, s_max), generator=gen, device=dev) * 0.03 + 1e-3
+
+    forms = (
+        ("decode_attention_update_stacked", "K3",
+         lambda: [bf16_cache(), None, bf16_cache(), None], 2 * hd * 2),
+        ("decode_attention_update_stacked_q8", "K3q",
+         lambda: [int8_codes(), f32_scales(), int8_codes(), f32_scales()],
+         2 * hd + 8),
+    )
+    for name, label, make_caches, pos_bytes in forms:
+        for dtype in (torch.float32, torch.bfloat16):
+            caches = make_caches()
+            caches2 = [c if c is None else c.clone() for c in caches]
+            q = torch.randn((b, n_h, hd), generator=gen, device=dev).to(dtype)
+            kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
+            vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
+
+            def kernel():
+                return da.decode_attention_update_stacked(
+                    q, kn, vn, *caches, lengths, layer, valid=valid)[0]
+
+            def plain():
+                if caches2[1] is None:
+                    return da.decode_attention_update_plain(
+                        q, kn, vn, caches2[0], caches2[2], lengths, layer, valid,
+                        scale)
+                return da.decode_attention_update_q8_plain(
+                    q, kn, vn, *caches2, lengths, layer, valid, scale)
+
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            for got, want in zip(caches, caches2):
+                if got is not None and not torch.equal(got, want):
+                    raise AssertionError(f"{label} cache write not bitwise ({dtype})")
+            rel = k3_slot_errors(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                 **decode_attn_work(lengths, valid, s_max, n_h, n_kv, hd, hd,
+                                    q.element_size(), pos_bytes)}
+            emit("kernels", kernel=name, regime="decode",
+                 dtype=str(dtype).removeprefix("torch."), B=b, S=s_max,
+                 lengths=lengths.tolist(), valid=valid.tolist(), cache_bitwise=True,
+                 max_abs_err=err, rel_err_per_slot=rel,
+                 slot_scale=ref.float().abs().flatten(1).amax(1).tolist(),
+                 bound=f"{K3_REL_BOUND} * max|ref[b]|"
+                       + (" + 1 bf16 ulp" if dtype == torch.bfloat16 else ""), **t)
+            if dtype == torch.bfloat16:
+                rec[name].update(max_abs_err=err, **t)
+            del caches, caches2
+
+
+def kernels_vs_plain() -> dict:
+    """Each kernel vs its plain version; returns per-kernel records."""
+    rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+    gmm_kernels_vs_plain(rec)
+    attention_kernels_vs_plain(rec)
+    combine_vs_index_add()
     return rec
 
 
@@ -254,106 +526,239 @@ def _to(params, device):
             for k, v in params.items()}
 
 
-def slice_parity() -> None:
-    """2-layer full-width slice on CUDA vs CPU (plain versions)."""
-    import numpy as np
+def _top2_margin(logits):
+    """Per-row gap between the two largest logits ([.., V] -> [..])."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _full_width_model(layers: int, seed: int):
+    """qwen2_moe at its published widths, ``layers`` deep, with seeded random
+    bf16 weights made on the card -> (config, float params)."""
     import torch
 
     from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B
-    from mxmoe_tpu_torch.models.layers import MoEImpl
     from mxmoe_tpu_torch.models.model import init_params
-    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu_torch.quant.schemes import parse_scheme
-    from mxmoe_tpu_torch.serving.decode import forward_cached
-    from mxmoe_tpu_torch.serving.kv_cache import init_kv_cache
 
-    cfg = dataclasses.replace(QWEN2_MOE_A2_7B, num_layers=2)
-    qcfg = parse_scheme("w8a8_g-1_sym")
-    impl = MoEImpl(quant=qcfg)
+    cfg = dataclasses.replace(QWEN2_MOE_A2_7B, num_layers=layers)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    params = quantize_model_experts_uniform(
-        init_params(cfg, gen, dtype=torch.bfloat16, device=dev), qcfg)
-    runs = {"cuda": params, "cpu": _to(params, "cpu")}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    floats = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    return cfg, floats
+
+
+def _init_cache(cfg, batch, max_len, int8_kv, device):
+    from mxmoe_tpu_torch.serving.kv_cache import init_kv_cache, init_quant_kv_cache
+
+    if int8_kv:
+        return init_quant_kv_cache(cfg, batch, max_len, device=device)
+    return init_kv_cache(cfg, batch, max_len, device=device)
+
+
+def slice_parity(quant: str, int8_kv: bool, tries: int = 40) -> None:
+    """2-layer full-width slice on the CPU (plain versions), then the same
+    inputs on CUDA (kernels). The CPU run picks its inputs: a prompt, then
+    for each decode step one input token per slot, such that every compared
+    position's top-2 margin exceeds PARITY_BOUND."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
+    from mxmoe_tpu_torch.serving.decode import forward_cached
+
+    cfg, floats = _full_width_model(2, seed=1)
+    params, impl = quantize_for_serving(floats, cfg, quant)
+    del floats
+    cpu_params = _to(params, "cpu")
     rng = np.random.default_rng(1)
-    b, chunk = 2, 256
-    prompt = rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+    b, chunk, steps = 2, 256, 4
     valid0 = np.asarray([chunk, 200], np.int32)
-    logits, caches, t_run = {}, {}, {}
-    # prefill: the same tokens on both devices
-    for name, p in runs.items():
-        d = p["embed"].device
-        caches[name] = init_kv_cache(cfg, b, 512, device=d)
-        t0 = time.perf_counter()
-        lg, caches[name] = forward_cached(p, torch.as_tensor(prompt, device=d),
-                                          caches[name], cfg, impl,
-                                          valid_lengths=torch.as_tensor(valid0, device=d))
-        logits[name] = [lg.float().cpu()[np.arange(b), valid0 - 1]]
-        t_run[name] = time.perf_counter() - t0
-    # 4 decode steps, teacher-forced with the CPU run's greedy tokens so both
-    # devices see the same inputs
-    for _ in range(4):
-        toks = logits["cpu"][-1].argmax(-1).to(torch.int32)[:, None]
-        for name, p in runs.items():
-            d = p["embed"].device
-            lg, caches[name] = forward_cached(p, toks.to(d), caches[name], cfg, impl)
-            logits[name].append(lg.float().cpu()[:, 0])
-    cpu = torch.stack(logits["cpu"])          # [5, B, V]
-    gpu = torch.stack(logits["cuda"])
-    if not (torch.isfinite(gpu).all() and gpu.shape == (5, b, cfg.vocab_size)):
+    rows = np.arange(b)
+
+    # CPU: search the inputs. A retried forward writes the same cache
+    # positions again (the cache argument keeps its lengths), so a rejected
+    # try leaves nothing behind.
+    cache = _init_cache(cfg, b, 512, int8_kv, "cpu")
+    t0 = time.perf_counter()
+    for n_prompts in range(1, tries + 1):
+        prompt = rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+        lg, nxt = forward_cached(cpu_params, torch.from_numpy(prompt), cache, cfg,
+                                 impl, valid_lengths=torch.from_numpy(valid0))
+        last = lg.float()[rows, valid0 - 1]
+        if bool((_top2_margin(last) > PARITY_BOUND).all()):
+            break
+    else:
+        raise AssertionError(f"parity: no prompt in {tries} gave a top-2 margin "
+                             f"> {PARITY_BOUND}")
+    prefill_s_cpu = (time.perf_counter() - t0) / n_prompts
+    cache, cpu_logits, fed, n_tries = nxt, [last], [], []
+    for _ in range(steps):
+        greedy = cpu_logits[-1].argmax(-1)
+        chosen = greedy.clone()
+        done = torch.zeros((b,), dtype=torch.bool)
+        for j in range(tries):
+            cand = torch.where(done, chosen, (greedy + j) % cfg.vocab_size)
+            lg, nxt = forward_cached(cpu_params, cand.to(torch.int32)[:, None],
+                                     cache, cfg, impl)
+            ok = _top2_margin(lg[:, 0]) > PARITY_BOUND
+            if bool(ok.all()):
+                break
+            chosen = torch.where(ok & ~done, cand, chosen)
+            done |= ok
+        else:
+            raise AssertionError(f"parity: no decode input in {tries} gave a "
+                                 f"top-2 margin > {PARITY_BOUND}")
+        cache = nxt
+        fed.append(cand.to(torch.int32))
+        cpu_logits.append(lg.float()[:, 0])
+        n_tries.append(j + 1)
+
+    # CUDA: replay the chosen inputs
+    dev = torch.device("cuda")
+    cache = _init_cache(cfg, b, 512, int8_kv, dev)
+    t0 = time.perf_counter()
+    lg, cache = forward_cached(params, torch.as_tensor(prompt, device=dev), cache,
+                               cfg, impl,
+                               valid_lengths=torch.as_tensor(valid0, device=dev))
+    gpu_logits = [lg.float().cpu()[rows, valid0 - 1]]
+    prefill_s_cuda = time.perf_counter() - t0
+    for toks in fed:
+        lg, cache = forward_cached(params, toks.to(dev)[:, None], cache, cfg, impl)
+        gpu_logits.append(lg.float().cpu()[:, 0])
+
+    cpu = torch.stack(cpu_logits)             # [1 + steps, B, V]
+    gpu = torch.stack(gpu_logits)
+    if not (torch.isfinite(gpu).all() and gpu.shape == (1 + steps, b, cfg.vocab_size)):
         raise AssertionError("non-finite or misshapen CUDA logits")
     err = (gpu - cpu).abs().max().item()
-    bound = PARITY_ULPS * bf16_ulp(cpu.abs().max()).item()
-    top2 = cpu.topk(2, dim=-1).values
+    bound = min(PARITY_BOUND, PARITY_ULPS * bf16_ulp(cpu.abs().max()).item())
+    margin = _top2_margin(cpu).min().item()
     tok_cpu, tok_gpu = cpu.argmax(-1), gpu.argmax(-1)
     equal = tok_cpu == tok_gpu
-    emit("parity", layers=cfg.num_layers, prefill_valid=valid0.tolist(),
-         decode_steps=4, max_abs_err=err, bound=bound,
-         max_abs_logit=cpu.abs().max().item(),
+    emit("parity", quant=quant, int8_kv=int8_kv, layers=cfg.num_layers,
+         prefill_valid=valid0.tolist(), decode_steps=steps, max_abs_err=err,
+         bound=bound, max_abs_logit=cpu.abs().max().item(),
          greedy_equal=int(equal.sum()), greedy_total=equal.numel(),
-         min_top2_margin=(top2[..., 0] - top2[..., 1]).min().item(),
+         min_top2_margin=margin, prompts_tried=n_prompts, decode_inputs_tried=n_tries,
          tokens_cpu=tok_cpu.tolist(), tokens_cuda=tok_gpu.tolist(),
-         prefill_s_cuda=t_run["cuda"], prefill_s_cpu=t_run["cpu"])
+         prefill_s_cuda=prefill_s_cuda, prefill_s_cpu=prefill_s_cpu)
+    if not margin > PARITY_BOUND:
+        raise AssertionError(f"slice parity: top-2 margin {margin} <= {PARITY_BOUND}")
     if not err <= bound:
         raise AssertionError(f"slice parity: max|d logits|={err} > {bound}")
     if not bool(equal.all()):
         raise AssertionError("slice parity: greedy tokens differ")
 
 
-def serve() -> dict:
-    """The Engine over full qwen2_moe; returns the kernels' launch counts."""
+def storage_forms_bitwise() -> None:
+    """Packing w4 experts changes bytes, not outputs: int8-stored and
+    nibble-packed params of one seed give bitwise equal logits on the card."""
     import numpy as np
     import torch
 
-    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
-    from mxmoe_tpu_torch.models.layers import MoEImpl
-    from mxmoe_tpu_torch.models.model import init_params
+    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
+    from mxmoe_tpu_torch.serving.decode import forward_cached
+
+    cfg, floats = _full_width_model(4, seed=2)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    b, chunk, steps = 2, 256, 16
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32),
+                             device=dev)
+    valid0 = torch.tensor([chunk, 200], dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+    logits, fed = {}, []
+    for quant in ("mixed", "mixed-packed"):
+        params, impl = quantize_for_serving(floats, cfg, quant)
+        cache = _init_cache(cfg, b, 512, True, dev)
+        lg, cache = forward_cached(params, prompt, cache, cfg, impl,
+                                   valid_lengths=valid0)
+        out = [lg[rows, (valid0 - 1).long()]]
+        for i in range(steps):
+            if quant == "mixed":              # the first form's greedy tokens
+                fed.append(out[-1].argmax(-1).to(torch.int32)[:, None])
+            lg, cache = forward_cached(params, fed[i], cache, cfg, impl)
+            out.append(lg[:, 0])
+        logits[quant] = torch.stack(out)
+        del params, cache
+    torch.cuda.synchronize()
+    same = torch.equal(logits["mixed"], logits["mixed-packed"])
+    emit("storage", layers=cfg.num_layers, prefill_valid=valid0.tolist(),
+         decode_steps=steps, int8_kv=True, bitwise_equal=same,
+         max_abs_diff=(logits["mixed"].float()
+                       - logits["mixed-packed"].float()).abs().max().item(),
+         finite=bool(torch.isfinite(logits["mixed"]).all()))
+    if not (same and torch.isfinite(logits["mixed"]).all()):
+        raise AssertionError("mixed and mixed-packed logits differ on the card")
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _reckoned_bytes(cfg, quant: str, int8_kv: bool, slots: int, max_len: int) -> dict:
+    """Expert, shared-expert and KV-cache bytes as the storage code lays them
+    out (codes + f32 per-channel scales; zero points where the form keeps
+    them), to print beside the measured tensor sizes."""
+    h, n, e, nl = (cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
+                   cfg.num_layers)
+    sn = cfg.shared_expert_intermediate_size
+    codes = h * 2 * n + n * h                       # one expert, 1 byte a code
+    scales = (2 * n + h) * 4
+    if quant == "mixed-packed":                     # even experts packed
+        packed = (e + 1) // 2
+        experts = nl * (packed * codes // 2 + (e - packed) * codes + e * scales
+                        + 2 * e * 8 + 2 * e * 4)    # + blk/pf, act bits
+        shared = nl * (h * 2 * sn + sn * h + (2 * sn + h) * 4 + 8)
+    elif quant.startswith("w4"):                    # uniform, nibble-packed
+        experts = nl * e * (codes // 2 + 2 * scales)
+        shared = nl * (h * 2 * sn + sn * h) * 2
+    else:                                           # uniform int8-stored
+        experts = nl * e * (codes + 2 * scales)
+        shared = nl * (h * 2 * sn + sn * h) * 2
+    pos = 2 * cfg.head_dim * (1 if int8_kv else 2) + (8 if int8_kv else 0)
+    return {"experts": experts, "shared_expert": shared,
+            "kv_cache": nl * slots * cfg.num_kv_heads * max_len * pos}
+
+
+def serve(layers: int, quant: str, int8_kv: bool, expect: tuple) -> dict:
+    """The Engine over qwen2_moe at its published widths, ``layers`` deep,
+    answering 4 requests; returns the kernels' launch counts of this serve.
+    A uniform w4 scheme is served nibble-packed (convert's pack step)."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.models.convert import pack_int4_experts
     from mxmoe_tpu_torch.ops import kernels
-    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
 
-    dev = torch.device("cuda")
-    qcfg = parse_scheme("w8a8_g-1_sym")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = quantize_model_experts_uniform(
-        init_params(cfg, gen, dtype=torch.bfloat16, device=dev), qcfg)
+    cfg, floats = _full_width_model(layers, seed=0)
+    params, impl = quantize_for_serving(floats, cfg, quant)
+    del floats
+    if quant.startswith("w4"):
+        params = pack_int4_experts(params, impl.quant)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    nbytes = {"int8_experts": 0, "other": 0}
+    nbytes = {"experts": 0, "shared_expert": 0, "other": 0}
     for k, v in params["layers"].items():
-        key = "int8_experts" if k.startswith("expert_") else "other"
-        nbytes[key] += v.numel() * v.element_size()
-    for k in ("embed", "final_norm", "lm_head"):
-        nbytes["other"] += params[k].numel() * params[k].element_size()
+        key = ("experts" if k.startswith(("expert_", "act_bits_g", "act_bits_d"))
+               else "shared_expert" if k.startswith(("shared_gate_up", "shared_down",
+                                                     "act_bits_shared"))
+               else "other")
+        nbytes[key] += _tensor_bytes([v])
+    nbytes["other"] += _tensor_bytes(params[k] for k in ("embed", "final_norm", "lm_head"))
+    slots, max_len, max_new = 4, 2048, 32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(params, cfg, EngineConfig(batch_slots=4, max_len=2048,
-                                           prefill_chunk=256), MoEImpl(quant=qcfg))
+    eng = Engine(params, cfg, EngineConfig(batch_slots=slots, max_len=max_len,
+                                           prefill_chunk=256, int8_kv=int8_kv), impl)
+    nbytes["kv_cache"] = _tensor_bytes(
+        getattr(eng.cache, f.name) for f in dataclasses.fields(eng.cache)
+        if f.name != "lengths")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (48, 200, 300, 512)]
-    max_new = 32
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -368,20 +773,50 @@ def serve() -> dict:
 
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
-    emit("serve", layers=cfg.num_layers, requests=len(prompts),
-         prompt_lens=[len(p) for p in prompts], max_new=max_new,
-         tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
+    emit("serve", layers=cfg.num_layers, quant=quant, int8_kv=int8_kv,
+         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+         max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         param_bytes=nbytes, kv_cache_bytes=2 * eng.cache.k.numel() * 2,
+         measured_bytes=nbytes,
+         reckoned_bytes=_reckoned_bytes(cfg, quant, int8_kv, slots, max_len),
          launches=launches)
     if any(len(t) != max_new or not all(0 <= x < cfg.vocab_size for x in t)
            for t in toks):
         raise AssertionError("serve: a request came back short or out of vocab")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in expect if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"serve ({quant}): kernels never launched on the "
+                             f"main path: {missing}")
     return launches
+
+
+def bench_entry_point() -> None:
+    """The bench_serving entry point as a user calls it, at a small depth;
+    its launch counts are set to 0 before the call and read after it."""
+    from mxmoe_tpu_torch.ops import kernels
+    from mxmoe_tpu_torch.serving import bench_serving
+
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_serving.main(["--layers", "4", "--slots", "4", "--max-len", "1024",
+                            "--prefill", "256", "--quant", "mixed-packed",
+                            "--int8-kv"])
+    launches = dict(kernels.launches)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit("bench", **res, launches=launches)
+    missing = [k for k in ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed",
+                           "decode_attention_update_stacked_q8")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"bench_serving: kernels never launched: {missing}")
+    keys = {"model", "layers", "slots", "quant", "int8_head", "int8_kv",
+            "prefill_ms", "prefill_tokens_per_s", "decode_attn", "decode_step_ms",
+            "decode_tokens_per_s", "device"}
+    if not (keys <= set(res) and res["decode_tokens_per_s"] > 0
+            and res["prefill_ms"] > 0 and res["int8_kv"] is True):
+        raise AssertionError(f"bench_serving: unexpected result {res}")
 
 
 def main() -> int:
@@ -396,13 +831,36 @@ def main() -> int:
     build()
     rec = kernels_vs_plain()
     torch.cuda.empty_cache()
-    slice_parity()
+    slice_parity("w8a8_g-1_sym", int8_kv=False)
     torch.cuda.empty_cache()
-    launches = serve()
+    slice_parity("mixed-packed", int8_kv=True)
+    torch.cuda.empty_cache()
+    storage_forms_bitwise()
+    torch.cuda.empty_cache()
+    k3, k3q = "decode_attention_update_stacked", "decode_attention_update_stacked_q8"
+    uniform = serve(4, "w8a8_g-1_sym", False, ("quantize_rows", "gmm_w8a8", k3))
+    torch.cuda.empty_cache()
+    packed_w4 = serve(4, "w4a8_g-1_sym", False,
+                      ("quantize_rows", "gmm_w4a8_packed", k3))
+    torch.cuda.empty_cache()
+    mixed = serve(24, "mixed-packed", True,
+                  ("quantize_rows", "gmm_w8a8", k3q, "gmm_mixed_packed"))
+    torch.cuda.empty_cache()
+    bench_entry_point()
+    # one path per number: a kernel's launches are those of the full-depth
+    # mixed serve where that serve runs it, else of the 4-layer serve that does
+    launches = {name: (mixed[name], "serve mixed-packed int8-kv 24 layers")
+                for name in KERNEL_SOURCES}
+    launches[k3] = (uniform[k3], "serve w8a8_g-1_sym 4 layers")
+    launches["gmm_w4a8_packed"] = (packed_w4["gmm_w4a8_packed"],
+                                   "serve w4a8_g-1_sym packed 4 layers")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": rec[name]["max_abs_err"],
-         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"]}
+         "launches": launches[name][0], "launches_of": launches[name][1],
+         "max_abs_err": rec[name]["max_abs_err"],
+         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
+         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
+         "library_ms": LIBRARY_MS}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

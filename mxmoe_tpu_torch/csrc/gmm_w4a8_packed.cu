@@ -1,0 +1,26 @@
+// K5: int8 activations x nibble-packed 4-bit weights, grouped over
+// expert-sorted rows.
+//
+// Replaces the Pallas kernel mxmoe_tpu/ops/pallas_gmm.py:gmm_w4a8_packed
+// (_gmm_q4p_kernel: VPU nibble unpack feeding the int8 MXU).
+//
+// rhs_packed [E, K/2, N] bytes, every expert in the halves layout (byte row
+// r: code k = r in the low nibble, k = r + K/2 in the high nibble). Same
+// contract and epilogue as K2; bitwise equal to K2 on the unpacked codes
+// and to K4 on an all-packed ragged buffer.
+//
+// Bound on the H100: weight bytes, half of K2's for the same codes. The
+// kernel is gmm_int8_tile.cuh with storage kPackedStacked: expert g starts
+// at g * K/2 * N and every byte tile feeds two MMA k-steps.
+
+#include "gmm_int8_tile.cuh"
+
+extern "C" int mxmoe_gmm_w4a8_packed(const void* lhs, const void* s_a,
+                                     const void* rhs_packed, const void* s_b,
+                                     const void* group_sizes, void* out,
+                                     int out_is_bf16, int M, int K, int N,
+                                     int E, void* stream) {
+  return gmm_int8_launch<kPackedStacked>(lhs, s_a, rhs_packed, s_b, group_sizes,
+                                         nullptr, nullptr, out, out_is_bf16, M,
+                                         K, N, E, stream);
+}

@@ -14,229 +14,21 @@
 // Bound on the H100: weight bytes. Every expert a batch touches streams its
 // K x N int8 weights once per m-tile (decode: 16 rows over <=16 experts is
 // ~90 MB at gate_up width; prefill with 1024 rows touches all 60 experts,
-// ~350 MB against ~12 GOP, still below the int8 ridge). Design:
-//  * grid = n-tiles x (cdiv(M,BM) + E - 1) logical m-tiles, a static bound.
-//    Each block reads group_sizes from device memory, finds its
-//    (expert, m-tile) pair itself and exits when it has none, so the host
-//    never syncs on the routing (no .item() per layer).
-//  * rows outside the block's expert are zero-filled on load and masked on
-//    store (the straddling tiles of the TPU kernel).
-//  * mma.sync m16n8k32 s8.s8.s32 tensor-core tiles: 4 warps, a 64 x 128
-//    block tile, 32 x 64 per warp; K in steps of 64. The [K, N] weight tile
-//    is transposed in registers (byte_perm 4x4) into a K-contiguous shared
-//    layout that the col-major B fragment reads conflict-free.
-//  * the next k-tile's global loads are issued into registers before the
-//    current tile's MMAs, so their latency overlaps the compute.
+// ~350 MB against ~12 GOP, still below the int8 ridge). The kernel, its
+// schedule and its tiles are in gmm_int8_tile.cuh (storage kInt8Stacked),
+// shared with the packed-storage kernels. With E = 1 it is also the dense
+// int8 product of the real-quantized shared expert.
 // Later work: cp.async / TMA multi-stage pipelines, wgmma, and a persistent
 // weight-stationary schedule.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int BM = 64, BN = 128, BK = 64, kThreads = 128;
-constexpr int A_STRIDE = BK + 16;       // bytes per A row in shared memory
-constexpr int B_STRIDE = BK / 4 + 4;    // 32-bit words per B column
-constexpr int kMaxExperts = 1024;
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) =
-      __halves2bfloat162(__float2bfloat16_rn(x), __float2bfloat16_rn(y));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-gmm_w8a8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
-                const int8_t* __restrict__ rhs, const float* __restrict__ s_b,
-                const int* __restrict__ group_sizes, OutT* __restrict__ out,
-                int M, int K, int N, int E) {
-  __shared__ __align__(16) int8_t As[BM * A_STRIDE];
-  __shared__ __align__(16) uint32_t Bs[BN * B_STRIDE];
-  __shared__ int sizes[kMaxExperts];
-  __shared__ int tile_info[4];            // expert, m-tile, row begin, row end
-
-  const int tid = threadIdx.x;
-  for (int e = tid; e < E; e += kThreads) sizes[e] = group_sizes[e];
-  __syncthreads();
-  if (tid == 0) {
-    // logical tile t -> (expert g, m-tile): make_group_metadata's order
-    const int t = blockIdx.y;
-    int start = 0, tiles = 0, found = -1;
-    for (int g = 0; g < E; ++g) {
-      const int s = sizes[g];
-      if (s > 0) {
-        const int first = start / BM, last = (start + s - 1) / BM;
-        const int n = last - first + 1;
-        if (t < tiles + n) {
-          found = g;
-          tile_info[1] = first + (t - tiles);
-          tile_info[2] = start;
-          tile_info[3] = min(start + s, M);
-          break;
-        }
-        tiles += n;
-      }
-      start += s;
-    }
-    tile_info[0] = found;
-  }
-  __syncthreads();
-  const int g = tile_info[0];
-  if (g < 0) return;
-  const int m0 = tile_info[1] * BM;
-  const int row_lo = tile_info[2], row_hi = tile_info[3];
-  if (m0 >= row_hi) return;
-  const int n0 = blockIdx.x * BN;
-  const int8_t* w = rhs + (size_t)g * K * N;
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int gr = lane >> 2, tq = lane & 3;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-  // global -> registers for one k-tile (issued a tile ahead of its use)
-  int4 ra[2];
-  uint32_t rb[4][4];
-  auto load_tile = [&](int k0) {
-    // A: 64 rows x 64 bytes, 16-byte chunks; rows of other experts -> 0
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int row = m0 + (c >> 2), k = k0 + (c & 3) * 16;
-      ra[i] = make_int4(0, 0, 0, 0);
-      if (row >= row_lo && row < row_hi && k < K)
-        ra[i] = *reinterpret_cast<const int4*>(lhs + (size_t)row * K + k);
-    }
-    // B: 4(k) x 4(n) byte units
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = tid + i * kThreads;
-      const int k = k0 + (u >> 5) * 4, n = n0 + (u & 31) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        rb[i][j] = (n < N && k + j < K)
-            ? *reinterpret_cast<const uint32_t*>(w + (size_t)(k + j) * N + n)
-            : 0u;
-    }
-  };
-  // registers -> shared; B transposed to K-contiguous words
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      *reinterpret_cast<int4*>(As + (c >> 2) * A_STRIDE + (c & 3) * 16) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = tid + i * kThreads;
-      const int ku = u >> 5, nu = u & 31;
-      const uint32_t t0 = __byte_perm(rb[i][0], rb[i][1], 0x5140);
-      const uint32_t t1 = __byte_perm(rb[i][2], rb[i][3], 0x5140);
-      const uint32_t t2 = __byte_perm(rb[i][0], rb[i][1], 0x7362);
-      const uint32_t t3 = __byte_perm(rb[i][2], rb[i][3], 0x7362);
-      uint32_t* bcol = Bs + (nu * 4) * B_STRIDE + ku;
-      bcol[0 * B_STRIDE] = __byte_perm(t0, t1, 0x5410);
-      bcol[1 * B_STRIDE] = __byte_perm(t0, t1, 0x7632);
-      bcol[2 * B_STRIDE] = __byte_perm(t2, t3, 0x5410);
-      bcol[3 * B_STRIDE] = __byte_perm(t2, t3, 0x7632);
-    }
-  };
-
-  load_tile(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_tile();
-    __syncthreads();
-    if (k0 + BK < K) load_tile(k0 + BK);   // in flight during the MMAs
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = As + (wm + i * 16 + gr) * A_STRIDE + ks + tq * 4;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t* q = Bs + (wn + j * 8 + gr) * B_STRIDE + ks / 4 + tq;
-        const uint32_t b0 = q[0], b1 = q[4];
-        mma_s8(acc[0][j], a[0], b0, b1);
-        mma_s8(acc[1][j], a[1], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float* sb = s_b + (size_t)g * N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + i * 16 + gr + h * 8;
-      if (row < row_lo || row >= row_hi) continue;
-      const float sa = s_a[row];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wn + j * 8 + tq * 2;
-        if (col >= N) continue;
-        const float x = (float)acc[i][j][2 * h] * sa * sb[col];
-        const float y = (float)acc[i][j][2 * h + 1] * sa * sb[col + 1];
-        store2(out + (size_t)row * N + col, x, y);
-      }
-    }
-  }
-}
-
-template <typename OutT>
-cudaError_t launch(const int8_t* lhs, const float* s_a, const int8_t* rhs,
-                   const float* s_b, const int* gs, void* out, int M, int K,
-                   int N, int E, cudaStream_t st) {
-  if (M > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM + E - 1);
-    gmm_w8a8_kernel<OutT><<<grid, kThreads, 0, st>>>(
-        lhs, s_a, rhs, s_b, gs, static_cast<OutT*>(out), M, K, N, E);
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "gmm_int8_tile.cuh"
 
 extern "C" int mxmoe_gmm_w8a8(const void* lhs, const void* s_a,
                               const void* rhs, const void* s_b,
                               const void* group_sizes, void* out,
                               int out_is_bf16, int M, int K, int N, int E,
                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(lhs);
-  const int8_t* b = static_cast<const int8_t*>(rhs);
-  const float* sa = static_cast<const float*>(s_a);
-  const float* sb = static_cast<const float*>(s_b);
-  const int* gs = static_cast<const int*>(group_sizes);
-  cudaError_t e = out_is_bf16
-      ? launch<__nv_bfloat16>(a, sa, b, sb, gs, out, M, K, N, E, st)
-      : launch<float>(a, sa, b, sb, gs, out, M, K, N, E, st);
-  return (int)e;
+  return gmm_int8_launch<kInt8Stacked>(lhs, s_a, rhs, s_b, group_sizes, nullptr,
+                                       nullptr, out, out_is_bf16, M, K, N, E,
+                                       stream);
 }

@@ -53,7 +53,7 @@ def _normal(shape, std, gen, dtype, device):
 
 
 def init_params(cfg: MoEConfig, gen: torch.Generator, dtype=torch.bfloat16,
-                device="cpu") -> dict:
+                device="cuda") -> dict:
     """Random-init params with the JAX package's distribution: matrices
     N(0, 0.4/sqrt(fan_in)), norms 1, biases 0, embed/lm_head N(0, 0.02).
 

@@ -90,10 +90,13 @@ def combine_tokens(expert_out: torch.Tensor, dispatch: Dispatch,
 
     Zero-weight rows (aligned padding) are masked with ``where``, never
     multiplied: the GEMM leaves them unwritten, and NaN*0 would poison
-    the sum. On CUDA ``index_add_`` adds with atomics, so the order of a
-    token's k contributions (and so its last bf16 bit) may vary per run."""
+    the sum. A token's k contributions are added in sorted-row order:
+    ``index_put_(accumulate=True)`` sorts its indices on CUDA, where
+    ``index_add_`` adds with atomics in an order that changes from run to
+    run (and with it the last bf16 bit). Storage forms that hold the same
+    codes then give bitwise the same logits."""
     w = dispatch.combine_weights[:, None].to(expert_out.dtype)
     weighted = torch.where(w != 0, expert_out * w, torch.zeros_like(expert_out))
     out = torch.zeros((num_tokens, expert_out.shape[-1]),
                       dtype=expert_out.dtype, device=expert_out.device)
-    return out.index_add_(0, dispatch.token_ids.long(), weighted)
+    return out.index_put_((dispatch.token_ids.long(),), weighted, accumulate=True)

@@ -23,24 +23,61 @@ import torch
 from . import kernels
 
 
-def gmm_w8a8_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
-                   out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of K2. Accumulates exactly: int32 on the CPU,
-    float64 on a card (torch has no CUDA int matmul; every partial sum of
-    int8 products below 2^53 is exact in float64). Reads ``group_sizes``
-    on the host: this version is a reference, not the serving path."""
-    m, n = lhs_q.shape[0], rhs_q.shape[-1]
+def grouped_int8_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
+                       out_dtype) -> torch.Tensor:
+    """The plain grouped product shared by the int8 GEMMs' plain versions:
+    ``weight_of(e)`` gives expert e's [K, N] int8 codes. Accumulates
+    exactly: int32 on the CPU, float64 on a card (torch has no CUDA int
+    matmul; every partial sum of int8 products below 2^53 is exact in
+    float64). Reads ``group_sizes`` on the host: a reference, not the
+    serving path."""
+    m, n = lhs_q.shape[0], rhs_scale.shape[-1]
     acc_dtype = torch.int32 if lhs_q.device.type == "cpu" else torch.float64
     out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, m)
         if end > start:
-            acc = lhs_q[start:end].to(acc_dtype) @ rhs_q[e].to(acc_dtype)
+            acc = lhs_q[start:end].to(acc_dtype) @ weight_of(e).to(acc_dtype)
             res = acc.to(torch.int32).float() * lhs_scale[start:end] * rhs_scale[e]
             out[start:end] = res.to(out_dtype)
         start += size
     return out
+
+
+def gmm_w8a8_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of K2."""
+    return grouped_int8_plain(lhs_q, lhs_scale, lambda e: rhs_q[e], rhs_scale,
+                              group_sizes, out_dtype)
+
+
+def check_int8_gmm_operands(name: str, lhs_q, lhs_scale, rhs, rhs_scale,
+                            group_sizes, out_dtype, extra=()) -> None:
+    """Argument checks shared by the int8 grouped GEMM wrappers (K2, K4, K5);
+    ``rhs`` is the weight storage, whose shape each wrapper checks itself."""
+    req = kernels.require
+    m, k = lhs_q.shape
+    e, n = rhs_scale.shape[0], rhs_scale.shape[-1]
+    dev = lhs_q.device
+    req(all(t.is_cuda and t.device == dev and t.is_contiguous()
+            for t in (lhs_q, lhs_scale, rhs, rhs_scale, group_sizes, *extra)),
+        f"{name}: operands must be contiguous tensors on one CUDA device")
+    req(lhs_q.dtype == torch.int8 and rhs.dtype == torch.int8,
+        f"{name}: codes must be int8")
+    req(lhs_scale.dtype == torch.float32 and rhs_scale.dtype == torch.float32,
+        f"{name}: scales must be float32")
+    req(group_sizes.dtype == torch.int32 and group_sizes.shape == (e,),
+        f"{name}: group_sizes must be int32 [E]")
+    req(lhs_scale.shape == (m, 1) and rhs_scale.shape == (e, 1, n),
+        f"{name}: scales {tuple(lhs_scale.shape)} {tuple(rhs_scale.shape)} for "
+        f"lhs {tuple(lhs_q.shape)} (per-token x per-channel only)")
+    req(k % 16 == 0 and n % 4 == 0, f"{name}: K={k} % 16, N={n} % 4")
+    req(lhs_q.data_ptr() % 16 == 0 and rhs.data_ptr() % 4 == 0,
+        f"{name}: misaligned operand")
+    req(e <= 1024, f"{name}: at most 1024 experts")
+    req(out_dtype in (torch.bfloat16, torch.float32),
+        f"{name}: out dtype {out_dtype}")
 
 
 def gmm_w8a8(
@@ -55,28 +92,13 @@ def gmm_w8a8(
     if lhs_q.device.type == "cpu":
         return gmm_w8a8_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
                               out_dtype)
-    req = kernels.require
     m, k = lhs_q.shape
-    e, k2, n = rhs_q.shape
+    e, _, n = rhs_q.shape
     dev = lhs_q.device
-    req(all(t.is_cuda and t.device == dev and t.is_contiguous()
-            for t in (lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes)),
-        "gmm_w8a8: operands must be contiguous tensors on one CUDA device")
-    req(lhs_q.dtype == torch.int8 and rhs_q.dtype == torch.int8,
-        "gmm_w8a8: codes must be int8")
-    req(lhs_scale.dtype == torch.float32 and rhs_scale.dtype == torch.float32,
-        "gmm_w8a8: scales must be float32")
-    req(group_sizes.dtype == torch.int32 and group_sizes.shape == (e,),
-        "gmm_w8a8: group_sizes must be int32 [E]")
-    req(k2 == k and lhs_scale.shape == (m, 1) and rhs_scale.shape == (e, 1, n),
-        f"gmm_w8a8: shapes {tuple(lhs_q.shape)} {tuple(lhs_scale.shape)} "
-        f"{tuple(rhs_q.shape)} {tuple(rhs_scale.shape)}")
-    req(k % 16 == 0 and n % 4 == 0, f"gmm_w8a8: K={k} % 16, N={n} % 4")
-    req(lhs_q.data_ptr() % 16 == 0 and rhs_q.data_ptr() % 4 == 0,
-        "gmm_w8a8: misaligned operand")
-    req(e <= 1024, "gmm_w8a8: at most 1024 experts")
-    req(out_dtype in (torch.bfloat16, torch.float32),
-        f"gmm_w8a8: out dtype {out_dtype}")
+    check_int8_gmm_operands("gmm_w8a8", lhs_q, lhs_scale, rhs_q, rhs_scale,
+                            group_sizes, out_dtype)
+    kernels.require(rhs_q.shape == (e, k, n) and rhs_scale.shape[0] == e,
+                    f"gmm_w8a8: rhs {tuple(rhs_q.shape)} for K={k}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     err = kernels.lib().mxmoe_gmm_w8a8(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),

@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds). The build happens at first use,
-into ``mxmoe_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-sources and flags so an edited source rebuilds. ``--use_fast_math`` is
-deliberately absent: K1's codes depend on IEEE division and rounding.
+Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links them into
+a shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds). The build happens at first
+use, into ``mxmoe_tpu_torch/_build/`` (git-ignored), keyed by a hash of
+the sources, headers and flags so an edited source rebuilds.
+``--use_fast_math`` is deliberately absent: the quantizing kernels' codes
+depend on IEEE division and rounding.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code. ``launches`` counts kernel launches
@@ -31,9 +33,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
-KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked")
+KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
+           "decode_attention_update_stacked_q8", "gmm_mixed_packed",
+           "gmm_w4a8_packed")
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,8 +50,20 @@ _SIGNATURES = {
     # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
     "mxmoe_decode_attention_update": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # B, n_h, n_kv, S, dv -> float32 workspace elements of the call above
+    # q, k_new, v_new, is_bf16, cache_k, cache_ks, cache_v, cache_vs, lengths,
+    # valid, out, workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
+    "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                         _P],
+    # B, n_h, n_kv, S, dv -> float32 workspace elements of the two calls above
     "mxmoe_decode_attention_workspace_floats": [_I, _I, _I, _I, _I],
+    # lhs, s_a, rhs_cat, s_b, group_sizes, pflags, blk_offsets, out,
+    # out_is_bf16, M, K, N, E, stream
+    "mxmoe_gmm_mixed_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P],
+    # lhs, s_a, rhs_packed, s_b, group_sizes, out, out_is_bf16, M, K, N, E,
+    # stream
+    "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -65,7 +81,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libmxmoe_kernels_{h.hexdigest()[:16]}.so")
@@ -73,7 +89,9 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if this source set has no library yet; returns
-    its path. A compile records its wall time in ``build_seconds``."""
+    its path. A compile records its wall time in ``build_seconds``.
+    ``verbose`` prints what ``ptxas -v`` says (registers, shared memory,
+    spills) for every source."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
@@ -82,19 +100,31 @@ def build(verbose: bool = False) -> str:
     if nvcc is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME or put it on PATH)")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *_sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        extra = ["-Xptxas", "-v"] if verbose else []
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # wait for every compile (none is left running), then report
+        results = [(src, proc.communicate(), proc.returncode)
+                   for src, proc in procs]
+        for src, (out, err), rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{err}")
+            if verbose:
+                print(os.path.basename(src) + ":\n" + out + err)
+        lib_tmp = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(lib_tmp, path)      # atomic: a reader never sees half a file
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, path)          # atomic: a reader never sees half a file
     return path
 
 

@@ -3,14 +3,19 @@
 Takes the JAX package's nested dict with leaves as numpy arrays (callers
 convert with ``np.asarray``; bf16 leaves arrive with numpy dtype name
 ``bfloat16``) and returns the same dict of torch tensors on ``device``:
-floats keep their dtype (bf16/f32), int8 codes and f32 scales are copied
-bit for bit. No jax import: the bf16 bytes are reinterpreted through int16.
+floats keep their dtype (bf16/f32); int8 codes (stacked, nibble-packed or
+the ragged ``_qcat`` buffer), int32 metadata (``_blk`` / ``_pf``) and f32
+scales and ``act_bits_*`` are copied bit for bit. ``kv_cache_from_jax``
+does the same for a ``KVCache`` / ``QuantKVCache``. No jax import: the bf16
+bytes are reinterpreted through int16.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .serving.kv_cache import KVCache, QuantKVCache
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -25,3 +30,11 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _to_tensor(tree, device)
+
+
+def kv_cache_from_jax(cache, device="cpu"):
+    """The JAX package's ``KVCache`` / ``QuantKVCache`` (a named tuple whose
+    leaves convert with ``np.asarray``) -> the port's cache of the same kind."""
+    fields = cache._asdict()
+    cls = QuantKVCache if "k_q" in fields else KVCache
+    return cls(**{k: _to_tensor(np.asarray(v), device) for k, v in fields.items()})

@@ -43,9 +43,16 @@ def quant_ranges(bits: float, sym: bool) -> tuple[float, float, bool]:
 
 
 def quantize(t: torch.Tensor, bits: float, gsize: int, sym: bool,
-             clip: "tuple[float, float] | str" = (1.0, 1.0)) -> QuantResult:
+             clip: "tuple[float, float] | str" = (1.0, 1.0),
+             scale_by_reciprocal: bool = True) -> QuantResult:
     """Grouped min-max quantization along the last axis; returns integer
-    codes (as float32) with ``dequant = codes * scale + zp`` per group."""
+    codes (as float32) with ``dequant = codes * scale + zp`` per group.
+
+    ``scale_by_reciprocal``: the scale is ``range * f32(1 / upper)`` (true)
+    or the true division ``range / upper`` (false); the two differ by one
+    ulp on about half the scales. The reference's uniform quantizer runs
+    compiled, where the division by a constant becomes the multiply; its
+    per-expert mixed quantizer runs op by op and divides."""
     if bits >= 16:
         g = t.shape[-1] if gsize == -1 else gsize
         ones = torch.ones((*t.shape[:-1], t.shape[-1] // g),
@@ -55,19 +62,20 @@ def quantize(t: torch.Tensor, bits: float, gsize: int, sym: bool,
         raise NotImplementedError(
             "MSE clip search is not ported yet (ROADMAP queue A: calibrate)")
     upper, lower, eff_sym = quant_ranges(bits, sym)
-    # "/ upper" as a multiply by the float32 reciprocal: XLA rewrites the
-    # reference's division by this constant so under jit (its quantizers
-    # run jitted), and the scales must stay bitwise equal to the JAX
-    # pipeline's
+    # the scales must stay bitwise equal to the JAX pipeline's
     inv_upper = torch.tensor(1.0 / upper, dtype=torch.float32, device=t.device)
+
+    def over_upper(x):
+        return x * inv_upper if scale_by_reciprocal else x / upper
+
     tg = _group_reshape(t.float(), gsize)
     if eff_sym:
-        scale = tg.abs().amax(-1) * inv_upper
+        scale = over_upper(tg.abs().amax(-1))
         zp = torch.zeros_like(scale)
     else:
         gmin = tg.amin(-1) * clip[0]
         gmax = tg.amax(-1) * clip[1]
-        scale = (gmax - gmin) * inv_upper
+        scale = over_upper(gmax - gmin)
         zp = gmin
     # all-zero groups dequantize to exactly zero
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)

@@ -1,11 +1,15 @@
-"""Quantization scheme grammar (framework-free copy of the part of
-``mxmoe_tpu/quant/schemes.py`` the serving slice reads: ``QLinearConfig``
-and ``parse_scheme``). The mixed-precision config tree (``QModelConfig``)
-comes with the mixed serving branches (ROADMAP queue A)."""
+"""Quantization scheme grammar and config tree (framework-free copy of the
+part of ``mxmoe_tpu/quant/schemes.py`` the serving slices read):
+``QLinearConfig`` and ``parse_scheme``, the ``QLinearConfig -> QExpertConfig
+-> QLayerConfig -> QModelConfig`` tree with the reference's JSON round trip,
+the uniform builders and ``flex_family_info``. The storage-bits table
+(``strategy_bits``) comes with the solver port (ROADMAP queue A)."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import re
 
 _SCHEME_RE = re.compile(
@@ -39,6 +43,30 @@ class QLinearConfig:
             f"_g{self.w_gsize}_{'sym' if self.w_sym else 'asym'}"
         )
 
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        # w_clip may be the "mse" sentinel (grid-searched clip)
+        d["w_clip"] = (self.w_clip if isinstance(self.w_clip, str)
+                       else list(self.w_clip))
+        d["a_clip"] = list(self.a_clip)
+        d["w_bits"] = _canon_bits(self.w_bits)
+        d["a_bits"] = _canon_bits(self.a_bits)
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "QLinearConfig":
+        wc = d.get("w_clip", (1.0, 1.0))
+        return QLinearConfig(
+            w_bits=d.get("w_bits", 16),
+            w_gsize=d.get("w_gsize", -1),
+            w_sym=d.get("w_sym", False),
+            w_clip=wc if isinstance(wc, str) else tuple(wc),
+            a_bits=d.get("a_bits", 16),
+            a_gsize=d.get("a_gsize", -1),
+            a_sym=d.get("a_sym", True),
+            a_clip=tuple(d.get("a_clip", (1.0, 1.0))),
+        )
+
 
 def _fmt_bits(b: float) -> str:
     return str(int(b)) if float(b).is_integer() else str(b)
@@ -63,3 +91,162 @@ def parse_scheme(name: str) -> QLinearConfig:
         w_bits=_canon_bits(w), w_gsize=g, w_sym=sym, w_clip=w_clip,
         a_bits=_canon_bits(a), a_gsize=g, a_sym=sym,
     )
+
+
+# --------------------------------------------------------------------------
+# Config tree
+# --------------------------------------------------------------------------
+
+LINEAR_NAMES = ("gate", "up", "down")
+
+
+@dataclasses.dataclass
+class QExpertConfig:
+    gate: QLinearConfig
+    up: QLinearConfig
+    down: QLinearConfig
+
+    def qmap(self) -> dict[str, QLinearConfig]:
+        return {"gate": self.gate, "up": self.up, "down": self.down}
+
+    def to_dict(self) -> dict:
+        return {k: v.to_dict() for k, v in self.qmap().items()}
+
+    @staticmethod
+    def from_dict(d: dict) -> "QExpertConfig":
+        return QExpertConfig(
+            gate=QLinearConfig.from_dict(d["gate"]),
+            up=QLinearConfig.from_dict(d["up"]),
+            down=QLinearConfig.from_dict(d["down"]),
+        )
+
+
+@dataclasses.dataclass
+class QLayerConfig:
+    """Per-expert schemes of one layer, keyed by the expert index as a
+    string; index E (one past the routed experts) is the shared expert."""
+
+    experts: dict[str, QExpertConfig]
+
+    def to_dict(self) -> dict:
+        return {"experts": {k: v.to_dict() for k, v in self.experts.items()}}
+
+    @staticmethod
+    def from_dict(d: dict) -> "QLayerConfig":
+        return QLayerConfig(
+            experts={k: QExpertConfig.from_dict(v) for k, v in d["experts"].items()}
+        )
+
+
+@dataclasses.dataclass
+class QModelConfig:
+    layers: dict[str, QLayerConfig]
+    # per-layer (loss, time) record attached by the solver, a top-level
+    # "LT" key in the JSON
+    lt: dict[str, tuple[float, float]] | None = None
+
+    def to_dict(self) -> dict:
+        d = {k: v.to_dict() for k, v in self.layers.items()}
+        if self.lt is not None:
+            d["LT"] = {str(k): list(v) for k, v in self.lt.items()}
+        return d
+
+    def save(self, path) -> None:
+        os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @staticmethod
+    def from_dict(d: dict) -> "QModelConfig":
+        d = dict(d)
+        lt = d.pop("LT", None)
+        layers = {k: QLayerConfig.from_dict(v) for k, v in d.items()}
+        if lt is not None:
+            lt = {str(k): tuple(v) for k, v in lt.items()}
+        return QModelConfig(layers=layers, lt=lt)
+
+    @staticmethod
+    def load(path) -> "QModelConfig":
+        with open(path) as f:
+            return QModelConfig.from_dict(json.load(f))
+
+    def all_weight_schemes(self) -> list[tuple[float, int, bool]]:
+        """Distinct (w_bits, w_gsize, w_sym) triples."""
+        out = set()
+        for layer in self.layers.values():
+            for expert in layer.experts.values():
+                for cfg in expert.qmap().values():
+                    out.add((cfg.w_bits, cfg.w_gsize, cfg.w_sym))
+        return sorted(out)
+
+    def all_schemes(self) -> list[str]:
+        """Distinct full scheme names used anywhere in the model."""
+        out = set()
+        for layer in self.layers.values():
+            for expert in layer.experts.values():
+                for cfg in expert.qmap().values():
+                    out.add(cfg.scheme_name)
+        return sorted(out)
+
+    def layer(self, idx: int) -> QLayerConfig:
+        return self.layers[str(idx)]
+
+
+def build_uniform_expert(cfg: QLinearConfig) -> QExpertConfig:
+    return QExpertConfig(gate=cfg, up=cfg, down=cfg)
+
+
+def build_uniform_layer(cfg: QLinearConfig, num_experts: int) -> QLayerConfig:
+    return QLayerConfig(experts={str(i): build_uniform_expert(cfg)
+                                 for i in range(num_experts)})
+
+
+def build_uniform_model(cfg: QLinearConfig, num_layers: int,
+                        num_experts: int) -> QModelConfig:
+    return QModelConfig(layers={str(i): build_uniform_layer(cfg, num_experts)
+                                for i in range(num_layers)})
+
+
+def schemes_in_layer(layer_cfg: QLayerConfig) -> list[str]:
+    out = set()
+    for expert in layer_cfg.experts.values():
+        for cfg in expert.qmap().values():
+            out.add(cfg.scheme_name)
+    return sorted(out)
+
+
+def flex_family_info(qmodel_cfg: QModelConfig, num_layers: int,
+                     num_experts: int, lin: str, kdim: int):
+    """Scheme-set scan for one linear family ('gate' ties gate_up; 'down').
+
+    Returns ``(any_flex, g_min, any_asym)``: a family is FLEX when any
+    routed expert's scheme is grouped (w or a) or weight-asymmetric; the
+    real mixed path then stores scales/zp at the family's finest group size
+    ``g_min`` and the forward takes the grouped/flex kernels."""
+    gsizes = set()
+    any_flex = False
+    any_asym = False
+    for l in range(num_layers):
+        lcfg = qmodel_cfg.layer(l)
+        for ei in range(num_experts):
+            c = lcfg.experts[str(ei)].qmap()[lin]
+            if c.w_bits >= 16 and c.a_bits >= 16:
+                continue
+            if c.w_gsize != -1 and c.w_bits < 16:
+                gsizes.add(c.w_gsize)
+            if c.a_gsize != -1 and c.a_bits < 16:
+                gsizes.add(c.a_gsize)
+            if (c.w_gsize != -1 and c.w_bits < 16) or (
+                    not c.w_sym and c.w_bits < 16) or (
+                    c.a_gsize != -1 and c.a_bits < 16):
+                any_flex = True
+            if not c.w_sym and c.w_bits < 16:
+                any_asym = True
+    g_min = min(gsizes) if gsizes else kdim
+    if any_flex:
+        if not all(g == g_min for g in gsizes):
+            raise ValueError(f"{lin}: one grouped size per linear family, got "
+                             f"{sorted(gsizes)}")
+        if kdim % g_min != 0:
+            raise ValueError(f"{lin}: K={kdim} not divisible by gsize {g_min}")
+    return any_flex, g_min, any_asym

@@ -1,16 +1,19 @@
 """Cache-aware decoder forward: prefill and decode share one code path
-(port of the GQA bf16-cache part of ``mxmoe_tpu/serving/decode.py``).
+(port of the GQA part of ``mxmoe_tpu/serving/decode.py``, over the bf16
+``KVCache`` and the int8 ``QuantKVCache``).
 
-Both are [B, S_new] chunks against a KVCache; prefill uses S_new = chunk
+Both are [B, S_new] chunks against a cache; prefill uses S_new = chunk
 size with per-slot valid lengths, decode uses S_new = 1. A decode step
 (S_new == 1) always goes through ``decode_attention_update_stacked``
-(kernel K3 on CUDA, its plain version on the CPU); prefill keeps the JAX
-package's plain path, ``scatter_layer_cache`` + ``attention_with_cache``.
-The layer loop is a Python loop over ``w[layer]`` views; the cache is
-written in place.
+(kernel K3 or K3q on CUDA, their plain versions on the CPU); prefill keeps
+the JAX package's plain path, ``scatter_layer_cache*`` +
+``attention_with*_cache``. The layer loop is a Python loop over
+``w[layer]`` views; the cache is written in place.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -18,7 +21,9 @@ from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl, moe_block, rms_norm
 from ..models.model import head_logits
 from .decode_attention import decode_attention_update_stacked
-from .kv_cache import KVCache, attention_with_cache, scatter_layer_cache
+from .kv_cache import (KVCache, QuantKVCache, attention_with_cache,
+                       attention_with_quant_cache, scatter_layer_cache,
+                       scatter_layer_cache_quant)
 
 
 def _rope_tables(cfg: MoEConfig, positions: torch.Tensor):
@@ -40,11 +45,17 @@ def _apply_rope_bs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return x * c + rotated * s
 
 
-def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, ck, cv,
-                            layer: int, lengths, valid):
-    """GQA attention of one layer against the stacked caches ``ck``/``cv``
-    [L, B, n_kv, S, hd], which are written in place."""
+def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, cache,
+                            layer: int, valid):
+    """GQA attention of one layer against the stacked ``cache`` (bf16 or
+    int8), whose K/V arrays are written in place."""
     b, s, _ = x.shape
+    lengths = cache.lengths
+    quant = isinstance(cache, QuantKVCache)
+    if quant:
+        ck, cks, cv, cvs = cache.k_q, cache.k_sc, cache.v_q, cache.v_sc
+    else:
+        ck, cks, cv, cvs = cache.k, None, cache.v, None
     q = x @ lp["wq"]
     k = x @ lp["wk"]
     v = x @ lp["wv"]
@@ -58,20 +69,27 @@ def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, ck, cv,
     if s == 1:
         out, _ = decode_attention_update_stacked(
             q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-            ck, cv, lengths, layer, valid=valid)
+            ck, cks, cv, cvs, lengths, layer, valid=valid)
         out = out[:, None]
+    elif quant:
+        scatter_layer_cache_quant(ck, cks, cv, cvs, layer, k, v, lengths,
+                                  valid=valid)
+        out = attention_with_quant_cache(q, ck[layer], cks[layer], cv[layer],
+                                         cvs[layer], lengths, s)
     else:
         scatter_layer_cache(ck, cv, layer, k, v, lengths, valid=valid)
         out = attention_with_cache(q, ck[layer], cv[layer], lengths, s)
     return out.reshape(b, s, -1) @ lp["wo"]
 
 
-def forward_cached(params: dict, tokens: torch.Tensor, cache: KVCache,
-                   cfg: MoEConfig, impl: MoEImpl = MoEImpl(),
+def forward_cached(params: dict, tokens: torch.Tensor,
+                   cache: "KVCache | QuantKVCache", cfg: MoEConfig,
+                   impl: MoEImpl = MoEImpl(),
                    valid_lengths: torch.Tensor | None = None):
     """Run a chunk [B, S_new] against the cache -> (logits [B, S_new, V],
-    cache). The cache's K/V are written in place; the returned cache holds
-    the new lengths ``min(lengths + valid_lengths, S_max)``."""
+    cache). The cache's K/V are written in place; the returned cache (of
+    the argument's type) holds the new lengths
+    ``min(lengths + valid_lengths, S_max)``."""
     b, s_new = tokens.shape
     dev = tokens.device
     if valid_lengths is None:
@@ -86,14 +104,14 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: KVCache,
         lp = {name: t[l] for name, t in layers.items()}
         h = x + _attention_block_cached(
             rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), lp, cfg, cos, sin,
-            cache.k, cache.v, l, cache.lengths, write_ok)
+            cache, l, write_ok)
         x = h + moe_block(rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps),
                           lp, cfg, impl)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = head_logits(params, x, cfg)
     new_len = torch.clamp(cache.lengths + valid_lengths.to(torch.int32),
                           max=cache.max_len).to(torch.int32)
-    return logits, KVCache(k=cache.k, v=cache.v, lengths=new_len)
+    return logits, dataclasses.replace(cache, lengths=new_len)
 
 
 def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None = None,
@@ -110,7 +128,7 @@ def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None = None,
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
-def decode_scan(params: dict, last_tokens: torch.Tensor, cache: KVCache,
+def decode_scan(params: dict, last_tokens: torch.Tensor, cache,
                 n_steps: int, cfg: MoEConfig, impl: MoEImpl = MoEImpl(),
                 valid: torch.Tensor | None = None, temperature: float = 0.0,
                 top_k: int = 0, gen: torch.Generator | None = None):

@@ -4,8 +4,9 @@
 
 A fixed pool of B slots over the cached forward: a request is prefilled
 into a free slot in batch-1 chunks, then all active slots decode together.
-Mesh / expert-parallel serving, ``submit_batch`` and the int8 KV cache are
-not ported yet (ROADMAP queue A).
+``EngineConfig.int8_kv`` serves from the int8 ``QuantKVCache``. Mesh /
+expert-parallel serving and ``submit_batch`` are not ported yet (ROADMAP
+queue A).
 """
 
 from __future__ import annotations
@@ -18,7 +19,17 @@ import torch
 from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl
 from .decode import decode_scan, forward_cached, sample_tokens
-from .kv_cache import KVCache, init_kv_cache
+from .kv_cache import init_kv_cache, init_quant_kv_cache
+
+
+def _slice_slot_cache(cache, slot: int):
+    """One slot's cache as a batch-1 cache of the same type: every K/V leaf
+    carries the batch at axis 1, ``lengths`` at axis 0. The leaves are
+    views, so a forward over the slice writes through to ``cache``."""
+    return type(cache)(**{
+        f.name: (getattr(cache, f.name)[slot:slot + 1] if f.name == "lengths"
+                 else getattr(cache, f.name)[:, slot:slot + 1])
+        for f in dataclasses.fields(cache)})
 
 
 @dataclasses.dataclass
@@ -29,6 +40,8 @@ class EngineConfig:
     temperature: float = 0.0
     top_k: int = 0
     eos_token: int | None = None
+    int8_kv: bool = False        # int8 KV cache (QuantKVCache): half the
+                                 # cache memory and read bandwidth
     seed: int = 0                # sampling generator seed
 
 
@@ -51,8 +64,12 @@ class Engine:
         self.ecfg = ecfg
         self.impl = impl
         self.device = params["embed"].device
-        self.cache = init_kv_cache(cfg, ecfg.batch_slots, ecfg.max_len,
-                                   torch.bfloat16, self.device)
+        if ecfg.int8_kv:
+            self.cache = init_quant_kv_cache(cfg, ecfg.batch_slots,
+                                             ecfg.max_len, self.device)
+        else:
+            self.cache = init_kv_cache(cfg, ecfg.batch_slots, ecfg.max_len,
+                                       torch.bfloat16, self.device)
         self.slots = [_Slot() for _ in range(ecfg.batch_slots)]
         self.gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self._next_req = 0
@@ -88,11 +105,9 @@ class Engine:
             piece = prompt[off: off + p]
             chunk = np.zeros((1, p), np.int32)
             chunk[0, : len(piece)] = piece
-            c1 = KVCache(self.cache.k[:, slot:slot + 1],
-                         self.cache.v[:, slot:slot + 1],
-                         self.cache.lengths[slot:slot + 1])
             logits, c1 = forward_cached(
-                self.params, self._dev(chunk), c1, self.cfg, self.impl,
+                self.params, self._dev(chunk),
+                _slice_slot_cache(self.cache, slot), self.cfg, self.impl,
                 valid_lengths=self._dev(np.asarray([len(piece)], np.int32)))
             self.cache.lengths[slot] = c1.lengths[0]
             last = logits[0, len(piece) - 1]

@@ -31,8 +31,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0, help="weights and sampling seed")
     ap.add_argument("--device", default=None,
-                    help="cpu | cuda | cuda:N (default: cuda when a card is present; "
-                         "cpu runs the kernels' plain versions)")
+                    help="cpu | cuda | cuda:N (default: cuda; cpu must be asked "
+                         "for and runs the kernels' plain versions)")
     args = ap.parse_args(argv)
 
     import torch
@@ -48,8 +48,7 @@ def main(argv=None):
            if args.model == "tiny" else configs.config_for(args.model))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device or "cuda")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device=device)
     qcfg = parse_scheme(args.quant)

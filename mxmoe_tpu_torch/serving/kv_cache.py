@@ -1,11 +1,12 @@
-"""KV cache for decode (port of the bf16 part of
-``mxmoe_tpu/serving/kv_cache.py``).
+"""KV cache for decode (port of the GQA part of
+``mxmoe_tpu/serving/kv_cache.py``: the bf16 ``KVCache`` and the int8
+``QuantKVCache`` with per-vector f32 scales).
 
 Layout: K/V stacked [L, B, n_kv, S_max, hd] (head-major), as in the JAX
-package. The torch cache is updated IN PLACE (``scatter_layer_cache``,
-and kernel K3 in a decode step); the JAX package's donated-carry protocol
-has no counterpart here. The int8 ``QuantKVCache`` comes with the int8-KV
-slice (ROADMAP queue A).
+package. The torch cache is updated IN PLACE (``scatter_layer_cache*``,
+and kernel K3 / K3q in a decode step); the JAX package's donated-carry
+protocol has no counterpart here. MLA caches (and their padded K width)
+wait for the model-family port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -28,11 +29,15 @@ class KVCache:
         return self.k.shape[3]
 
 
-def init_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
+def _require_gqa(cfg: MoEConfig) -> None:
     if cfg.attention_type != "gqa":
         raise NotImplementedError(
             "MLA caches are not ported yet (ROADMAP queue A: model families)")
+
+
+def init_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+    _require_gqa(cfg)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -41,22 +46,24 @@ def init_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
     )
 
 
-def scatter_layer_cache(full_k, full_v, layer: int, new_k, new_v, lengths,
-                        valid=None):
-    """Write a chunk into ONE layer of the stacked cache, in place.
-
-    ``new_k``/``new_v`` token-major [B, S_new, n_kv, hd]. Writes that would
-    land at or past S_max, or of slots with ``valid`` False, are dropped,
+def _kept_writes(s_new: int, s_max: int, lengths, valid):
+    """(slot, chunk index, cache position) of the chunk writes that land:
+    those at or past S_max, or of slots with ``valid`` False, are dropped,
     never clamped onto a neighbour's history. (The boolean selection reads
     the mask on the host: prefill syncs once per chunk anyway.)"""
-    b, s_new = new_k.shape[:2]
-    s_max = full_k.shape[3]
     pos = lengths.long()[:, None] + torch.arange(s_new, device=lengths.device)
     keep = pos < s_max
     if valid is not None:
         keep &= valid.bool()[:, None]
     bi, si = torch.nonzero(keep, as_tuple=True)
-    pi = pos[bi, si]
+    return bi, si, pos[bi, si]
+
+
+def scatter_layer_cache(full_k, full_v, layer: int, new_k, new_v, lengths,
+                        valid=None):
+    """Write a chunk into ONE layer of the stacked cache, in place.
+    ``new_k``/``new_v`` token-major [B, S_new, n_kv, hd]."""
+    bi, si, pi = _kept_writes(new_k.shape[1], full_k.shape[3], lengths, valid)
     full_k[layer, bi, :, pi, :] = new_k[bi, si].to(full_k.dtype)
     full_v[layer, bi, :, pi, :] = new_v[bi, si].to(full_v.dtype)
     return full_k, full_v
@@ -83,3 +90,93 @@ def attention_with_cache(q, cache_k, cache_v, lengths, s_new: int,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bngst,bnth->bsngh", probs, cache_v)
     return out.reshape(b, s_new, n_h, cache_v.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized KV cache: half the memory and read bandwidth, per-vector scales
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """KV cache with int8 storage and per-(slot, position, head) vector
+    scales. The scales factor out of both attention contractions, so
+    dequantizing costs one multiply on the scores and one on the probs."""
+
+    k_q: torch.Tensor      # [L, B, n_kv, S_max, hd] int8 (head-major)
+    k_sc: torch.Tensor     # [L, B, n_kv, S_max] f32
+    v_q: torch.Tensor
+    v_sc: torch.Tensor
+    lengths: torch.Tensor  # [B] int32
+
+    @property
+    def max_len(self) -> int:
+        return self.k_q.shape[3]
+
+
+def init_quant_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
+                        device="cuda") -> QuantKVCache:
+    _require_gqa(cfg)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+
+    def codes():
+        return torch.zeros(shape, dtype=torch.int8, device=device)
+
+    def scales():
+        return torch.zeros(shape[:4], dtype=torch.float32, device=device)
+
+    return QuantKVCache(
+        k_q=codes(), k_sc=scales(), v_q=codes(), v_sc=scales(),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+_INV_127 = 1.0 / 127.0
+
+
+def _quant_vec(x: torch.Tensor):
+    """Per-vector symmetric int8 quant over the last axis -> (codes, scale).
+
+    The reference writes ``max(amax, 1e-8) / 127``; compiled (every serving
+    entry point jits its step) XLA turns that division by a constant into a
+    multiply by the float32 reciprocal, so the scale is computed that way
+    here and stays bitwise equal to the jitted reference's."""
+    xf = x.float()
+    sc = torch.clamp(xf.abs().amax(-1), min=1e-8) * torch.tensor(
+        _INV_127, dtype=torch.float32, device=x.device)
+    return torch.round(xf / sc[..., None]).to(torch.int8), sc
+
+
+def scatter_layer_cache_quant(ckq, cks, cvq, cvs, layer: int, new_k, new_v,
+                              lengths, valid=None):
+    """Quantized-cache variant of :func:`scatter_layer_cache`: per-vector
+    int8 quant of the chunk, then the same in-place masked write of codes
+    and scales."""
+    kq, ks = _quant_vec(new_k)            # [B, S_new, n, hd], [B, S_new, n]
+    vq, vs = _quant_vec(new_v)
+    bi, si, pi = _kept_writes(new_k.shape[1], ckq.shape[3], lengths, valid)
+    ckq[layer, bi, :, pi, :] = kq[bi, si]
+    cks[layer, bi, :, pi] = ks[bi, si]
+    cvq[layer, bi, :, pi, :] = vq[bi, si]
+    cvs[layer, bi, :, pi] = vs[bi, si]
+    return ckq, cks, cvq, cvs
+
+
+def attention_with_quant_cache(q, ckq, cks, cvq, cvs, lengths, s_new: int,
+                               scale: float | None = None) -> torch.Tensor:
+    """GQA attention over the int8 cache of one layer (codes
+    [B, n_kv, S_max, hd], scales [B, n_kv, S_max], already updated); the
+    scales fold into the scores and the probs."""
+    b, _, n_h, hd = q.shape
+    n_kv, s_max = ckq.shape[1], ckq.shape[2]
+    groups = n_h // n_kv
+    qg = q.float().reshape(b, s_new, n_kv, groups, hd)
+    scores = torch.einsum("bsngh,bnth->bngst", qg, ckq.float())
+    scores = scores * cks[:, :, None, None, :]
+    scores = scores * (scale if scale is not None else 1.0 / float(hd) ** 0.5)
+    dev = q.device
+    key_pos = torch.arange(s_max, device=dev)[None, None, :]
+    q_end = lengths.long()[:, None, None] + torch.arange(s_new, device=dev)[None, :, None]
+    mask = key_pos <= q_end                                   # [B, S_new, S_max]
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1) * cvs[:, :, None, None, :]
+    out = torch.einsum("bngst,bnth->bsngh", probs, cvq.float())
+    return out.reshape(b, s_new, n_h, cvq.shape[-1]).to(q.dtype)

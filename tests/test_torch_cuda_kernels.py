@@ -1,22 +1,26 @@
-"""The port's CUDA kernels (K1-K3) against their plain PyTorch versions on a
-card, over shapes and dtypes beyond the serving path's: GQA groups, f32
-operands, ragged and empty expert groups, K not a multiple of the k-tile,
-S not a multiple of the S-chunk.
+"""The port's CUDA kernels (K1-K5, K3 in its bf16- and int8-cache forms)
+against their plain PyTorch versions on a card, over shapes and dtypes beyond
+the serving path's: GQA groups, f32 operands, ragged and empty expert groups,
+K not a multiple of the k-tile, S not a multiple of the S-chunk, every mix of
+int8-stored and nibble-packed experts.
 
 Needs a CUDA card and nvcc; skips elsewhere. This file imports no jax, so
 it also runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 
-Tolerances: K1 codes/scales and K2 outputs bitwise; K3 caches bitwise and
-its output, per slot b, within 1e-5 * max|ref[b]| (online softmax sums in
-another order), plus one bf16 ulp of the reference element for bf16
-outputs (both round the same f32 value once)."""
+Tolerances: K1 codes/scales and K2 / K4 / K5 outputs bitwise (K4 and K5 also
+against K2 on the unpacked codes); K3 and K3q caches (codes and scales)
+bitwise and their output, per slot b, within 1e-5 * max|ref[b]| (online
+softmax sums in another order), plus one bf16 ulp of the reference element
+for bf16 outputs (both round the same f32 value once)."""
 
 import pytest
 import torch
 
-from mxmoe_tpu_torch.ops import act_quant, gmm_w8a8, kernels
+from mxmoe_tpu_torch.ops import (act_quant, gmm_mixed_packed, gmm_w4a8_packed,
+                                 gmm_w8a8, kernels)
+from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
 from mxmoe_tpu_torch.serving import decode_attention as da
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +45,19 @@ def test_quantize_rows_kernel_bitwise(dev, m, k, dtype):
     qp, sp = act_quant.quantize_rows_plain(x, bits, gain=1.0 + 3.7e-4)
     torch.cuda.synchronize()
     assert kernels.launches["quantize_rows"] == before + 1
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("m,k", [(4, 2048), (4, 5632), (256, 5632)])
+def test_quantize_rows_kernel_expanded_scalar_bits(dev, m, k):
+    """The int8 shared expert's call: one bit width expanded (stride 0) over
+    the rows, at its two K."""
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bits = torch.tensor(8.0, device=dev).expand(m)
+    q, s = act_quant.quantize_rows(x, bits)
+    qp, sp = act_quant.quantize_rows_plain(x, bits)
+    torch.cuda.synchronize()
     assert torch.equal(q, qp) and torch.equal(s, sp)
 
 
@@ -77,6 +94,114 @@ def test_gmm_w8a8_kernel_rows_past_groups_untouched(dev):
     assert torch.equal(got[:24], ref[:24])
 
 
+def _mixed_operands(dev, sizes, pflags, k, n):
+    """Activations, per-expert codes (4-bit range where packed) and scales."""
+    g = torch.Generator(device=dev).manual_seed(k + n + len(sizes))
+    m, e = sum(sizes), len(sizes)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    pf = torch.tensor(pflags, dtype=torch.bool, device=dev)
+    wq = torch.where(pf[:, None, None], w4, w8)
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return aq, asc, wq, wsc, gs
+
+
+@pytest.mark.parametrize("sizes,pflags,k,n,out", [
+    ([5, 0, 19, 8, 0, 70], [1, 1, 0, 1, 0, 0], 96, 48, torch.bfloat16),  # K/2 % 64 != 0
+    ([0, 0, 130, 1, 0], [0, 1, 1, 0, 1], 1408, 2048, torch.float32),
+    ([1, 1, 0, 1, 1, 0, 0, 1], [1, 0, 1, 0, 1, 0, 1, 0], 2048, 2816, torch.bfloat16),
+    ([3, 200, 7], [0, 0, 0], 128, 64, torch.bfloat16),                    # no packed expert
+])
+def test_gmm_mixed_packed_kernel_bitwise(dev, sizes, pflags, k, n, out):
+    aq, asc, wq, wsc, gs = _mixed_operands(dev, sizes, pflags, k, n)
+    cat, blk = build_ragged_mixed(wq, pflags)
+    pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+    blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+    before = kernels.launches["gmm_mixed_packed"]
+    got = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk,
+                                            out_dtype=out)
+    ref = gmm_mixed_packed.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk,
+                                                  out_dtype=out)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs, out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_mixed_packed"] == before + 1
+    m = sum(sizes)
+    assert torch.equal(got[:m], ref[:m]) and torch.equal(got[:m], k2[:m])
+
+
+@pytest.mark.parametrize("sizes,k,n,out", [
+    ([5, 0, 19, 8, 0, 70], 96, 48, torch.bfloat16),
+    ([0, 0, 130, 1, 0], 1408, 2048, torch.float32),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, torch.bfloat16),
+])
+def test_gmm_w4a8_packed_kernel_bitwise(dev, sizes, k, n, out):
+    e = len(sizes)
+    aq, asc, wq, wsc, gs = _mixed_operands(dev, sizes, [1] * e, k, n)
+    packed = pack_int4_halves(wq)
+    before = kernels.launches["gmm_w4a8_packed"]
+    got = gmm_w4a8_packed.gmm_w4a8_packed(aq, asc, packed, wsc, gs, out_dtype=out)
+    ref = gmm_w4a8_packed.gmm_w4a8_packed_plain(aq, asc, packed, wsc, gs, out_dtype=out)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs, out_dtype=out)
+    ones = torch.ones((e,), dtype=torch.int32, device=dev)
+    k4 = gmm_mixed_packed.gmm_mixed_packed(
+        aq, asc, packed.reshape(-1, n), wsc, gs, ones,
+        torch.arange(e, dtype=torch.int32, device=dev), out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_w4a8_packed"] == before + 1
+    assert torch.equal(got, ref) and torch.equal(got, k2) and torch.equal(got, k4)
+
+
+def _assert_within_slot_bound(out, ref, dtype):
+    r = ref.float()
+    tol = 1e-5 * r.abs().flatten(1).amax(1)[:, None, None]
+    if dtype == torch.bfloat16:       # one bf16 ulp of each reference element
+        tol = tol + torch.exp2(
+            torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((out.float() - r).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("groups,dk,s_max,dtype", [
+    (2, 128, 128, torch.float32),
+    (4, 64, 1000, torch.bfloat16),
+    (1, 128, 2048, torch.bfloat16),
+    (8, 256, 300, torch.float32),
+])
+def test_decode_attention_q8_kernel_vs_plain(dev, groups, dk, s_max, dtype):
+    g = torch.Generator(device=dev).manual_seed(groups * dk + 1)
+    nl, b, n_kv, layer = 2, 5, 2, 1
+    n_h, dv = n_kv * groups, 128 if dk != 64 else 64
+
+    def codes(d):
+        return torch.randint(-127, 128, (nl, b, n_kv, s_max, d), generator=g,
+                             device=dev, dtype=torch.int8)
+
+    def scales():
+        return torch.rand((nl, b, n_kv, s_max), generator=g, device=dev) * 0.03 + 1e-3
+
+    caches = [codes(dk), scales(), codes(dv), scales()]
+    q = torch.randn((b, n_h, dk), generator=g, device=dev).to(dtype)
+    kn = (torch.randn((b, n_kv, dk), generator=g, device=dev) * 2).to(dtype)
+    vn = (torch.randn((b, n_kv, dv), generator=g, device=dev) * 2).to(dtype)
+    kn[0, 0] = 0                      # an all-zero vector takes the 1e-8 floor
+    lengths = torch.tensor([0, s_max // 2, s_max, s_max - 1, 257 % s_max],
+                           dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 0, 1], dtype=torch.int32, device=dev)
+    caches2 = [c.clone() for c in caches]
+    before = kernels.launches["decode_attention_update_stacked_q8"]
+    out, _ = da.decode_attention_update_stacked(q, kn, vn, *caches, lengths,
+                                                layer, valid=valid)
+    ref = da.decode_attention_update_q8_plain(q, kn, vn, *caches2, lengths, layer,
+                                              valid, 1.0 / dk ** 0.5)
+    torch.cuda.synchronize()
+    assert kernels.launches["decode_attention_update_stacked_q8"] == before + 1
+    for got, want in zip(caches, caches2):
+        assert torch.equal(got, want)
+    _assert_within_slot_bound(out, ref, dtype)
+
+
 @pytest.mark.parametrize("groups,dk,s_max,dtype", [
     (2, 128, 128, torch.float32),
     (4, 64, 1000, torch.bfloat16),
@@ -96,18 +221,13 @@ def test_decode_attention_kernel_vs_plain(dev, groups, dk, s_max, dtype):
                            dtype=torch.int32, device=dev)
     valid = torch.tensor([1, 1, 1, 0, 1], dtype=torch.int32, device=dev)
     ck2, cv2 = ck.clone(), cv.clone()
-    out, _ = da.decode_attention_update_stacked(q, kn, vn, ck, cv, lengths,
-                                                layer, valid=valid)
+    out, _ = da.decode_attention_update_stacked(q, kn, vn, ck, None, cv, None,
+                                                lengths, layer, valid=valid)
     ref = da.decode_attention_update_plain(q, kn, vn, ck2, cv2, lengths, layer,
                                            valid, 1.0 / dk ** 0.5)
     torch.cuda.synchronize()
     assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
-    r = ref.float()
-    tol = 1e-5 * r.abs().flatten(1).amax(1)[:, None, None]
-    if dtype == torch.bfloat16:       # one bf16 ulp of each reference element
-        tol = tol + torch.exp2(
-            torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126))) - 7)
-    assert bool(((out.float() - r).abs() <= tol).all())
+    _assert_within_slot_bound(out, ref, dtype)
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -120,3 +240,19 @@ def test_wrappers_reject_bad_input(dev):
                           torch.zeros((1, 20, 8), dtype=torch.int8, device=dev),
                           torch.ones((1, 1, 8), device=dev),
                           torch.tensor([4], dtype=torch.int32, device=dev))
+    aq = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError):                      # [M, G] act scales
+        gmm_mixed_packed.gmm_mixed_packed(
+            aq, torch.ones((4, 2), device=dev),
+            torch.zeros((64, 8), dtype=torch.int8, device=dev),
+            torch.ones((1, 2, 8), device=dev),
+            torch.tensor([4], dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):                               # K % 32 != 0
+        gmm_w4a8_packed.gmm_w4a8_packed(
+            torch.zeros((4, 48), dtype=torch.int8, device=dev),
+            torch.ones((4, 1), device=dev),
+            torch.zeros((1, 24, 8), dtype=torch.int8, device=dev),
+            torch.ones((1, 1, 8), device=dev),
+            torch.tensor([4], dtype=torch.int32, device=dev))

@@ -49,7 +49,8 @@ def test_decode_update_stacked_vs_jax(lengths, valid):
     kernels.reset_launch_counts()
     out_t, (ck_r, cv_r) = decode_attention_update_stacked(
         torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn),
-        ck_t, cv_t, torch.from_numpy(lens), layer, valid=torch.from_numpy(val))
+        ck_t, None, cv_t, None, torch.from_numpy(lens), layer,
+        valid=torch.from_numpy(val))
     assert ck_r is ck_t and cv_r is cv_t                  # written in place
     assert kernels.launches["decode_attention_update_stacked"] == 0
 

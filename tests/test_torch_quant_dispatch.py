@@ -21,13 +21,18 @@ import torch
 
 from mxmoe_tpu.models import configs as jax_configs
 from mxmoe_tpu.ops import dispatch as jd
+from mxmoe_tpu.models import model as jax_model
+from mxmoe_tpu.quant import schemes as jax_schemes
+from mxmoe_tpu.quant.qparams import quantize_model_experts_mixed as jax_quantize_mixed
 from mxmoe_tpu.quant.qparams import quantize_model_experts_uniform as jax_quantize_uniform
 from mxmoe_tpu.quant.schemes import parse_scheme as jax_parse_scheme
 from mxmoe_tpu_torch.models import configs
 from mxmoe_tpu_torch.ops import dispatch as td
 from mxmoe_tpu_torch.params_from_jax import params_from_jax
 from mxmoe_tpu_torch.quant.packing import dequantize_weight_kn, quantize_weight_kn
-from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
+from mxmoe_tpu_torch.quant import schemes
+from mxmoe_tpu_torch.quant.qparams import (quantize_model_experts_mixed,
+                                           quantize_model_experts_uniform)
 from mxmoe_tpu_torch.quant.schemes import parse_scheme
 
 
@@ -55,6 +60,75 @@ def test_quantize_model_experts_uniform_bitwise(scheme):
             continue
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
                                       err_msg=key)
+
+
+def _mixed_qmc(mod, num_experts, layer_patterns, shared=("w8a8_g-1_sym",)):
+    """Per-layer lists of per-expert scheme names (cycled) -> QModelConfig."""
+    layers = {}
+    for l, pattern in enumerate(layer_patterns):
+        experts = {str(e): mod.build_uniform_expert(
+            mod.parse_scheme(pattern[e % len(pattern)])) for e in range(num_experts)}
+        if shared:
+            experts[str(num_experts)] = mod.build_uniform_expert(
+                mod.parse_scheme(shared[l % len(shared)]))
+        layers[str(l)] = mod.QLayerConfig(experts=experts)
+    return mod.QModelConfig(layers=layers)
+
+
+def _float_model(num_experts=4, num_layers=2):
+    import jax
+
+    cfg_j = jax_configs.tiny_qwen2_moe(num_experts, num_layers)
+    params_j = jax_model.init_params(cfg_j, jax.random.PRNGKey(4), dtype=jnp.float32)
+    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
+    return cfg_j, configs.tiny_qwen2_moe(num_experts, num_layers), params_j, params_t
+
+
+@pytest.mark.parametrize("pack_w4", [False, True], ids=["int8-stored", "packed"])
+@pytest.mark.parametrize("shared", [("w8a8_g-1_sym",), ("w4a8_g-1_sym", "w8a4_g-1_sym"), ()],
+                         ids=["shared-w8a8", "shared-mixed", "no-shared"])
+def test_quantize_model_experts_mixed_bitwise(pack_w4, shared):
+    """Codes, scales, ragged buffer + blk/pf, act bits and the real-quantized
+    shared expert, in both storages. The layers' packed counts differ, so
+    the ragged stack pads the shorter layer."""
+    patterns = [("w4a4_g-1_sym", "w8a8_g-1_sym"),
+                ("w4a8_g-1_sym", "w2a8_g-1_sym", "w3a4_g-1_sym", "w8a8_g-1_sym")]
+    cfg_j, cfg_t, params_j, params_t = _float_model()
+    ref = jax_quantize_mixed(params_j, cfg_j, _mixed_qmc(jax_schemes, 4, patterns, shared),
+                             pack_w4=pack_w4)["layers"]
+    got = quantize_model_experts_mixed(params_t, cfg_t,
+                                       _mixed_qmc(schemes, 4, patterns, shared),
+                                       pack_w4=pack_w4)["layers"]
+    assert sorted(got) == sorted(ref)
+    assert ("expert_gate_up_qcat" in got) == pack_w4
+    assert ("shared_gate_up_q" in got) == bool(shared)
+    for key in ref:
+        r = np.asarray(ref[key])
+        assert got[key].dtype == params_from_jax(r).dtype, key
+        np.testing.assert_array_equal(got[key].float().numpy(),
+                                      r.astype(np.float32), err_msg=key)
+
+
+@pytest.mark.parametrize("pattern,match", [
+    (("w4a4_g-1_sym", "w4a4_g128_sym"), "flex"),          # grouped family
+    (("w8a8_g-1_sym", "w4a8_g-1_asym"), "flex"),          # asymmetric weights
+    (("w8a8_g-1_sym", "w4a16_g-1_sym"), "a16"),           # weight-only expert
+])
+def test_quantize_model_experts_mixed_unported_domains_raise(pattern, match):
+    cfg_j, cfg_t, _, params_t = _float_model()
+    qmc = _mixed_qmc(schemes, 4, [pattern, pattern], shared=())
+    with pytest.raises(NotImplementedError, match=match):
+        quantize_model_experts_mixed(params_t, cfg_t, qmc)
+
+
+def test_quantize_model_experts_mixed_heterogeneous_shared_raises():
+    """A shared expert that is a16 in one layer and a8 in the other takes the
+    reference's fake-quant fallback, which is not ported."""
+    cfg_j, cfg_t, _, params_t = _float_model()
+    qmc = _mixed_qmc(schemes, 4, [("w8a8_g-1_sym",)] * 2,
+                     shared=("w8a8_g-1_sym", "w4a16_g-1_sym"))
+    with pytest.raises(NotImplementedError, match="fake-quant"):
+        quantize_model_experts_mixed(params_t, cfg_t, qmc)
 
 
 def test_weight_roundtrip_error_bounded():

@@ -83,7 +83,7 @@ def test_forward_cached_logits_close(models):
     toks = rng.integers(0, cfg_t.vocab_size, (b, s)).astype(np.int32)
     valid = np.asarray([12, 7], np.int32)
     cj = jax_kv.init_kv_cache(cfg_j, b, 32)
-    ct = kv_cache.init_kv_cache(cfg_t, b, 32)
+    ct = kv_cache.init_kv_cache(cfg_t, b, 32, device="cpu")
     steps = [(toks, valid)] + [
         (rng.integers(0, cfg_t.vocab_size, (b, 1)).astype(np.int32),
          np.asarray([1, 1], np.int32)) for _ in range(3)]
