@@ -12,13 +12,19 @@ failure raises and the script exits non-zero without a result line:
   3. kernels  each kernel against its plain PyTorch version on the card at
               the serving shapes (qwen2_moe: H 2048, N 1408, E 60, top-4;
               decode M = 4 slots x 4, prefill M = 256 x 4), with its time
-              (CUDA events, median of 25) beside the plain version's and
+              (CUDA events, median of 25, the L2 cache overwritten before
+              each timed call) beside the plain version's and
               beside its bound: the larger of the bytes it must move over
               3.35 TB/s and its operations over the card's dense peak.
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
               unpacked codes, K5 against K4 on an all-packed buffer); K3 and
               K3q caches (codes and scales) bitwise and their output per
               slot within K3_REL_BOUND of the slot's scale (+1 ulp for bf16).
+              K8 (without and with zero points) and K9 bitwise, K9 also
+              against K8 with one group; K6 and K7 within their accumulation
+              bound of a float64 product (gmm_weight_only.error_over_bound),
+              K7 bitwise K6 on the unpacked codes; K8 and K6 also with one
+              group of rows at the shared expert's shapes.
               Also the sorted combine's time beside the atomic index_add_'s
   4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
               through forward_cached on the CPU (plain versions) and on
@@ -26,20 +32,27 @@ failure raises and the script exits non-zero without a result line:
               logits within PARITY_BOUND, greedy tokens equal. The inputs
               are chosen on the CPU run so that every compared position's
               top-2 margin exceeds PARITY_BOUND (no tie decides the gate).
-              Run for uniform w8a8 + bf16 cache and for mixed-packed + int8
-              KV cache
+              Run for uniform w8a8 + bf16 cache, mixed-packed + int8 KV
+              cache, uniform w4a16_g128_asym nibble-packed, and a flex mix
+              (routed w4a4_g128_asym / w8a8_g-1_sym, shared w8a8_g128_asym)
   5. storage  mixed (int8-stored) and mixed-packed params of one seed, 4
               layers, int8 KV cache: prefill + 16 decode steps give bitwise
               equal logits on the card
   6. serve    the Engine answering 4 requests over qwen2_moe with seeded
               random bf16 weights: uniform w8a8 + bf16 cache (4 layers; K1,
-              K2, K3), uniform w4a8 nibble-packed (4 layers; K1, K5, K3) and
+              K2, K3), uniform w4a8 nibble-packed (4 layers; K1, K5, K3),
               the full 24 layers with alternating w4a4 / w8a8 experts packed,
               the shared expert w8a8 and the int8 KV cache (K1, K2, K3q,
-              K4). The launch counts are set to 0 before each serve and read
-              after it; every kernel named must have launched
-  7. bench    the bench_serving entry point, 4 layers, mixed-packed + int8 KV,
-              with its own launch counts (K1, K2, K3q, K4 must be non-zero)
+              K4), the full 24 layers uniform w4a16_g128_asym nibble-packed
+              (K7, K3), and 4 layers each of uniform w4a4_g128_sym (K8),
+              w8a8_g-1_asym (K1, K9), w4a16_g-1_sym int8-stored (K6) and the
+              two flex mixes (K8 with zero points; shared expert through K8
+              or K6 with one group). The launch counts are set to 0 before
+              each serve and read after it; every kernel named must have
+              launched
+  7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
+              (K1, K2, K3q, K4 must be non-zero in its own launch counts)
+              and --quant w4a16_g128_asym (K6, K3)
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
 serve, named beside them), the nvidia-smi line, and last
@@ -73,7 +86,17 @@ KERNEL_SOURCES = {
                          "mxmoe_tpu/ops/pallas_gmm.py:1054"),
     "gmm_w4a8_packed": ("mxmoe_tpu_torch/csrc/gmm_w4a8_packed.cu",
                         "mxmoe_tpu/ops/pallas_gmm.py:599"),
+    "gmm_weight_only": ("mxmoe_tpu_torch/csrc/gmm_weight_only.cu",
+                        "mxmoe_tpu/ops/pallas_gmm.py:505"),
+    "gmm_weight_only_packed": ("mxmoe_tpu_torch/csrc/gmm_weight_only_packed.cu",
+                               "mxmoe_tpu/ops/pallas_gmm.py:706"),
+    "gmm_w8a8_grouped": ("mxmoe_tpu_torch/csrc/gmm_w8a8_grouped.cu",
+                         "mxmoe_tpu/ops/pallas_gmm.py:1332"),
+    "gmm_w8a8_asym": ("mxmoe_tpu_torch/csrc/gmm_w8a8_asym.cu",
+                      "mxmoe_tpu/ops/pallas_gmm.py:1487"),
 }
+# the scale group of the grouped schemes on the main path (g128)
+GSIZE = 128
 # K3 / K3q output bound, held per slot b against that slot's own scale
 # max|ref[b]|: |d| <= K3_REL_BOUND * max|ref[b]| for f32 outputs (online
 # softmax sums in another order than the plain version's full softmax), plus
@@ -93,8 +116,10 @@ PARITY_BOUND = 0.125
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 # one PyTorch call that computes the same function, per kernel: none. torch
-# has no per-row-bits quantizer and no grouped int8 product with scales, and
-# no single call writes the cache and attends over it
+# has no per-row-bits quantizer, no grouped (per-expert) product over
+# expert-sorted rows with int8 or nibble-packed operands, per-group scales,
+# zero points or in-product dequantization, and no single call writes the
+# cache and attends over it
 LIBRARY_MS = None
 
 
@@ -135,16 +160,26 @@ def k3_slot_errors(out, ref):
     return rel.tolist()
 
 
+_L2_FLUSH = []
+
+
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call (CUDA events around each call)."""
+    """Median device time of one call (CUDA events around each call). A
+    buffer larger than the card's 50 MB L2 cache is overwritten before each
+    timed call: on the serving path every layer brings its own weights, so a
+    kernel finds them in device memory, not in the cache a repeat left."""
     import torch
 
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.int8,
+                                     device=torch.device("cuda")))
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        _L2_FLUSH[0].zero_()
         a.record()
         fn()
         b.record()
@@ -197,19 +232,26 @@ def quant_rows_work(m: int, k: int, in_bytes: int) -> dict:
 
 
 def gmm_work(gs, k: int, n: int, expert_bytes, out_bytes: int = 2,
-             meta_bytes: int = 0) -> dict:
-    """K2 / K4 / K5 on THIS routing: only experts with rows stream their
-    weights (``expert_bytes[e]``) and scale rows; every routed row is read
-    and written once."""
+             meta_bytes: int = 0, scale_rows: int = 1, lhs_row_bytes=None,
+             ops_type: str = "int8") -> dict:
+    """A grouped GEMM on THIS routing: only experts with rows stream their
+    weights (``expert_bytes[e]``) and their ``scale_rows`` f32 [N] rows of
+    scales and zero points (1 per channel; at g128 one or two per 128 codes:
+    8 bytes per 128 codes and column with zp); every routed row is read
+    (``lhs_row_bytes``: int8 codes and one f32 scale unless given) and
+    written once."""
     import torch
 
     live = gs > 0
     rows = int(gs.sum())
     e = gs.numel()
     w = torch.as_tensor(expert_bytes, device=gs.device).expand(e)
-    nbytes = (rows * k + rows * 4 + int(w[live].sum()) + int(live.sum()) * n * 4
+    if lhs_row_bytes is None:
+        lhs_row_bytes = k + 4
+    nbytes = (rows * lhs_row_bytes + int(w[live].sum())
+              + int(live.sum()) * scale_rows * n * 4
               + e * 4 + meta_bytes + rows * n * out_bytes)
-    return work_bound(nbytes, 2 * rows * k * n, "int8")
+    return work_bound(nbytes, 2 * rows * k * n, ops_type)
 
 
 def decode_attn_work(lengths, valid, s_max, n_h, n_kv, dk, dv, elem_bytes,
@@ -394,6 +436,137 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
                  **gmm_work(one_group, k, nn, k * nn))
 
 
+def scheme_kernels_vs_plain(rec: dict) -> None:
+    """K6-K9 at the decode and prefill shapes of both expert GEMMs and, with
+    one group of rows, at the shared expert's shapes. K8 and K9 bitwise
+    against their plain versions; K6 and K7 within
+    ``gmm_weight_only.error_over_bound`` of the float64 product of the same
+    bf16 weights (f32 accumulation over K terms in any order, + 1 bf16 ulp of
+    the output), K7 bitwise K6 on the unpacked codes."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gasym
+    from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
+    from mxmoe_tpu_torch.ops import gmm_weight_only as gwo
+    from mxmoe_tpu_torch.ops import gmm_weight_only_packed as gwop
+    from mxmoe_tpu_torch.quant.packing import pack_int4_halves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    sn = cfg.shared_expert_intermediate_size
+
+    def rand(shape, scale, shift=0.0):
+        return torch.rand(shape, generator=gen, device=dev) * scale + shift
+
+    def codes(shape, hi):
+        return torch.randint(-hi, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def timed(kernel, plain, work):
+        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
+                **work}
+
+    def int8_kernels(gs, m, k, nn, shape, keep, shared):
+        """K9 (routed shapes only) and K8 without / with rhs_zp."""
+        ne, g = gs.numel(), k // GSIZE
+        aq = codes((m, k), 128).clamp_(min=-127)
+        wq = codes((ne, k, nn), 128).clamp_(min=-127)
+        if not shared:
+            asc, wsc = rand((m, 1), 0.05, 1e-3), rand((ne, 1, nn), 0.01, 1e-4)
+            wzp = torch.randn((ne, 1, nn), generator=gen, device=dev) * 0.02
+            out = gasym.gmm_w8a8_asym(aq, asc, wq, wsc, wzp, gs)
+            ref = gasym.gmm_w8a8_asym_plain(aq, asc, wq, wsc, wzp, gs)
+            k8 = ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=-1, rhs_zp=wzp)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K9 vs plain at {shape}")
+            _require_equal(out, k8, f"K9 vs K8 with one group at {shape}")
+            t = timed(lambda: gasym.gmm_w8a8_asym(aq, asc, wq, wsc, wzp, gs),
+                      lambda: gasym.gmm_w8a8_asym_plain(aq, asc, wq, wsc, wzp, gs),
+                      gmm_work(gs, k, nn, k * nn, scale_rows=2))
+            emit("kernels", kernel="gmm_w8a8_asym", bitwise=True,
+                 equals_gmm_w8a8_grouped_one_group=True,
+                 gmm_w8a8_same_codes_ms=time_ms(
+                     lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)), **shape, **t)
+            if keep:
+                rec["gmm_w8a8_asym"].update(t)
+        asc, wsc = rand((m, g), 0.05, 1e-3), rand((ne, g, nn), 0.01, 1e-4)
+        wzp = torch.randn((ne, g, nn), generator=gen, device=dev) * 0.02
+        for zp in (None, wzp):
+            out = ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)
+            ref = ggrp.gmm_w8a8_grouped_plain(aq, asc, wq, wsc, gs, GSIZE, zp)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K8 vs plain at {shape} zp={zp is not None}")
+            t = timed(lambda: ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp),
+                      lambda: ggrp.gmm_w8a8_grouped_plain(aq, asc, wq, wsc, gs,
+                                                          GSIZE, zp),
+                      gmm_work(gs, k, nn, k * nn, lhs_row_bytes=k + 4 * g,
+                               scale_rows=g * (1 if zp is None else 2)))
+            emit("kernels", kernel="gmm_w8a8_grouped", bitwise=True, gsize=GSIZE,
+                 rhs_zp=zp is not None, **shape, **t)
+            if keep and zp is None:
+                rec["gmm_w8a8_grouped"].update(t)
+
+    def weight_only_kernels(gs, m, k, nn, shape, keep, shared, gsize=GSIZE):
+        """K6 and (routed shapes only) K7, 4-bit codes, scale and zp per group."""
+        ne, g = gs.numel(), (1 if gsize == -1 else k // gsize)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w4 = codes((ne, k, nn), 8)
+        sc = rand((ne, g, nn), 0.02, 1e-3)
+        zp = torch.randn((ne, g, nn), generator=gen, device=dev) * 0.05
+        out = gwo.gmm_weight_only(x, w4, sc, zp, gs, gsize)
+        torch.cuda.synchronize()
+        err, ratio = gwo.error_over_bound(out, x, w4, sc, zp, gs, gsize)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K6 outside its bound at {shape}: max|d|={err}, "
+                                 f"{ratio} of the tolerance")
+        scales = dict(scale_rows=2 * g, lhs_row_bytes=2 * k, ops_type="bf16")
+        t = timed(lambda: gwo.gmm_weight_only(x, w4, sc, zp, gs, gsize),
+                  lambda: gwo.gmm_weight_only_plain(x, w4, sc, zp, gs, gsize),
+                  gmm_work(gs, k, nn, k * nn, **scales))
+        emit("kernels", kernel="gmm_weight_only", gsize=gsize, max_abs_err=err,
+             err_over_bound=ratio,
+             bound="K * 2^-24 * sum|lhs||w| + 1 bf16 ulp, vs float64", **shape, **t)
+        if keep:
+            rec["gmm_weight_only"].update(max_abs_err=err, **t)
+        if shared or gsize == -1:
+            return
+        packed = pack_int4_halves(w4)
+        out_p = gwop.gmm_weight_only_packed(x, packed, sc, zp, gs, gsize)
+        torch.cuda.synchronize()
+        _require_equal(out_p, out, f"K7 vs K6 at {shape}")
+        t = timed(lambda: gwop.gmm_weight_only_packed(x, packed, sc, zp, gs, gsize),
+                  lambda: gwop.gmm_weight_only_packed_plain(x, packed, sc, zp, gs,
+                                                            gsize),
+                  gmm_work(gs, k, nn, k * nn // 2, **scales))
+        emit("kernels", kernel="gmm_weight_only_packed", gsize=gsize,
+             equals_gmm_weight_only=True, max_abs_err=err, err_over_bound=ratio,
+             **shape, **t)
+        if keep:
+            rec["gmm_weight_only_packed"].update(max_abs_err=err, **t)
+
+    for regime, tokens in (("decode", 4), ("prefill", 256)):
+        m = tokens * cfg.top_k
+        gs = _routing_group_sizes(tokens, cfg, gen, dev)
+        for k, nn in ((h, 2 * n), (n, h)):
+            shape = dict(regime=regime, M=m, K=k, N=nn,
+                         empty_groups=int((gs == 0).sum().item()))
+            keep = regime == "decode" and k == h
+            int8_kernels(gs, m, k, nn, shape, keep, shared=False)
+            weight_only_kernels(gs, m, k, nn, shape, keep, shared=False)
+            if regime == "decode":      # the per-channel a16 serve's K6
+                weight_only_kernels(gs, m, k, nn, shape, False, False, gsize=-1)
+    # the grouped / asymmetric and the weight-only shared expert: one group
+    for regime, rows in (("decode", 4), ("prefill", 256)):
+        one_group = torch.full((1,), rows, dtype=torch.int32, device=dev)
+        for k, nn in ((h, 2 * sn), (sn, h)):
+            shape = dict(use="shared expert, one group", regime=regime, M=rows,
+                         K=k, N=nn)
+            int8_kernels(one_group, rows, k, nn, shape, False, shared=True)
+            weight_only_kernels(one_group, rows, k, nn, shape, False, shared=True)
+
+
 def combine_vs_index_add() -> None:
     """What the order-preserving combine costs: ``combine_tokens`` (sorted
     ``index_put_(accumulate=True)``) beside the atomic ``index_add_`` it
@@ -516,6 +689,7 @@ def kernels_vs_plain() -> dict:
     """Each kernel vs its plain version; returns per-kernel records."""
     rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
     gmm_kernels_vs_plain(rec)
+    scheme_kernels_vs_plain(rec)
     attention_kernels_vs_plain(rec)
     combine_vs_index_add()
     return rec
@@ -555,7 +729,47 @@ def _init_cache(cfg, batch, max_len, int8_kv, device):
     return init_kv_cache(cfg, batch, max_len, device=device)
 
 
-def slice_parity(quant: str, int8_kv: bool, tries: int = 40) -> None:
+# flex per-expert mixes, int8-stored: routed experts alternate a grouped
+# asymmetric w4a4 scheme with per-channel w8a8 (K8 with zero points); the
+# name picks the shared expert's scheme: grouped asymmetric w x a (K8 with
+# one group) or weight-only in every layer (K6 with one group)
+FLEX_ROUTED = ("w4a4_g128_asym", "w8a8_g-1_sym")
+FLEX_SHARED = {"flex-shared-grouped": "w8a8_g128_asym",
+               "flex-shared-a16": "w4a16_g128_asym"}
+
+
+def flex_mixed_config(num_layers: int, num_experts: int, shared_scheme: str):
+    from mxmoe_tpu_torch.quant.schemes import (QLayerConfig, QModelConfig,
+                                               build_uniform_expert, parse_scheme)
+
+    experts = {str(i): build_uniform_expert(parse_scheme(FLEX_ROUTED[i % 2]))
+               for i in range(num_experts)}
+    experts[str(num_experts)] = build_uniform_expert(parse_scheme(shared_scheme))
+    return QModelConfig(layers={str(l): QLayerConfig(experts=dict(experts))
+                                for l in range(num_layers)})
+
+
+def prepare(floats: dict, cfg, quant: str, pack: bool = False):
+    """Float params -> (quantized params, MoEImpl). ``quant``: what
+    ``bench_serving --quant`` takes, or a ``FLEX_SHARED`` name; ``pack``
+    nibble-packs a uniform scheme's codes (convert's pack step)."""
+    from mxmoe_tpu_torch.models.convert import pack_int4_experts
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_mixed
+    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
+
+    if quant in FLEX_SHARED:
+        qmc = flex_mixed_config(cfg.num_layers, cfg.num_experts, FLEX_SHARED[quant])
+        params, impl = quantize_model_experts_mixed(floats, cfg, qmc), MoEImpl("mixed")
+    else:
+        params, impl = quantize_for_serving(floats, cfg, quant)
+    if pack:
+        params = pack_int4_experts(params, impl.quant)
+    return params, impl
+
+
+def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
+                 tries: int = 40) -> None:
     """2-layer full-width slice on the CPU (plain versions), then the same
     inputs on CUDA (kernels). The CPU run picks its inputs: a prompt, then
     for each decode step one input token per slot, such that every compared
@@ -563,11 +777,10 @@ def slice_parity(quant: str, int8_kv: bool, tries: int = 40) -> None:
     import numpy as np
     import torch
 
-    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
     from mxmoe_tpu_torch.serving.decode import forward_cached
 
     cfg, floats = _full_width_model(2, seed=1)
-    params, impl = quantize_for_serving(floats, cfg, quant)
+    params, impl = prepare(floats, cfg, quant, pack)
     del floats
     cpu_params = _to(params, "cpu")
     rng = np.random.default_rng(1)
@@ -635,7 +848,7 @@ def slice_parity(quant: str, int8_kv: bool, tries: int = 40) -> None:
     margin = _top2_margin(cpu).min().item()
     tok_cpu, tok_gpu = cpu.argmax(-1), gpu.argmax(-1)
     equal = tok_cpu == tok_gpu
-    emit("parity", quant=quant, int8_kv=int8_kv, layers=cfg.num_layers,
+    emit("parity", quant=quant, packed=pack, int8_kv=int8_kv, layers=cfg.num_layers,
          prefill_valid=valid0.tolist(), decode_steps=steps, max_abs_err=err,
          bound=bound, max_abs_logit=cpu.abs().max().item(),
          greedy_equal=int(equal.sum()), greedy_total=equal.numel(),
@@ -696,56 +909,70 @@ def _tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _reckoned_bytes(cfg, quant: str, int8_kv: bool, slots: int, max_len: int) -> dict:
+def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
+                    max_len: int) -> dict:
     """Expert, shared-expert and KV-cache bytes as the storage code lays them
-    out (codes + f32 per-channel scales; zero points where the form keeps
-    them), to print beside the measured tensor sizes."""
+    out (codes, f32 scales per channel or per group of GSIZE codes, zero
+    points where the form keeps them, the per-expert markers), to print
+    beside the measured tensor sizes."""
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+
     h, n, e, nl = (cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
                    cfg.num_layers)
     sn = cfg.shared_expert_intermediate_size
     codes = h * 2 * n + n * h                       # one expert, 1 byte a code
-    scales = (2 * n + h) * 4
+    shared_codes = h * 2 * sn + sn * h
+    shared_bf16 = nl * shared_codes * 2
+
+    def scale_bytes(width, grouped):
+        """One f32 array of scales (or zero points) for an expert of ``width``."""
+        g_h, g_n = (h // GSIZE, width // GSIZE) if grouped else (1, 1)
+        return (g_h * 2 * width + g_n * h) * 4
+
     if quant == "mixed-packed":                     # even experts packed
         packed = (e + 1) // 2
-        experts = nl * (packed * codes // 2 + (e - packed) * codes + e * scales
+        experts = nl * (packed * codes // 2 + (e - packed) * codes
+                        + e * scale_bytes(n, False)
                         + 2 * e * 8 + 2 * e * 4)    # + blk/pf, act bits
-        shared = nl * (h * 2 * sn + sn * h + (2 * sn + h) * 4 + 8)
-    elif quant.startswith("w4"):                    # uniform, nibble-packed
-        experts = nl * e * (codes // 2 + 2 * scales)
-        shared = nl * (h * 2 * sn + sn * h) * 2
-    else:                                           # uniform int8-stored
-        experts = nl * e * (codes + 2 * scales)
-        shared = nl * (h * 2 * sn + sn * h) * 2
+        shared = nl * (shared_codes + scale_bytes(sn, False) + 8)
+    elif quant in FLEX_SHARED:      # scales and zp per group; act bits, gsize
+        experts = nl * e * (codes + 2 * scale_bytes(n, True) + 2 * 4
+                            + (h // GSIZE + n // GSIZE) * 4)
+        a16 = parse_scheme(FLEX_SHARED[quant]).a_bits >= 16
+        shared = nl * (shared_codes + 2 * scale_bytes(sn, True) + 8 + 4 * a16)
+    else:                           # uniform: codes, scales and zp
+        grouped = parse_scheme(quant).w_gsize != -1
+        experts = nl * e * (codes // (2 if pack else 1)
+                            + 2 * scale_bytes(n, grouped))
+        shared = shared_bf16
     pos = 2 * cfg.head_dim * (1 if int8_kv else 2) + (8 if int8_kv else 0)
     return {"experts": experts, "shared_expert": shared,
             "kv_cache": nl * slots * cfg.num_kv_heads * max_len * pos}
 
 
-def serve(layers: int, quant: str, int8_kv: bool, expect: tuple) -> dict:
+def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
+          pack: bool = False) -> dict:
     """The Engine over qwen2_moe at its published widths, ``layers`` deep,
     answering 4 requests; returns the kernels' launch counts of this serve.
-    A uniform w4 scheme is served nibble-packed (convert's pack step)."""
+    ``quant`` and ``pack`` as ``prepare`` takes them."""
     import numpy as np
     import torch
 
-    from mxmoe_tpu_torch.models.convert import pack_int4_experts
     from mxmoe_tpu_torch.ops import kernels
-    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
 
     t0 = time.perf_counter()
     cfg, floats = _full_width_model(layers, seed=0)
-    params, impl = quantize_for_serving(floats, cfg, quant)
+    params, impl = prepare(floats, cfg, quant, pack)
     del floats
-    if quant.startswith("w4"):
-        params = pack_int4_experts(params, impl.quant)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     nbytes = {"experts": 0, "shared_expert": 0, "other": 0}
     for k, v in params["layers"].items():
-        key = ("experts" if k.startswith(("expert_", "act_bits_g", "act_bits_d"))
+        key = ("experts" if k.startswith(("expert_", "act_bits_g", "act_bits_d",
+                                          "act_gsize_"))
                else "shared_expert" if k.startswith(("shared_gate_up", "shared_down",
-                                                     "act_bits_shared"))
+                                                     "act_bits_shared", "shared_wo"))
                else "other")
         nbytes[key] += _tensor_bytes([v])
     nbytes["other"] += _tensor_bytes(params[k] for k in ("embed", "final_norm", "lm_head"))
@@ -773,13 +1000,13 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple) -> dict:
 
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
-    emit("serve", layers=cfg.num_layers, quant=quant, int8_kv=int8_kv,
+    emit("serve", layers=cfg.num_layers, quant=quant, packed=pack, int8_kv=int8_kv,
          requests=len(prompts), prompt_lens=[len(p) for p in prompts],
          max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          measured_bytes=nbytes,
-         reckoned_bytes=_reckoned_bytes(cfg, quant, int8_kv, slots, max_len),
+         reckoned_bytes=_reckoned_bytes(cfg, quant, pack, int8_kv, slots, max_len),
          launches=launches)
     if any(len(t) != max_new or not all(0 <= x < cfg.vocab_size for x in t)
            for t in toks):
@@ -791,7 +1018,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple) -> dict:
     return launches
 
 
-def bench_entry_point() -> None:
+def bench_entry_point(quant_args: list, expect: tuple) -> None:
     """The bench_serving entry point as a user calls it, at a small depth;
     its launch counts are set to 0 before the call and read after it."""
     from mxmoe_tpu_torch.ops import kernels
@@ -801,21 +1028,20 @@ def bench_entry_point() -> None:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         bench_serving.main(["--layers", "4", "--slots", "4", "--max-len", "1024",
-                            "--prefill", "256", "--quant", "mixed-packed",
-                            "--int8-kv"])
+                            "--prefill", "256", *quant_args])
     launches = dict(kernels.launches)
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
     emit("bench", **res, launches=launches)
-    missing = [k for k in ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed",
-                           "decode_attention_update_stacked_q8")
-               if launches[k] <= 0]
+    missing = [k for k in expect if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"bench_serving: kernels never launched: {missing}")
+        raise AssertionError(f"bench_serving {quant_args}: kernels never "
+                             f"launched: {missing}")
     keys = {"model", "layers", "slots", "quant", "int8_head", "int8_kv",
             "prefill_ms", "prefill_tokens_per_s", "decode_attn", "decode_step_ms",
             "decode_tokens_per_s", "device"}
     if not (keys <= set(res) and res["decode_tokens_per_s"] > 0
-            and res["prefill_ms"] > 0 and res["int8_kv"] is True):
+            and res["prefill_ms"] > 0
+            and res["int8_kv"] is ("--int8-kv" in quant_args)):
         raise AssertionError(f"bench_serving: unexpected result {res}")
 
 
@@ -830,30 +1056,61 @@ def main() -> int:
     smi = probe()
     build()
     rec = kernels_vs_plain()
-    torch.cuda.empty_cache()
-    slice_parity("w8a8_g-1_sym", int8_kv=False)
-    torch.cuda.empty_cache()
-    slice_parity("mixed-packed", int8_kv=True)
+    for quant, int8_kv, pack in (("w8a8_g-1_sym", False, False),
+                                 ("mixed-packed", True, False),
+                                 ("w4a16_g128_asym", False, True),
+                                 ("flex-shared-grouped", False, False)):
+        torch.cuda.empty_cache()
+        slice_parity(quant, int8_kv, pack)
     torch.cuda.empty_cache()
     storage_forms_bitwise()
+    k1, k3, k3q = ("quantize_rows", "decode_attention_update_stacked",
+                   "decode_attention_update_stacked_q8")
+    # (layers, quant, int8 KV, packed, kernels that must launch); a kernel's
+    # launches in the last line are those of the first serve that lists it
+    # under `counts` below
+    serves = {
+        "uniform": (4, "w8a8_g-1_sym", False, False, (k1, "gmm_w8a8", k3)),
+        "packed_w4": (4, "w4a8_g-1_sym", False, True, (k1, "gmm_w4a8_packed", k3)),
+        "mixed": (24, "mixed-packed", True, False,
+                  (k1, "gmm_w8a8", k3q, "gmm_mixed_packed")),
+        "a16_packed": (24, "w4a16_g128_asym", False, True,
+                       ("gmm_weight_only_packed", k3)),
+        "grouped": (4, "w4a4_g128_sym", False, False, ("gmm_w8a8_grouped", k3)),
+        "asym": (4, "w8a8_g-1_asym", False, False, (k1, "gmm_w8a8_asym", k3)),
+        "a16": (4, "w4a16_g-1_sym", False, False, ("gmm_weight_only", k3)),
+        "flex": (4, "flex-shared-grouped", False, False, ("gmm_w8a8_grouped", k3)),
+        "flex_a16": (4, "flex-shared-a16", False, False,
+                     ("gmm_w8a8_grouped", "gmm_weight_only", k3)),
+    }
+    ran = {}
+    for name, (layers, quant, int8_kv, pack, expect) in serves.items():
+        torch.cuda.empty_cache()
+        ran[name] = serve(layers, quant, int8_kv, expect, pack)
+    # the flex serves go through K8 only: no K1, K2 or K9 for the routed
+    # experts, and the grouped shared expert adds two K8 launches a layer
+    if ran["flex"]["gmm_w8a8_grouped"] != 2 * ran["grouped"]["gmm_w8a8_grouped"]:
+        raise AssertionError("the grouped shared expert did not go through K8: "
+                             f"{ran['flex']} against {ran['grouped']}")
     torch.cuda.empty_cache()
-    k3, k3q = "decode_attention_update_stacked", "decode_attention_update_stacked_q8"
-    uniform = serve(4, "w8a8_g-1_sym", False, ("quantize_rows", "gmm_w8a8", k3))
+    bench_entry_point(["--quant", "mixed-packed", "--int8-kv"],
+                      (k1, "gmm_w8a8", "gmm_mixed_packed", k3q))
     torch.cuda.empty_cache()
-    packed_w4 = serve(4, "w4a8_g-1_sym", False,
-                      ("quantize_rows", "gmm_w4a8_packed", k3))
-    torch.cuda.empty_cache()
-    mixed = serve(24, "mixed-packed", True,
-                  ("quantize_rows", "gmm_w8a8", k3q, "gmm_mixed_packed"))
-    torch.cuda.empty_cache()
-    bench_entry_point()
+    bench_entry_point(["--quant", "w4a16_g128_asym"], ("gmm_weight_only", k3))
     # one path per number: a kernel's launches are those of the full-depth
-    # mixed serve where that serve runs it, else of the 4-layer serve that does
-    launches = {name: (mixed[name], "serve mixed-packed int8-kv 24 layers")
-                for name in KERNEL_SOURCES}
-    launches[k3] = (uniform[k3], "serve w8a8_g-1_sym 4 layers")
-    launches["gmm_w4a8_packed"] = (packed_w4["gmm_w4a8_packed"],
-                                   "serve w4a8_g-1_sym packed 4 layers")
+    # serve that runs it, else of the 4-layer serve that does
+    counts = {"mixed": (k1, "gmm_w8a8", k3q, "gmm_mixed_packed"),
+              "uniform": (k3,), "packed_w4": ("gmm_w4a8_packed",),
+              "a16_packed": ("gmm_weight_only_packed",),
+              "grouped": ("gmm_w8a8_grouped",), "asym": ("gmm_w8a8_asym",),
+              "a16": ("gmm_weight_only",)}
+    launches = {}
+    for name, kernel_names in counts.items():
+        layers, quant, int8_kv, pack, _ = serves[name]
+        label = (f"serve {quant}{' packed' if pack else ''}"
+                 f"{' int8-kv' if int8_kv else ''} {layers} layers")
+        for kn in kernel_names:
+            launches[kn] = (ran[name][kn], label)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name][0], "launches_of": launches[name][1],

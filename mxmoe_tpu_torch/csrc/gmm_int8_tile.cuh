@@ -1,7 +1,8 @@
 // Device code shared by the int8 grouped GEMMs over expert-sorted rows:
-// K2 gmm_w8a8 (gmm_w8a8.cu), K4 gmm_mixed_packed (gmm_mixed_packed.cu) and
-// K5 gmm_w4a8_packed (gmm_w4a8_packed.cu). One templated kernel; the
-// template parameter says how an expert's weights are stored:
+// K2 gmm_w8a8 (gmm_w8a8.cu), K4 gmm_mixed_packed (gmm_mixed_packed.cu),
+// K5 gmm_w4a8_packed (gmm_w4a8_packed.cu) and K9 gmm_w8a8_asym
+// (gmm_w8a8_asym.cu). One templated kernel; a template parameter says how
+// an expert's weights are stored:
 //
 //   kInt8Stacked    rhs [E, K, N] int8; expert g at g * K * N
 //   kPackedStacked  rhs [E, K/2, N] bytes, every expert nibble-packed
@@ -18,10 +19,17 @@
 //
 //   out[r, n] = OutT( (float)(sum_k lhs[r,k] * w[e,k,n]) * s_a[r] * s_b[e,n] )
 //
-// Schedule (unchanged from the first K2): grid = n-tiles x (cdiv(M,BM) +
-// E - 1) logical m-tiles, a static bound. Each block reads group_sizes from
-// device memory, finds its (expert, m-tile) pair itself and exits when it
-// has none, so the host never syncs on the routing. Rows outside the
+// and with kAsym (asymmetric weights in re-centred signed storage, w = q *
+// s_b + zp) the zero-point term from the int32 row sums of the activations:
+//
+//   out[r, n] = OutT( that + (float)(sum_k lhs[r,k]) * s_a[r] * zp[e,n] )
+//
+// The row sums come from the A fragments the MMAs already hold (dp4a
+// against ones, then a sum over the four lanes that share a row). The
+// grouped-scale GEMM K8 (gmm_w8a8_grouped.cu) reuses the tiles and
+// mma_k_tile_rs below with its own kernel.
+//
+// Schedule (gmm_tile_walk.cuh, unchanged from the first K2). Rows outside the
 // block's expert are zero-filled on load and masked on store. mma.sync
 // m16n8k32 s8.s8.s32: 4 warps, a 64 x 128 block tile, 32 x 64 per warp; K in
 // steps of 64. The [K, N] weight tile is transposed in registers
@@ -31,18 +39,15 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "gmm_tile_walk.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 128, BK = 64, kThreads = 128;
+constexpr int BM = 64, BN = 128, BK = 64;
 constexpr int A_STRIDE = BK + 16;       // bytes per A row in shared memory
 constexpr int B_STRIDE = BK / 4 + 4;    // 32-bit words per B column
 constexpr int A_TILE = BM * A_STRIDE;   // bytes
 constexpr int B_TILE = BN * B_STRIDE;   // 32-bit words
-constexpr int kMaxExperts = 1024;
 
 enum Storage { kInt8Stacked = 0, kRaggedMixed = 1, kPackedStacked = 2 };
 
@@ -53,20 +58,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) =
-      __halves2bfloat162(__float2bfloat16_rn(x), __float2bfloat16_rn(y));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-// four 4-bit codes, one per byte (bits 0..3) -> four sign-extended int8:
-// ((x & 0xF) ^ 8) - 8 per byte, written without a borrow between bytes
-__device__ __forceinline__ uint32_t sext4(uint32_t x) {
-  return x | ((x & 0x08080808u) * 0x1Eu);
 }
 
 // 4(k) x 4(n) byte unit in registers -> four K-contiguous words of B
@@ -82,35 +73,56 @@ __device__ __forceinline__ void store_b_unit(uint32_t* bcol,
   bcol[3 * B_STRIDE] = __byte_perm(t2, t3, 0x7632);
 }
 
-// one BK-deep k-step of the block tile: acc += As[64, BK] x Bs[BK, 128]
-__device__ __forceinline__ void mma_k_tile(const int8_t* As, const uint32_t* Bs,
-                                           int (&acc)[2][8][4], int wm, int wn,
-                                           int gr, int tq) {
+// one BK-deep k-step of a warp's tile: acc += As[16 * MI, BK] x Bs[BK, 64],
+// the warp's rows starting at wm, its columns at wn. With kRowSum, rsum[i][h]
+// also gathers this lane's share of sum_k As[row, k] for its rows wm + 16 i +
+// gr + 8 h (the four lanes of a quad hold a row's 32 bytes between them;
+// quad_sum adds them up).
+template <int MI, bool kRowSum>
+__device__ __forceinline__ void mma_k_tile_rs(const int8_t* As, const uint32_t* Bs,
+                                              int (&acc)[MI][8][4],
+                                              int (&rsum)[MI][2], int wm, int wn,
+                                              int gr, int tq) {
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 32) {
-    uint32_t a[2][4];
+    uint32_t a[MI][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int8_t* p = As + (wm + i * 16 + gr) * A_STRIDE + ks + tq * 4;
       a[i][0] = *reinterpret_cast<const uint32_t*>(p);
       a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE);
       a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
       a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE + 16);
+      if constexpr (kRowSum) {
+        rsum[i][0] = __dp4a((int)a[i][0], 0x01010101, rsum[i][0]);
+        rsum[i][0] = __dp4a((int)a[i][2], 0x01010101, rsum[i][0]);
+        rsum[i][1] = __dp4a((int)a[i][1], 0x01010101, rsum[i][1]);
+        rsum[i][1] = __dp4a((int)a[i][3], 0x01010101, rsum[i][1]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t* q = Bs + (wn + j * 8 + gr) * B_STRIDE + ks / 4 + tq;
       const uint32_t b0 = q[0], b1 = q[4];
-      mma_s8(acc[0][j], a[0], b0, b1);
-      mma_s8(acc[1][j], a[1], b0, b1);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) mma_s8(acc[i][j], a[i], b0, b1);
     }
   }
 }
 
-template <typename OutT, int kStorage>
+// a per-lane row-sum share -> the row's sum, in every lane of the quad; all
+// 32 lanes must call it
+__device__ __forceinline__ int quad_sum(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+template <typename OutT, int kStorage, bool kAsym>
 __global__ void __launch_bounds__(kThreads)
 gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
                 const int8_t* __restrict__ rhs, const float* __restrict__ s_b,
+                const float* __restrict__ zp,
                 const int* __restrict__ group_sizes,
                 const int* __restrict__ pflags,
                 const int* __restrict__ blk_offsets, OutT* __restrict__ out,
@@ -125,28 +137,7 @@ gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
   const int tid = threadIdx.x;
   for (int e = tid; e < E; e += kThreads) sizes[e] = group_sizes[e];
   __syncthreads();
-  if (tid == 0) {
-    // logical tile t -> (expert g, m-tile), in expert order
-    const int t = blockIdx.y;
-    int start = 0, tiles = 0, found = -1;
-    for (int g = 0; g < E; ++g) {
-      const int s = sizes[g];
-      if (s > 0) {
-        const int first = start / BM, last = (start + s - 1) / BM;
-        const int n = last - first + 1;
-        if (t < tiles + n) {
-          found = g;
-          tile_info[1] = first + (t - tiles);
-          tile_info[2] = start;
-          tile_info[3] = min(start + s, M);
-          break;
-        }
-        tiles += n;
-      }
-      start += s;
-    }
-    tile_info[0] = found;
-  }
+  if (tid == 0) find_tile<BM>(sizes, E, M, blockIdx.y, tile_info);
   __syncthreads();
   const int g = tile_info[0];
   if (g < 0) return;
@@ -175,6 +166,7 @@ gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
   const int gr = lane >> 2, tq = lane & 3;
 
   int acc[2][8][4];
+  int rsum[2][2] = {{0, 0}, {0, 0}};
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -252,15 +244,26 @@ gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
     store_tile();
     __syncthreads();
     if (k0 + BK < Kw) load_tile(k0 + BK);   // in flight during the MMAs
-    mma_k_tile(As, Bs, acc, wm, wn, gr, tq);
+    mma_k_tile_rs<2, kAsym>(As, Bs, acc, rsum, wm, wn, gr, tq);
     if constexpr (kStorage != kInt8Stacked) {
-      if (packed) mma_k_tile(As + A_TILE, Bs + B_TILE, acc, wm, wn, gr, tq);
+      if (packed)
+        mma_k_tile_rs<2, kAsym>(As + A_TILE, Bs + B_TILE, acc, rsum, wm, wn, gr,
+                                tq);
     }
     __syncthreads();
   }
+  if constexpr (kAsym) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rsum[i][h] = quad_sum(rsum[i][h]);
+  }
 
-  // epilogue: (acc * s_a) * s_b, rounded once to the output type
+  // epilogue: (acc * s_a) * s_b [+ (rsum * s_a) * zp], rounded once to the
+  // output type; the intrinsics keep the sum of products from contracting
+  // into an FMA, so the plain version's separate roundings are reproduced
   const float* sb = s_b + (size_t)g * N;
+  const float* zb = kAsym ? zp + (size_t)g * N : nullptr;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -272,32 +275,39 @@ gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
       for (int j = 0; j < 8; ++j) {
         const int col = n0 + wn + j * 8 + tq * 2;
         if (col >= N) continue;
-        const float x = (float)acc[i][j][2 * h] * sa * sb[col];
-        const float y = (float)acc[i][j][2 * h + 1] * sa * sb[col + 1];
+        float x = (float)acc[i][j][2 * h] * sa * sb[col];
+        float y = (float)acc[i][j][2 * h + 1] * sa * sb[col + 1];
+        if constexpr (kAsym) {
+          const float rs = __fmul_rn((float)rsum[i][h], sa);
+          x = __fadd_rn(x, __fmul_rn(rs, zb[col]));
+          y = __fadd_rn(y, __fmul_rn(rs, zb[col + 1]));
+        }
         store2(out + (size_t)row * N + col, x, y);
       }
     }
   }
 }
 
-template <typename OutT, int kStorage>
+template <typename OutT, int kStorage, bool kAsym>
 cudaError_t launch_typed(const int8_t* lhs, const float* s_a, const int8_t* rhs,
-                         const float* s_b, const int* gs, const int* pflags,
+                         const float* s_b, const float* zp, const int* gs,
+                         const int* pflags,
                          const int* blk, void* out, int M, int K, int N, int E,
                          cudaStream_t st) {
   if (M > 0) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM + E - 1);
-    gmm_int8_kernel<OutT, kStorage><<<grid, kThreads, 0, st>>>(
-        lhs, s_a, rhs, s_b, gs, pflags, blk, static_cast<OutT*>(out), M, K, N, E);
+    gmm_int8_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(
+        lhs, s_a, rhs, s_b, zp, gs, pflags, blk, static_cast<OutT*>(out), M, K, N,
+        E);
   }
   return cudaGetLastError();
 }
 
 // the C entry points' common body; pflags / blk_offsets may be null for the
-// stacked storages
-template <int kStorage>
+// stacked storages, zp (read only with kAsym) for symmetric weights
+template <int kStorage, bool kAsym = false>
 int gmm_int8_launch(const void* lhs, const void* s_a, const void* rhs,
-                    const void* s_b, const void* group_sizes,
+                    const void* s_b, const void* zp, const void* group_sizes,
                     const void* pflags, const void* blk_offsets, void* out,
                     int out_is_bf16, int M, int K, int N, int E, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -305,14 +315,15 @@ int gmm_int8_launch(const void* lhs, const void* s_a, const void* rhs,
   const int8_t* b = static_cast<const int8_t*>(rhs);
   const float* sa = static_cast<const float*>(s_a);
   const float* sb = static_cast<const float*>(s_b);
+  const float* z = static_cast<const float*>(zp);
   const int* gs = static_cast<const int*>(group_sizes);
   const int* pf = static_cast<const int*>(pflags);
   const int* blk = static_cast<const int*>(blk_offsets);
   cudaError_t e = out_is_bf16
-      ? launch_typed<__nv_bfloat16, kStorage>(a, sa, b, sb, gs, pf, blk, out, M,
-                                              K, N, E, st)
-      : launch_typed<float, kStorage>(a, sa, b, sb, gs, pf, blk, out, M, K, N,
-                                      E, st);
+      ? launch_typed<__nv_bfloat16, kStorage, kAsym>(a, sa, b, sb, z, gs, pf, blk,
+                                                     out, M, K, N, E, st)
+      : launch_typed<float, kStorage, kAsym>(a, sa, b, sb, z, gs, pf, blk, out,
+                                             M, K, N, E, st);
   return (int)e;
 }
 

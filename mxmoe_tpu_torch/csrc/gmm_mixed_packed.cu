@@ -27,7 +27,7 @@ extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
                                       const void* blk_offsets, void* out,
                                       int out_is_bf16, int M, int K, int N,
                                       int E, void* stream) {
-  return gmm_int8_launch<kRaggedMixed>(lhs, s_a, rhs_cat, s_b, group_sizes,
-                                       pflags, blk_offsets, out, out_is_bf16, M,
-                                       K, N, E, stream);
+  return gmm_int8_launch<kRaggedMixed>(lhs, s_a, rhs_cat, s_b, nullptr,
+                                       group_sizes, pflags, blk_offsets, out,
+                                       out_is_bf16, M, K, N, E, stream);
 }

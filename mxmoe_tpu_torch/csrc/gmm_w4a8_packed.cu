@@ -20,7 +20,7 @@ extern "C" int mxmoe_gmm_w4a8_packed(const void* lhs, const void* s_a,
                                      const void* group_sizes, void* out,
                                      int out_is_bf16, int M, int K, int N,
                                      int E, void* stream) {
-  return gmm_int8_launch<kPackedStacked>(lhs, s_a, rhs_packed, s_b, group_sizes,
-                                         nullptr, nullptr, out, out_is_bf16, M,
-                                         K, N, E, stream);
+  return gmm_int8_launch<kPackedStacked>(lhs, s_a, rhs_packed, s_b, nullptr,
+                                         group_sizes, nullptr, nullptr, out,
+                                         out_is_bf16, M, K, N, E, stream);
 }

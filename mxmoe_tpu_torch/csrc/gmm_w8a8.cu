@@ -28,7 +28,7 @@ extern "C" int mxmoe_gmm_w8a8(const void* lhs, const void* s_a,
                               const void* group_sizes, void* out,
                               int out_is_bf16, int M, int K, int N, int E,
                               void* stream) {
-  return gmm_int8_launch<kInt8Stacked>(lhs, s_a, rhs, s_b, group_sizes, nullptr,
-                                       nullptr, out, out_is_bf16, M, K, N, E,
-                                       stream);
+  return gmm_int8_launch<kInt8Stacked>(lhs, s_a, rhs, s_b, nullptr,
+                                       group_sizes, nullptr, nullptr, out,
+                                       out_is_bf16, M, K, N, E, stream);
 }

@@ -6,13 +6,24 @@ Layouts are the JAX package's: matmul weights [in, out] (a projection is
 ``x @ w``), expert weights [E, in, out] with gate/up fused as [E, H, 2N].
 A layer's params are ``{name: stacked[layer]}`` views.
 
-Ported branches of ``moe_ffn_ragged_quant`` (all symmetric per-channel
-w x a, K1 act quant -> grouped GEMM -> SwiGLU -> K1 -> grouped GEMM):
-uniform int8-stored (K2), uniform or mixed nibble-packed ``_q_packed`` (K5),
-per-expert mixed int8-stored (K2 with per-row activation bits) and mixed
-over the ragged packed buffer ``_qcat`` (K4). The shared expert runs in
-float or, real-quantized per channel, through K2 with one group. Every
-other branch raises ``NotImplementedError`` naming its ROADMAP item.
+Ported branches of ``moe_ffn_ragged_quant`` (act quant -> grouped GEMM ->
+SwiGLU -> act quant -> grouped GEMM), by what the layer's params hold:
+
+- per-channel symmetric w x a, K1 act quant: uniform int8-stored (K2),
+  uniform or mixed nibble-packed ``_q_packed`` (K5), per-expert mixed
+  int8-stored (K2 with per-row activation bits), mixed over the ragged packed
+  buffer ``_qcat`` (K4);
+- uniform per-channel asymmetric w x a (K1, K9); uniform grouped w x a,
+  symmetric or asymmetric (``quantize_act_grouped``, K8 without / with
+  ``rhs_zp``); a flex mixed family, int8-stored (``quantize_act_rows_flex``,
+  K8 with the family's ``_zp`` when it has one);
+- uniform weight-only a16, any group size, symmetric or asymmetric:
+  int8-stored (K6) or nibble-packed (K7), no act quant.
+
+The shared expert runs in float or, real-quantized, through K2 with one
+group (per-channel symmetric), K8 with one group (grouped / asymmetric) or K6
+with one group (all-a16). Every other branch raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +39,11 @@ from ..ops.dispatch import combine_tokens, gather_tokens, make_dispatch, route_t
 from ..ops.gmm_mixed_packed import gmm_mixed_packed
 from ..ops.gmm_w4a8_packed import gmm_w4a8_packed
 from ..ops.gmm_w8a8 import gmm_w8a8
+from ..ops.gmm_w8a8_asym import gmm_w8a8_asym
+from ..ops.gmm_w8a8_grouped import gmm_w8a8_grouped
+from ..ops.gmm_weight_only import gmm_weight_only
+from ..ops.gmm_weight_only_packed import gmm_weight_only_packed
+from ..quant.qparams import quantize_act_grouped, quantize_act_rows_flex
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -74,13 +90,17 @@ def _check_quant_domain(lp: dict, qcfg) -> bool:
     if not any(k in lp for k in _STORAGE_KEYS):
         raise ValueError("moe_ffn_ragged_quant: the layer carries no quantized "
                          f"expert weights (one of {_STORAGE_KEYS})")
-    if ("act_gsize_gateup" in lp or "act_gsize_down" in lp
-            or lp["expert_gate_up_sc"].shape[-2] != 1
-            or lp["expert_down_sc"].shape[-2] != 1):
-        raise NotImplementedError(
-            "grouped / asymmetric (flex) expert families need the flex form "
-            "of gmm_mixed_packed and gmm_w8a8_grouped (ROADMAP queue B)")
     if "act_bits_gateup" in lp:
+        for prefix, ag_key in (("expert_gate_up", "act_gsize_gateup"),
+                               ("expert_down", "act_gsize_down")):
+            flex = ag_key in lp
+            if flex and f"{prefix}_q" not in lp:
+                raise NotImplementedError(
+                    "a flex (grouped / asymmetric) family over packed storage "
+                    "needs the flex form of gmm_mixed_packed (ROADMAP queue B 3)")
+            if not flex and lp[f"{prefix}_sc"].shape[-2] != 1:
+                raise ValueError(f"{prefix}_sc holds grouped scales but the "
+                                 f"layer carries no {ag_key} marker")
         return True
     if "expert_gate_up_qcat" in lp:
         raise ValueError("a ragged packed buffer (expert_*_qcat) needs the "
@@ -88,26 +108,27 @@ def _check_quant_domain(lp: dict, qcfg) -> bool:
     if isinstance(qcfg, str):
         raise ValueError(f"MoEImpl.quant={qcfg!r} needs mixed params "
                          "(quantize_model_experts_mixed)")
-    if qcfg.a_bits >= 16:
-        raise NotImplementedError(
-            "weight-only (a16) experts need gmm_weight_only / "
-            "gmm_weight_only_packed (ROADMAP queue B)")
-    if not qcfg.a_sym:
-        raise NotImplementedError("asymmetric activations are not wired")
-    if qcfg.w_gsize != -1:
-        raise NotImplementedError(
-            "grouped schemes need gmm_w8a8_grouped (ROADMAP queue B)")
-    if not qcfg.w_sym:
-        raise NotImplementedError(
-            "asymmetric weights need gmm_w8a8_asym (ROADMAP queue B)")
+    if qcfg.a_bits < 16:
+        # activations are quantized symmetrically. As in the reference, the
+        # grouped quantizer never reads a_sym (a parsed "_asym" name means
+        # asymmetric weights there) while the per-token one refuses it
+        if not qcfg.a_sym and qcfg.w_gsize == -1:
+            raise NotImplementedError(
+                "asymmetric per-token activations are not wired (the reference "
+                "refuses them too); use a_sym=True with asymmetric weights")
+        if "expert_gate_up_q_packed" in lp and not (qcfg.w_sym
+                                                    and qcfg.w_gsize == -1):
+            raise ValueError("packed w x a storage needs symmetric per-channel "
+                             f"weights, got {qcfg.scheme_name}")
     return False
 
 
 def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
                          impl: MoEImpl) -> torch.Tensor:
-    """Real-quantized expert FFN: per-token act quant + int8 grouped GEMMs.
-    Per-expert bitwidths are data (the weight scales and the per-row clip
-    range of the activations), so a mixed layer is one launch per GEMM."""
+    """Real-quantized expert FFN: act quant + quantized grouped GEMMs.
+    Per-expert bitwidths, group sizes and zero points are data (the weight
+    scales and zp, the per-row clip range and group flag of the activations),
+    so a mixed layer is one launch per GEMM."""
     qcfg = impl.quant
     mixed = _check_quant_domain(lp, qcfg)
 
@@ -116,64 +137,124 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
                          cfg.routed_scaling_factor)
     disp = make_dispatch(routing, cfg.num_experts)
     xs = gather_tokens(x2d, disp)                                   # [T*k, H]
+    gs = disp.group_sizes
     if mixed:
         # output_size keeps repeat_interleave from reading the sizes on the host
         row_expert = torch.repeat_interleave(
             torch.arange(cfg.num_experts, device=xs.device),
-            disp.group_sizes.long(), output_size=xs.shape[0])
+            gs.long(), output_size=xs.shape[0])
 
-    def qgemm(acts, prefix, bits_key):
-        if mixed:
-            aq, asc = act_quant.quantize_rows(acts, lp[bits_key][row_expert])
-        else:
-            aq, asc = act_quant.quantize_rows_uniform(acts, int(qcfg.a_bits))
-        sc = lp[f"{prefix}_sc"]
+    def qgemm_mixed(acts, prefix, bits_key, ag_key):
+        sc, dt = lp[f"{prefix}_sc"], acts.dtype
+        row_bits = lp[bits_key][row_expert]
+        if ag_key in lp:
+            # flex family: bits, group size and symmetry are per-expert data
+            gsize = acts.shape[-1] // sc.shape[-2]
+            aq, asc = quantize_act_rows_flex(acts, row_bits,
+                                             lp[ag_key][:, 0][row_expert], gsize)
+            return gmm_w8a8_grouped(aq, asc, lp[f"{prefix}_q"], sc, gs,
+                                    gsize=gsize, rhs_zp=lp.get(f"{prefix}_zp"),
+                                    out_dtype=dt)
+        aq, asc = act_quant.quantize_rows(acts, row_bits)
         if f"{prefix}_qcat" in lp:
-            return gmm_mixed_packed(aq, asc, lp[f"{prefix}_qcat"], sc,
-                                    disp.group_sizes, lp[f"{prefix}_pf"],
-                                    lp[f"{prefix}_blk"], out_dtype=acts.dtype)
+            return gmm_mixed_packed(aq, asc, lp[f"{prefix}_qcat"], sc, gs,
+                                    lp[f"{prefix}_pf"], lp[f"{prefix}_blk"],
+                                    out_dtype=dt)
         if f"{prefix}_q_packed" in lp:
-            return gmm_w4a8_packed(aq, asc, lp[f"{prefix}_q_packed"], sc,
-                                   disp.group_sizes, out_dtype=acts.dtype)
-        return gmm_w8a8(aq, asc, lp[f"{prefix}_q"], sc, disp.group_sizes,
-                        out_dtype=acts.dtype)
+            return gmm_w4a8_packed(aq, asc, lp[f"{prefix}_q_packed"], sc, gs,
+                                   out_dtype=dt)
+        return gmm_w8a8(aq, asc, lp[f"{prefix}_q"], sc, gs, out_dtype=dt)
 
-    h = silu_mul(qgemm(xs, "expert_gate_up", "act_bits_gateup"))    # [T*k, N]
-    out = qgemm(h, "expert_down", "act_bits_down")                  # [T*k, H]
+    def qgemm_uniform(acts, prefix):
+        sc, zp, dt = lp[f"{prefix}_sc"], lp.get(f"{prefix}_zp"), acts.dtype
+        if qcfg.a_bits >= 16:
+            # weight-only: float activations against codes dequantized in
+            # the kernel
+            if zp is None:
+                zp = torch.zeros_like(sc)
+            if f"{prefix}_q_packed" in lp:
+                return gmm_weight_only_packed(acts, lp[f"{prefix}_q_packed"], sc,
+                                              zp, gs, gsize=qcfg.w_gsize,
+                                              out_dtype=dt)
+            return gmm_weight_only(acts, lp[f"{prefix}_q"], sc, zp, gs,
+                                   gsize=qcfg.w_gsize, out_dtype=dt)
+        if qcfg.w_gsize != -1:
+            # g128-class w x a: per-(token, k-group) act scales; asymmetric
+            # weights add their zero-point term inside the same launch
+            aq, asc = quantize_act_grouped(acts, int(qcfg.a_bits), qcfg.w_gsize)
+            return gmm_w8a8_grouped(aq, asc, lp[f"{prefix}_q"], sc, gs,
+                                    gsize=qcfg.w_gsize,
+                                    rhs_zp=None if qcfg.w_sym else zp,
+                                    out_dtype=dt)
+        aq, asc = act_quant.quantize_rows_uniform(acts, int(qcfg.a_bits))
+        if f"{prefix}_q_packed" in lp:
+            return gmm_w4a8_packed(aq, asc, lp[f"{prefix}_q_packed"], sc, gs,
+                                   out_dtype=dt)
+        if not qcfg.w_sym:
+            return gmm_w8a8_asym(aq, asc, lp[f"{prefix}_q"], sc, zp, gs,
+                                 out_dtype=dt)
+        return gmm_w8a8(aq, asc, lp[f"{prefix}_q"], sc, gs, out_dtype=dt)
+
+    if mixed:
+        h = silu_mul(qgemm_mixed(xs, "expert_gate_up", "act_bits_gateup",
+                                 "act_gsize_gateup"))               # [T*k, N]
+        out = qgemm_mixed(h, "expert_down", "act_bits_down", "act_gsize_down")
+    else:
+        h = silu_mul(qgemm_uniform(xs, "expert_gate_up"))
+        out = qgemm_uniform(h, "expert_down")                       # [T*k, H]
     return combine_tokens(out, disp, x2d.shape[0])
 
 
-def _shared_expert_int8(x2d: torch.Tensor, lp: dict) -> torch.Tensor:
-    """Real-quantized shared expert, per-channel symmetric w x a: per-token
-    act quant (K1) and the dense int8 product as K2 with one group. The
-    int32 sum is exact, so this equals the reference's K-split int8 dots."""
-    if (lp["shared_gate_up_sc"].shape[-2] != 1 or "shared_gate_up_zp" in lp
-            or "shared_down_zp" in lp):
-        raise NotImplementedError(
-            "a grouped / asymmetric shared expert needs gmm_w8a8_grouped "
-            "(ROADMAP queue B)")
-    if "shared_wo" in lp:
-        raise NotImplementedError(
-            "a weight-only (a16) shared expert needs gmm_weight_only "
-            "(ROADMAP queue B)")
+def _shared_expert_quant(x2d: torch.Tensor, lp: dict) -> torch.Tensor:
+    """Real-quantized shared expert, each dense product a grouped GEMM with
+    one group. Per-channel symmetric w x a: per-token act quant (K1) and K2
+    (the int32 sum is exact, so this equals the reference's K-split int8
+    dots). Grouped / asymmetric w x a: per-token act quant with the scale
+    replicated over the k-groups, and K8. All-a16 (``shared_wo``): K6."""
     t = x2d.shape[0]
-    bits = lp["act_bits_shared"]                                    # [2]
+    dt = x2d.dtype
     one_group = torch.full((1,), t, dtype=torch.int32, device=x2d.device)
 
+    def qdot_wo(acts, name):
+        sc = lp[f"{name}_sc"]
+        zp = lp.get(f"{name}_zp")
+        if zp is None:
+            zp = torch.zeros_like(sc)
+        return gmm_weight_only(acts, lp[f"{name}_q"][None], sc[None], zp[None],
+                               one_group, gsize=acts.shape[-1] // sc.shape[-2],
+                               out_dtype=dt)
+
+    if "shared_wo" in lp:
+        return qdot_wo(silu_mul(qdot_wo(x2d, "shared_gate_up")), "shared_down")
+
+    bits = lp["act_bits_shared"]                                    # [2]
+    grouped = (lp["shared_gate_up_sc"].shape[-2] > 1
+               or "shared_gate_up_zp" in lp or "shared_down_zp" in lp)
+    per_token = torch.full((t,), -1.0, device=x2d.device)
+
     def qdot(acts, name, b):
-        aq, asc = act_quant.quantize_rows(acts, b.expand(t))
-        return gmm_w8a8(aq, asc, lp[f"{name}_q"][None], lp[f"{name}_sc"][None],
-                        one_group, out_dtype=x2d.dtype)
+        sc, zp = lp[f"{name}_sc"], lp.get(f"{name}_zp")
+        if not grouped:
+            aq, asc = act_quant.quantize_rows(acts, b.expand(t))
+            return gmm_w8a8(aq, asc, lp[f"{name}_q"][None], sc[None], one_group,
+                            out_dtype=dt)
+        # act quant stays per token (the scale replicated over the groups)
+        gsize = acts.shape[-1] // sc.shape[-2]
+        aq, asc = quantize_act_rows_flex(acts, b.expand(t), per_token, gsize)
+        return gmm_w8a8_grouped(aq, asc, lp[f"{name}_q"][None], sc[None],
+                                one_group, gsize=gsize,
+                                rhs_zp=None if zp is None else zp[None],
+                                out_dtype=dt)
 
     return qdot(silu_mul(qdot(x2d, "shared_gate_up", bits[0])),
                 "shared_down", bits[1])
 
 
 def shared_expert_ffn(x2d: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tensor:
-    """Shared expert (float, or int8 when the params carry its codes), with
-    the qwen2_moe sigmoid gate."""
+    """Shared expert (float, or real-quantized when the params carry its
+    codes), with the qwen2_moe sigmoid gate."""
     if "shared_gate_up_q" in lp:
-        out = _shared_expert_int8(x2d, lp)
+        out = _shared_expert_quant(x2d, lp)
     elif "act_bits_shared" in lp:
         raise NotImplementedError(
             "the fake-quantized shared expert (layer-heterogeneous schemes) "

@@ -29,7 +29,7 @@ def _reject_flex(lhs_scale, rhs_scale, rhs_zp) -> None:
     if rhs_zp is not None or lhs_scale.shape[-1] != 1 or rhs_scale.shape[-2] != 1:
         raise NotImplementedError(
             "gmm_mixed_packed: grouped scales / rhs_zp need the flex form of "
-            "the kernel (ROADMAP queue B: gmm_mixed_packed flex form)")
+            "the kernel (ROADMAP queue B 3: gmm_mixed_packed flex form)")
 
 
 def gmm_mixed_packed_plain(lhs_q, lhs_scale, rhs_cat, rhs_scale, group_sizes,

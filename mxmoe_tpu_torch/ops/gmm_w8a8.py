@@ -53,9 +53,10 @@ def gmm_w8a8_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
 
 
 def check_int8_gmm_operands(name: str, lhs_q, lhs_scale, rhs, rhs_scale,
-                            group_sizes, out_dtype, extra=()) -> None:
-    """Argument checks shared by the int8 grouped GEMM wrappers (K2, K4, K5);
-    ``rhs`` is the weight storage, whose shape each wrapper checks itself."""
+                            group_sizes, out_dtype, extra=(), groups=1) -> None:
+    """Argument checks shared by the int8 grouped GEMM wrappers (K2, K4, K5,
+    K8, K9); ``rhs`` is the weight storage, whose shape each wrapper checks
+    itself. ``groups``: k-groups of the scales (1 = per-token x per-channel)."""
     req = kernels.require
     m, k = lhs_q.shape
     e, n = rhs_scale.shape[0], rhs_scale.shape[-1]
@@ -69,11 +70,13 @@ def check_int8_gmm_operands(name: str, lhs_q, lhs_scale, rhs, rhs_scale,
         f"{name}: scales must be float32")
     req(group_sizes.dtype == torch.int32 and group_sizes.shape == (e,),
         f"{name}: group_sizes must be int32 [E]")
-    req(lhs_scale.shape == (m, 1) and rhs_scale.shape == (e, 1, n),
+    req(lhs_scale.shape == (m, groups) and rhs_scale.shape == (e, groups, n),
         f"{name}: scales {tuple(lhs_scale.shape)} {tuple(rhs_scale.shape)} for "
-        f"lhs {tuple(lhs_q.shape)} (per-token x per-channel only)")
+        f"lhs {tuple(lhs_q.shape)} and {groups} k-group(s)")
     req(k % 16 == 0 and n % 4 == 0, f"{name}: K={k} % 16, N={n} % 4")
-    req(lhs_q.data_ptr() % 16 == 0 and rhs.data_ptr() % 4 == 0,
+    req(lhs_q.data_ptr() % 16 == 0 and rhs.data_ptr() % 4 == 0
+        and rhs_scale.data_ptr() % 16 == 0
+        and all(t.data_ptr() % 16 == 0 for t in extra),
         f"{name}: misaligned operand")
     req(e <= 1024, f"{name}: at most 1024 experts")
     req(out_dtype in (torch.bfloat16, torch.float32),

@@ -1,0 +1,100 @@
+"""Grouped-scale (g128-class) int8 x int8 grouped GEMM (port of
+``mxmoe_tpu/ops/pallas_gmm.py:gmm_w8a8_grouped``) — kernel K8,
+``csrc/gmm_w8a8_grouped.cu``.
+
+Scales come per k-group of ``gsize`` codes (G = K / gsize): ``lhs_scale``
+[M, G], ``rhs_scale`` and the optional ``rhs_zp`` [E, G, N]. Per row r of
+expert e, groups ascending, every f32 step rounded on its own:
+
+  acc  = 0
+  acc += (float(a[r, g] @ q[e, g]) * s_a[r, g]) * s_b[e, g]
+  acc += (float(sum(a[r, g])) * s_a[r, g]) * zp[e, g]        (with rhs_zp)
+  out[r] = acc -> out dtype
+
+The per-group integer sums are exact, so kernel and plain version agree
+bitwise. ``rhs_zp`` carries asymmetric weights (re-centred storage, ``w = q
+* s + zp``). Per-channel experts of a flex layer ride the same launch with
+their scales replicated over G; E = 1 is the dense product of a grouped or
+asymmetric shared expert. The TPU kernel's k-blocking (``bk``, a sum of
+per-block partial sums for K above 4096) is not carried over: the kernel
+walks K once in group order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .gmm_w8a8 import check_int8_gmm_operands
+
+
+def gmm_w8a8_grouped_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
+                           gsize=128, rhs_zp=None,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of K8 (exact per-group sums: int32 on the CPU,
+    float64 on a card; reads ``group_sizes`` on the host)."""
+    m, k = lhs_q.shape
+    n = rhs_q.shape[-1]
+    gsize = kernels.group_size(k, gsize, "gmm_w8a8_grouped")
+    g = k // gsize
+    acc_dtype = torch.int32 if lhs_q.device.type == "cpu" else torch.float64
+    out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, m)
+        if end > start:
+            a = lhs_q[start:end].reshape(end - start, g, gsize).to(acc_dtype)
+            w = rhs_q[e].reshape(g, gsize, n).to(acc_dtype)
+            part = (a.permute(1, 0, 2) @ w).to(torch.int32).float()   # [G, r, N]
+            rsum = a.sum(-1).to(torch.int32).float()                  # [r, G]
+            sa = lhs_scale[start:end]
+            acc = torch.zeros((end - start, n), dtype=torch.float32,
+                              device=lhs_q.device)
+            for j in range(g):
+                acc = acc + part[j] * sa[:, j:j + 1] * rhs_scale[e, j]
+                if rhs_zp is not None:
+                    acc = acc + (rsum[:, j:j + 1] * sa[:, j:j + 1]) * rhs_zp[e, j]
+            out[start:end] = acc.to(out_dtype)
+        start += size
+    return out
+
+
+def gmm_w8a8_grouped(
+    lhs_q: torch.Tensor,        # [M, K] int8 codes
+    lhs_scale: torch.Tensor,    # [M, K/gsize] f32 per-token-per-group scales
+    rhs_q: torch.Tensor,        # [E, K, N] int8 codes
+    rhs_scale: torch.Tensor,    # [E, K/gsize, N] f32
+    group_sizes: torch.Tensor,  # [E] int32, on the tensors' device
+    gsize: int = 128,           # -1: one group, all of K
+    rhs_zp: torch.Tensor | None = None,   # [E, K/gsize, N] f32
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Grouped-scale w x a int8 grouped matmul -> [M, N]."""
+    if lhs_q.device.type == "cpu":
+        return gmm_w8a8_grouped_plain(lhs_q, lhs_scale, rhs_q, rhs_scale,
+                                      group_sizes, gsize, rhs_zp, out_dtype)
+    req = kernels.require
+    m, k = lhs_q.shape
+    e, _, n = rhs_q.shape
+    gsize = kernels.group_size(k, gsize, "gmm_w8a8_grouped")
+    req(gsize == k or gsize % 64 == 0,
+        f"gmm_w8a8_grouped: gsize={gsize} must be K or a multiple of the "
+        "64-code k-tile (128 for the g128 schemes)")
+    check_int8_gmm_operands(
+        "gmm_w8a8_grouped", lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
+        out_dtype, extra=() if rhs_zp is None else (rhs_zp,), groups=k // gsize)
+    req(rhs_q.shape == (e, k, n) and rhs_scale.shape[0] == e,
+        f"gmm_w8a8_grouped: rhs {tuple(rhs_q.shape)} for K={k}")
+    req(rhs_zp is None or (rhs_zp.shape == rhs_scale.shape
+                           and rhs_zp.dtype == torch.float32),
+        "gmm_w8a8_grouped: rhs_zp must be float32 of rhs_scale's shape")
+    out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
+    err = kernels.lib().mxmoe_gmm_w8a8_grouped(
+        lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
+        rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
+        group_sizes.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
+        kernels.stream_ptr(lhs_q.device))
+    kernels.check(err, "gmm_w8a8_grouped")
+    kernels.launches["gmm_w8a8_grouped"] += 1
+    return out

@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
            "decode_attention_update_stacked_q8", "gmm_mixed_packed",
-           "gmm_w4a8_packed")
+           "gmm_w4a8_packed", "gmm_weight_only", "gmm_weight_only_packed",
+           "gmm_w8a8_grouped", "gmm_w8a8_asym")
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -64,6 +65,17 @@ _SIGNATURES = {
     # lhs, s_a, rhs_packed, s_b, group_sizes, out, out_is_bf16, M, K, N, E,
     # stream
     "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lhs, rhs_q | rhs_packed, scale, zp, group_sizes, out, out_is_bf16, M, K,
+    # N, E, gsize, stream
+    "mxmoe_gmm_weight_only": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mxmoe_gmm_weight_only_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _P],
+    # lhs, s_a, rhs, s_b, zp (may be null), group_sizes, out, out_is_bf16, M,
+    # K, N, E, gsize, stream
+    "mxmoe_gmm_w8a8_grouped": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P],
+    # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E, stream
+    "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -154,3 +166,12 @@ def require(cond: bool, msg: str) -> None:
     """Wrapper argument check: raises ValueError (survives ``python -O``)."""
     if not cond:
         raise ValueError(msg)
+
+
+def group_size(k: int, gsize: int, name: str) -> int:
+    """A wrapper's ``gsize`` argument (-1: one group, all of K) -> codes per
+    scale group, which must divide K."""
+    gsize = k if gsize == -1 else int(gsize)
+    require(gsize > 0 and k % gsize == 0,
+            f"{name}: K={k} is not a multiple of gsize={gsize}")
+    return gsize

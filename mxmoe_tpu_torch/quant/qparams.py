@@ -1,6 +1,7 @@
-"""Quantized expert-weight params and per-token activation quant (port of
-``mxmoe_tpu/quant/qparams.py``: the uniform quantizer and the per-channel
-symmetric domain of the per-expert mixed quantizer).
+"""Quantized expert-weight params and activation quant (port of
+``mxmoe_tpu/quant/qparams.py``: the uniform quantizer, the per-expert mixed
+quantizer with its flex families and shared-expert storage, and the
+per-token, per-group and flex activation quantizers).
 
 Uniform-scheme layout (per layer, stacked leading L axis like the float
 params):
@@ -11,11 +12,13 @@ params):
   expert_down_*      likewise with [L, E, N, H]
 
 Mixed layout (``quantize_model_experts_mixed``): the same ``_q/_sc/_zp``
-keys, or with ``pack_w4`` the ragged buffer ``expert_*_qcat`` [L, R, N] with
-``_blk`` / ``_pf`` [L, E] and ``_sc``; plus ``act_bits_gateup`` /
-``act_bits_down`` [L, E], and for a real-quantized shared expert
-``shared_*_q`` [L, K, N], ``shared_*_sc`` [L, 1, N], ``act_bits_shared``
-[L, 2].
+keys (a flex family: [L, E, G, N] scales, ``_zp`` only with an asymmetric
+scheme, plus ``act_gsize_*`` [L, E, G]), or with ``pack_w4`` the ragged
+buffer ``expert_*_qcat`` [L, R, N] with ``_blk`` / ``_pf`` [L, E] and
+``_sc``; plus ``act_bits_gateup`` / ``act_bits_down`` [L, E], and for a
+real-quantized shared expert ``shared_*_q`` [L, K, N], ``shared_*_sc``
+[L, G, N], optional ``shared_*_zp``, ``act_bits_shared`` [L, 2] and the
+``shared_wo`` marker of an all-a16 one.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .packing import pack_ragged_stack, quantize_weight_kn
+from .quantizer import act_gsize_arrays
 from .schemes import QLinearConfig, QModelConfig, flex_family_info
 
 
@@ -72,6 +76,48 @@ def quantize_act_per_row_bits(x: torch.Tensor, bits_per_row: torch.Tensor):
     return q.to(torch.int8), scale[:, None]
 
 
+def quantize_act_grouped(x: torch.Tensor, bits: int, gsize: int):
+    """Per-token-per-k-group symmetric quant -> (int8 [M,K], f32 [M,K//g]):
+    the activation side of the g128-class w x a schemes.
+
+    The scale is ``amax * f32(1 / upper)``, not ``amax / upper`` (one ulp
+    apart on about half the scales): the reference reaches this function
+    compiled, in the serving forward, where the division by a constant
+    becomes that multiply. The codes divide by the scale."""
+    m, k = x.shape
+    if k % gsize != 0:
+        raise ValueError(f"quantize_act_grouped: K={k} % gsize={gsize}")
+    upper = float((1 << (bits - 1)) - 1)
+    xg = x.float().reshape(m, k // gsize, gsize)
+    amax = torch.clamp(xg.abs().amax(-1), min=1e-8)
+    scale = amax * torch.tensor(1.0 / upper, dtype=torch.float32, device=x.device)
+    q = torch.round(xg / scale[..., None]).reshape(m, k)
+    return q.to(torch.int8), scale
+
+
+def quantize_act_rows_flex(x: torch.Tensor, bits_per_row: torch.Tensor,
+                           gflags_per_row: torch.Tensor, gsize: int):
+    """Per-row act quant of the flex mixed path -> (int8 [M,K], f32 [M,G]).
+
+    Rows with ``gflags_per_row <= 0`` quantize per token (their scale
+    replicated over the G = K // gsize groups; codes equal
+    ``quantize_act_per_row_bits``), rows with a positive flag per k-group of
+    ``gsize``. Bitwidth and group size are data, so one array pair feeds the
+    grouped kernel whatever each expert's scheme. The per-row divisor is an
+    array, so compiled and op-by-op reference agree: a true division."""
+    m, k = x.shape
+    if k % gsize != 0:
+        raise ValueError(f"quantize_act_rows_flex: K={k} % gsize={gsize}")
+    g = k // gsize
+    xf = x.float().reshape(m, g, gsize)
+    amax_g = xf.abs().amax(-1)                                   # [M, G]
+    amax_row = amax_g.amax(-1, keepdim=True).expand(m, g)
+    amax = torch.where(gflags_per_row[:, None] > 0, amax_g, amax_row)
+    scale = torch.clamp(amax, min=1e-8) / _row_upper(bits_per_row)[:, None]
+    q = torch.round(xf / scale[..., None]).reshape(m, k)
+    return q.to(torch.int8), scale
+
+
 def quantize_model_experts_uniform(params: dict, cfg: QLinearConfig) -> dict:
     """Float params -> params whose routed expert weights are quantized
     (``expert_*`` replaced by ``expert_*_q/_sc/_zp``).
@@ -99,21 +145,23 @@ def quantize_model_experts_uniform(params: dict, cfg: QLinearConfig) -> dict:
 
 
 def _check_mixed_scheme(c: QLinearConfig, what: str) -> None:
-    """The ported mixed domain: per-channel symmetric w x a, both <= 8 bit."""
+    """The ported routed-expert domain of a mixed layer: integer weights and
+    activations of at most 8 bits, any group size, symmetric or not."""
     if c.w_bits > 8:
         raise ValueError(f"mixed real-quant needs integer weights w<=8, got "
                          f"{c.scheme_name} for {what}")
     if c.a_bits >= 16:
         raise NotImplementedError(
             f"weight-only (a16) experts in a mixed layer ({c.scheme_name} for "
-            f"{what}) need gmm_mixed_wo_wxa / gmm_weight_only (ROADMAP queue B)")
+            f"{what}) need gmm_mixed_wo_wxa (ROADMAP queue B 9)")
     if c.a_bits > 8:
         raise ValueError(f"activation width {c.a_bits} of {c.scheme_name}")
-    if c.w_gsize != -1 or c.a_gsize != -1 or not c.w_sym:
-        raise NotImplementedError(
-            f"grouped / asymmetric schemes in a mixed layer ({c.scheme_name} "
-            f"for {what}) need the flex form of gmm_mixed_packed and "
-            "gmm_w8a8_grouped (ROADMAP queue B)")
+
+
+def _replicate_groups(t: torch.Tensor, gdim: int) -> torch.Tensor:
+    """[.., G0, N] scales or zero points -> [.., gdim, N]: a per-channel row
+    (or a coarser grouping) repeated over the family's finer groups (exact)."""
+    return t.repeat_interleave(gdim // t.shape[-2], dim=-2)
 
 
 def quantize_model_experts_mixed(params: dict, model_cfg,
@@ -121,26 +169,41 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
                                  pack_w4: bool = False) -> dict:
     """Real-quantize routed experts with per-expert mixed schemes.
 
-    Every w<=8 symmetric per-channel scheme shares the int8 kernels:
-    per-expert bitwidths live in the scales (weights) and the per-row clip
-    range (activations), so a mixed layer is one grouped-GEMM launch. Emits
-    ``expert_*_q/_sc/_zp`` plus ``act_bits_gateup`` / ``act_bits_down``
-    [L, E]. ``pack_w4=True`` stores w<=4 experts nibble-packed in a
-    per-layer ragged buffer (``expert_*_qcat`` [L, R, N] + ``_blk`` / ``_pf``
-    [L, E]) consumed by ``ops.gmm_mixed_packed``: bitwise the same outputs
-    from about half the bytes for those experts.
+    Every w<=8, a<=8 scheme shares the int8 kernels: per-expert bitwidths
+    live in the scales (weights) and the per-row clip range (activations),
+    so a mixed layer is one grouped-GEMM launch. Emits ``expert_*_q/_sc/_zp``
+    plus ``act_bits_gateup`` / ``act_bits_down`` [L, E].
 
-    A shared expert configured at index E (w<=8, a<=8 in every layer) is
-    real-quantized too: ``shared_*_q/_sc`` and ``act_bits_shared`` [L, 2].
+    A linear family whose scheme set holds a grouped or asymmetric scheme is
+    FLEX (``schemes.flex_family_info``): its scales (and, with an asymmetric
+    scheme, zero points) are stored [L, E, G, N] at the family's finest group
+    size, per-channel experts replicated over G; ``_zp`` is dropped when no
+    scheme is asymmetric; ``act_gsize_*`` [L, E, G] mark it for the forward,
+    which takes ``ops.gmm_w8a8_grouped``. A per-channel symmetric family
+    keeps the compact [L, E, 1, N] layout with its all-zero ``_zp``.
+
+    ``pack_w4=True`` stores w<=4 experts nibble-packed in a per-layer ragged
+    buffer (``expert_*_qcat`` [L, R, N] + ``_blk`` / ``_pf`` [L, E]) consumed
+    by ``ops.gmm_mixed_packed``: bitwise the same outputs from about half
+    the bytes for those experts. Per-channel symmetric families only: a flex
+    family raises (the flex form of that kernel is not ported).
+
+    A shared expert configured at index E with integer weights in every
+    layer is real-quantized too, at the finest group size its layers use:
+    ``shared_*_q`` [L, K, N], ``shared_*_sc`` [L, G, N], ``shared_*_zp`` when
+    a layer's scheme is asymmetric, ``act_bits_shared`` [L, 2], and the
+    marker ``shared_wo`` [L, 1] when every layer is a16 (weight-only). A
+    shared expert that is a16 in some layers and a<=8 in others takes the
+    reference's fake-quant fallback, which is not ported and raises.
 
     Quantizes one layer at a time on the params' device, so only one
     layer's f32 working set exists at once. Scales are rounded as the
     reference's op-by-op mixed quantizer rounds them (a true division).
-    Grouped, asymmetric and a16 schemes raise ``NotImplementedError``.
     """
     e = model_cfg.num_experts
     layers = dict(params["layers"])
     num_layers = layers["router"].shape[0]
+    dev = layers["router"].device
     new = {}
     for name, lin in (("expert_gate_up", "gate"), ("expert_down", "down")):
         w = layers.pop(name)                          # [L, E, K, N]
@@ -149,16 +212,19 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
             for ei in range(e):
                 _check_mixed_scheme(qmodel_cfg.layer(l).experts[str(ei)].qmap()[lin],
                                     f"layer {l} expert {ei} {lin}")
-        any_flex, _, _ = flex_family_info(qmodel_cfg, num_layers, e, lin, kdim)
-        if any_flex:    # unreachable after the check above; keeps them tied
+        any_flex, g_min, any_asym = flex_family_info(qmodel_cfg, num_layers, e,
+                                                     lin, kdim)
+        if any_flex and pack_w4:
             raise NotImplementedError(
-                "flex (grouped / asymmetric) mixed families are not ported "
-                "(ROADMAP queue B: gmm_mixed_packed flex form)")
-        sc = torch.empty((num_layers, e, 1, n), dtype=torch.float32,
+                f"pack_w4 over a flex (grouped / asymmetric) {lin} family needs "
+                "the flex form of gmm_mixed_packed (ROADMAP queue B 3)")
+        gdim = kdim // g_min if any_flex else 1
+        sc = torch.empty((num_layers, e, gdim, n), dtype=torch.float32,
                          device=w.device)
+        zp = torch.zeros_like(sc)
 
         def layer_codes():
-            """One layer's int8 codes [E, K, N] at a time; fills sc."""
+            """One layer's int8 codes [E, K, N] at a time; fills sc and zp."""
             for l in range(num_layers):
                 lcfg = qmodel_cfg.layer(l)
                 buckets: dict[str, list[int]] = {}
@@ -172,7 +238,8 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
                     qp = quantize_expert_weights(w[l][idx], c,
                                                  scale_by_reciprocal=False)
                     q_l[idx] = qp.q
-                    sc[l, idx] = qp.scale
+                    sc[l, idx] = _replicate_groups(qp.scale, gdim)
+                    zp[l, idx] = _replicate_groups(qp.zp, gdim)
                 yield q_l
 
         if pack_w4:
@@ -189,51 +256,64 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
                 q[l] = q_l
             new[f"{name}_q"] = q
             new[f"{name}_sc"] = sc
-            new[f"{name}_zp"] = torch.zeros_like(sc)
+            if any_asym or not any_flex:
+                # an all-symmetric flex family drops zp, so the grouped
+                # kernel runs without its row-sum term
+                new[f"{name}_zp"] = zp
         del w
 
     def bits_of(lin):
         return torch.tensor(
             [[float(qmodel_cfg.layer(l).experts[str(ei)].qmap()[lin].a_bits)
               for ei in range(e)] for l in range(num_layers)],
-            dtype=torch.float32, device=layers["router"].device)
+            dtype=torch.float32, device=dev)
 
     new["act_bits_gateup"] = bits_of("gate")
     new["act_bits_down"] = bits_of("down")
+    new.update(act_gsize_arrays(qmodel_cfg, model_cfg, num_layers, dev))
 
     # shared expert (config index E): real-quantized when every layer
-    # configures it with integer weights and a<=8
+    # configures it with integer weights and all layers are a<=8 or all a16
     shared = [qmodel_cfg.layer(l).experts.get(str(e)) for l in range(num_layers)]
     if all(c is not None for c in shared) and "shared_gate_up" in layers:
         qmaps = [c.qmap() for c in shared]
         cs = [qm[lin] for qm in qmaps for lin in ("gate", "down")]
         w_int = all(c.w_bits <= 8 for c in cs)
-        if w_int and all(c.a_bits >= 16 for c in cs):
-            raise NotImplementedError(
-                "a weight-only (a16) shared expert needs gmm_weight_only "
-                "(ROADMAP queue B)")
-        if not (w_int and all(c.a_bits <= 8 for c in cs)):
+        all_a16 = w_int and all(c.a_bits >= 16 for c in cs)
+        if not (w_int and (all_a16 or all(c.a_bits <= 8 for c in cs))):
             raise NotImplementedError(
                 "a shared expert whose schemes mix a16 with a<=8 across layers "
                 "(or keep float weights) takes the fake-quant fallback, which "
                 "is not ported (ROADMAP queue A: quantizer)")
-        for l, qm in enumerate(qmaps):
-            for lin in ("gate", "down"):
-                _check_mixed_scheme(qm[lin], f"layer {l} shared expert {lin}")
         for name, lin in (("shared_gate_up", "gate"), ("shared_down", "down")):
             w = layers.pop(name)                      # [L, K, N]
+            kdim, n = w.shape[-2], w.shape[-1]
+            # stored at the finest group size across layers, as the routed
+            # flex families are
+            g_min = min(kdim if qm[lin].w_gsize == -1 else qm[lin].w_gsize
+                        for qm in qmaps)
+            gdim = kdim // g_min
             q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-            sc = torch.empty((num_layers, 1, w.shape[-1]), dtype=torch.float32,
+            sc = torch.empty((num_layers, gdim, n), dtype=torch.float32,
                              device=w.device)
+            zp = torch.empty_like(sc)
             for l in range(num_layers):
                 qp = quantize_expert_weights(w[l][None], qmaps[l][lin],
                                              scale_by_reciprocal=False)
-                q[l], sc[l] = qp.q[0], qp.scale[0]
+                q[l] = qp.q[0]
+                sc[l] = _replicate_groups(qp.scale[0], gdim)
+                zp[l] = _replicate_groups(qp.zp[0], gdim)
             layers[f"{name}_q"] = q
             layers[f"{name}_sc"] = sc
+            if any(not qm[lin].w_sym for qm in qmaps):
+                layers[f"{name}_zp"] = zp
         layers["act_bits_shared"] = torch.tensor(
             [[float(qm["gate"].a_bits), float(qm["down"].a_bits)] for qm in qmaps],
-            dtype=torch.float32, device=layers["router"].device)
+            dtype=torch.float32, device=dev)
+        if all_a16:
+            # a static marker: its presence selects the weight-only branch
+            layers["shared_wo"] = torch.zeros((num_layers, 1), dtype=torch.float32,
+                                              device=dev)
 
     layers.update(new)
     return {**params, "layers": layers}

@@ -6,9 +6,12 @@
 
 Runs the real qwen2_moe layer widths (seeded random weights) at the given
 depth on one card: prefill of all slots, then real greedy decode that
-carries tokens and cache. ``--quant`` is a uniform scheme, or ``mixed`` /
-``mixed-packed``: alternating w4a4 / w8a8 experts (int8-stored, or the w4
-ones nibble-packed) with the shared expert real-quantized w8a8.
+carries tokens and cache. ``--quant`` is a uniform scheme (w x a per channel
+or grouped, symmetric or asymmetric weights, e.g. ``w8a8_g-1_sym``,
+``w4a4_g128_sym``, ``w8a8_g-1_asym``; or weight-only, e.g.
+``w4a16_g128_asym``), or ``mixed`` / ``mixed-packed``: alternating w4a4 /
+w8a8 experts (int8-stored, or the w4 ones nibble-packed) with the shared
+expert real-quantized w8a8.
 
 Timed with CUDA events around a fixed number of steps ended by a
 synchronize (the host clock on ``--device cpu``); the reference's
@@ -61,6 +64,11 @@ def quantize_for_serving(params: dict, cfg, quant: str, shared_quant: bool = Tru
             "--quant none: the bf16 ragged MoE path is not ported yet "
             "(ROADMAP queue A: moe_ffn_ragged)")
     qc = parse_scheme(quant)
+    if qc.a_bits < 16 and not qc.a_sym:
+        # an "_asym" name asks for asymmetric weights; the real-quantized
+        # path quantizes activations symmetrically (as the mixed quantizer
+        # reads the same names)
+        qc = dataclasses.replace(qc, a_sym=True)
     return quantize_model_experts_uniform(params, qc), MoEImpl(quant=qc)
 
 

@@ -21,7 +21,9 @@ def main(argv=None):
                     help="tiny | qwen2_moe | qwen2_moe_57b | mixtral")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--quant", default="w8a8_g-1_sym",
-                    help="uniform expert scheme, e.g. w8a8_g-1_sym")
+                    help="what bench_serving --quant takes: a uniform expert "
+                         "scheme, e.g. w8a8_g-1_sym or w4a16_g128_asym, or "
+                         "mixed | mixed-packed")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--chunk", type=int, default=16,
@@ -38,10 +40,8 @@ def main(argv=None):
     import torch
 
     from ..models import configs
-    from ..models.layers import MoEImpl
     from ..models.model import init_params
-    from ..quant.qparams import quantize_model_experts_uniform
-    from ..quant.schemes import parse_scheme
+    from .bench_serving import quantize_for_serving
     from .engine import Engine, EngineConfig
 
     cfg = (configs.tiny_qwen2_moe(num_experts=8, num_layers=2)
@@ -51,12 +51,11 @@ def main(argv=None):
     device = torch.device(args.device or "cuda")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device=device)
-    qcfg = parse_scheme(args.quant)
-    params = quantize_model_experts_uniform(params, qcfg)
+    params, impl = quantize_for_serving(params, cfg, args.quant)
     eng = Engine(params, cfg, EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
         prefill_chunk=min(256, args.max_len // 2),
-        temperature=args.temperature, seed=args.seed), MoEImpl(quant=qcfg))
+        temperature=args.temperature, seed=args.seed), impl)
     prompt = [int(t) % cfg.vocab_size for t in args.prompt.split()]
 
     def _sync():

@@ -1,8 +1,9 @@
-"""The port's CUDA kernels (K1-K5, K3 in its bf16- and int8-cache forms)
+"""The port's CUDA kernels (K1-K9, K3 in its bf16- and int8-cache forms)
 against their plain PyTorch versions on a card, over shapes and dtypes beyond
 the serving path's: GQA groups, f32 operands, ragged and empty expert groups,
 K not a multiple of the k-tile, S not a multiple of the S-chunk, every mix of
-int8-stored and nibble-packed experts.
+int8-stored and nibble-packed experts, one and many k-groups, a K whose half
+is no multiple of the group size.
 
 Needs a CUDA card and nvcc; skips elsewhere. This file imports no jax, so
 it also runs where jax is absent:
@@ -13,13 +14,19 @@ Tolerances: K1 codes/scales and K2 / K4 / K5 outputs bitwise (K4 and K5 also
 against K2 on the unpacked codes); K3 and K3q caches (codes and scales)
 bitwise and their output, per slot b, within 1e-5 * max|ref[b]| (online
 softmax sums in another order), plus one bf16 ulp of the reference element
-for bf16 outputs (both round the same f32 value once)."""
+for bf16 outputs (both round the same f32 value once). K8 and K9 bitwise
+(exact int32 group sums, the plain version's f32 steps in its order). K6 and
+K7 within ``gmm_weight_only.error_over_bound`` (f32 accumulation over K terms
+in any order, + 1 bf16 ulp for a bf16 output) of the float64 product of the
+same bf16 weights, K7 bitwise K6 on the unpacked codes; a reference with one
+k-group's zero point dropped or one group's scales shifted must fail it."""
 
 import pytest
 import torch
 
 from mxmoe_tpu_torch.ops import (act_quant, gmm_mixed_packed, gmm_w4a8_packed,
-                                 gmm_w8a8, kernels)
+                                 gmm_w8a8, gmm_w8a8_asym, gmm_w8a8_grouped,
+                                 gmm_weight_only, gmm_weight_only_packed, kernels)
 from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
 from mxmoe_tpu_torch.serving import decode_attention as da
 
@@ -152,6 +159,140 @@ def test_gmm_w4a8_packed_kernel_bitwise(dev, sizes, k, n, out):
     torch.cuda.synchronize()
     assert kernels.launches["gmm_w4a8_packed"] == before + 1
     assert torch.equal(got, ref) and torch.equal(got, k2) and torch.equal(got, k4)
+
+
+def _grouped_operands(dev, sizes, k, n, groups):
+    g = torch.Generator(device=dev).manual_seed(k + n + len(sizes) + groups)
+    m, e = sum(sizes), len(sizes)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, groups), generator=g, device=dev) * 0.05 + 1e-3
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((e, groups, n), generator=g, device=dev) * 0.01 + 1e-4
+    wzp = torch.randn((e, groups, n), generator=g, device=dev) * 0.02
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return aq, asc, wq, wsc, wzp, gs
+
+
+@pytest.mark.parametrize("sizes,k,n,gsize,out", [
+    ([5, 0, 19, 8, 0, 70], 384, 48, 128, torch.bfloat16),     # 3 groups, odd
+    ([0, 0, 130, 1, 0], 1408, 2048, 128, torch.float32),      # 11 groups
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, 128, torch.bfloat16),
+    ([4], 5632, 2048, 128, torch.bfloat16),                   # E = 1, 44 groups
+    ([33, 0, 2], 96, 64, -1, torch.float32),                  # one group, K % 64 != 0
+    ([7, 40], 256, 32, 64, torch.bfloat16),                   # a group per k-tile
+])
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "zp"])
+def test_gmm_w8a8_grouped_kernel_bitwise(dev, sizes, k, n, gsize, out, asym):
+    groups = 1 if gsize == -1 else k // gsize
+    aq, asc, wq, wsc, wzp, gs = _grouped_operands(dev, sizes, k, n, groups)
+    zp = wzp if asym else None
+    before = kernels.launches["gmm_w8a8_grouped"]
+    got = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=gsize,
+                                            rhs_zp=zp, out_dtype=out)
+    ref = gmm_w8a8_grouped.gmm_w8a8_grouped_plain(aq, asc, wq, wsc, gs, gsize, zp,
+                                                  out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_w8a8_grouped"] == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("sizes,k,n,out", [
+    ([5, 0, 19, 8, 0, 70], 96, 48, torch.bfloat16),
+    ([0, 0, 130, 1, 0], 1408, 2048, torch.float32),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, torch.bfloat16),
+])
+def test_gmm_w8a8_asym_kernel_bitwise(dev, sizes, k, n, out):
+    aq, asc, wq, wsc, wzp, gs = _grouped_operands(dev, sizes, k, n, 1)
+    before = kernels.launches["gmm_w8a8_asym"]
+    got = gmm_w8a8_asym.gmm_w8a8_asym(aq, asc, wq, wsc, wzp, gs, out_dtype=out)
+    ref = gmm_w8a8_asym.gmm_w8a8_asym_plain(aq, asc, wq, wsc, wzp, gs, out_dtype=out)
+    # one k-group with a zero point: the same function through K8
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=-1,
+                                           rhs_zp=wzp, out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_w8a8_asym"] == before + 1
+    assert torch.equal(got, ref) and torch.equal(got, k8)
+    # a dropped zero-point term is seen
+    sym = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs, out_dtype=out)
+    assert not torch.equal(got, sym)
+
+
+def _weight_only_operands(dev, sizes, k, n, gsize, bits=4):
+    g = torch.Generator(device=dev).manual_seed(k + n + len(sizes))
+    m, e = sum(sizes), len(sizes)
+    groups = 1 if gsize == -1 else k // gsize
+    hi = 1 << (bits - 1)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    wq = torch.randint(-hi, hi, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((e, groups, n), generator=g, device=dev) * 0.02 + 1e-3
+    zp = torch.randn((e, groups, n), generator=g, device=dev) * 0.05
+    return x, wq, sc, zp, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+WEIGHT_ONLY_CASES = [
+    ([5, 0, 19, 8, 0, 70], 384, 48, 128),       # K/2 = 192: a group spans the halves
+    ([0, 0, 130, 1, 0], 1408, 2048, 128),       # K/2 = 704, 11 groups
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, 128),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, -1),
+    ([4], 5632, 2048, 128),                     # E = 1, the shared expert's down
+    ([33, 0, 2], 96, 64, -1),                   # K/2 % 64 != 0
+]
+
+
+@pytest.mark.parametrize("sizes,k,n,gsize", WEIGHT_ONLY_CASES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gmm_weight_only_kernels_within_bound(dev, sizes, k, n, gsize, out):
+    x, wq, sc, zp, gs = _weight_only_operands(dev, sizes, k, n, gsize)
+    before = dict(kernels.launches)
+    got = gmm_weight_only.gmm_weight_only(x, wq, sc, zp, gs, gsize, out_dtype=out)
+    got_p = gmm_weight_only_packed.gmm_weight_only_packed(
+        x, pack_int4_halves(wq), sc, zp, gs, gsize, out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_weight_only"] == before["gmm_weight_only"] + 1
+    assert (kernels.launches["gmm_weight_only_packed"]
+            == before["gmm_weight_only_packed"] + 1)
+    assert torch.equal(got, got_p)                    # one walk over K for both
+    _, ratio = gmm_weight_only.error_over_bound(got, x, wq, sc, zp, gs, gsize)
+    assert ratio <= 1.0
+    # mutation checks: a reference that drops the last k-group's zero point,
+    # or takes that group's scales from its neighbour (the neighbouring
+    # column's when there is one group), must lie outside the bound
+    groups = sc.shape[1]
+    zp_m = zp.clone()
+    zp_m[:, groups - 1] = 0.0
+    sc_m = sc.clone()
+    sc_m[:, groups - 1] = sc[:, groups - 2] if groups > 1 else sc[:, 0].roll(1, -1)
+    for sc_r, zp_r in ((sc, zp_m), (sc_m, zp)):
+        _, ratio = gmm_weight_only.error_over_bound(got, x, wq, sc_r, zp_r, gs, gsize)
+        assert ratio > 1.0
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 8])
+def test_gmm_weight_only_kernel_low_bit_codes_in_int8_storage(dev, bits):
+    x, wq, sc, zp, gs = _weight_only_operands(dev, [4, 0, 9, 60], 1408, 256, 128,
+                                              bits=bits)
+    got = gmm_weight_only.gmm_weight_only(x, wq, sc, zp, gs, 128)
+    torch.cuda.synchronize()
+    _, ratio = gmm_weight_only.error_over_bound(got, x, wq, sc, zp, gs, 128)
+    assert ratio <= 1.0
+
+
+def test_grouped_and_weight_only_wrappers_reject_bad_input(dev):
+    aq, asc, wq, wsc, wzp, gs = _grouped_operands(dev, [4], 96, 16, 3)
+    with pytest.raises(ValueError, match="gsize"):            # 32 is no k-tile multiple
+        gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=32)
+    with pytest.raises(ValueError, match="gsize"):            # K % gsize != 0
+        gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=64)
+    with pytest.raises(ValueError, match="rhs_zp"):
+        gmm_w8a8_asym.gmm_w8a8_asym(aq, asc[:, :1].contiguous(), wq,
+                                    wsc[:, :1].contiguous(), wzp, gs)
+    x, wq, sc, zp, gs = _weight_only_operands(dev, [4], 96, 16, -1)
+    with pytest.raises(ValueError, match="bf16"):
+        gmm_weight_only.gmm_weight_only(x.float(), wq, sc, zp, gs, -1)
+    with pytest.raises(ValueError, match="gsize"):
+        gmm_weight_only.gmm_weight_only(x, wq, sc, zp, gs, 64)
+    with pytest.raises(ValueError, match="rhs_packed"):
+        gmm_weight_only_packed.gmm_weight_only_packed(x, wq, sc, zp, gs, -1)
 
 
 def _assert_within_slot_bound(out, ref, dtype):

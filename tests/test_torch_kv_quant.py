@@ -124,13 +124,14 @@ def test_init_and_convert_quant_cache():
 
     ref = jkv.init_quant_kv_cache(jax_configs.tiny_qwen2_moe(4, 2), 3, 16)
     got = tkv.init_quant_kv_cache(configs.tiny_qwen2_moe(4, 2), 3, 16, device="cpu")
-    conv = kv_cache_from_jax(ref)
+    conv = kv_cache_from_jax(ref, "cpu")
     assert isinstance(conv, tkv.QuantKVCache) and got.max_len == ref.max_len == 16
     for name in ("k_q", "k_sc", "v_q", "v_sc", "lengths"):
         a, b = getattr(got, name), getattr(conv, name)
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.equal(a, b)
-    bf = kv_cache_from_jax(jkv.init_kv_cache(jax_configs.tiny_qwen2_moe(4, 2), 3, 16))
+    bf = kv_cache_from_jax(jkv.init_kv_cache(jax_configs.tiny_qwen2_moe(4, 2), 3, 16),
+                           "cpu")
     assert isinstance(bf, tkv.KVCache) and bf.k.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="MLA"):
         tkv.init_quant_kv_cache(configs.config_for("ds2"), 1, 16, device="cpu")

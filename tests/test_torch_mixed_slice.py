@@ -69,8 +69,8 @@ def models():
     cfg_j, cfg_t = _cfgs()
     float_j = jax_model.init_params(cfg_j, jax.random.PRNGKey(0), dtype=jnp.float32)
     params_j = jax_quantize_mixed(float_j, cfg_j, _jax_alternating(cfg_j), pack_w4=True)
-    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
-    float_t = params_from_jax(jax.tree_util.tree_map(np.asarray, float_j))
+    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j), "cpu")
+    float_t = params_from_jax(jax.tree_util.tree_map(np.asarray, float_j), "cpu")
     impl_j = JaxMoEImpl(kind="ragged", quant="mixed", interpret=True,
                         decode_attn="fused")
     return cfg_j, cfg_t, params_j, params_t, impl_j, MoEImpl(quant="mixed"), float_t
@@ -189,28 +189,31 @@ def test_unported_branches_raise_with_their_roadmap_item(models):
     cfg_t, impl_t = models[1], models[5]
     x = torch.zeros((1, 3, cfg_t.hidden_size))
     lp = _layer(models)
+    # a flex (grouped / asymmetric) family over the ragged packed buffer
     flex = dict(lp, act_gsize_gateup=torch.full((cfg_t.num_experts, 2), 128.0))
-    with pytest.raises(NotImplementedError, match="flex"):
+    with pytest.raises(NotImplementedError, match="flex.*queue B 3"):
         moe_block(x, flex, cfg_t, impl_t)
+    # grouped scales that no flex marker announces are a malformed layer
     grouped_sc = dict(lp, expert_down_sc=lp["expert_down_sc"].repeat(1, 2, 1))
-    with pytest.raises(NotImplementedError, match="flex"):
+    with pytest.raises(ValueError, match="act_gsize_down"):
         moe_block(x, grouped_sc, cfg_t, impl_t)
     uniform = {k: v for k, v in lp.items()
                if not k.startswith("act_bits") and "_qcat" not in k}
-    uniform["expert_gate_up_q"] = torch.zeros((cfg_t.num_experts, 256, 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="a16"):
-        moe_block(x, uniform, cfg_t, MoEImpl(quant=parse_scheme("w4a16_g-1_sym")))
-    with pytest.raises(NotImplementedError, match="gmm_w8a8_grouped"):
+    uniform["expert_gate_up_q_packed"] = torch.zeros(
+        (cfg_t.num_experts, 128, 64), dtype=torch.int8)
+    # packed w x a storage serves per-channel symmetric weights only
+    with pytest.raises(ValueError, match="packed w x a"):
         moe_block(x, uniform, cfg_t, MoEImpl(quant=parse_scheme("w4a4_g128_sym")))
-    with pytest.raises(NotImplementedError, match="gmm_w8a8_asym"):
+    with pytest.raises(ValueError, match="packed w x a"):
         moe_block(x, uniform, cfg_t, MoEImpl(quant=dataclasses.replace(
             parse_scheme("w4a8_g-1_sym"), w_sym=False)))
+    with pytest.raises(NotImplementedError, match="asymmetric per-token activations"):
+        moe_block(x, uniform, cfg_t, MoEImpl(quant=dataclasses.replace(
+            parse_scheme("w4a8_g-1_sym"), a_sym=False)))
+    with pytest.raises(ValueError, match="needs mixed params"):
+        moe_block(x, uniform, cfg_t, impl_t)
     with pytest.raises(NotImplementedError, match="moe_ffn_ragged"):
         moe_block(x, lp, cfg_t, MoEImpl())
-    for extra, match in ((dict(shared_wo=torch.zeros(1)), "gmm_weight_only"),
-                         (dict(shared_down_zp=torch.zeros(1)), "gmm_w8a8_grouped")):
-        with pytest.raises(NotImplementedError, match=match):
-            moe_block(x, dict(lp, **extra), cfg_t, impl_t)
     fake_shared = {k: v for k, v in lp.items() if not k.startswith("shared_")}
     fake_shared.update(shared_gate_up=torch.zeros(1), shared_down=torch.zeros(1),
                        shared_gate=lp["shared_gate"])

@@ -128,5 +128,12 @@ def test_pack_int4_experts_matches_reference_pack_step():
         pack_int4_experts(params, ts.parse_scheme("w8a8_g-1_sym"))
     with pytest.raises(ValueError):
         pack_int4_experts(params, ts.parse_scheme("w4a4_g128_sym"))
-    with pytest.raises(NotImplementedError, match="gmm_weight_only_packed"):
-        pack_int4_experts(params, ts.parse_scheme("w4a16_g-1_sym"))
+    # a weight-only scheme of at most 4 bits packs whatever its group size
+    # and symmetry (K7 dequantizes with scale and zp per group)
+    for scheme in ("w4a16_g-1_sym", "w4a16_g128_asym", "w3a16_g128_sym"):
+        a16 = pack_int4_experts(params, ts.parse_scheme(scheme))["layers"]
+        assert sorted(a16) == sorted(got)
+        for name in a16:
+            assert torch.equal(a16[name], got[name]), (scheme, name)
+    with pytest.raises(ValueError):
+        pack_int4_experts(params, ts.parse_scheme("w8a16_g-1_sym"))

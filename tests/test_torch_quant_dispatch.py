@@ -48,10 +48,10 @@ def test_quantize_model_experts_uniform_bitwise(scheme):
     ref = jax_quantize_uniform({"layers": {k: jnp.asarray(v) for k, v in layers.items()}},
                                jax_parse_scheme(scheme))["layers"]
     got = quantize_model_experts_uniform(
-        {"layers": params_from_jax(layers)}, parse_scheme(scheme))["layers"]
+        {"layers": params_from_jax(layers, "cpu")}, parse_scheme(scheme))["layers"]
     assert sorted(got) == sorted(ref)
     for key in ref:
-        assert got[key].dtype == params_from_jax(np.asarray(ref[key])).dtype, key
+        assert got[key].dtype == params_from_jax(np.asarray(ref[key]), "cpu").dtype, key
         if key.endswith("_zp") and "asym" in scheme:
             # re-centred asym zero points zp + 2^(b-1)*scale: XLA contracts
             # the multiply-add into one FMA, torch rounds twice (<= 1e-7 abs)
@@ -80,7 +80,7 @@ def _float_model(num_experts=4, num_layers=2):
 
     cfg_j = jax_configs.tiny_qwen2_moe(num_experts, num_layers)
     params_j = jax_model.init_params(cfg_j, jax.random.PRNGKey(4), dtype=jnp.float32)
-    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
+    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j), "cpu")
     return cfg_j, configs.tiny_qwen2_moe(num_experts, num_layers), params_j, params_t
 
 
@@ -104,21 +104,27 @@ def test_quantize_model_experts_mixed_bitwise(pack_w4, shared):
     assert ("shared_gate_up_q" in got) == bool(shared)
     for key in ref:
         r = np.asarray(ref[key])
-        assert got[key].dtype == params_from_jax(r).dtype, key
+        assert got[key].dtype == params_from_jax(r, "cpu").dtype, key
         np.testing.assert_array_equal(got[key].float().numpy(),
                                       r.astype(np.float32), err_msg=key)
 
 
-@pytest.mark.parametrize("pattern,match", [
-    (("w4a4_g-1_sym", "w4a4_g128_sym"), "flex"),          # grouped family
-    (("w8a8_g-1_sym", "w4a8_g-1_asym"), "flex"),          # asymmetric weights
-    (("w8a8_g-1_sym", "w4a16_g-1_sym"), "a16"),           # weight-only expert
+@pytest.mark.parametrize("pattern,pack_w4,match", [
+    # a flex family (grouped, or asymmetric weights) over packed storage
+    (("w4a4_g-1_sym", "w4a4_g32_sym"), True, "flex.*queue B 3"),
+    (("w8a8_g-1_sym", "w4a8_g-1_asym"), True, "flex.*queue B 3"),
+    # a weight-only expert in a mixed layer
+    (("w8a8_g-1_sym", "w4a16_g-1_sym"), False, "a16.*queue B 9"),
 ])
-def test_quantize_model_experts_mixed_unported_domains_raise(pattern, match):
+def test_quantize_model_experts_mixed_unported_domains_raise(pattern, pack_w4, match):
     cfg_j, cfg_t, _, params_t = _float_model()
     qmc = _mixed_qmc(schemes, 4, [pattern, pattern], shared=())
     with pytest.raises(NotImplementedError, match=match):
-        quantize_model_experts_mixed(params_t, cfg_t, qmc)
+        quantize_model_experts_mixed(params_t, cfg_t, qmc, pack_w4=pack_w4)
+    if pack_w4:
+        # int8-stored, the same flex family quantizes
+        got = quantize_model_experts_mixed(params_t, cfg_t, qmc)["layers"]
+        assert "act_gsize_gateup" in got and "act_gsize_down" in got
 
 
 def test_quantize_model_experts_mixed_heterogeneous_shared_raises():

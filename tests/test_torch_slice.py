@@ -50,7 +50,7 @@ def models():
     params_j = jax_quantize(jax_model.init_params(cfg_j, jax.random.PRNGKey(0),
                                                   dtype=jnp.float32),
                             jax_parse_scheme(SCHEME))
-    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
+    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j), "cpu")
     impl_j = JaxMoEImpl(kind="ragged", quant=jax_parse_scheme(SCHEME),
                         interpret=True, decode_attn="fused")
     impl_t = MoEImpl(quant=parse_scheme(SCHEME))
