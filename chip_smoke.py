@@ -25,6 +25,15 @@ failure raises and the script exits non-zero without a result line:
               bound of a float64 product (gmm_weight_only.error_over_bound),
               K7 bitwise K6 on the unpacked codes; K8 and K6 also with one
               group of rows at the shared expert's shapes.
+              K4f (the flex form of gmm_mixed_packed) bitwise its plain
+              version and bitwise K8 on the unpacked codes, without and with a
+              group that spans the two halves of K, without and with zero
+              points; K10 (gmm_mixed_wo_wxa, both bodies; flags alternating,
+              all 0, all 1): w x a experts bitwise K8 / K2 and the plain
+              version, weight-only experts bitwise K6 and within K6's bound;
+              K11 (gmm_bf16) within gmm.error_over_bound of a float64 product,
+              timed beside the stock torch._grouped_mm (its library_ms); the
+              int8 lm_head's product (K1, K2 with one group, N 151936) bitwise.
               Also the sorted combine's time beside the atomic index_add_'s
   4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
               through forward_cached on the CPU (plain versions) and on
@@ -33,26 +42,38 @@ failure raises and the script exits non-zero without a result line:
               are chosen on the CPU run so that every compared position's
               top-2 margin exceeds PARITY_BOUND (no tie decides the gate).
               Run for uniform w8a8 + bf16 cache, mixed-packed + int8 KV
-              cache, uniform w4a16_g128_asym nibble-packed, and a flex mix
-              (routed w4a4_g128_asym / w8a8_g-1_sym, shared w8a8_g128_asym)
+              cache, uniform w4a16_g128_asym nibble-packed, a flex mix
+              (routed w4a4_g128_asym / w8a8_g-1_sym, shared w8a8_g128_asym),
+              flex-wo (routed w4a16_g128_asym / w8a8_g-1_sym through K10),
+              flex-packed (routed w4a4_g128_asym nibble-packed / w8a8_g-1_sym
+              through K4f) and bf16 experts through K11
   5. storage  mixed (int8-stored) and mixed-packed params of one seed, 4
               layers, int8 KV cache: prefill + 16 decode steps give bitwise
-              equal logits on the card
+              equal logits on the card; the same for the flex mix int8-stored
+              (K8) and packed (K4f). Then the float path's two arms, K11 and
+              the stock grouped product, on one 4-layer model: logits within
+              the parity bound of each other
   6. serve    the Engine answering 4 requests over qwen2_moe with seeded
               random bf16 weights: uniform w8a8 + bf16 cache (4 layers; K1,
               K2, K3), uniform w4a8 nibble-packed (4 layers; K1, K5, K3),
-              the full 24 layers with alternating w4a4 / w8a8 experts packed,
-              the shared expert w8a8 and the int8 KV cache (K1, K2, K3q,
-              K4), the full 24 layers uniform w4a16_g128_asym nibble-packed
-              (K7, K3), and 4 layers each of uniform w4a4_g128_sym (K8),
-              w8a8_g-1_asym (K1, K9), w4a16_g-1_sym int8-stored (K6) and the
-              two flex mixes (K8 with zero points; shared expert through K8
-              or K6 with one group). The launch counts are set to 0 before
+              4 layers with alternating w4a4 / w8a8 experts packed, the
+              shared expert w8a8 and the int8 KV cache (K1, K2, K3q, K4), 4
+              layers uniform w4a16_g128_asym nibble-packed (K7, K3), 4 layers
+              each of uniform w4a4_g128_sym (K8), w8a8_g-1_asym (K1, K9),
+              w4a16_g-1_sym int8-stored (K6) and the two flex mixes (K8 with
+              zero points; shared expert through K8 or K6 with one group).
+              At the full 24 layers: flex-wo (K10, K3; shared expert K1 + K2)
+              and flex-packed with the int8 KV cache (K4f, K3q), with peak
+              memory beside the bytes reckoned from the code. 4 layers each:
+              the per-channel weight-only mix (K10's other body), bf16
+              experts through K11 and through the stock arm, and uniform w8a8
+              with the int8 lm_head. The launch counts are set to 0 before
               each serve and read after it; every kernel named must have
               launched
   7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
-              (K1, K2, K3q, K4 must be non-zero in its own launch counts)
-              and --quant w4a16_g128_asym (K6, K3)
+              (K1, K2, K3q, K4 must be non-zero in its own launch counts),
+              --quant w4a16_g128_asym (K6, K3), --quant none (K3) and
+              --quant w8a8_g-1_sym --int8-head (K1, K2, K3)
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
 serve, named beside them), the nvidia-smi line, and last
@@ -94,6 +115,14 @@ KERNEL_SOURCES = {
                          "mxmoe_tpu/ops/pallas_gmm.py:1332"),
     "gmm_w8a8_asym": ("mxmoe_tpu_torch/csrc/gmm_w8a8_asym.cu",
                       "mxmoe_tpu/ops/pallas_gmm.py:1487"),
+    # K4f, the flex form of gmm_mixed_packed: a kernel and a launch count of
+    # its own, in K4's source
+    "gmm_mixed_packed_flex": ("mxmoe_tpu_torch/csrc/gmm_mixed_packed.cu",
+                              "mxmoe_tpu/ops/pallas_gmm.py:930"),
+    "gmm_mixed_wo_wxa": ("mxmoe_tpu_torch/csrc/gmm_mixed_wo_wxa.cu",
+                         "mxmoe_tpu/ops/pallas_gmm.py:1631"),
+    "gmm_bf16": ("mxmoe_tpu_torch/csrc/gmm_bf16.cu",
+                 "mxmoe_tpu/ops/pallas_gmm.py:271"),
 }
 # the scale group of the grouped schemes on the main path (g128)
 GSIZE = 128
@@ -115,12 +144,13 @@ PARITY_BOUND = 0.125
 # operations per second by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
-# one PyTorch call that computes the same function, per kernel: none. torch
-# has no per-row-bits quantizer, no grouped (per-expert) product over
-# expert-sorted rows with int8 or nibble-packed operands, per-group scales,
-# zero points or in-product dequantization, and no single call writes the
-# cache and attends over it
-LIBRARY_MS = None
+# one PyTorch call that computes the same function, per kernel: only K11
+# (gmm_bf16) has one, the stock grouped product ``torch._grouped_mm`` that
+# ``ops.gmm.gmm``'s "ragged_dot" arm takes; its time is measured beside K11's.
+# For the others there is none (``library_ms`` null): torch has no per-row-bits
+# quantizer, no grouped (per-expert) product over expert-sorted rows with int8
+# or nibble-packed operands, per-group scales, zero points or in-product
+# dequantization, and no single call writes the cache and attends over it
 
 
 def emit(phase: str, **kv) -> None:
@@ -567,6 +597,223 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
             weight_only_kernels(one_group, rows, k, nn, shape, False, shared=True)
 
 
+def mixed_wo_wxa_work(gs, flags, k: int, n: int, groups: int, zp: bool) -> dict:
+    """K10 on THIS routing and THESE flags: every routed expert streams its
+    int8 codes and its scale (and zp) rows; a weight-only expert's rows are
+    read as bf16 and multiplied at the bf16 rate, a w x a expert's as int8
+    codes with ``groups`` f32 scales at the int8 rate."""
+    live = gs > 0
+    rows_wo = int(gs[flags.bool()].sum())
+    rows_wxa = int(gs.sum()) - rows_wo
+    e = gs.numel()
+    nbytes = (int(live.sum()) * (k * n + groups * n * 4 * (2 if zp else 1))
+              + rows_wo * 2 * k + rows_wxa * (k + 4 * groups) + 2 * e * 4
+              + (rows_wo + rows_wxa) * n * 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * rows_wo * k * n / PEAK_OPS_PER_S["bf16"]
+             + 2 * rows_wxa * k * n / PEAK_OPS_PER_S["int8"]) * 1e3
+    return {"bytes": int(nbytes), "ops": 2 * (rows_wo + rows_wxa) * k * n,
+            "ops_type": "bf16 + int8", "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def two_launch_kernels_vs_plain(rec: dict) -> None:
+    """K4f, K10 (both bodies) and K11 at the decode and prefill shapes of both
+    expert GEMMs. K4f bitwise its plain version and bitwise K8 on the unpacked
+    codes (gate_up without a straddling group, down with one; without and with
+    zero points; at decode also a layer with no packed expert and one with all
+    packed). K10: w x a experts bitwise K8 (flex body) or K2 (per-channel
+    body) and bitwise the plain version, weight-only experts bitwise K6 on
+    the same codes and within ``gmm_weight_only.error_over_bound``; flags
+    alternating (timed), all 0 and all 1. K11 within ``gmm.error_over_bound``
+    of the float64 product, timed beside the stock ``torch._grouped_mm``. Then
+    the int8 lm_head's product (K1 + K2 with one group, N = vocab) bitwise,
+    timed beside the bf16 head's matmul."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.ops import act_quant, gmm as gfl, gmm_mixed_packed as gmp
+    from mxmoe_tpu_torch.ops import gmm_mixed_wo_wxa as gmx, gmm_w8a8 as gmm
+    from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
+    from mxmoe_tpu_torch.ops import gmm_weight_only as gwo
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+
+    def rand(shape, scale, shift=0.0):
+        return torch.rand(shape, generator=gen, device=dev) * scale + shift
+
+    def codes(shape, hi):
+        return torch.randint(-hi, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def timed(kernel, plain, work):
+        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
+                **work}
+
+    alternating = [int(i % 2 == 0) for i in range(e)]
+
+    def flex_packed(gs, m, k, nn, shape, keep, storages):
+        g = k // GSIZE
+        aq = codes((m, k), 128).clamp_(min=-127)
+        asc, wsc = rand((m, g), 0.05, 1e-3), rand((e, g, nn), 0.01, 1e-4)
+        wzp = torch.randn((e, g, nn), generator=gen, device=dev) * 0.02
+        w8, w4 = codes((e, k, nn), 128).clamp_(min=-127), codes((e, k, nn), 8)
+        for label, pflags in storages:
+            pfb = torch.tensor(pflags, dtype=torch.bool, device=dev)
+            wq = torch.where(pfb[:, None, None], w4, w8)
+            cat, blk = build_ragged_mixed(wq, pflags)
+            pf = pfb.to(torch.int32)
+            blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+            for zp in (None, wzp):
+                out = gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp)
+                ref = gmp.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk,
+                                                 rhs_zp=zp)
+                k8 = ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)
+                torch.cuda.synchronize()
+                what = f"{label} at {shape} zp={zp is not None}"
+                _require_equal(out, ref, f"K4f vs plain, {what}")
+                _require_equal(out, k8, f"K4f vs K8, {what}")
+                per_expert = [k * nn // 2 if f else k * nn for f in pflags]
+                t = timed(lambda: gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk,
+                                                       rhs_zp=zp),
+                          lambda: gmp.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs,
+                                                             pf, blk, rhs_zp=zp),
+                          gmm_work(gs, k, nn, per_expert, meta_bytes=8 * e,
+                                   lhs_row_bytes=k + 4 * g,
+                                   scale_rows=g * (1 if zp is None else 2)))
+                emit("kernels", kernel="gmm_mixed_packed_flex", storage=label,
+                     bitwise=True, equals_gmm_w8a8_grouped=True, gsize=GSIZE,
+                     straddling_group=(k // 2) % GSIZE != 0, rhs_zp=zp is not None,
+                     packed_experts=sum(pflags),
+                     gmm_w8a8_grouped_same_codes_ms=time_ms(
+                         lambda: ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)),
+                     **shape, **t)
+                if keep and label == "alternating" and zp is not None:
+                    rec["gmm_mixed_packed_flex"].update(t)
+            del cat, wq
+
+    def wo_wxa(gs, m, k, nn, shape, keep, gsize, with_zp, mixes):
+        g = 1 if gsize == -1 else k // gsize
+        body = "per-channel" if gsize == -1 else "flex"
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        aq = codes((m, k), 128).clamp_(min=-127)
+        asc = rand((m, g), 0.05, 1e-3)
+        w4 = codes((e, k, nn), 8)
+        wsc = rand((e, g, nn), 0.02, 1e-3)
+        wzp = torch.randn((e, g, nn), generator=gen, device=dev) * 0.05
+        zp = wzp if with_zp else None
+        zp6 = wzp if with_zp else torch.zeros_like(wsc)
+        k8 = ggrp.gmm_w8a8_grouped(aq, asc, w4, wsc, gs, gsize, zp)
+        k6 = gwo.gmm_weight_only(x, w4, wsc, zp6, gs, gsize)
+        k2 = gmm.gmm_w8a8(aq, asc, w4, wsc, gs) if body == "per-channel" else None
+        for label, fl in mixes:
+            flags = torch.tensor(fl, dtype=torch.int32, device=dev)
+            out = gmx.gmm_mixed_wo_wxa(x, aq, asc, w4, wsc, flags, gs, rhs_zp=zp)
+            ref = gmx.gmm_mixed_wo_wxa_plain(x, aq, asc, w4, wsc, flags, gs, rhs_zp=zp)
+            torch.cuda.synchronize()
+            wo = torch.repeat_interleave(flags, gs.long()).bool()
+            what = f"{body} body, flags {label}, at {shape}"
+            _require_equal(out[~wo], k8[~wo], f"K10 w x a rows vs K8, {what}")
+            _require_equal(out[~wo], ref[~wo], f"K10 w x a rows vs plain, {what}")
+            if k2 is not None:
+                _require_equal(out[~wo], k2[~wo], f"K10 w x a rows vs K2, {what}")
+            _require_equal(out[wo], k6[wo], f"K10 weight-only rows vs K6, {what}")
+            err, ratio = 0.0, 0.0
+            if bool(wo.any()):
+                rows = torch.nonzero(wo)[:, 0]
+                err, ratio = gwo.error_over_bound(
+                    out[rows].contiguous(), x[rows].contiguous(), w4, wsc, zp6,
+                    torch.where(flags.bool(), gs, torch.zeros_like(gs)), gsize)
+                if not ratio <= 1.0:
+                    raise AssertionError(f"K10 weight-only rows outside their bound, "
+                                         f"{what}: max|d|={err}, {ratio} of it")
+            t = timed(lambda: gmx.gmm_mixed_wo_wxa(x, aq, asc, w4, wsc, flags, gs,
+                                                   rhs_zp=zp),
+                      lambda: gmx.gmm_mixed_wo_wxa_plain(x, aq, asc, w4, wsc, flags,
+                                                         gs, rhs_zp=zp),
+                      mixed_wo_wxa_work(gs, flags, k, nn, g, with_zp))
+            emit("kernels", kernel="gmm_mixed_wo_wxa", body=body, flags=label,
+                 weight_only_experts=sum(fl), wxa_rows_bitwise=True,
+                 wo_rows_equal_gmm_weight_only=True, max_abs_err=err,
+                 err_over_bound=ratio, gsize=gsize, rhs_zp=with_zp,
+                 gmm_w8a8_grouped_same_codes_ms=time_ms(
+                     lambda: ggrp.gmm_w8a8_grouped(aq, asc, w4, wsc, gs, gsize, zp)),
+                 gmm_weight_only_same_codes_ms=time_ms(
+                     lambda: gwo.gmm_weight_only(x, w4, wsc, zp6, gs, gsize)),
+                 **shape, **t)
+            if keep and body == "flex" and label == "alternating":
+                rec["gmm_mixed_wo_wxa"].update(max_abs_err=err, **t)
+
+    def float_gmm(gs, m, k, nn, shape, keep):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, k, nn), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        out = gfl.gmm_bf16(x, w, gs)
+        lib = gfl.gmm(x, w, gs, backend="ragged_dot")
+        torch.cuda.synchronize()
+        err, ratio = gfl.error_over_bound(out, x, w, gs)
+        lib_err, lib_ratio = gfl.error_over_bound(lib, x, w, gs)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K11 outside its bound at {shape}: max|d|={err}, "
+                                 f"{ratio} of the tolerance")
+        t = timed(lambda: gfl.gmm_bf16(x, w, gs),
+                  lambda: gfl.gmm_bf16_plain(x, w, gs),
+                  gmm_work(gs, k, nn, 2 * k * nn, scale_rows=0, lhs_row_bytes=2 * k,
+                           ops_type="bf16"))
+        t["library_ms"] = time_ms(lambda: gfl.gmm(x, w, gs, backend="ragged_dot"))
+        emit("kernels", kernel="gmm_bf16", max_abs_err=err, err_over_bound=ratio,
+             bound="(K + 1) * 2^-24 * sum|lhs||rhs| + 1 bf16 ulp, vs float64",
+             library="torch._grouped_mm" if gfl.has_grouped_mm() else "masked products",
+             library_max_abs_err=lib_err, library_err_over_bound=lib_ratio,
+             **shape, **t)
+        if keep:
+            rec["gmm_bf16"].update(max_abs_err=err, **t)
+
+    all0, all1 = [0] * e, [1] * e
+    for regime, tokens in (("decode", 4), ("prefill", 256)):
+        m = tokens * cfg.top_k
+        gs = _routing_group_sizes(tokens, cfg, gen, dev)
+        decode = regime == "decode"
+        for k, nn in ((h, 2 * n), (n, h)):
+            shape = dict(regime=regime, M=m, K=k, N=nn,
+                         empty_groups=int((gs == 0).sum().item()))
+            keep = decode and k == h
+            storages = [("alternating", alternating)]
+            if keep:
+                storages += [("none packed", all0), ("all packed", all1)]
+            flex_packed(gs, m, k, nn, shape, keep, storages)
+            mixes = [("alternating", alternating)]
+            if decode:
+                mixes += [("all w x a", all0), ("all weight-only", all1)]
+            wo_wxa(gs, m, k, nn, shape, keep, GSIZE, True, mixes)
+            wo_wxa(gs, m, k, nn, shape, keep, -1, False, mixes)
+            float_gmm(gs, m, k, nn, shape, keep)
+
+    # the int8 lm_head: K1 + K2 with one group over the whole vocabulary
+    v = cfg.vocab_size
+    wq = codes((1, h, v), 128).clamp_(min=-127)
+    wsc = rand((1, 1, v), 0.001, 1e-5)
+    wbf = (wq[0].float() * wsc[0]).to(torch.bfloat16)
+    for rows in (4, 256):
+        x = torch.randn((rows, h), generator=gen, device=dev).to(torch.bfloat16)
+        one_group = torch.full((1,), rows, dtype=torch.int32, device=dev)
+        aq, asc = act_quant.quantize_rows_uniform(x, 8)
+        out = gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)
+        ref = gmm.gmm_w8a8_plain(aq, asc, wq, wsc, one_group)
+        torch.cuda.synchronize()
+        _require_equal(out, ref, f"K2 (int8 lm_head) at M={rows}")
+        emit("kernels", kernel="gmm_w8a8", use="int8 lm_head, one group", M=rows,
+             K=h, N=v, bitwise=True,
+             ms=time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
+             plain_ms=time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc, one_group),
+                              reps=5, warmup=1),
+             quantize_rows_ms=time_ms(lambda: act_quant.quantize_rows_uniform(x, 8)),
+             bf16_head_matmul_ms=time_ms(lambda: x @ wbf),
+             **gmm_work(one_group, h, v, h * v))
+
+
 def combine_vs_index_add() -> None:
     """What the order-preserving combine costs: ``combine_tokens`` (sorted
     ``index_put_(accumulate=True)``) beside the atomic ``index_add_`` it
@@ -690,6 +937,7 @@ def kernels_vs_plain() -> dict:
     rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
     gmm_kernels_vs_plain(rec)
     scheme_kernels_vs_plain(rec)
+    two_launch_kernels_vs_plain(rec)
     attention_kernels_vs_plain(rec)
     combine_vs_index_add()
     return rec
@@ -738,6 +986,17 @@ FLEX_SHARED = {"flex-shared-grouped": "w8a8_g128_asym",
                "flex-shared-a16": "w4a16_g128_asym"}
 
 
+# the two-launch branches come as ``bench_serving.MIXES`` names (shared expert
+# per-channel w8a8):
+#   flex-wo      grouped asymmetric weight-only beside w8a8, one launch (K10,
+#                flex body): the scheme pair of the reference's fused kernel
+#   mixed-wo     per-channel weight-only beside w8a8 (K10, per-channel body)
+#   flex-packed  grouped asymmetric w4a4 nibble-packed beside w8a8 in the ragged
+#                buffer (K4f); flex: the same codes int8-stored (K8)
+# float experts: through K11 (``gmm_backend="pallas"``) or the stock product
+FLOAT_ARMS = {"bf16-k11": "pallas", "none": "ragged_dot"}
+
+
 def flex_mixed_config(num_layers: int, num_experts: int, shared_scheme: str):
     from mxmoe_tpu_torch.quant.schemes import (QLayerConfig, QModelConfig,
                                                build_uniform_expert, parse_scheme)
@@ -749,22 +1008,30 @@ def flex_mixed_config(num_layers: int, num_experts: int, shared_scheme: str):
                                 for l in range(num_layers)})
 
 
-def prepare(floats: dict, cfg, quant: str, pack: bool = False):
+def prepare(floats: dict, cfg, quant: str, pack: bool = False,
+            int8_head: bool = False):
     """Float params -> (quantized params, MoEImpl). ``quant``: what
-    ``bench_serving --quant`` takes, or a ``FLEX_SHARED`` name; ``pack``
-    nibble-packs a uniform scheme's codes (convert's pack step)."""
+    ``bench_serving --quant`` takes, or a ``FLEX_SHARED`` or ``FLOAT_ARMS``
+    name; ``pack`` nibble-packs a uniform scheme's codes
+    (convert's pack step); ``int8_head`` quantizes the lm_head."""
     from mxmoe_tpu_torch.models.convert import pack_int4_experts
     from mxmoe_tpu_torch.models.layers import MoEImpl
-    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_mixed
+    from mxmoe_tpu_torch.quant.qparams import (quantize_lm_head,
+                                               quantize_model_experts_mixed)
     from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
 
     if quant in FLEX_SHARED:
         qmc = flex_mixed_config(cfg.num_layers, cfg.num_experts, FLEX_SHARED[quant])
-        params, impl = quantize_model_experts_mixed(floats, cfg, qmc), MoEImpl("mixed")
+        params = quantize_model_experts_mixed(floats, cfg, qmc)
+        impl = MoEImpl(quant="mixed")
+    elif quant in FLOAT_ARMS:
+        params, impl = floats, MoEImpl(gmm_backend=FLOAT_ARMS[quant])
     else:
         params, impl = quantize_for_serving(floats, cfg, quant)
     if pack:
         params = pack_int4_experts(params, impl.quant)
+    if int8_head:
+        params = quantize_lm_head(params)
     return params, impl
 
 
@@ -863,13 +1130,14 @@ def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
         raise AssertionError("slice parity: greedy tokens differ")
 
 
-def storage_forms_bitwise() -> None:
+def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed") -> None:
     """Packing w4 experts changes bytes, not outputs: int8-stored and
-    nibble-packed params of one seed give bitwise equal logits on the card."""
+    nibble-packed params of one seed give bitwise equal logits on the card
+    (``stored`` / ``packed``: what ``prepare`` takes; per channel K2 against
+    K4, flex K8 against K4f)."""
     import numpy as np
     import torch
 
-    from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
     from mxmoe_tpu_torch.serving.decode import forward_cached
 
     cfg, floats = _full_width_model(4, seed=2)
@@ -881,28 +1149,29 @@ def storage_forms_bitwise() -> None:
     valid0 = torch.tensor([chunk, 200], dtype=torch.int32, device=dev)
     rows = torch.arange(b, device=dev)
     logits, fed = {}, []
-    for quant in ("mixed", "mixed-packed"):
-        params, impl = quantize_for_serving(floats, cfg, quant)
+    for quant in (stored, packed):
+        params, impl = prepare(floats, cfg, quant)
         cache = _init_cache(cfg, b, 512, True, dev)
         lg, cache = forward_cached(params, prompt, cache, cfg, impl,
                                    valid_lengths=valid0)
         out = [lg[rows, (valid0 - 1).long()]]
         for i in range(steps):
-            if quant == "mixed":              # the first form's greedy tokens
+            if quant == stored:               # the first form's greedy tokens
                 fed.append(out[-1].argmax(-1).to(torch.int32)[:, None])
             lg, cache = forward_cached(params, fed[i], cache, cfg, impl)
             out.append(lg[:, 0])
         logits[quant] = torch.stack(out)
         del params, cache
     torch.cuda.synchronize()
-    same = torch.equal(logits["mixed"], logits["mixed-packed"])
-    emit("storage", layers=cfg.num_layers, prefill_valid=valid0.tolist(),
-         decode_steps=steps, int8_kv=True, bitwise_equal=same,
-         max_abs_diff=(logits["mixed"].float()
-                       - logits["mixed-packed"].float()).abs().max().item(),
-         finite=bool(torch.isfinite(logits["mixed"]).all()))
-    if not (same and torch.isfinite(logits["mixed"]).all()):
-        raise AssertionError("mixed and mixed-packed logits differ on the card")
+    same = torch.equal(logits[stored], logits[packed])
+    emit("storage", stored=stored, packed=packed, layers=cfg.num_layers,
+         prefill_valid=valid0.tolist(), decode_steps=steps, int8_kv=True,
+         bitwise_equal=same,
+         max_abs_diff=(logits[stored].float()
+                       - logits[packed].float()).abs().max().item(),
+         finite=bool(torch.isfinite(logits[stored]).all()))
+    if not (same and torch.isfinite(logits[stored]).all()):
+        raise AssertionError(f"{stored} and {packed} logits differ on the card")
 
 
 def _tensor_bytes(tensors) -> int:
@@ -916,6 +1185,7 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
     points where the form keeps them, the per-expert markers), to print
     beside the measured tensor sizes."""
     from mxmoe_tpu_torch.quant.schemes import parse_scheme
+    from mxmoe_tpu_torch.serving.bench_serving import MIXES
 
     h, n, e, nl = (cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
                    cfg.num_layers)
@@ -940,6 +1210,18 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
                             + (h // GSIZE + n // GSIZE) * 4)
         a16 = parse_scheme(FLEX_SHARED[quant]).a_bits >= 16
         shared = nl * (shared_codes + 2 * scale_bytes(sn, True) + 8 + 4 * a16)
+    elif quant in MIXES:            # shared expert per-channel w8a8
+        _, pack_w4, _ = MIXES[quant]
+        flex = quant.startswith("flex")
+        packed = (e + 1) // 2 if pack_w4 else 0     # even experts are the w4 ones
+        experts = nl * (packed * codes // 2 + (e - packed) * codes
+                        + e * 2 * scale_bytes(n, flex)          # scales and zp
+                        + e * 2 * 4                             # act bits
+                        + flex * e * (h // GSIZE + n // GSIZE) * 4   # act gsize
+                        + pack_w4 * 2 * e * 8)                  # blk / pf
+        shared = nl * (shared_codes + scale_bytes(sn, False) + 8)
+    elif quant in FLOAT_ARMS:
+        experts, shared = nl * e * codes * 2, shared_bf16
     else:                           # uniform: codes, scales and zp
         grouped = parse_scheme(quant).w_gsize != -1
         experts = nl * e * (codes // (2 if pack else 1)
@@ -951,10 +1233,10 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
 
 
 def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
-          pack: bool = False) -> dict:
+          pack: bool = False, int8_head: bool = False) -> dict:
     """The Engine over qwen2_moe at its published widths, ``layers`` deep,
     answering 4 requests; returns the kernels' launch counts of this serve.
-    ``quant`` and ``pack`` as ``prepare`` takes them."""
+    ``quant``, ``pack`` and ``int8_head`` as ``prepare`` takes them."""
     import numpy as np
     import torch
 
@@ -963,7 +1245,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
 
     t0 = time.perf_counter()
     cfg, floats = _full_width_model(layers, seed=0)
-    params, impl = prepare(floats, cfg, quant, pack)
+    params, impl = prepare(floats, cfg, quant, pack, int8_head)
     del floats
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -975,7 +1257,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
                                                      "act_bits_shared", "shared_wo"))
                else "other")
         nbytes[key] += _tensor_bytes([v])
-    nbytes["other"] += _tensor_bytes(params[k] for k in ("embed", "final_norm", "lm_head"))
+    nbytes["other"] += _tensor_bytes(v for k, v in params.items() if k != "layers")
     slots, max_len, max_new = 4, 2048, 32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1001,7 +1283,8 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
     emit("serve", layers=cfg.num_layers, quant=quant, packed=pack, int8_kv=int8_kv,
-         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+         int8_head=int8_head, mixed_weight_only=impl.mixed_weight_only,
+         gmm_backend=impl.gmm_backend, requests=len(prompts), prompt_lens=[len(p) for p in prompts],
          max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1016,6 +1299,53 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
         raise AssertionError(f"serve ({quant}): kernels never launched on the "
                              f"main path: {missing}")
     return launches
+
+
+def float_arms_agree() -> None:
+    """The two arms of the float path, K11 and the stock grouped product, on
+    one 4-layer full-width model and the same tokens (a 256-token prefill
+    chunk, then 4 decode steps fed the K11 arm's greedy tokens): each arm's
+    grouped products stand within their accumulation bound of the exact
+    product (kernels phase), so the bf16 logits agree within the parity bound
+    of the CUDA-vs-CPU runs, PARITY_ULPS bf16 ulps at max|logits|."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.ops import kernels
+    from mxmoe_tpu_torch.serving.decode import forward_cached
+
+    cfg, floats = _full_width_model(4, seed=3)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    b, chunk, steps = 2, 256, 4
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32),
+                             device=dev)
+    logits, fed, launches = {}, [], {}
+    for arm in ("bf16-k11", "none"):
+        params, impl = prepare(floats, cfg, arm)
+        cache = _init_cache(cfg, b, 512, False, dev)
+        kernels.reset_launch_counts()
+        lg, cache = forward_cached(params, prompt, cache, cfg, impl)
+        out = [lg[:, -1]]
+        for i in range(steps):
+            if arm == "bf16-k11":
+                fed.append(out[-1].argmax(-1).to(torch.int32)[:, None])
+            lg, cache = forward_cached(params, fed[i], cache, cfg, impl)
+            out.append(lg[:, 0])
+        logits[arm] = torch.stack(out).float()
+        launches[arm] = kernels.launches["gmm_bf16"]
+    torch.cuda.synchronize()
+    a, c = logits["bf16-k11"], logits["none"]
+    err = (a - c).abs().max().item()
+    bound = min(PARITY_BOUND, PARITY_ULPS * bf16_ulp(a.abs().max()).item())
+    emit("float_arms", layers=cfg.num_layers, decode_steps=steps, max_abs_diff=err,
+         bound=bound, max_abs_logit=a.abs().max().item(),
+         gmm_bf16_launches=launches, finite=bool(torch.isfinite(a).all()))
+    if not (torch.isfinite(a).all() and err <= bound):
+        raise AssertionError(f"float arms: K11 and the stock product differ by "
+                             f"{err} > {bound}")
+    if launches["bf16-k11"] != 2 * cfg.num_layers * (1 + steps) or launches["none"]:
+        raise AssertionError(f"float arms: unexpected K11 launches {launches}")
 
 
 def bench_entry_point(quant_args: list, expect: tuple) -> None:
@@ -1041,7 +1371,8 @@ def bench_entry_point(quant_args: list, expect: tuple) -> None:
             "decode_tokens_per_s", "device"}
     if not (keys <= set(res) and res["decode_tokens_per_s"] > 0
             and res["prefill_ms"] > 0
-            and res["int8_kv"] is ("--int8-kv" in quant_args)):
+            and res["int8_kv"] is ("--int8-kv" in quant_args)
+            and res["int8_head"] is ("--int8-head" in quant_args)):
         raise AssertionError(f"bench_serving: unexpected result {res}")
 
 
@@ -1059,54 +1390,84 @@ def main() -> int:
     for quant, int8_kv, pack in (("w8a8_g-1_sym", False, False),
                                  ("mixed-packed", True, False),
                                  ("w4a16_g128_asym", False, True),
-                                 ("flex-shared-grouped", False, False)):
+                                 ("flex-shared-grouped", False, False),
+                                 ("flex-wo", False, False),
+                                 ("flex-packed", False, False),
+                                 ("bf16-k11", False, False)):
         torch.cuda.empty_cache()
         slice_parity(quant, int8_kv, pack)
     torch.cuda.empty_cache()
     storage_forms_bitwise()
+    torch.cuda.empty_cache()
+    storage_forms_bitwise("flex", "flex-packed")
+    torch.cuda.empty_cache()
+    float_arms_agree()
     k1, k3, k3q = ("quantize_rows", "decode_attention_update_stacked",
                    "decode_attention_update_stacked_q8")
-    # (layers, quant, int8 KV, packed, kernels that must launch); a kernel's
-    # launches in the last line are those of the first serve that lists it
-    # under `counts` below
+    k4f, k10, k11 = "gmm_mixed_packed_flex", "gmm_mixed_wo_wxa", "gmm_bf16"
+    # (layers, quant, int8 KV, packed, int8 head, kernels that must launch); a
+    # kernel's launches in the last line are those of the first serve that
+    # lists it under `counts` below
     serves = {
-        "uniform": (4, "w8a8_g-1_sym", False, False, (k1, "gmm_w8a8", k3)),
-        "packed_w4": (4, "w4a8_g-1_sym", False, True, (k1, "gmm_w4a8_packed", k3)),
-        "mixed": (24, "mixed-packed", True, False,
+        "uniform": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3)),
+        "packed_w4": (4, "w4a8_g-1_sym", False, True, False,
+                      (k1, "gmm_w4a8_packed", k3)),
+        "mixed": (4, "mixed-packed", True, False, False,
                   (k1, "gmm_w8a8", k3q, "gmm_mixed_packed")),
-        "a16_packed": (24, "w4a16_g128_asym", False, True,
+        "a16_packed": (4, "w4a16_g128_asym", False, True, False,
                        ("gmm_weight_only_packed", k3)),
-        "grouped": (4, "w4a4_g128_sym", False, False, ("gmm_w8a8_grouped", k3)),
-        "asym": (4, "w8a8_g-1_asym", False, False, (k1, "gmm_w8a8_asym", k3)),
-        "a16": (4, "w4a16_g-1_sym", False, False, ("gmm_weight_only", k3)),
-        "flex": (4, "flex-shared-grouped", False, False, ("gmm_w8a8_grouped", k3)),
-        "flex_a16": (4, "flex-shared-a16", False, False,
+        "grouped": (4, "w4a4_g128_sym", False, False, False,
+                    ("gmm_w8a8_grouped", k3)),
+        "asym": (4, "w8a8_g-1_asym", False, False, False, (k1, "gmm_w8a8_asym", k3)),
+        "a16": (4, "w4a16_g-1_sym", False, False, False, ("gmm_weight_only", k3)),
+        "flex": (4, "flex-shared-grouped", False, False, False,
+                 ("gmm_w8a8_grouped", k3)),
+        "flex_a16": (4, "flex-shared-a16", False, False, False,
                      ("gmm_w8a8_grouped", "gmm_weight_only", k3)),
+        # the two-launch branches: the full 24 layers for the flex mixes
+        "flex_wo": (24, "flex-wo", False, False, False, (k1, "gmm_w8a8", k10, k3)),
+        "flex_packed": (24, "flex-packed", True, False, False,
+                        (k1, "gmm_w8a8", k4f, k3q)),
+        "mixed_wo": (4, "mixed-wo", False, False, False, (k1, k10, k3)),
+        "bf16_k11": (4, "bf16-k11", False, False, False, (k11, k3)),
+        "bf16_stock": (4, "none", False, False, False, (k3,)),
+        "int8_head": (4, "w8a8_g-1_sym", False, False, True, (k1, "gmm_w8a8", k3)),
     }
     ran = {}
-    for name, (layers, quant, int8_kv, pack, expect) in serves.items():
+    for name, (layers, quant, int8_kv, pack, head, expect) in serves.items():
         torch.cuda.empty_cache()
-        ran[name] = serve(layers, quant, int8_kv, expect, pack)
+        ran[name] = serve(layers, quant, int8_kv, expect, pack, head)
     # the flex serves go through K8 only: no K1, K2 or K9 for the routed
     # experts, and the grouped shared expert adds two K8 launches a layer
     if ran["flex"]["gmm_w8a8_grouped"] != 2 * ran["grouped"]["gmm_w8a8_grouped"]:
         raise AssertionError("the grouped shared expert did not go through K8: "
                              f"{ran['flex']} against {ran['grouped']}")
+    # the stock arm of the float path launches no kernel of K11's, the int8
+    # head one more K1 and K2 a forward than the float head
+    if ran["bf16_stock"][k11] or not (ran["int8_head"]["gmm_w8a8"]
+                                      > ran["uniform"]["gmm_w8a8"]):
+        raise AssertionError(f"unexpected launches: stock float arm "
+                             f"{ran['bf16_stock']}, int8 head {ran['int8_head']}")
     torch.cuda.empty_cache()
     bench_entry_point(["--quant", "mixed-packed", "--int8-kv"],
                       (k1, "gmm_w8a8", "gmm_mixed_packed", k3q))
     torch.cuda.empty_cache()
     bench_entry_point(["--quant", "w4a16_g128_asym"], ("gmm_weight_only", k3))
+    torch.cuda.empty_cache()
+    bench_entry_point(["--quant", "none"], (k3,))
+    torch.cuda.empty_cache()
+    bench_entry_point(["--quant", "w8a8_g-1_sym", "--int8-head"],
+                      (k1, "gmm_w8a8", k3))
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
-    counts = {"mixed": (k1, "gmm_w8a8", k3q, "gmm_mixed_packed"),
-              "uniform": (k3,), "packed_w4": ("gmm_w4a8_packed",),
+    counts = {"flex_wo": (k10, k3), "flex_packed": (k4f, k3q, k1, "gmm_w8a8"),
+              "mixed": ("gmm_mixed_packed",), "packed_w4": ("gmm_w4a8_packed",),
               "a16_packed": ("gmm_weight_only_packed",),
               "grouped": ("gmm_w8a8_grouped",), "asym": ("gmm_w8a8_asym",),
-              "a16": ("gmm_weight_only",)}
+              "a16": ("gmm_weight_only",), "bf16_k11": (k11,)}
     launches = {}
     for name, kernel_names in counts.items():
-        layers, quant, int8_kv, pack, _ = serves[name]
+        layers, quant, int8_kv, pack, _, _ = serves[name]
         label = (f"serve {quant}{' packed' if pack else ''}"
                  f"{' int8-kv' if int8_kv else ''} {layers} layers")
         for kn in kernel_names:
@@ -1117,7 +1478,7 @@ def main() -> int:
          "max_abs_err": rec[name]["max_abs_err"],
          "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
          "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
-         "library_ms": LIBRARY_MS}
+         "library_ms": rec[name].get("library_ms")}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-// K4: one-launch mixed-precision grouped GEMM over ragged per-expert storage.
+// K4 and K4f: one-launch mixed-precision grouped GEMM over ragged per-expert
+// storage, per channel (K4) and with per-k-group scales and zero points (K4f,
+// the flex form).
 //
-// Replaces the Pallas kernel mxmoe_tpu/ops/pallas_gmm.py:gmm_mixed_packed,
-// per-channel form (_gmm_mixed_packed_kernel with the per-group k-step
-// metadata of make_mixed_metadata). The grouped / asymmetric (flex) form of
-// that function is not ported here.
+// Replaces the Pallas kernel mxmoe_tpu/ops/pallas_gmm.py:gmm_mixed_packed:
+// K4 its per-channel body (_gmm_mixed_packed_kernel with the per-group k-step
+// metadata of make_mixed_metadata), K4f its flex bodies
+// (_gmm_mixed_packed_flex_kernel and _gmm_mixed_packed_flex_straddle_kernel).
 //
 // rhs_cat [R, N] bytes holds, per expert and in K/2-row units, either ONE
 // nibble-packed unit (pflags[e] != 0: signed 4-bit codes, halves layout) or
@@ -18,7 +20,64 @@
 // and a packed byte tile feeds two MMA k-steps (low nibbles against lhs
 // columns [r0, r0+64), high nibbles against [K/2+r0, K/2+r0+64)).
 
-#include "gmm_int8_tile.cuh"
+//
+// K4f: scales [M, G] / [E, G, N] and optional zero points, K8's arithmetic in
+// K8's group order (gmm_grouped_tile.cuh), so bitwise K8's output on the
+// int8-stored codes. The TPU kernel splits an int8 expert into two K/2 grid
+// steps and needs a second int32 scratch when K/2 is no multiple of the group
+// size; here a block walks logical k, an int8 expert's two units are one
+// [K, N] block, and a packed expert's code row k is byte row k or k - K/2, so
+// a group that spans the halves needs nothing of its own.
+
+#include "gmm_grouped_tile.cuh"
+
+namespace {
+
+template <typename OutT, bool kZp>
+__global__ void __launch_bounds__(kThreads)
+gmm_mixed_packed_flex_kernel(const int8_t* __restrict__ lhs,
+                             const float* __restrict__ s_a,
+                             const int8_t* __restrict__ rhs_cat,
+                             const float* __restrict__ s_b,
+                             const float* __restrict__ zp,
+                             const int* __restrict__ group_sizes,
+                             const int* __restrict__ pflags,
+                             const int* __restrict__ blk_offsets,
+                             OutT* __restrict__ out, int M, int K, int N, int E,
+                             int gsize) {
+  __shared__ __align__(16) int8_t As[GA_TILE];
+  __shared__ __align__(16) uint32_t Bs[B_TILE];
+  __shared__ int sizes[kMaxExperts];
+  __shared__ int tile_info[4];       // expert, first row, row begin, row end
+
+  if (!block_tile<GBM>(group_sizes, E, M, sizes, tile_info)) return;
+  const int e = tile_info[0];
+  const size_t srow = (size_t)e * (K / gsize) * N;
+  grouped_tile_body<OutT, kZp, true>(
+      lhs, s_a, rhs_cat + (size_t)blk_offsets[e] * (K / 2) * N, pflags[e] != 0,
+      s_b + srow, kZp ? zp + srow : nullptr, out, K, N, gsize, tile_info[1],
+      tile_info[2], tile_info[3], blockIdx.x * BN, As, Bs);
+}
+
+template <typename OutT>
+cudaError_t launch_flex(const int8_t* lhs, const float* s_a, const int8_t* rhs,
+                        const float* s_b, const float* zp, const int* gs,
+                        const int* pf, const int* blk, void* out, int M, int K,
+                        int N, int E, int gsize, cudaStream_t st) {
+  if (M > 0) {
+    dim3 grid((N + BN - 1) / BN, (M + GBM - 1) / GBM + E - 1);
+    OutT* o = static_cast<OutT*>(out);
+    if (zp != nullptr)
+      gmm_mixed_packed_flex_kernel<OutT, true><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, M, K, N, E, gsize);
+    else
+      gmm_mixed_packed_flex_kernel<OutT, false><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, M, K, N, E, gsize);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
                                       const void* rhs_cat, const void* s_b,
@@ -30,4 +89,30 @@ extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
   return gmm_int8_launch<kRaggedMixed>(lhs, s_a, rhs_cat, s_b, nullptr,
                                        group_sizes, pflags, blk_offsets, out,
                                        out_is_bf16, M, K, N, E, stream);
+}
+
+// zp may be null (no asymmetric scheme: the row-sum term is compiled out)
+extern "C" int mxmoe_gmm_mixed_packed_flex(const void* lhs, const void* s_a,
+                                           const void* rhs_cat, const void* s_b,
+                                           const void* zp,
+                                           const void* group_sizes,
+                                           const void* pflags,
+                                           const void* blk_offsets, void* out,
+                                           int out_is_bf16, int M, int K, int N,
+                                           int E, int gsize, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* a = static_cast<const int8_t*>(lhs);
+  const int8_t* b = static_cast<const int8_t*>(rhs_cat);
+  const float* sa = static_cast<const float*>(s_a);
+  const float* sb = static_cast<const float*>(s_b);
+  const float* z = static_cast<const float*>(zp);
+  const int* gs = static_cast<const int*>(group_sizes);
+  const int* pf = static_cast<const int*>(pflags);
+  const int* blk = static_cast<const int*>(blk_offsets);
+  cudaError_t err = out_is_bf16
+      ? launch_flex<__nv_bfloat16>(a, sa, b, sb, z, gs, pf, blk, out, M, K, N, E,
+                                   gsize, st)
+      : launch_flex<float>(a, sa, b, sb, z, gs, pf, blk, out, M, K, N, E, gsize,
+                           st);
+  return (int)err;
 }

@@ -43,6 +43,24 @@ __device__ __forceinline__ void find_tile(const int* sizes, int E, int M, int t,
   info[0] = found;
 }
 
+// the block's tile: every thread calls it. Copies the group sizes into
+// `sizes` (shared, kMaxExperts ints), lets one thread walk them and fills
+// `info` (shared, 4 ints: expert, first row of the tile, row begin, row end of
+// the expert); false when the block has no tile or no row in it.
+template <int kBM>
+__device__ __forceinline__ bool block_tile(const int* __restrict__ group_sizes,
+                                           int E, int M, int* sizes, int* info) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < E; e += kThreads) sizes[e] = group_sizes[e];
+  __syncthreads();
+  if (tid == 0) {
+    find_tile<kBM>(sizes, E, M, blockIdx.y, info);
+    info[1] *= kBM;
+  }
+  __syncthreads();
+  return info[0] >= 0 && info[1] < info[3];
+}
+
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) =
       __halves2bfloat162(__float2bfloat16_rn(x), __float2bfloat16_rn(y));

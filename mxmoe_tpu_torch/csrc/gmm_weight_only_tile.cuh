@@ -3,7 +3,9 @@
 // [E, K, N] int8) and K7 gmm_weight_only_packed (gmm_weight_only_packed.cu,
 // 4-bit codes nibble-packed [E, K/2, N] in the halves layout: byte row r
 // holds code k = r in the low nibble and k = r + K/2 in the high nibble).
-// One templated kernel; the storage is a template parameter.
+// One templated device function computes a block's 32 x 128 output tile; the
+// storage is a template parameter. The weight-only experts of K10
+// gmm_mixed_wo_wxa (gmm_mixed_wo_wxa.cu) run it too.
 //
 //   w[e,k,n]  = bf16( (float)q[e,k,n] * scale[e, k/gsize, n] + zp[e, k/gsize, n] )
 //   out[r, n] = OutT( sum_k lhs[r,k] * w[e,k,n] )        (f32 accumulation)
@@ -94,33 +96,19 @@ __device__ __forceinline__ void mma_w_tile(const __nv_bfloat16* As,
   }
 }
 
+// One block's tile of expert rows [row_lo, row_hi) starting at row m0,
+// columns from n0. w: the expert's code block; sc / zb: its [G, N] scales and
+// zero points (zb may be null: no zero points). As: 2 * WA_TILE bf16, Bs:
+// 2 * WB_TILE words of shared memory, 16-byte aligned ([0]: code rows r0..
+// with k < K/2; [1]: code rows K/2 + r0..).
 template <typename OutT, bool kPacked>
-__global__ void __launch_bounds__(kThreads)
-gmm_wo_kernel(const __nv_bfloat16* __restrict__ lhs,
-              const int8_t* __restrict__ rhs, const float* __restrict__ scale,
-              const float* __restrict__ zp, const int* __restrict__ group_sizes,
-              OutT* __restrict__ out, int M, int K, int N, int E, int gsize) {
-  // [0]: code rows r0.. (k < K/2); [1]: code rows K/2 + r0..
-  __shared__ __align__(16) __nv_bfloat16 As[2 * WA_TILE];
-  __shared__ __align__(16) uint32_t Bs[2 * WB_TILE];
-  __shared__ int sizes[kMaxExperts];
-  __shared__ int tile_info[4];            // expert, m-tile, row begin, row end
-
+__device__ __forceinline__ void wo_tile_body(
+    const __nv_bfloat16* __restrict__ lhs, const int8_t* __restrict__ w,
+    const float* __restrict__ sc, const float* __restrict__ zb,
+    OutT* __restrict__ out, int K, int N, int gsize, int m0, int row_lo,
+    int row_hi, int n0, __nv_bfloat16* As, uint32_t* Bs) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < E; e += kThreads) sizes[e] = group_sizes[e];
-  __syncthreads();
-  if (tid == 0) find_tile<WBM>(sizes, E, M, blockIdx.y, tile_info);
-  __syncthreads();
-  const int e = tile_info[0];
-  if (e < 0) return;
-  const int m0 = tile_info[1] * WBM;
-  const int row_lo = tile_info[2], row_hi = tile_info[3];
-  if (m0 >= row_hi) return;
-  const int n0 = blockIdx.x * WBN;
-  const int K2 = K / 2, G = K / gsize;
-  const int8_t* w = rhs + (size_t)e * (kPacked ? K2 : K) * N;
-  const float* sc = scale + (size_t)e * G * N;
-  const float* zb = zp + (size_t)e * G * N;
+  const int K2 = K / 2;
 
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = (warp >> 1) * 16, wn = (warp & 1) * 64;
@@ -187,7 +175,7 @@ gmm_wo_kernel(const __nv_bfloat16* __restrict__ lhs,
           // the unit's four rows lie in one scale group (gsize % 4 == 0)
           const size_t srow = (size_t)((t * K2 + r0 + kl) / gsize) * N + n0 + nl;
           s = *reinterpret_cast<const float4*>(sc + srow);
-          z = *reinterpret_cast<const float4*>(zb + srow);
+          if (zb != nullptr) z = *reinterpret_cast<const float4*>(zb + srow);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             if constexpr (kPacked)
@@ -222,6 +210,26 @@ gmm_wo_kernel(const __nv_bfloat16* __restrict__ lhs,
     if (live0) store2(out + (size_t)row0 * N + col, acc[j][0], acc[j][1]);
     if (live1) store2(out + (size_t)row1 * N + col, acc[j][2], acc[j][3]);
   }
+}
+
+template <typename OutT, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+gmm_wo_kernel(const __nv_bfloat16* __restrict__ lhs,
+              const int8_t* __restrict__ rhs, const float* __restrict__ scale,
+              const float* __restrict__ zp, const int* __restrict__ group_sizes,
+              OutT* __restrict__ out, int M, int K, int N, int E, int gsize) {
+  __shared__ __align__(16) __nv_bfloat16 As[2 * WA_TILE];
+  __shared__ __align__(16) uint32_t Bs[2 * WB_TILE];
+  __shared__ int sizes[kMaxExperts];
+  __shared__ int tile_info[4];       // expert, first row, row begin, row end
+
+  if (!block_tile<WBM>(group_sizes, E, M, sizes, tile_info)) return;
+  const int e = tile_info[0];
+  const size_t srow = (size_t)e * (K / gsize) * N;
+  wo_tile_body<OutT, kPacked>(
+      lhs, rhs + (size_t)e * (kPacked ? K / 2 : K) * N, scale + srow, zp + srow,
+      out, K, N, gsize, tile_info[1], tile_info[2], tile_info[3],
+      blockIdx.x * WBN, As, Bs);
 }
 
 // the C entry points' common body

@@ -1,13 +1,17 @@
 """Transformer building blocks of the quantized serving slices (port of
 ``mxmoe_tpu/models/layers.py``: ``rms_norm``, ``silu_mul``, ``MoEImpl``,
-``moe_ffn_ragged_quant``, ``shared_expert_ffn``, ``moe_block``).
+``moe_ffn_dense``, ``moe_ffn_ragged``, ``moe_ffn_ragged_quant``,
+``shared_expert_ffn``, ``moe_block``).
 
 Layouts are the JAX package's: matmul weights [in, out] (a projection is
 ``x @ w``), expert weights [E, in, out] with gate/up fused as [E, H, 2N].
 A layer's params are ``{name: stacked[layer]}`` views.
 
-Ported branches of ``moe_ffn_ragged_quant`` (act quant -> grouped GEMM ->
-SwiGLU -> act quant -> grouped GEMM), by what the layer's params hold:
+``moe_ffn_ragged`` is the float path (two grouped matmuls through
+``ops.gmm``: the stock grouped product, or K11 with
+``gmm_backend="pallas"``); ``moe_ffn_dense`` the O(E) oracle. Branches of
+``moe_ffn_ragged_quant`` (act quant -> grouped GEMM -> SwiGLU -> act quant ->
+grouped GEMM), by what the layer's params hold:
 
 - per-channel symmetric w x a, K1 act quant: uniform int8-stored (K2),
   uniform or mixed nibble-packed ``_q_packed`` (K5), per-expert mixed
@@ -16,14 +20,20 @@ SwiGLU -> act quant -> grouped GEMM), by what the layer's params hold:
 - uniform per-channel asymmetric w x a (K1, K9); uniform grouped w x a,
   symmetric or asymmetric (``quantize_act_grouped``, K8 without / with
   ``rhs_zp``); a flex mixed family, int8-stored (``quantize_act_rows_flex``,
-  K8 with the family's ``_zp`` when it has one);
+  K8 with the family's ``_zp`` when it has one), or over the ragged packed
+  buffer ``_qcat`` (K4f);
+- a mixed layer that holds weight-only (a16) experts, int8-stored, with
+  ``MoEImpl.mixed_weight_only``: K10, per channel (K1 act quant) or flex;
 - uniform weight-only a16, any group size, symmetric or asymmetric:
   int8-stored (K6) or nibble-packed (K7), no act quant.
 
 The shared expert runs in float or, real-quantized, through K2 with one
 group (per-channel symmetric), K8 with one group (grouped / asymmetric) or K6
-with one group (all-a16). Every other branch raises ``NotImplementedError``
-naming its ROADMAP item.
+with one group (all-a16). Not ported, and raising ``NotImplementedError``
+with their ROADMAP item: the whole expert FFN in one launch (``fused_ffn``,
+the aligned dispatch), the fake-quantized float paths (``act_bits_*`` beside
+float expert weights, the layer-heterogeneous shared expert) and
+``online_had``.
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ import torch.nn.functional as F
 from .configs import MoEConfig
 from ..ops import act_quant
 from ..ops.dispatch import combine_tokens, gather_tokens, make_dispatch, route_topk
+from ..ops.gmm import gmm
 from ..ops.gmm_mixed_packed import gmm_mixed_packed
+from ..ops.gmm_mixed_wo_wxa import gmm_mixed_wo_wxa
 from ..ops.gmm_w4a8_packed import gmm_w4a8_packed
 from ..ops.gmm_w8a8 import gmm_w8a8
 from ..ops.gmm_w8a8_asym import gmm_w8a8_asym
@@ -60,45 +72,80 @@ def silu_mul(gate_up: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class MoEImpl:
-    """How the expert FFN runs (the field of the JAX ``MoEImpl`` that the
-    serving slices read).
+    """How the expert FFN runs (the fields of the JAX ``MoEImpl`` that the
+    serving slices read, under its names and defaults).
 
+    kind: ``"ragged"`` (sort tokens by expert, grouped matmuls) or
+      ``"dense"`` (the O(E) oracle ``moe_ffn_dense``, float weights only).
+    gmm_backend: the float path's grouped matmul, as ``ops.gmm.gmm`` takes
+      it: ``"ragged_dot"`` (the stock grouped product) or ``"pallas"`` (the
+      hand-written kernel, K11 on a card).
     quant: the uniform QLinearConfig of the routed expert linears (params
       from quantize_model_experts_uniform), or ``"mixed"`` for per-expert
       schemes (params from quantize_model_experts_mixed, whose
-      ``act_bits_*`` arrays carry the activation widths).
+      ``act_bits_*`` arrays carry the activation widths). ``None`` with
+      float expert weights runs the float path.
+    mixed_weight_only: the mixed layers hold weight-only (a16) experts: their
+      GEMMs go through the one launch of both kinds, ``gmm_mixed_wo_wxa``,
+      which keeps the a16 rows in float. The caller sets it, as in the
+      reference; a mixed layer with a16 experts served without it quantizes
+      those rows to 8 bits.
     The JAX serving defaults hold for the rest: unaligned dispatch
-    (``dispatch_align=None``, ``fused_ffn=False``), act quant through the
-    single-pass kernel (``pallas_quant=True``, here K1) and no a16 experts
-    in a mixed layer (``mixed_weight_only=False``).
+    (``dispatch_align=None``, ``fused_ffn=False``) and act quant through the
+    single-pass kernel (``pallas_quant=True``, here K1).
     """
 
+    kind: str = "ragged"
+    gmm_backend: str = "ragged_dot"
     quant: object | None = None
+    mixed_weight_only: bool = False
 
 
 _STORAGE_KEYS = ("expert_gate_up_q", "expert_gate_up_q_packed",
                  "expert_gate_up_qcat")
 
 
-def _check_quant_domain(lp: dict, qcfg) -> bool:
-    """Admit exactly the ported domains; returns whether the layer is mixed
-    (per-expert activation bits)."""
-    if qcfg is None:
+def moe_ffn_dense(x2d: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tensor:
+    """Reference-fidelity O(E) dense MoE execution (test oracle)."""
+    logits = x2d @ lp["router"]
+    routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
+                         cfg.routed_scaling_factor)
+    h = silu_mul(torch.einsum("th,ehn->etn", x2d, lp["expert_gate_up"]))
+    out_all = torch.einsum("etn,enh->eth", h, lp["expert_down"])    # [E, T, H]
+    one_hot = F.one_hot(routing.expert_ids.long(), cfg.num_experts).to(x2d.dtype)
+    w = (routing.weights.to(x2d.dtype)[..., None] * one_hot).sum(1)  # [T, E]
+    return torch.einsum("eth,te->th", out_all, w)
+
+
+def moe_ffn_ragged(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
+                   impl: MoEImpl) -> torch.Tensor:
+    """The float path: sort tokens by expert, two grouped matmuls, combine."""
+    if "act_bits_gateup" in lp:
         raise NotImplementedError(
-            "the bf16 ragged MoE path is not ported yet (ROADMAP queue A: "
-            "moe_ffn_ragged)")
+            "fake-quantized activations over float expert weights (mixed "
+            "fake-quant eval) are not ported (ROADMAP queue A: calibrate)")
+    logits = x2d @ lp["router"]
+    routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
+                         cfg.routed_scaling_factor)
+    disp = make_dispatch(routing, cfg.num_experts)
+    xs = gather_tokens(x2d, disp)                                   # [T*k, H]
+    h = silu_mul(gmm(xs, lp["expert_gate_up"], disp.group_sizes,
+                     backend=impl.gmm_backend))                     # [T*k, N]
+    out = gmm(h, lp["expert_down"], disp.group_sizes,
+              backend=impl.gmm_backend)                             # [T*k, H]
+    return combine_tokens(out, disp, x2d.shape[0])
+
+
+def _check_quant_domain(lp: dict, qcfg) -> bool:
+    """Admit exactly the served domains; returns whether the layer is mixed
+    (per-expert activation bits)."""
     if not any(k in lp for k in _STORAGE_KEYS):
         raise ValueError("moe_ffn_ragged_quant: the layer carries no quantized "
                          f"expert weights (one of {_STORAGE_KEYS})")
     if "act_bits_gateup" in lp:
         for prefix, ag_key in (("expert_gate_up", "act_gsize_gateup"),
                                ("expert_down", "act_gsize_down")):
-            flex = ag_key in lp
-            if flex and f"{prefix}_q" not in lp:
-                raise NotImplementedError(
-                    "a flex (grouped / asymmetric) family over packed storage "
-                    "needs the flex form of gmm_mixed_packed (ROADMAP queue B 3)")
-            if not flex and lp[f"{prefix}_sc"].shape[-2] != 1:
+            if ag_key not in lp and lp[f"{prefix}_sc"].shape[-2] != 1:
                 raise ValueError(f"{prefix}_sc holds grouped scales but the "
                                  f"layer carries no {ag_key} marker")
         return True
@@ -147,14 +194,24 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     def qgemm_mixed(acts, prefix, bits_key, ag_key):
         sc, dt = lp[f"{prefix}_sc"], acts.dtype
         row_bits = lp[bits_key][row_expert]
+        if impl.mixed_weight_only:
+            # 1 = a weight-only (a16) expert: its rows stay float in K10
+            flags16 = (lp[bits_key] >= 16).to(torch.int32)
         if ag_key in lp:
             # flex family: bits, group size and symmetry are per-expert data
             gsize = acts.shape[-1] // sc.shape[-2]
+            zp = lp.get(f"{prefix}_zp")
             aq, asc = quantize_act_rows_flex(acts, row_bits,
                                              lp[ag_key][:, 0][row_expert], gsize)
+            if f"{prefix}_qcat" in lp:
+                return gmm_mixed_packed(aq, asc, lp[f"{prefix}_qcat"], sc, gs,
+                                        lp[f"{prefix}_pf"], lp[f"{prefix}_blk"],
+                                        rhs_zp=zp, out_dtype=dt)
+            if impl.mixed_weight_only:
+                return gmm_mixed_wo_wxa(acts, aq, asc, lp[f"{prefix}_q"], sc,
+                                        flags16, gs, rhs_zp=zp, out_dtype=dt)
             return gmm_w8a8_grouped(aq, asc, lp[f"{prefix}_q"], sc, gs,
-                                    gsize=gsize, rhs_zp=lp.get(f"{prefix}_zp"),
-                                    out_dtype=dt)
+                                    gsize=gsize, rhs_zp=zp, out_dtype=dt)
         aq, asc = act_quant.quantize_rows(acts, row_bits)
         if f"{prefix}_qcat" in lp:
             return gmm_mixed_packed(aq, asc, lp[f"{prefix}_qcat"], sc, gs,
@@ -163,6 +220,9 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
         if f"{prefix}_q_packed" in lp:
             return gmm_w4a8_packed(aq, asc, lp[f"{prefix}_q_packed"], sc, gs,
                                    out_dtype=dt)
+        if impl.mixed_weight_only:
+            return gmm_mixed_wo_wxa(acts, aq, asc, lp[f"{prefix}_q"], sc, flags16,
+                                    gs, out_dtype=dt)
         return gmm_w8a8(aq, asc, lp[f"{prefix}_q"], sc, gs, out_dtype=dt)
 
     def qgemm_uniform(acts, prefix):
@@ -271,7 +331,12 @@ def moe_block(x: torch.Tensor, lp: dict, cfg: MoEConfig,
               impl: MoEImpl = MoEImpl()) -> torch.Tensor:
     b, s, h = x.shape
     x2d = x.reshape(-1, h)
-    y = moe_ffn_ragged_quant(x2d, lp, cfg, impl)
+    if impl.kind == "dense":
+        y = moe_ffn_dense(x2d, lp, cfg)
+    elif impl.quant is not None and any(k in lp for k in _STORAGE_KEYS):
+        y = moe_ffn_ragged_quant(x2d, lp, cfg, impl)
+    else:
+        y = moe_ffn_ragged(x2d, lp, cfg, impl)
     if cfg.shared_expert_intermediate_size > 0:
         y = y + shared_expert_ffn(x2d, lp, cfg)
     return y.reshape(b, s, h)

@@ -1,6 +1,6 @@
 """Parameters and output head of the MoE decoder (port of
 ``mxmoe_tpu/models/model.py``: ``layer_param_shapes``, ``init_params``,
-``head_logits``).
+``head_logits`` with its int8 branch).
 
 Layout (as in the JAX package):
   embed        [V, H]
@@ -82,9 +82,21 @@ def init_params(cfg: MoEConfig, gen: torch.Generator, dtype=torch.bfloat16,
 
 
 def head_logits(params: dict, h: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """Final projection (float head; the int8 lm_head is not ported yet)."""
+    """Final projection; with the int8 lm_head of
+    ``quant.qparams.quantize_lm_head`` the hidden states are quantized per
+    token to 8 bits (K1) and multiplied as one group of a grouped int8 GEMM
+    (K2): the int32 sums are exact, so this is the reference's int8 dot with
+    its ``acc * s_h * s_w`` epilogue."""
     if "lm_head_q" in params:
-        raise NotImplementedError(
-            "the int8 lm_head is not ported yet (ROADMAP queue A)")
+        from ..ops import act_quant
+        from ..ops.gmm_w8a8 import gmm_w8a8
+
+        h2 = h.reshape(-1, h.shape[-1])
+        hq, hsc = act_quant.quantize_rows_uniform(h2, 8)
+        one_group = torch.full((1,), h2.shape[0], dtype=torch.int32,
+                               device=h.device)
+        out = gmm_w8a8(hq, hsc, params["lm_head_q"][None],
+                       params["lm_head_sc"][None], one_group, out_dtype=h.dtype)
+        return out.reshape(*h.shape[:-1], -1)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     return h @ head

@@ -1,19 +1,29 @@
 """One-launch mixed-precision grouped GEMM over ragged per-expert storage
-(port of ``mxmoe_tpu/ops/pallas_gmm.py:gmm_mixed_packed``, per-channel
-form) — kernel K4, ``csrc/gmm_mixed_packed.cu``.
+(port of ``mxmoe_tpu/ops/pallas_gmm.py:gmm_mixed_packed``) — kernels K4
+(per-channel form) and K4f (flex form), ``csrc/gmm_mixed_packed.cu``.
 
 ``rhs_cat`` [R, N] int8 holds, per expert and in K/2-row units, ONE
 nibble-packed unit (``pflags[e]`` = 1: signed 4-bit codes in the halves
 layout of ``quant.packing.pack_int4_halves``) or TWO int8 units (a plain
-[K, N] block); ``blk_offsets[e]`` is the expert's first unit. Everything
-else is ``gmm_w8a8``'s contract, and the output is bitwise that of
-``gmm_w8a8`` on the int8-stored codes: the int32 sum is exact and the
-epilogue is the same ``(acc * s_a) * s_b``, rounded once.
+[K, N] block); ``blk_offsets[e]`` is the expert's first unit.
 
-Not ported: the flex form (``[M, G]`` / ``[E, G, N]`` scales with G > 1,
-``rhs_zp``) raises; the TPU grid's ``static_sizes`` / ``static_pflags`` /
-``aligned`` / ``group_base`` have no counterpart (a layer's buffer is the
-view ``qcat[layer]``).
+Per-channel form (``lhs_scale`` [M, 1], ``rhs_scale`` [E, 1, N], no
+``rhs_zp``): everything else is ``gmm_w8a8``'s contract, and the output is
+bitwise that of ``gmm_w8a8`` on the int8-stored codes: the int32 sum is
+exact and the epilogue is the same ``(acc * s_a) * s_b``, rounded once.
+
+Flex form (``lhs_scale`` [M, G], ``rhs_scale`` and the optional ``rhs_zp``
+[E, G, N] with G > 1, or ``rhs_zp`` given): ``gmm_w8a8_grouped``'s contract
+and arithmetic, groups of K / G codes in ascending order, so the output is
+bitwise that of ``gmm_w8a8_grouped`` on the int8-stored codes. A group is a
+range of k, wherever its codes lie: with K/2 no multiple of the group size
+(K 1408, g 128) the middle group takes the end of the low nibbles and the
+start of the high nibbles of a packed expert, or the end of the first and
+the start of the second int8 unit.
+
+The TPU grid's ``static_sizes`` / ``static_pflags`` / ``aligned`` /
+``group_base`` have no counterpart (a layer's buffer is the view
+``qcat[layer]``).
 """
 
 from __future__ import annotations
@@ -23,22 +33,22 @@ import torch
 from . import kernels
 from ..quant.packing import unpack_int4_halves
 from .gmm_w8a8 import check_int8_gmm_operands, grouped_int8_plain
+from .gmm_w8a8_grouped import grouped_scale_plain
 
 
-def _reject_flex(lhs_scale, rhs_scale, rhs_zp) -> None:
-    if rhs_zp is not None or lhs_scale.shape[-1] != 1 or rhs_scale.shape[-2] != 1:
-        raise NotImplementedError(
-            "gmm_mixed_packed: grouped scales / rhs_zp need the flex form of "
-            "the kernel (ROADMAP queue B 3: gmm_mixed_packed flex form)")
+def _is_flex(lhs_scale, rhs_scale, rhs_zp) -> bool:
+    return (rhs_zp is not None or lhs_scale.shape[-1] != 1
+            or rhs_scale.shape[-2] != 1)
 
 
 def gmm_mixed_packed_plain(lhs_q, lhs_scale, rhs_cat, rhs_scale, group_sizes,
                            pflags, blk_offsets, rhs_zp=None,
                            out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of K4: unpacks each routed expert's block and
-    takes the exact grouped product (reads the metadata on the host)."""
-    _reject_flex(lhs_scale, rhs_scale, rhs_zp)
-    k2 = lhs_q.shape[1] // 2
+    """Plain PyTorch version of K4 and K4f: unpacks each routed expert's block
+    and takes the exact grouped product, per channel or per k-group (reads the
+    metadata on the host)."""
+    k = lhs_q.shape[1]
+    k2 = k // 2
     pf, blk = pflags.tolist(), blk_offsets.tolist()
 
     def weight_of(e):
@@ -47,47 +57,67 @@ def gmm_mixed_packed_plain(lhs_q, lhs_scale, rhs_cat, rhs_scale, group_sizes,
             return unpack_int4_halves(rhs_cat[r0: r0 + k2])
         return rhs_cat[r0: r0 + 2 * k2]
 
+    if _is_flex(lhs_scale, rhs_scale, rhs_zp):
+        return grouped_scale_plain(lhs_q, lhs_scale, weight_of, rhs_scale,
+                                   group_sizes, k // rhs_scale.shape[-2], rhs_zp,
+                                   out_dtype)
     return grouped_int8_plain(lhs_q, lhs_scale, weight_of, rhs_scale,
                               group_sizes, out_dtype)
 
 
 def gmm_mixed_packed(
     lhs_q: torch.Tensor,        # [M, K] int8 codes
-    lhs_scale: torch.Tensor,    # [M, 1] f32 per-token scale
+    lhs_scale: torch.Tensor,    # [M, G] f32 (G = 1: per token)
     rhs_cat: torch.Tensor,      # [R, N] int8 ragged storage
-    rhs_scale: torch.Tensor,    # [E, 1, N] f32 per-channel scale
+    rhs_scale: torch.Tensor,    # [E, G, N] f32
     group_sizes: torch.Tensor,  # [E] int32
     pflags: torch.Tensor,       # [E] int32: 1 = nibble-packed expert
     blk_offsets: torch.Tensor,  # [E] int32 K/2-unit starts
-    rhs_zp: torch.Tensor | None = None,
+    rhs_zp: torch.Tensor | None = None,   # [E, G, N] f32 (flex form)
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Mixed int8-stored / nibble-packed grouped matmul -> [M, N]."""
-    _reject_flex(lhs_scale, rhs_scale, rhs_zp)
     if lhs_q.device.type == "cpu":
         return gmm_mixed_packed_plain(lhs_q, lhs_scale, rhs_cat, rhs_scale,
-                                      group_sizes, pflags, blk_offsets,
-                                      out_dtype=out_dtype)
+                                      group_sizes, pflags, blk_offsets, rhs_zp,
+                                      out_dtype)
     req = kernels.require
     m, k = lhs_q.shape
-    e, n = rhs_scale.shape[0], rhs_scale.shape[-1]
-    check_int8_gmm_operands("gmm_mixed_packed", lhs_q, lhs_scale, rhs_cat,
-                            rhs_scale, group_sizes, out_dtype,
-                            extra=(pflags, blk_offsets))
-    req(k % 32 == 0, f"gmm_mixed_packed: K={k} must be a multiple of 32")
+    e, g, n = rhs_scale.shape
+    flex = _is_flex(lhs_scale, rhs_scale, rhs_zp)
+    name = "gmm_mixed_packed_flex" if flex else "gmm_mixed_packed"
+    extra = (pflags, blk_offsets) + (() if rhs_zp is None else (rhs_zp,))
+    check_int8_gmm_operands(name, lhs_q, lhs_scale, rhs_cat, rhs_scale,
+                            group_sizes, out_dtype, extra=extra, groups=g)
+    req(k % 32 == 0, f"{name}: K={k} must be a multiple of 32")
     req(rhs_cat.dim() == 2 and rhs_cat.shape[1] == n
         and rhs_cat.shape[0] % (k // 2) == 0,
-        f"gmm_mixed_packed: rhs_cat {tuple(rhs_cat.shape)} for K={k}, N={n}")
+        f"{name}: rhs_cat {tuple(rhs_cat.shape)} for K={k}, N={n}")
     req(pflags.dtype == torch.int32 and blk_offsets.dtype == torch.int32
         and pflags.shape == (e,) and blk_offsets.shape == (e,),
-        "gmm_mixed_packed: pflags / blk_offsets must be int32 [E]")
+        f"{name}: pflags / blk_offsets must be int32 [E]")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
-    err = kernels.lib().mxmoe_gmm_mixed_packed(
-        lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
-        rhs_scale.data_ptr(), group_sizes.data_ptr(), pflags.data_ptr(),
-        blk_offsets.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e,
-        kernels.stream_ptr(lhs_q.device))
-    kernels.check(err, "gmm_mixed_packed")
-    kernels.launches["gmm_mixed_packed"] += 1
+    if flex:
+        gsize = kernels.group_size(k, k // g, name)
+        req(gsize == k or gsize % 64 == 0,
+            f"{name}: the group size {gsize} must be K or a multiple of the "
+            "64-code k-tile (128 for the g128 schemes)")
+        req(rhs_zp is None or (rhs_zp.shape == rhs_scale.shape
+                               and rhs_zp.dtype == torch.float32),
+            f"{name}: rhs_zp must be float32 of rhs_scale's shape")
+        err = kernels.lib().mxmoe_gmm_mixed_packed_flex(
+            lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
+            rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
+            group_sizes.data_ptr(), pflags.data_ptr(), blk_offsets.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
+            kernels.stream_ptr(lhs_q.device))
+    else:
+        err = kernels.lib().mxmoe_gmm_mixed_packed(
+            lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
+            rhs_scale.data_ptr(), group_sizes.data_ptr(), pflags.data_ptr(),
+            blk_offsets.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), m, k, n, e,
+            kernels.stream_ptr(lhs_q.device))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
     return out

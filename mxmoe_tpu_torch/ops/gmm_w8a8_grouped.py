@@ -28,35 +28,55 @@ from . import kernels
 from .gmm_w8a8 import check_int8_gmm_operands
 
 
-def gmm_w8a8_grouped_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
-                           gsize=128, rhs_zp=None,
-                           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of K8 (exact per-group sums: int32 on the CPU,
-    float64 on a card; reads ``group_sizes`` on the host)."""
-    m, k = lhs_q.shape
-    n = rhs_q.shape[-1]
-    gsize = kernels.group_size(k, gsize, "gmm_w8a8_grouped")
+def grouped_rows_plain(a_q, w_q, sa, sc, zp, gsize: int) -> torch.Tensor:
+    """One expert's rows through K8's arithmetic -> f32 [r, N]: ``a_q`` [r, K]
+    and ``w_q`` [K, N] int8 codes, ``sa`` [r, G], ``sc`` and the optional
+    ``zp`` [G, N] f32. Exact per-group sums (int32 on the CPU, float64 on a
+    card), then the f32 steps in ascending group order."""
+    r, k = a_q.shape
+    n = w_q.shape[-1]
     g = k // gsize
-    acc_dtype = torch.int32 if lhs_q.device.type == "cpu" else torch.float64
+    acc_dtype = torch.int32 if a_q.device.type == "cpu" else torch.float64
+    a = a_q.reshape(r, g, gsize).to(acc_dtype)
+    w = w_q.reshape(g, gsize, n).to(acc_dtype)
+    part = (a.permute(1, 0, 2) @ w).to(torch.int32).float()       # [G, r, N]
+    rsum = a.sum(-1).to(torch.int32).float()                      # [r, G]
+    acc = torch.zeros((r, n), dtype=torch.float32, device=a_q.device)
+    for j in range(g):
+        acc = acc + part[j] * sa[:, j:j + 1] * sc[j]
+        if zp is not None:
+            acc = acc + (rsum[:, j:j + 1] * sa[:, j:j + 1]) * zp[j]
+    return acc
+
+
+def grouped_scale_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
+                        gsize, rhs_zp, out_dtype) -> torch.Tensor:
+    """The plain grouped-scale product shared by K8's plain version and the
+    flex form of ``gmm_mixed_packed``'s: ``weight_of(e)`` gives expert e's
+    [K, N] int8 codes. Reads ``group_sizes`` on the host."""
+    m, k = lhs_q.shape
+    n = rhs_scale.shape[-1]
     out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, m)
         if end > start:
-            a = lhs_q[start:end].reshape(end - start, g, gsize).to(acc_dtype)
-            w = rhs_q[e].reshape(g, gsize, n).to(acc_dtype)
-            part = (a.permute(1, 0, 2) @ w).to(torch.int32).float()   # [G, r, N]
-            rsum = a.sum(-1).to(torch.int32).float()                  # [r, G]
-            sa = lhs_scale[start:end]
-            acc = torch.zeros((end - start, n), dtype=torch.float32,
-                              device=lhs_q.device)
-            for j in range(g):
-                acc = acc + part[j] * sa[:, j:j + 1] * rhs_scale[e, j]
-                if rhs_zp is not None:
-                    acc = acc + (rsum[:, j:j + 1] * sa[:, j:j + 1]) * rhs_zp[e, j]
+            acc = grouped_rows_plain(
+                lhs_q[start:end], weight_of(e), lhs_scale[start:end],
+                rhs_scale[e], None if rhs_zp is None else rhs_zp[e], gsize)
             out[start:end] = acc.to(out_dtype)
         start += size
     return out
+
+
+def gmm_w8a8_grouped_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, group_sizes,
+                           gsize=128, rhs_zp=None,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of K8 (exact per-group sums: int32 on the CPU,
+    float64 on a card; reads ``group_sizes`` on the host)."""
+    gsize = kernels.group_size(lhs_q.shape[1], gsize, "gmm_w8a8_grouped")
+    return grouped_scale_plain(lhs_q, lhs_scale, lambda e: rhs_q[e], rhs_scale,
+                               group_sizes, gsize, rhs_zp, out_dtype)
 
 
 def gmm_w8a8_grouped(

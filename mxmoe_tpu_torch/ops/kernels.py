@@ -38,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
            "decode_attention_update_stacked_q8", "gmm_mixed_packed",
            "gmm_w4a8_packed", "gmm_weight_only", "gmm_weight_only_packed",
-           "gmm_w8a8_grouped", "gmm_w8a8_asym")
+           "gmm_w8a8_grouped", "gmm_w8a8_asym", "gmm_mixed_packed_flex",
+           "gmm_mixed_wo_wxa", "gmm_bf16")
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -76,6 +77,16 @@ _SIGNATURES = {
                                _I, _P],
     # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E, stream
     "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lhs, s_a, rhs_cat, s_b, zp (may be null), group_sizes, pflags,
+    # blk_offsets, out, out_is_bf16, M, K, N, E, gsize, stream
+    "mxmoe_gmm_mixed_packed_flex": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _P],
+    # lhs (bf16), lhs_q, s_a, rhs, s_b, zp (may be null), scheme_flags,
+    # group_sizes, out, out_is_bf16, M, K, N, E, gsize, stream
+    "mxmoe_gmm_mixed_wo_wxa": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _P],
+    # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
+    "mxmoe_gmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -18,7 +18,8 @@ buffer ``expert_*_qcat`` [L, R, N] with ``_blk`` / ``_pf`` [L, E] and
 ``_sc``; plus ``act_bits_gateup`` / ``act_bits_down`` [L, E], and for a
 real-quantized shared expert ``shared_*_q`` [L, K, N], ``shared_*_sc``
 [L, G, N], optional ``shared_*_zp``, ``act_bits_shared`` [L, 2] and the
-``shared_wo`` marker of an all-a16 one.
+``shared_wo`` marker of an all-a16 one. ``quantize_lm_head`` replaces
+``lm_head`` by ``lm_head_q`` [H, V] int8 and ``lm_head_sc`` [1, V] f32.
 """
 
 from __future__ import annotations
@@ -144,18 +145,20 @@ def quantize_model_experts_uniform(params: dict, cfg: QLinearConfig) -> dict:
     return {**params, "layers": layers}
 
 
-def _check_mixed_scheme(c: QLinearConfig, what: str) -> None:
-    """The ported routed-expert domain of a mixed layer: integer weights and
-    activations of at most 8 bits, any group size, symmetric or not."""
-    if c.w_bits > 8:
-        raise ValueError(f"mixed real-quant needs integer weights w<=8, got "
-                         f"{c.scheme_name} for {what}")
-    if c.a_bits >= 16:
-        raise NotImplementedError(
-            f"weight-only (a16) experts in a mixed layer ({c.scheme_name} for "
-            f"{what}) need gmm_mixed_wo_wxa (ROADMAP queue B 9)")
-    if c.a_bits > 8:
-        raise ValueError(f"activation width {c.a_bits} of {c.scheme_name}")
+def _check_mixed_scheme(c: QLinearConfig, what: str, pack_w4: bool) -> None:
+    """The routed-expert domain of a mixed layer: integer weights of at most
+    8 bits with activations of at most 8 bits (w x a) or of 16 and more
+    (weight-only), any group size, symmetric or not. ``pack_w4`` needs pure
+    w x a mixes: the one-launch kernel of weight-only and w x a experts reads
+    int8-stored codes."""
+    if c.w_bits > 8 or 8 < c.a_bits < 16:
+        raise ValueError(
+            "mixed real-quant supports int w<=8 w x a (a<=8) and weight-only "
+            f"(a>=16) schemes, got {c.scheme_name} for {what}")
+    if pack_w4 and c.a_bits > 8:
+        raise ValueError(
+            "pack_w4 requires pure w x a mixes (a16 weight-only experts need "
+            f"int8-stored codes), got {c.scheme_name} for {what}")
 
 
 def _replicate_groups(t: torch.Tensor, gdim: int) -> torch.Tensor:
@@ -172,7 +175,10 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
     Every w<=8, a<=8 scheme shares the int8 kernels: per-expert bitwidths
     live in the scales (weights) and the per-row clip range (activations),
     so a mixed layer is one grouped-GEMM launch. Emits ``expert_*_q/_sc/_zp``
-    plus ``act_bits_gateup`` / ``act_bits_down`` [L, E].
+    plus ``act_bits_gateup`` / ``act_bits_down`` [L, E]. Weight-only (a>=16)
+    experts are admitted beside them: their ``act_bits_*`` read 16, and the
+    forward serves such a layer through ``ops.gmm_mixed_wo_wxa`` when its
+    ``MoEImpl`` says ``mixed_weight_only``.
 
     A linear family whose scheme set holds a grouped or asymmetric scheme is
     FLEX (``schemes.flex_family_info``): its scales (and, with an asymmetric
@@ -185,8 +191,9 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
     ``pack_w4=True`` stores w<=4 experts nibble-packed in a per-layer ragged
     buffer (``expert_*_qcat`` [L, R, N] + ``_blk`` / ``_pf`` [L, E]) consumed
     by ``ops.gmm_mixed_packed``: bitwise the same outputs from about half
-    the bytes for those experts. Per-channel symmetric families only: a flex
-    family raises (the flex form of that kernel is not ported).
+    the bytes for those experts. A flex family keeps its [L, E, G, N] scales
+    (and ``_zp`` with an asymmetric scheme) beside the buffer; a per-channel
+    one carries no ``_zp``. A weight-only expert refuses ``pack_w4``.
 
     A shared expert configured at index E with integer weights in every
     layer is real-quantized too, at the finest group size its layers use:
@@ -211,13 +218,9 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
         for l in range(num_layers):
             for ei in range(e):
                 _check_mixed_scheme(qmodel_cfg.layer(l).experts[str(ei)].qmap()[lin],
-                                    f"layer {l} expert {ei} {lin}")
+                                    f"layer {l} expert {ei} {lin}", pack_w4)
         any_flex, g_min, any_asym = flex_family_info(qmodel_cfg, num_layers, e,
                                                      lin, kdim)
-        if any_flex and pack_w4:
-            raise NotImplementedError(
-                f"pack_w4 over a flex (grouped / asymmetric) {lin} family needs "
-                "the flex form of gmm_mixed_packed (ROADMAP queue B 3)")
         gdim = kdim // g_min if any_flex else 1
         sc = torch.empty((num_layers, e, gdim, n), dtype=torch.float32,
                          device=w.device)
@@ -249,6 +252,8 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
             (new[f"{name}_qcat"], new[f"{name}_blk"],
              new[f"{name}_pf"]) = pack_ragged_stack(layer_codes(), flags)
             new[f"{name}_sc"] = sc
+            if any_asym:
+                new[f"{name}_zp"] = zp
         else:
             q = torch.empty((num_layers, e, kdim, n), dtype=torch.int8,
                             device=w.device)
@@ -317,3 +322,25 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
 
     layers.update(new)
     return {**params, "layers": layers}
+
+
+def quantize_lm_head(params: dict) -> dict:
+    """Per-channel int8 lm_head (decode is lm-head-bandwidth-heavy): replaces
+    ``lm_head`` by ``lm_head_q`` [H, V] int8 and ``lm_head_sc`` [1, V] f32;
+    ``models.model.head_logits`` quantizes the hidden states per token and
+    takes the int8 product. Quantizes V in slices, so the f32 working set of
+    a full vocabulary never exists at once."""
+    w = params["lm_head"]
+    h, v = w.shape
+    q = torch.empty((h, v), dtype=torch.int8, device=w.device)
+    sc = torch.empty((1, v), dtype=torch.float32, device=w.device)
+    step = 16384
+    for v0 in range(0, v, step):
+        wf = w[:, v0:v0 + step].float()
+        s = torch.clamp(wf.abs().amax(0, keepdim=True), min=1e-8) / 127.0
+        q[:, v0:v0 + step] = torch.round(wf / s).to(torch.int8)
+        sc[:, v0:v0 + step] = s
+    out = {k: t for k, t in params.items() if k != "lm_head"}
+    out["lm_head_q"] = q
+    out["lm_head_sc"] = sc
+    return out

@@ -23,7 +23,7 @@ def main(argv=None):
     ap.add_argument("--quant", default="w8a8_g-1_sym",
                     help="what bench_serving --quant takes: a uniform expert "
                          "scheme, e.g. w8a8_g-1_sym or w4a16_g128_asym, or "
-                         "mixed | mixed-packed")
+                         "mixed | mixed-packed | none (bf16 experts)")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--chunk", type=int, default=16,

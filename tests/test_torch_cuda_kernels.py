@@ -19,14 +19,20 @@ for bf16 outputs (both round the same f32 value once). K8 and K9 bitwise
 K7 within ``gmm_weight_only.error_over_bound`` (f32 accumulation over K terms
 in any order, + 1 bf16 ulp for a bf16 output) of the float64 product of the
 same bf16 weights, K7 bitwise K6 on the unpacked codes; a reference with one
-k-group's zero point dropped or one group's scales shifted must fail it."""
+k-group's zero point dropped or one group's scales shifted must fail it.
+K4f (the flex form of K4) bitwise its plain version and bitwise K8 on the
+unpacked codes; K10's w x a experts bitwise K8 (K2 when per channel) and its
+weight-only experts bitwise K6 on the same operands and within K6's bound;
+K11 within ``gmm.error_over_bound`` (f32 accumulation over K terms, + 1 bf16
+ulp for a bf16 output) of the float64 product, for bf16 and f32 operands."""
 
 import pytest
 import torch
 
-from mxmoe_tpu_torch.ops import (act_quant, gmm_mixed_packed, gmm_w4a8_packed,
-                                 gmm_w8a8, gmm_w8a8_asym, gmm_w8a8_grouped,
-                                 gmm_weight_only, gmm_weight_only_packed, kernels)
+from mxmoe_tpu_torch.ops import (act_quant, gmm as gmm_float, gmm_mixed_packed,
+                                 gmm_mixed_wo_wxa, gmm_w4a8_packed, gmm_w8a8,
+                                 gmm_w8a8_asym, gmm_w8a8_grouped, gmm_weight_only,
+                                 gmm_weight_only_packed, kernels)
 from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
 from mxmoe_tpu_torch.serving import decode_attention as da
 
@@ -382,7 +388,7 @@ def test_wrappers_reject_bad_input(dev):
                           torch.ones((1, 1, 8), device=dev),
                           torch.tensor([4], dtype=torch.int32, device=dev))
     aq = torch.zeros((4, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError):                      # [M, G] act scales
+    with pytest.raises(ValueError, match="group size"):          # 32 is no k-tile
         gmm_mixed_packed.gmm_mixed_packed(
             aq, torch.ones((4, 2), device=dev),
             torch.zeros((64, 8), dtype=torch.int8, device=dev),
@@ -397,3 +403,129 @@ def test_wrappers_reject_bad_input(dev):
             torch.zeros((1, 24, 8), dtype=torch.int8, device=dev),
             torch.ones((1, 1, 8), device=dev),
             torch.tensor([4], dtype=torch.int32, device=dev))
+
+
+_FLEX_PACKED = [
+    # K/2 = 96 is no multiple of the group size: group 1 spans the halves
+    ([5, 0, 19, 8, 0, 70], [1, 1, 0, 1, 0, 0], 192, 48, 64, torch.bfloat16),
+    ([0, 0, 130, 1, 0], [0, 1, 1, 0, 1], 1408, 2048, 128, torch.float32),   # K/2 704
+    ([1, 1, 0, 1, 1, 0, 0, 1], [1, 0, 1, 0, 1, 0, 1, 0], 2048, 2816, 128, torch.bfloat16),
+    ([3, 200, 7], [0, 0, 0], 128, 64, 64, torch.bfloat16),        # no packed expert
+    ([3, 200, 7], [1, 1, 1], 1408, 64, 128, torch.bfloat16),      # all packed
+]
+
+
+@pytest.mark.parametrize("sizes,pflags,k,n,gsize,out,asym", [
+    *[(*c, a) for c in _FLEX_PACKED for a in (False, True)],
+    # one group: the flex form only with zero points (else it is K4)
+    ([9, 0, 40], [1, 0, 1], 96, 32, -1, torch.float32, True),
+])
+def test_gmm_mixed_packed_flex_kernel_bitwise(dev, sizes, pflags, k, n, gsize, out,
+                                              asym):
+    groups = 1 if gsize == -1 else k // gsize
+    aq, asc, w8, wsc, wzp, gs = _grouped_operands(dev, sizes, k, n, groups)
+    pfb = torch.tensor(pflags, dtype=torch.bool, device=dev)
+    wq = torch.where(pfb[:, None, None], w8.clamp(-8, 7), w8)
+    cat, blk = build_ragged_mixed(wq, pflags)
+    pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+    blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+    zp = wzp if asym else None
+    before = dict(kernels.launches)
+    got = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk,
+                                            rhs_zp=zp, out_dtype=out)
+    ref = gmm_mixed_packed.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk,
+                                                  rhs_zp=zp, out_dtype=out)
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=gsize,
+                                           rhs_zp=zp, out_dtype=out)
+    torch.cuda.synchronize()
+    assert (kernels.launches["gmm_mixed_packed_flex"]
+            == before["gmm_mixed_packed_flex"] + 1)
+    assert kernels.launches["gmm_mixed_packed"] == before["gmm_mixed_packed"]
+    assert torch.equal(got, ref) and torch.equal(got, k8)
+
+
+@pytest.mark.parametrize("sizes,k,n,gsize", [
+    ([5, 0, 19, 8, 0, 70], 384, 48, 128),
+    ([0, 0, 130, 1, 0, 3], 1408, 2048, 128),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, 128),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816, -1),       # per channel
+    ([33, 0, 2, 40], 96, 64, -1),
+])
+@pytest.mark.parametrize("flags", ["all0", "all1", "alternating"])
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "zp"])
+def test_gmm_mixed_wo_wxa_kernel(dev, sizes, k, n, gsize, flags, asym):
+    groups = 1 if gsize == -1 else k // gsize
+    e = len(sizes)
+    aq, asc, wq, wsc, wzp, gs = _grouped_operands(dev, sizes, k, n, groups)
+    wq = wq.clamp(-8, 7)
+    g = torch.Generator(device=dev).manual_seed(k + e)
+    x = torch.randn((sum(sizes), k), generator=g, device=dev).to(torch.bfloat16)
+    fl = torch.tensor({"all0": [0] * e, "all1": [1] * e,
+                       "alternating": [i % 2 for i in range(e)]}[flags],
+                      dtype=torch.int32, device=dev)
+    zp = wzp if asym else None
+    before = kernels.launches["gmm_mixed_wo_wxa"]
+    got = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa(x, aq, asc, wq, wsc, fl, gs, rhs_zp=zp,
+                                            out_dtype=torch.bfloat16)
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize=gsize,
+                                           rhs_zp=zp)
+    k6 = gmm_weight_only.gmm_weight_only(x, wq, wsc, wzp if asym else
+                                         torch.zeros_like(wsc), gs, gsize)
+    plain = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa_plain(x, aq, asc, wq, wsc, fl, gs,
+                                                    rhs_zp=zp)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_mixed_wo_wxa"] == before + 1
+    row_flag = torch.repeat_interleave(fl, gs.long()).bool()
+    assert torch.equal(got[~row_flag], k8[~row_flag])
+    assert torch.equal(got[~row_flag], plain[~row_flag])
+    assert torch.equal(got[row_flag], k6[row_flag])
+    if groups == 1 and not asym:
+        k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs)
+        assert torch.equal(got[~row_flag], k2[~row_flag])
+    if bool(row_flag.any()):
+        # the weight-only rows against the float64 product: zero the other
+        # experts' rows out of the comparison by giving them no rows
+        gs1 = torch.where(fl.bool(), gs, torch.zeros_like(gs))
+        rows = torch.nonzero(row_flag)[:, 0]
+        _, ratio = gmm_weight_only.error_over_bound(
+            got[rows].contiguous(), x[rows].contiguous(), wq, wsc,
+            wzp if asym else torch.zeros_like(wsc), gs1, gsize)
+        assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("sizes,k,n", [
+    ([5, 0, 19, 8, 0, 70], 96, 48),               # K % 64 != 0, N < a tile
+    ([0, 0, 130, 1, 0], 1408, 2048),
+    ([1, 1, 0, 1, 1, 0, 0, 1], 2048, 2816),
+    ([0, 0, 0], 64, 64),                          # no rows at all
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["obf16", "of32"])
+def test_gmm_bf16_kernel_within_bound(dev, sizes, k, n, dtype, out):
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    m, e = max(sum(sizes), 1), len(sizes)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((e, k, n), generator=g, device=dev) * 0.05).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = kernels.launches["gmm_bf16"]
+    got = gmm_float.gmm_bf16(x, w, gs, out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_bf16"] == before + 1
+    if sum(sizes) == 0:
+        return
+    _, ratio = gmm_float.error_over_bound(got, x, w, gs)
+    assert ratio <= 1.0
+    # a reference with the last k row's weights dropped lies outside the bound
+    w_m = w.clone()
+    w_m[:, k - 1] = 0
+    _, ratio = gmm_float.error_over_bound(got, x, w_m, gs)
+    assert ratio > 1.0
+    # the front end's two arms: the hand-written kernel and the stock product
+    via = gmm_float.gmm(x, w, gs, backend="pallas")
+    stock = gmm_float.gmm(x, w, gs, backend="ragged_dot")
+    torch.cuda.synchronize()
+    rows = sum(sizes)
+    assert torch.equal(via[:rows], gmm_float.gmm_bf16(x, w, gs)[:rows])
+    _, ratio = gmm_float.error_over_bound(stock[:rows].contiguous(), x[:rows].contiguous(),
+                                          w, gs)
+    assert ratio <= 1.0 or dtype == torch.float32

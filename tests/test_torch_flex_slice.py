@@ -186,9 +186,29 @@ def test_forward_cached_flex_mix_vs_jax(floats, mix):
 
 
 def test_flex_over_packed_storage_still_raises(floats):
-    _, cfg_t, _, float_t = floats
+    """Flex over the ragged packed buffer raised before it was ported (the
+    name stays): it now quantizes key by key bitwise the reference's, and its
+    logits are bitwise those of the int8-stored flex params."""
+    cfg_j, cfg_t, float_j, float_t = floats
     pattern, shared = MIXES["flex-shared-grouped"]
-    with pytest.raises(NotImplementedError, match="queue B 3"):
-        quantize_model_experts_mixed(float_t, cfg_t,
-                                     _qmc(schemes, cfg_t, pattern, shared),
-                                     pack_w4=True)
+    got = quantize_model_experts_mixed(float_t, cfg_t,
+                                       _qmc(schemes, cfg_t, pattern, shared),
+                                       pack_w4=True)
+    ref = _to_torch(jax_quantize_mixed(float_j, cfg_j,
+                                       _qmc(jax_schemes, cfg_j, pattern, shared),
+                                       pack_w4=True))["layers"]
+    assert sorted(got["layers"]) == sorted(ref)
+    assert "expert_down_qcat" in ref and "expert_down_zp" in ref
+    for key in ref:
+        assert torch.equal(got["layers"][key], ref[key]), key
+    stored = quantize_model_experts_mixed(float_t, cfg_t,
+                                          _qmc(schemes, cfg_t, pattern, shared))
+    toks = torch.arange(20, dtype=torch.int32).reshape(2, 10)
+    outs = []
+    for params in (got, stored):
+        ct = kv_cache.init_kv_cache(cfg_t, 2, 16, device="cpu")
+        lg, ct = decode.forward_cached(params, toks, ct, cfg_t, MoEImpl(quant="mixed"))
+        lg2, _ = decode.forward_cached(params, lg[:, -1:].argmax(-1).to(torch.int32),
+                                       ct, cfg_t, MoEImpl(quant="mixed"))
+        outs.append(torch.cat([lg, lg2], dim=1))
+    assert torch.equal(outs[0], outs[1])

@@ -98,13 +98,24 @@ def test_gmm_w4a8_packed_bitwise(sizes, k, n, out):
 
 
 def test_gmm_mixed_packed_flex_form_raises():
+    """The flex form serves (it raised before it was ported; the name stays):
+    all-zero zero points, and scales replicated over two k-groups, change
+    nothing, bitwise. A group size that does not divide K still raises."""
     aq, asc, wq, wsc, gs = _operands(0, [4, 4], [1, 0], 64, 16)
     cat, blk = tp.build_ragged_mixed(torch.from_numpy(wq), [1, 0])
     t_aq, t_asc, t_wsc, t_gs = _t(aq, asc, wsc, gs)
     pf, bo = torch.tensor([1, 0], dtype=torch.int32), torch.tensor(blk, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue B 3.*flex"):   # rhs_zp
-        gmm_mixed_packed(t_aq, t_asc, cat, t_wsc, t_gs, pf, bo,
-                         rhs_zp=torch.zeros_like(t_wsc))
-    with pytest.raises(NotImplementedError, match="flex"):       # [M, G], [E, G, N]
-        gmm_mixed_packed(t_aq, t_asc.repeat(1, 2), cat, t_wsc.repeat(1, 2, 1),
+    base = gmm_mixed_packed(t_aq, t_asc, cat, t_wsc, t_gs, pf, bo,
+                            out_dtype=torch.float32)
+    with_zp = gmm_mixed_packed(t_aq, t_asc, cat, t_wsc, t_gs, pf, bo,
+                               rhs_zp=torch.zeros_like(t_wsc),
+                               out_dtype=torch.float32)                 # rhs_zp
+    assert torch.equal(with_zp, base)
+    two = gmm_mixed_packed(t_aq, t_asc.repeat(1, 2), cat, t_wsc.repeat(1, 2, 1),
+                           t_gs, pf, bo, out_dtype=torch.float32)      # [M, G], [E, G, N]
+    # two half-K partial sums, each rescaled, against one: f32 rounding apart
+    torch.testing.assert_close(two, base, rtol=1e-6, atol=1e-6)
+    assert kernels.launches["gmm_mixed_packed_flex"] == 0
+    with pytest.raises(RuntimeError):                  # 3 groups over K = 64
+        gmm_mixed_packed(t_aq, t_asc.repeat(1, 3), cat, t_wsc.repeat(1, 3, 1),
                          t_gs, pf, bo)

@@ -186,13 +186,21 @@ def _layer(models, l=0):
 
 
 def test_unported_branches_raise_with_their_roadmap_item(models):
+    """Malformed layers raise; the branches that raised before they were
+    ported (flex over the packed buffer, the bf16 path, the int8 head) now
+    give their result (the name stays)."""
     cfg_t, impl_t = models[1], models[5]
     x = torch.zeros((1, 3, cfg_t.hidden_size))
     lp = _layer(models)
-    # a flex (grouped / asymmetric) family over the ragged packed buffer
-    flex = dict(lp, act_gsize_gateup=torch.full((cfg_t.num_experts, 2), 128.0))
-    with pytest.raises(NotImplementedError, match="flex.*queue B 3"):
-        moe_block(x, flex, cfg_t, impl_t)
+    # a flex (grouped / asymmetric) family over the ragged packed buffer: the
+    # per-channel scales replicated over two k-groups, every expert per token
+    g = 2
+    flex = dict(lp, act_gsize_gateup=torch.full((cfg_t.num_experts, g), -1.0),
+                expert_gate_up_sc=lp["expert_gate_up_sc"].repeat(1, g, 1))
+    xr = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, 3, cfg_t.hidden_size)).astype(np.float32))
+    torch.testing.assert_close(moe_block(xr, flex, cfg_t, impl_t),
+                               moe_block(xr, lp, cfg_t, impl_t), rtol=1e-5, atol=1e-6)
     # grouped scales that no flex marker announces are a malformed layer
     grouped_sc = dict(lp, expert_down_sc=lp["expert_down_sc"].repeat(1, 2, 1))
     with pytest.raises(ValueError, match="act_gsize_down"):
@@ -212,21 +220,38 @@ def test_unported_branches_raise_with_their_roadmap_item(models):
             parse_scheme("w4a8_g-1_sym"), a_sym=False)))
     with pytest.raises(ValueError, match="needs mixed params"):
         moe_block(x, uniform, cfg_t, impl_t)
-    with pytest.raises(NotImplementedError, match="moe_ffn_ragged"):
+    # quant=None takes the float path, which serves float expert weights (the
+    # dense oracle agrees with it) and refuses fake-quantized activations
+    with pytest.raises(NotImplementedError, match="calibrate"):
         moe_block(x, lp, cfg_t, MoEImpl())
+    float_t = models[6]
+    flp = {k: v[0] for k, v in float_t["layers"].items()}
+    torch.testing.assert_close(moe_block(xr, flp, cfg_t, MoEImpl()),
+                               moe_block(xr, flp, cfg_t, MoEImpl(kind="dense")),
+                               rtol=1e-5, atol=1e-6)
     fake_shared = {k: v for k, v in lp.items() if not k.startswith("shared_")}
     fake_shared.update(shared_gate_up=torch.zeros(1), shared_down=torch.zeros(1),
                        shared_gate=lp["shared_gate"])
     with pytest.raises(NotImplementedError, match="quantizer"):
         moe_block(x, fake_shared, cfg_t, impl_t)
-    with pytest.raises(NotImplementedError, match="lm_head"):
-        head_logits({"lm_head_q": None}, x, cfg_t)
-    with pytest.raises(NotImplementedError, match="moe_ffn_ragged"):
-        quantize_for_serving({}, cfg_t, "none")
+    # the int8 head: within one 8-bit step of the float head on both operands
+    from mxmoe_tpu_torch.quant.qparams import quantize_lm_head
+    head8 = quantize_lm_head(float_t)
+    assert "lm_head" not in head8 and head8["lm_head_q"].dtype == torch.int8
+    want = head_logits(float_t, xr, cfg_t)
+    got = head_logits(head8, xr, cfg_t)
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 0.02 * want.abs().max()
+    # --quant none: float params pass through with the default MoEImpl
+    params, impl = quantize_for_serving(float_t, cfg_t, "none")
+    assert params is float_t and impl == MoEImpl()
 
 
 @pytest.mark.parametrize("extra", [["--quant", "mixed-packed", "--int8-kv"],
-                                   ["--quant", "w8a8_g-1_sym"]])
+                                   ["--quant", "w8a8_g-1_sym"],
+                                   ["--quant", "none"],
+                                   ["--quant", "w8a8_g-1_sym", "--int8-head"]],
+                         ids=["mixed-packed-int8kv", "w8a8", "none", "int8-head"])
 def test_bench_serving_entry_point_on_cpu(models, monkeypatch, capsys, extra):
     """main() at tiny widths on the CPU: one JSON line with the reference's
     keys."""
@@ -242,6 +267,7 @@ def test_bench_serving_entry_point_on_cpu(models, monkeypatch, capsys, extra):
                         "prefill_ms", "prefill_tokens_per_s", "decode_attn",
                         "decode_step_ms", "decode_tokens_per_s", "device"}
     assert res["int8_kv"] is ("--int8-kv" in extra) and res["device"] == "cpu"
+    assert res["int8_head"] is ("--int8-head" in extra)
     assert res["decode_tokens_per_s"] > 0 and res["prefill_ms"] > 0
 
 
