@@ -34,7 +34,15 @@ failure raises and the script exits non-zero without a result line:
               K11 (gmm_bf16) within gmm.error_over_bound of a float64 product,
               timed beside the stock torch._grouped_mm (its library_ms); the
               int8 lm_head's product (K1, K2 with one group, N 151936) bitwise.
-              Also the sorted combine's time beside the atomic index_add_'s
+              Also the sorted combine's time beside the atomic index_add_'s.
+              K12 (gmm_ffn_w8a8) over the aligned dispatch, decode and
+              prefill: bitwise its plain version, within the reference's
+              bounds of the two-launch path (timed beside it) and, on the
+              reference test's set-up, within 2e-4 of the f32 oracle; K13
+              (gmm_ffn_mixed_packed) bitwise its plain version and K12 on the
+              equivalent codes (no expert, every other, every expert packed);
+              K14 (gmm_w8a8_fusedquant) bitwise its plain version and K1 + K2;
+              K15 (gmm_ws) at the headline workload's shapes bitwise K2 / K5
   4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
               through forward_cached on the CPU (plain versions) and on
               CUDA (kernels): one 256-token prefill chunk + 4 decode steps;
@@ -46,37 +54,50 @@ failure raises and the script exits non-zero without a result line:
               (routed w4a4_g128_asym / w8a8_g-1_sym, shared w8a8_g128_asym),
               flex-wo (routed w4a16_g128_asym / w8a8_g-1_sym through K10),
               flex-packed (routed w4a4_g128_asym nibble-packed / w8a8_g-1_sym
-              through K4f) and bf16 experts through K11
+              through K4f), bf16 experts through K11, and with the whole FFN
+              in one launch: mixed-packed + int8 KV (K13), uniform w8a8 (K12),
+              and uniform w8a8 over the aligned dispatch unfused (K2)
   5. storage  mixed (int8-stored) and mixed-packed params of one seed, 4
               layers, int8 KV cache: prefill + 16 decode steps give bitwise
               equal logits on the card; the same for the flex mix int8-stored
-              (K8) and packed (K4f). Then the float path's two arms, K11 and
+              (K8) and packed (K4f), and for mixed / mixed-packed with the
+              fused FFN (K12 / K13). Then the float path's two arms, K11 and
               the stock grouped product, on one 4-layer model: logits within
               the parity bound of each other
   6. serve    the Engine answering 4 requests over qwen2_moe with seeded
-              random bf16 weights: uniform w8a8 + bf16 cache (4 layers; K1,
-              K2, K3), uniform w4a8 nibble-packed (4 layers; K1, K5, K3),
-              4 layers with alternating w4a4 / w8a8 experts packed, the
-              shared expert w8a8 and the int8 KV cache (K1, K2, K3q, K4), 4
-              layers uniform w4a16_g128_asym nibble-packed (K7, K3), 4 layers
-              each of uniform w4a4_g128_sym (K8), w8a8_g-1_asym (K1, K9),
-              w4a16_g-1_sym int8-stored (K6) and the two flex mixes (K8 with
-              zero points; shared expert through K8 or K6 with one group).
-              At the full 24 layers: flex-wo (K10, K3; shared expert K1 + K2)
-              and flex-packed with the int8 KV cache (K4f, K3q), with peak
-              memory beside the bytes reckoned from the code. 4 layers each:
-              the per-channel weight-only mix (K10's other body), bf16
-              experts through K11 and through the stock arm, and uniform w8a8
-              with the int8 lm_head. The launch counts are set to 0 before
-              each serve and read after it; every kernel named must have
-              launched
+              random bf16 weights, 4 layers each: uniform w8a8 + bf16 cache
+              (K1, K2, K3), uniform w4a8 nibble-packed (K1, K5, K3),
+              alternating w4a4 / w8a8 experts packed with the shared expert
+              w8a8 and the int8 KV cache (K1, K2, K3q, K4), uniform
+              w4a16_g128_asym nibble-packed (K7, K3), uniform w4a4_g128_sym
+              (K8), w8a8_g-1_asym (K1, K9), w4a16_g-1_sym int8-stored (K6),
+              the two flex mixes (K8 with zero points; shared expert through
+              K8 or K6 with one group), flex-wo (K10), flex-packed with the
+              int8 KV cache (K4f, K3q), the per-channel weight-only mix
+              (K10's other body), bf16 experts through K11 and through the
+              stock arm, uniform w8a8 with the int8 lm_head; with the fused
+              FFN: uniform w8a8 (K12, no K2), "auto" (K12 at decode and at the
+              256-token prefill chunks), the aligned dispatch unfused (K2, no
+              K12) and the flex mix (no K12 / K13: the guard falls through).
+              At the full 24 layers: mixed-packed + int8 KV with the fused
+              FFN (K13, K1, K3q; shared expert K2; no K4), with peak memory
+              beside the bytes reckoned from the code. The launch counts are
+              set to 0 before each serve and read after it; every kernel
+              named must have launched
   7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
               (K1, K2, K3q, K4 must be non-zero in its own launch counts),
-              --quant w4a16_g128_asym (K6, K3), --quant none (K3) and
-              --quant w8a8_g-1_sym --int8-head (K1, K2, K3)
+              --quant w4a16_g128_asym (K6, K3), --quant none (K3),
+              --quant w8a8_g-1_sym --int8-head (K1, K2, K3) and mixed-packed
+              + int8 KV --fused-ffn on (K13, K1, K2, K3q)
+  8. headline bench/headline.py (the counterpart of bench.py) in the
+              process: the mixed one-launch and bucketed arms' outputs (K15)
+              bitwise their --no-ws arms' (K2; K5 + K2), then both arms as
+              the entry point runs them, each printing its JSON line; K15
+              must launch
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
-serve, named beside them), the nvidia-smi line, and last
+serve or run, named beside them; K14 is reached by no serve in either
+package), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -123,6 +144,13 @@ KERNEL_SOURCES = {
                          "mxmoe_tpu/ops/pallas_gmm.py:1631"),
     "gmm_bf16": ("mxmoe_tpu_torch/csrc/gmm_bf16.cu",
                  "mxmoe_tpu/ops/pallas_gmm.py:271"),
+    "gmm_ffn_w8a8": ("mxmoe_tpu_torch/csrc/gmm_ffn_w8a8.cu",
+                     "mxmoe_tpu/ops/pallas_gmm.py:2081"),
+    "gmm_ffn_mixed_packed": ("mxmoe_tpu_torch/csrc/gmm_ffn_mixed_packed.cu",
+                             "mxmoe_tpu/ops/pallas_gmm.py:2300"),
+    "gmm_w8a8_fusedquant": ("mxmoe_tpu_torch/csrc/gmm_w8a8_fusedquant.cu",
+                            "mxmoe_tpu/ops/pallas_gmm.py:1752"),
+    "gmm_ws": ("mxmoe_tpu_torch/csrc/gmm_ws.cu", "mxmoe_tpu/ops/pallas_gmm.py:1906"),
 }
 # the scale group of the grouped schemes on the main path (g128)
 GSIZE = 128
@@ -150,7 +178,9 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 # For the others there is none (``library_ms`` null): torch has no per-row-bits
 # quantizer, no grouped (per-expert) product over expert-sorted rows with int8
 # or nibble-packed operands, per-group scales, zero points or in-product
-# dequantization, and no single call writes the cache and attends over it
+# dequantization, and no single call writes the cache and attends over it;
+# none quantizes activations inside a product (K14), runs a whole FFN with an
+# in-product requant (K12, K13), or schedules a grouped int8 product (K15)
 
 
 def emit(phase: str, **kv) -> None:
@@ -932,6 +962,258 @@ def attention_kernels_vs_plain(rec: dict) -> None:
             del caches, caches2
 
 
+def ffn_work(gs, k: int, n: int, h: int, expert_bytes, out_bytes: int = 2) -> dict:
+    """K12 / K13 on THIS layout: every row the kernel is given (the aligned
+    dispatch's padding rows included) is read as int8 codes and a scale and
+    written once; each live expert streams its gate_up and down codes
+    (``expert_bytes[e]``) and its scale rows; the hq intermediate never has
+    to leave the chip, so it is not counted. Operations: both int8 GEMMs."""
+    import torch
+
+    live = gs > 0
+    rows = int(gs.sum())
+    e = gs.numel()
+    w = torch.as_tensor(expert_bytes, device=gs.device).expand(e)
+    nbytes = (rows * (k + 4) + int(w[live].sum()) + int(live.sum()) * (2 * n + h) * 4
+              + 2 * e * 4 + rows * h * out_bytes)
+    return work_bound(nbytes, 2 * rows * (k * 2 * n + n * h), "int8")
+
+
+def _reference_ffn_setup(seed: int = 7):
+    """The reference test's K12 set-up (tests/test_pallas_gmm.py:766-783: 5
+    experts, K = N = H = 256, sizes 64/0/32/64/32, down bits 4/8/8/4/6), made
+    from a numpy seed exactly as tests/test_torch_gmm_ffn.py makes it."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.quant.qparams import quantize_act_per_row_bits
+
+    e, k, nh, hout, m = 5, 256, 256, 256, 224
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+
+    def qw(w):
+        sc = (np.abs(w).max(axis=1, keepdims=True) / np.float32(127.0)).astype(np.float32)
+        return np.round(w / sc).astype(np.int8), sc
+
+    wgu_q, wgu_sc = qw((rng.standard_normal((e, k, 2 * nh)) * 0.05).astype(np.float32))
+    wd_q, wd_sc = qw((rng.standard_normal((e, nh, hout)) * 0.05).astype(np.float32))
+    aq, asc = quantize_act_per_row_bits(torch.from_numpy(x), torch.full((m,), 8.0))
+    dev = torch.device("cuda")
+    t = [torch.as_tensor(v).to(dev) for v in (wgu_q, wgu_sc, wd_q, wd_sc)]
+    return ([aq.to(dev), asc.to(dev)] + t,
+            torch.tensor([64, 0, 32, 64, 32], dtype=torch.int32, device=dev),
+            torch.tensor([4, 8, 8, 4, 6], dtype=torch.int32, device=dev))
+
+
+def fused_kernels_vs_plain(rec: dict) -> None:
+    """K12-K15. K12 (gmm_ffn_w8a8) and K13 (gmm_ffn_mixed_packed) at the
+    decode and prefill shapes over the aligned dispatch (32 rows): K12
+    bitwise its plain version and, with f32 output, within the reference's
+    bounds of the two-launch path (K2 -> bf16 -> SwiGLU -> K1 -> K2: mean
+    |d| < 1e-2, p99 < 8e-2, max < 0.3), timed beside it; on the reference
+    test's set-up also within 2e-4 of the f32 oracle. K13 bitwise its plain
+    version and K12 on the equivalent int8 codes (no expert packed, every
+    other, all), timed beside its two-launch path (K4 + SwiGLU + K1 + K4).
+    K14 (gmm_w8a8_fusedquant) at the gate_up shape bitwise its
+    plain version and K1 + K2, timed beside them. K15 (gmm_ws) at the
+    headline workload's shapes, rows padded to 128: bitwise K2 (int8) and K5
+    (packed), timed beside them."""
+    import torch
+
+    from mxmoe_tpu_torch.bench import workloads
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.models.layers import silu_mul
+    from mxmoe_tpu_torch.ops import act_quant, gmm as gfl, gmm_ffn
+    from mxmoe_tpu_torch.ops import gmm_mixed_packed as gmp
+    from mxmoe_tpu_torch.ops import gmm_w4a8_packed as g4p, gmm_w8a8 as gmm
+    from mxmoe_tpu_torch.ops import gmm_w8a8_fusedquant as gfq, gmm_ws
+    from mxmoe_tpu_torch.ops.dispatch import expert_of_rows, make_dispatch, route_topk
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the oracle's f32 products
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    f32 = torch.float32
+
+    def timed(kernel, plain, work, reps=5):
+        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=reps, warmup=1),
+                **work}
+
+    # the reference test's set-up: K12 against the f32 oracle
+    (aq, asc, wgu, sgu, wd, sd), gs, bits = _reference_ffn_setup()
+    rows = int(gs.sum())
+    out = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits, f32)
+    row_bits = bits[expert_of_rows(gs, aq.shape[0])].float()
+    gu = gfl.gmm_bf16_plain(aq.float() * asc, wgu.float() * sgu, gs, f32)
+    hf = gu[:, :256] * torch.sigmoid(gu[:, :256]) * gu[:, 256:]
+    hq, hsc = act_quant.quantize_rows_plain(hf, row_bits)
+    oracle = gfl.gmm_bf16_plain(hq.float() * hsc, wd.float() * sd, gs, f32)
+    torch.cuda.synchronize()
+    err = (out - oracle)[:rows].abs()
+    if not bool((err <= 2e-4 + 2e-4 * oracle[:rows].abs()).all()):
+        raise AssertionError(f"K12 outside 2e-4 of the f32 oracle: max|d|={err.max()}")
+    emit("kernels", kernel="gmm_ffn_w8a8", use="reference test set-up vs f32 oracle",
+         M=aq.shape[0], K=256, N=256, H=256, max_abs_err=err.max().item(),
+         bound="rtol 2e-4, atol 2e-4")
+
+    # qwen2_moe widths: per-channel int8 weights of seeded normal floats
+    def quant_w(shape):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        sc = w.abs().amax(1, keepdim=True) / 127.0
+        return torch.round(w / sc).to(torch.int8), sc
+
+    wgu, sgu = quant_w((e, h, 2 * n))
+    wd, sd = quant_w((e, n, h))
+    bits = torch.tensor([(4, 6, 8)[i % 3] for i in range(e)], dtype=torch.int32,
+                        device=dev)
+    alternating = [int(i % 2 == 0) for i in range(e)]
+    for regime, tokens in (("decode", 4), ("prefill", 256)):
+        logits = torch.randn((tokens, e), generator=gen, device=dev)
+        routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob)
+        disp = make_dispatch(routing, e, align=32)
+        gs, m = disp.group_sizes, disp.token_ids.numel()
+        rows = int(gs.sum())
+        x = torch.randn((m, h), generator=gen, device=dev).to(torch.bfloat16)
+        aq, asc = act_quant.quantize_rows_uniform(x, 8)
+        row_bits = bits[expert_of_rows(gs, m)].float()
+        shape = dict(regime=regime, M=m, routed_rows=tokens * cfg.top_k, rows=rows,
+                     live_experts=int((gs > 0).sum()), K=h, N=n, H=h)
+        decode = regime == "decode"
+
+        # K12
+        out = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits)
+        ref = gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits)
+        out32 = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits, f32)
+
+        def two_launch(out_dtype=torch.bfloat16):
+            hh = silu_mul(gmm.gmm_w8a8(aq, asc, wgu, sgu, gs))
+            q2, s2 = act_quant.quantize_rows(hh, row_bits)
+            return gmm.gmm_w8a8(q2, s2, wd, sd, gs, out_dtype=out_dtype)
+
+        d = (out32 - two_launch(f32))[:rows].abs().flatten()
+        torch.cuda.synchronize()
+        _require_equal(out[:rows], ref[:rows], f"K12 vs plain at {regime}")
+        gap = {"mean": d.mean().item(), "p99": torch.quantile(d[:1 << 24], 0.99).item(),
+               "max": d.max().item()}
+        if not (gap["mean"] < 1e-2 and gap["p99"] < 8e-2 and gap["max"] < 0.3):
+            raise AssertionError(f"K12 vs the two-launch path at {regime}: {gap}")
+        t = timed(lambda: gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits),
+                  lambda: gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits),
+                  ffn_work(gs, h, n, h, h * 2 * n + n * h))
+        emit("kernels", kernel="gmm_ffn_w8a8", bitwise=True, down_bits="4/6/8",
+             vs_two_launch=gap, two_launch_ms=time_ms(two_launch), **shape, **t)
+        if decode:
+            rec["gmm_ffn_w8a8"].update(t)
+
+        # K13 on the equivalent codes: packed experts' codes in the 4-bit range
+        storages = [("alternating", alternating)]
+        if decode:
+            storages += [("none packed", [0] * e), ("all packed", [1] * e)]
+        for label, pf in storages:
+            pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+            wgu4 = torch.where(pfb, wgu.clamp(-8, 7), wgu)
+            wd4 = torch.where(pfb, wd.clamp(-8, 7), wd)
+            gu_cat, gu_blk = build_ragged_mixed(wgu4, pf)
+            d_cat, d_blk = build_ragged_mixed(wd4, pf)
+            i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+            meta = (i32(pf), i32(gu_blk), i32(pf), i32(d_blk))
+            args = (aq, asc, gu_cat, sgu, meta[0], meta[1], d_cat, sd, meta[2],
+                    meta[3], gs, bits)
+            out = gmm_ffn.gmm_ffn_mixed_packed(*args)
+            ref = gmm_ffn.gmm_ffn_mixed_packed_plain(*args)
+            k12 = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu4, sgu, wd4, sd, gs, bits)
+            torch.cuda.synchronize()
+            _require_equal(out[:rows], ref[:rows], f"K13 vs plain, {label} at {regime}")
+            _require_equal(out[:rows], k12[:rows], f"K13 vs K12, {label} at {regime}")
+            per_expert = [(h * 2 * n + n * h) // (2 if f else 1) for f in pf]
+            t = timed(lambda: gmm_ffn.gmm_ffn_mixed_packed(*args),
+                      lambda: gmm_ffn.gmm_ffn_mixed_packed_plain(*args),
+                      ffn_work(gs, h, n, h, per_expert))
+
+            def two_launch_k4():
+                hh = silu_mul(gmp.gmm_mixed_packed(aq, asc, gu_cat, sgu, gs, meta[0],
+                                                   meta[1]))
+                q2, s2 = act_quant.quantize_rows(hh, row_bits)
+                return gmp.gmm_mixed_packed(q2, s2, d_cat, sd, gs, meta[2], meta[3])
+
+            emit("kernels", kernel="gmm_ffn_mixed_packed", storage=label, bitwise=True,
+                 equals_gmm_ffn_w8a8=True, packed_experts=sum(pf),
+                 gmm_ffn_w8a8_same_codes_ms=time_ms(
+                     lambda: gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu4, sgu, wd4, sd, gs, bits)),
+                 two_launch_ms=time_ms(two_launch_k4), **shape, **t)
+            if decode and label == "alternating":
+                rec["gmm_ffn_mixed_packed"].update(t)
+            del gu_cat, d_cat, wgu4, wd4
+
+        # K14 at the gate_up shape, on the unaligned dispatch
+        gs_u = make_dispatch(routing, e).group_sizes
+        mu = tokens * cfg.top_k
+        xu = torch.randn((mu, h), generator=gen, device=dev).to(torch.bfloat16)
+        out = gfq.gmm_w8a8_fusedquant(xu, wgu, sgu, gs_u)
+        ref = gfq.gmm_w8a8_fusedquant_plain(xu, wgu, sgu, gs_u)
+
+        def k1_k2():
+            q1, s1 = act_quant.quantize_rows_uniform(xu, 8)
+            return gmm.gmm_w8a8(q1, s1, wgu, sgu, gs_u)
+
+        k12_ref = k1_k2()
+        torch.cuda.synchronize()
+        _require_equal(out, ref, f"K14 vs plain at {regime}")
+        _require_equal(out, k12_ref, f"K14 vs K1 + K2 at {regime}")
+        t = timed(lambda: gfq.gmm_w8a8_fusedquant(xu, wgu, sgu, gs_u),
+                  lambda: gfq.gmm_w8a8_fusedquant_plain(xu, wgu, sgu, gs_u),
+                  gmm_work(gs_u, h, 2 * n, h * 2 * n, lhs_row_bytes=2 * h))
+        emit("kernels", kernel="gmm_w8a8_fusedquant", bitwise=True,
+             equals_quantize_rows_gmm_w8a8=True, k1_k2_ms=time_ms(k1_k2),
+             regime=regime, M=mu, K=h, N=2 * n, **t)
+        if decode:
+            rec["gmm_w8a8_fusedquant"].update(t)
+
+    # K15 at the headline workload's shapes, every expert's rows padded to 128
+    for wl in workloads.qwen2_moe_l10_bs8192():
+        sizes = [(s + 127) // 128 * 128 for s in wl.group_sizes]
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        m, k, nn = sum(sizes), wl.k, wl.n
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wq = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        shape = dict(use="headline workload", workload=wl.name, M=m, K=k, N=nn)
+        out = gmm_ws.gmm_w8a8_ws(aq, asc, wq, wsc, sizes)
+        k2 = gmm.gmm_w8a8(aq, asc, wq, wsc, gs)
+        ref = gmm_ws.gmm_w8a8_ws_plain(aq, asc, wq, wsc, sizes)
+        torch.cuda.synchronize()
+        _require_equal(out, k2, f"K15 vs K2 at {wl.name}")
+        _require_equal(out, ref, f"K15 vs plain at {wl.name}")
+        t = timed(lambda: gmm_ws.gmm_w8a8_ws(aq, asc, wq, wsc, sizes),
+                  lambda: gmm_ws.gmm_w8a8_ws_plain(aq, asc, wq, wsc, sizes),
+                  gmm_work(gs, k, nn, k * nn), reps=3)
+        emit("kernels", kernel="gmm_ws", form="int8", bitwise=True, equals_gmm_w8a8=True,
+             gmm_w8a8_same_codes_ms=time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)),
+             **shape, **t)
+        if k == h:
+            rec["gmm_ws"].update(t)
+        del wq
+        w4 = torch.randint(-8, 8, (e, k, nn), generator=gen, device=dev, dtype=torch.int8)
+        packed = pack_int4_halves(w4)
+        del w4
+        out = gmm_ws.gmm_w4a8_packed_ws(aq, asc, packed, wsc, sizes)
+        k5 = g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)
+        torch.cuda.synchronize()
+        _require_equal(out, k5, f"K15 packed vs K5 at {wl.name}")
+        t = timed(lambda: gmm_ws.gmm_w4a8_packed_ws(aq, asc, packed, wsc, sizes),
+                  lambda: gmm_ws.gmm_w4a8_packed_ws_plain(aq, asc, packed, wsc, sizes),
+                  gmm_work(gs, k, nn, k * nn // 2), reps=3)
+        emit("kernels", kernel="gmm_ws", form="packed", bitwise=True,
+             equals_gmm_w4a8_packed=True,
+             gmm_w4a8_packed_same_codes_ms=time_ms(
+                 lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)), **shape, **t)
+        del packed, aq
+
+
 def kernels_vs_plain() -> dict:
     """Each kernel vs its plain version; returns per-kernel records."""
     rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
@@ -939,6 +1221,7 @@ def kernels_vs_plain() -> dict:
     scheme_kernels_vs_plain(rec)
     two_launch_kernels_vs_plain(rec)
     attention_kernels_vs_plain(rec)
+    fused_kernels_vs_plain(rec)
     combine_vs_index_add()
     return rec
 
@@ -1009,11 +1292,12 @@ def flex_mixed_config(num_layers: int, num_experts: int, shared_scheme: str):
 
 
 def prepare(floats: dict, cfg, quant: str, pack: bool = False,
-            int8_head: bool = False):
+            int8_head: bool = False, impl_kw: dict | None = None):
     """Float params -> (quantized params, MoEImpl). ``quant``: what
     ``bench_serving --quant`` takes, or a ``FLEX_SHARED`` or ``FLOAT_ARMS``
     name; ``pack`` nibble-packs a uniform scheme's codes
-    (convert's pack step); ``int8_head`` quantizes the lm_head."""
+    (convert's pack step); ``int8_head`` quantizes the lm_head; ``impl_kw``
+    sets MoEImpl fields (``fused_ffn``, ``dispatch_align``)."""
     from mxmoe_tpu_torch.models.convert import pack_int4_experts
     from mxmoe_tpu_torch.models.layers import MoEImpl
     from mxmoe_tpu_torch.quant.qparams import (quantize_lm_head,
@@ -1032,22 +1316,23 @@ def prepare(floats: dict, cfg, quant: str, pack: bool = False,
         params = pack_int4_experts(params, impl.quant)
     if int8_head:
         params = quantize_lm_head(params)
-    return params, impl
+    return params, dataclasses.replace(impl, **(impl_kw or {}))
 
 
 def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
-                 tries: int = 40) -> None:
+                 impl_kw: dict | None = None, tries: int = 40) -> None:
     """2-layer full-width slice on the CPU (plain versions), then the same
     inputs on CUDA (kernels). The CPU run picks its inputs: a prompt, then
     for each decode step one input token per slot, such that every compared
-    position's top-2 margin exceeds PARITY_BOUND."""
+    position's top-2 margin exceeds PARITY_BOUND. ``impl_kw`` as ``prepare``
+    takes it."""
     import numpy as np
     import torch
 
     from mxmoe_tpu_torch.serving.decode import forward_cached
 
     cfg, floats = _full_width_model(2, seed=1)
-    params, impl = prepare(floats, cfg, quant, pack)
+    params, impl = prepare(floats, cfg, quant, pack, impl_kw=impl_kw)
     del floats
     cpu_params = _to(params, "cpu")
     rng = np.random.default_rng(1)
@@ -1116,6 +1401,7 @@ def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
     tok_cpu, tok_gpu = cpu.argmax(-1), gpu.argmax(-1)
     equal = tok_cpu == tok_gpu
     emit("parity", quant=quant, packed=pack, int8_kv=int8_kv, layers=cfg.num_layers,
+         fused_ffn=impl.fused_ffn, dispatch_align=impl.dispatch_align,
          prefill_valid=valid0.tolist(), decode_steps=steps, max_abs_err=err,
          bound=bound, max_abs_logit=cpu.abs().max().item(),
          greedy_equal=int(equal.sum()), greedy_total=equal.numel(),
@@ -1130,11 +1416,13 @@ def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
         raise AssertionError("slice parity: greedy tokens differ")
 
 
-def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed") -> None:
+def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed",
+                          impl_kw: dict | None = None) -> None:
     """Packing w4 experts changes bytes, not outputs: int8-stored and
     nibble-packed params of one seed give bitwise equal logits on the card
     (``stored`` / ``packed``: what ``prepare`` takes; per channel K2 against
-    K4, flex K8 against K4f)."""
+    K4, flex K8 against K4f; with ``impl_kw={"fused_ffn": True}`` K12
+    against K13)."""
     import numpy as np
     import torch
 
@@ -1150,7 +1438,7 @@ def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed") -
     rows = torch.arange(b, device=dev)
     logits, fed = {}, []
     for quant in (stored, packed):
-        params, impl = prepare(floats, cfg, quant)
+        params, impl = prepare(floats, cfg, quant, impl_kw=impl_kw)
         cache = _init_cache(cfg, b, 512, True, dev)
         lg, cache = forward_cached(params, prompt, cache, cfg, impl,
                                    valid_lengths=valid0)
@@ -1165,6 +1453,7 @@ def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed") -
     torch.cuda.synchronize()
     same = torch.equal(logits[stored], logits[packed])
     emit("storage", stored=stored, packed=packed, layers=cfg.num_layers,
+         fused_ffn=impl.fused_ffn,
          prefill_valid=valid0.tolist(), decode_steps=steps, int8_kv=True,
          bitwise_equal=same,
          max_abs_diff=(logits[stored].float()
@@ -1233,10 +1522,12 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
 
 
 def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
-          pack: bool = False, int8_head: bool = False) -> dict:
+          pack: bool = False, int8_head: bool = False,
+          impl_kw: dict | None = None, absent: tuple = ()) -> dict:
     """The Engine over qwen2_moe at its published widths, ``layers`` deep,
     answering 4 requests; returns the kernels' launch counts of this serve.
-    ``quant``, ``pack`` and ``int8_head`` as ``prepare`` takes them."""
+    ``quant``, ``pack``, ``int8_head`` and ``impl_kw`` as ``prepare`` takes
+    them; the kernels in ``expect`` must launch, those in ``absent`` not."""
     import numpy as np
     import torch
 
@@ -1245,7 +1536,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
 
     t0 = time.perf_counter()
     cfg, floats = _full_width_model(layers, seed=0)
-    params, impl = prepare(floats, cfg, quant, pack, int8_head)
+    params, impl = prepare(floats, cfg, quant, pack, int8_head, impl_kw)
     del floats
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -1284,6 +1575,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
     emit("serve", layers=cfg.num_layers, quant=quant, packed=pack, int8_kv=int8_kv,
          int8_head=int8_head, mixed_weight_only=impl.mixed_weight_only,
+         fused_ffn=impl.fused_ffn, dispatch_align=impl.dispatch_align,
          gmm_backend=impl.gmm_backend, requests=len(prompts), prompt_lens=[len(p) for p in prompts],
          max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
@@ -1298,6 +1590,10 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     if missing:
         raise AssertionError(f"serve ({quant}): kernels never launched on the "
                              f"main path: {missing}")
+    stray = [k for k in absent if launches[k]]
+    if stray:
+        raise AssertionError(f"serve ({quant}, {impl_kw}): kernels launched that "
+                             f"this path must not take: {stray}")
     return launches
 
 
@@ -1376,6 +1672,50 @@ def bench_entry_point(quant_args: list, expect: tuple) -> None:
         raise AssertionError(f"bench_serving: unexpected result {res}")
 
 
+def headline_bench() -> int:
+    """``bench/headline.py`` in the process, at the workload's full shapes:
+    the mixed one-launch arm and the bucketed arm. Each arm's outputs (K15)
+    are held bitwise against its ``--no-ws`` arm's (K2; K5 + K2) on one call;
+    then each arm runs as its entry point does and prints its JSON line.
+    Returns K15's launches in the one-launch arm's run."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.bench import headline, workloads
+    from mxmoe_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    operands = [headline.build_fp_operands(wl, gen, dev)
+                for wl in workloads.qwen2_moe_l10_bs8192()]
+    masks = [np.arange(len(op[2])) % 2 == 0 for op in operands]
+    for label, prep, make in (
+            ("onelaunch", headline.quantize_weights_mixed_onelaunch,
+             headline.mixed_onelaunch_step),
+            ("bucketed", headline.quantize_weights_mixed, headline.mixed_bucketed_step)):
+        q = prep(operands, masks)
+        ws, _ = make(q, ws=True)()
+        no_ws, _ = make(q, ws=False)()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(ws, no_ws)):
+            _require_equal(a, b, f"headline {label} output {i}: K15 vs --no-ws")
+        emit("headline", arm=label, ws_equals_no_ws=True, outputs=len(ws),
+             finite=all(bool(torch.isfinite(o).all()) for o in ws))
+        del q, ws, no_ws
+    del operands
+    torch.cuda.empty_cache()
+    counts = {}
+    for argv in ([], ["--bucketed"]):
+        kernels.reset_launch_counts()
+        res = headline.main(argv)
+        counts[" ".join(argv) or "mixed"] = kernels.launches["gmm_ws"]
+        if not (kernels.launches["gmm_ws"] > 0 and res["value"] > 0
+                and res["vs_baseline"] > 0):
+            raise AssertionError(f"headline {argv}: K15 never launched or no result")
+    emit("headline", gmm_ws_launches=counts)
+    return counts["mixed"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mxmoe_tpu_torch")):
         print("chip_smoke.py: mxmoe_tpu_torch/ not found beside this script",
@@ -1387,27 +1727,34 @@ def main() -> int:
     smi = probe()
     build()
     rec = kernels_vs_plain()
-    for quant, int8_kv, pack in (("w8a8_g-1_sym", False, False),
-                                 ("mixed-packed", True, False),
-                                 ("w4a16_g128_asym", False, True),
-                                 ("flex-shared-grouped", False, False),
-                                 ("flex-wo", False, False),
-                                 ("flex-packed", False, False),
-                                 ("bf16-k11", False, False)):
+    fused, aligned = {"fused_ffn": True}, {"dispatch_align": 32}
+    for quant, int8_kv, pack, impl_kw in (("w8a8_g-1_sym", False, False, None),
+                                          ("mixed-packed", True, False, None),
+                                          ("w4a16_g128_asym", False, True, None),
+                                          ("flex-shared-grouped", False, False, None),
+                                          ("flex-wo", False, False, None),
+                                          ("flex-packed", False, False, None),
+                                          ("bf16-k11", False, False, None),
+                                          ("mixed-packed", True, False, fused),
+                                          ("w8a8_g-1_sym", False, False, fused),
+                                          ("w8a8_g-1_sym", False, False, aligned)):
         torch.cuda.empty_cache()
-        slice_parity(quant, int8_kv, pack)
+        slice_parity(quant, int8_kv, pack, impl_kw)
     torch.cuda.empty_cache()
     storage_forms_bitwise()
     torch.cuda.empty_cache()
     storage_forms_bitwise("flex", "flex-packed")
     torch.cuda.empty_cache()
+    storage_forms_bitwise("mixed", "mixed-packed", fused)
+    torch.cuda.empty_cache()
     float_arms_agree()
     k1, k3, k3q = ("quantize_rows", "decode_attention_update_stacked",
                    "decode_attention_update_stacked_q8")
     k4f, k10, k11 = "gmm_mixed_packed_flex", "gmm_mixed_wo_wxa", "gmm_bf16"
-    # (layers, quant, int8 KV, packed, int8 head, kernels that must launch); a
-    # kernel's launches in the last line are those of the first serve that
-    # lists it under `counts` below
+    k12, k13 = "gmm_ffn_w8a8", "gmm_ffn_mixed_packed"
+    # name -> (layers, quant, int8 KV, packed, int8 head, kernels that must
+    # launch[, MoEImpl fields, kernels that must not]); a kernel's launches in
+    # the last line are those of the serve that `counts` below names for it
     serves = {
         "uniform": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3)),
         "packed_w4": (4, "w4a8_g-1_sym", False, True, False,
@@ -1424,19 +1771,31 @@ def main() -> int:
                  ("gmm_w8a8_grouped", k3)),
         "flex_a16": (4, "flex-shared-a16", False, False, False,
                      ("gmm_w8a8_grouped", "gmm_weight_only", k3)),
-        # the two-launch branches: the full 24 layers for the flex mixes
-        "flex_wo": (24, "flex-wo", False, False, False, (k1, "gmm_w8a8", k10, k3)),
-        "flex_packed": (24, "flex-packed", True, False, False,
+        # the two-launch branches (4 layers; the 24-layer serve is the fused one)
+        "flex_wo": (4, "flex-wo", False, False, False, (k1, "gmm_w8a8", k10, k3)),
+        "flex_packed": (4, "flex-packed", True, False, False,
                         (k1, "gmm_w8a8", k4f, k3q)),
         "mixed_wo": (4, "mixed-wo", False, False, False, (k1, k10, k3)),
         "bf16_k11": (4, "bf16-k11", False, False, False, (k11, k3)),
         "bf16_stock": (4, "none", False, False, False, (k3,)),
         "int8_head": (4, "w8a8_g-1_sym", False, False, True, (k1, "gmm_w8a8", k3)),
+        # the whole expert FFN in one launch: the full 24 layers for K13
+        "mixed_fused": (24, "mixed-packed", True, False, False,
+                        (k13, k1, "gmm_w8a8", k3q), fused, ("gmm_mixed_packed",)),
+        "uniform_fused": (4, "w8a8_g-1_sym", False, False, False, (k12, k1, k3),
+                          fused, ("gmm_w8a8",)),
+        "uniform_auto": (4, "w8a8_g-1_sym", False, False, False, (k12, k1, k3),
+                         {"fused_ffn": "auto"}, ("gmm_w8a8",)),
+        "uniform_aligned": (4, "w8a8_g-1_sym", False, False, False,
+                            (k1, "gmm_w8a8", k3), aligned, (k12,)),
+        "flex_fused": (4, "flex", False, False, False, ("gmm_w8a8_grouped", k3),
+                       fused, (k12, k13)),
     }
     ran = {}
-    for name, (layers, quant, int8_kv, pack, head, expect) in serves.items():
+    for name, (layers, quant, int8_kv, pack, head, expect, *extra) in serves.items():
         torch.cuda.empty_cache()
-        ran[name] = serve(layers, quant, int8_kv, expect, pack, head)
+        impl_kw, absent = (*extra, None, ())[:2]
+        ran[name] = serve(layers, quant, int8_kv, expect, pack, head, impl_kw, absent)
     # the flex serves go through K8 only: no K1, K2 or K9 for the routed
     # experts, and the grouped shared expert adds two K8 launches a layer
     if ran["flex"]["gmm_w8a8_grouped"] != 2 * ran["grouped"]["gmm_w8a8_grouped"]:
@@ -1458,20 +1817,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_entry_point(["--quant", "w8a8_g-1_sym", "--int8-head"],
                       (k1, "gmm_w8a8", k3))
+    torch.cuda.empty_cache()
+    bench_entry_point(["--quant", "mixed-packed", "--int8-kv", "--fused-ffn", "on"],
+                      (k13, k1, "gmm_w8a8", k3q))
+    torch.cuda.empty_cache()
+    ws_launches = headline_bench()
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
-    counts = {"flex_wo": (k10, k3), "flex_packed": (k4f, k3q, k1, "gmm_w8a8"),
-              "mixed": ("gmm_mixed_packed",), "packed_w4": ("gmm_w4a8_packed",),
-              "a16_packed": ("gmm_weight_only_packed",),
+    counts = {"mixed_fused": (k13, k3q, k1, "gmm_w8a8"), "flex_wo": (k10, k3),
+              "flex_packed": (k4f,), "mixed": ("gmm_mixed_packed",),
+              "packed_w4": ("gmm_w4a8_packed",), "a16_packed": ("gmm_weight_only_packed",),
               "grouped": ("gmm_w8a8_grouped",), "asym": ("gmm_w8a8_asym",),
-              "a16": ("gmm_weight_only",), "bf16_k11": (k11,)}
+              "a16": ("gmm_weight_only",), "bf16_k11": (k11,), "uniform_fused": (k12,)}
     launches = {}
     for name, kernel_names in counts.items():
-        layers, quant, int8_kv, pack, _, _ = serves[name]
+        layers, quant, int8_kv, pack, _, _, *extra = serves[name]
         label = (f"serve {quant}{' packed' if pack else ''}"
-                 f"{' int8-kv' if int8_kv else ''} {layers} layers")
+                 f"{' int8-kv' if int8_kv else ''}{' fused' if extra else ''} "
+                 f"{layers} layers")
         for kn in kernel_names:
             launches[kn] = (ran[name][kn], label)
+    launches["gmm_w8a8_fusedquant"] = (0, "kernels phase only: no serve reaches it "
+                                          "in either package")
+    launches["gmm_ws"] = (ws_launches, "headline bench, mixed one-launch arm")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name][0], "launches_of": launches[name][1],

@@ -27,12 +27,17 @@ grouped GEMM), by what the layer's params hold:
 - uniform weight-only a16, any group size, symmetric or asymmetric:
   int8-stored (K6) or nibble-packed (K7), no act quant.
 
+The whole expert FFN in one launch (``MoEImpl.fused_ffn``, over the aligned
+dispatch): gate_up -> SwiGLU in f32 -> per-row requant -> down, for the
+per-channel symmetric w x a domain, int8-stored (K12 ``gmm_ffn_w8a8``) or
+over the ragged packed buffer (K13 ``gmm_ffn_mixed_packed``); every other
+layer falls through to the two-launch branches above, on the aligned layout.
+
 The shared expert runs in float or, real-quantized, through K2 with one
 group (per-channel symmetric), K8 with one group (grouped / asymmetric) or K6
 with one group (all-a16). Not ported, and raising ``NotImplementedError``
-with their ROADMAP item: the whole expert FFN in one launch (``fused_ffn``,
-the aligned dispatch), the fake-quantized float paths (``act_bits_*`` beside
-float expert weights, the layer-heterogeneous shared expert) and
+with their ROADMAP item: the fake-quantized float paths (``act_bits_*``
+beside float expert weights, the layer-heterogeneous shared expert) and
 ``online_had``.
 """
 
@@ -45,8 +50,10 @@ import torch.nn.functional as F
 
 from .configs import MoEConfig
 from ..ops import act_quant
-from ..ops.dispatch import combine_tokens, gather_tokens, make_dispatch, route_topk
+from ..ops.dispatch import (combine_tokens, expert_of_rows, gather_tokens,
+                            make_dispatch, route_topk)
 from ..ops.gmm import gmm
+from ..ops.gmm_ffn import gmm_ffn_mixed_packed, gmm_ffn_w8a8
 from ..ops.gmm_mixed_packed import gmm_mixed_packed
 from ..ops.gmm_mixed_wo_wxa import gmm_mixed_wo_wxa
 from ..ops.gmm_w4a8_packed import gmm_w4a8_packed
@@ -90,15 +97,24 @@ class MoEImpl:
       which keeps the a16 rows in float. The caller sets it, as in the
       reference; a mixed layer with a16 experts served without it quantizes
       those rows to 8 bits.
-    The JAX serving defaults hold for the rest: unaligned dispatch
-    (``dispatch_align=None``, ``fused_ffn=False``) and act quant through the
-    single-pass kernel (``pallas_quant=True``, here K1).
+    dispatch_align: pad each expert's rows to this multiple (tiles never
+      straddle experts; ``make_dispatch``). ``None``: unaligned.
+    fused_ffn: the whole expert FFN in one launch (``gmm_ffn_w8a8`` /
+      ``gmm_ffn_mixed_packed``). ``True`` forces it; ``"auto"`` fuses only
+      in the decode regime (at most 2048 routed rows), as the reference
+      decides; either implies a 32-row aligned dispatch when
+      ``dispatch_align`` is unset. Per-channel symmetric w x a only: other
+      schemes fall through to the two-launch branches.
+    The JAX serving default holds for act quant: the single-pass kernel
+    (``pallas_quant=True``, here K1).
     """
 
     kind: str = "ragged"
     gmm_backend: str = "ragged_dot"
     quant: object | None = None
     mixed_weight_only: bool = False
+    dispatch_align: int | None = None
+    fused_ffn: object = False
 
 
 _STORAGE_KEYS = ("expert_gate_up_q", "expert_gate_up_q_packed",
@@ -127,12 +143,12 @@ def moe_ffn_ragged(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
                          cfg.routed_scaling_factor)
-    disp = make_dispatch(routing, cfg.num_experts)
-    xs = gather_tokens(x2d, disp)                                   # [T*k, H]
+    disp = make_dispatch(routing, cfg.num_experts, align=impl.dispatch_align)
+    xs = gather_tokens(x2d, disp)                                   # [rows, H]
     h = silu_mul(gmm(xs, lp["expert_gate_up"], disp.group_sizes,
-                     backend=impl.gmm_backend))                     # [T*k, N]
+                     backend=impl.gmm_backend))                     # [rows, N]
     out = gmm(h, lp["expert_down"], disp.group_sizes,
-              backend=impl.gmm_backend)                             # [T*k, H]
+              backend=impl.gmm_backend)                             # [rows, H]
     return combine_tokens(out, disp, x2d.shape[0])
 
 
@@ -182,14 +198,46 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
                          cfg.routed_scaling_factor)
-    disp = make_dispatch(routing, cfg.num_experts)
-    xs = gather_tokens(x2d, disp)                                   # [T*k, H]
+    # fused_ffn "auto" fuses in the decode regime only (few routed rows), as
+    # the reference decides
+    rows_est = x2d.shape[0] * cfg.top_k
+    fuse_req = (impl.fused_ffn is True
+                or (impl.fused_ffn == "auto" and rows_est <= 2048))
+    align = impl.dispatch_align or (32 if fuse_req else None)
+    disp = make_dispatch(routing, cfg.num_experts, align=align)
+    xs = gather_tokens(x2d, disp)                                   # [rows, H]
     gs = disp.group_sizes
     if mixed:
-        # output_size keeps repeat_interleave from reading the sizes on the host
-        row_expert = torch.repeat_interleave(
-            torch.arange(cfg.num_experts, device=xs.device),
-            gs.long(), output_size=xs.shape[0])
+        row_expert = expert_of_rows(gs, xs.shape[0])
+
+    # the fused kernels take per-channel symmetric w x a only: a flex family
+    # (either act_gsize key) or a16 experts go the two-launch way
+    fused_ok = (fuse_req and align and not impl.mixed_weight_only
+                and "act_gsize_gateup" not in lp and "act_gsize_down" not in lp
+                and (mixed or (qcfg.a_bits <= 8 and qcfg.w_sym
+                               and qcfg.w_gsize == -1)))
+    if fused_ok and ("expert_gate_up_q" in lp
+                     or (mixed and "expert_gate_up_qcat" in lp)):
+        if mixed:
+            aq, asc = act_quant.quantize_rows(xs, lp["act_bits_gateup"][row_expert])
+            abits = lp["act_bits_down"].clamp(max=8).to(torch.int32)
+        else:
+            aq, asc = act_quant.quantize_rows_uniform(xs, int(qcfg.a_bits))
+            abits = torch.full((cfg.num_experts,), min(int(qcfg.a_bits), 8),
+                               dtype=torch.int32, device=xs.device)
+        if "expert_gate_up_q" in lp:
+            out = gmm_ffn_w8a8(aq, asc, lp["expert_gate_up_q"],
+                               lp["expert_gate_up_sc"], lp["expert_down_q"],
+                               lp["expert_down_sc"], gs, act_bits_down=abits,
+                               out_dtype=x2d.dtype)
+        else:
+            out = gmm_ffn_mixed_packed(
+                aq, asc, lp["expert_gate_up_qcat"], lp["expert_gate_up_sc"],
+                lp["expert_gate_up_pf"], lp["expert_gate_up_blk"],
+                lp["expert_down_qcat"], lp["expert_down_sc"],
+                lp["expert_down_pf"], lp["expert_down_blk"], gs,
+                act_bits_down=abits, out_dtype=x2d.dtype)
+        return combine_tokens(out, disp, x2d.shape[0])
 
     def qgemm_mixed(acts, prefix, bits_key, ag_key):
         sc, dt = lp[f"{prefix}_sc"], acts.dtype
@@ -257,11 +305,11 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
 
     if mixed:
         h = silu_mul(qgemm_mixed(xs, "expert_gate_up", "act_bits_gateup",
-                                 "act_gsize_gateup"))               # [T*k, N]
+                                 "act_gsize_gateup"))               # [rows, N]
         out = qgemm_mixed(h, "expert_down", "act_bits_down", "act_gsize_down")
     else:
         h = silu_mul(qgemm_uniform(xs, "expert_gate_up"))
-        out = qgemm_uniform(h, "expert_down")                       # [T*k, H]
+        out = qgemm_uniform(h, "expert_down")                       # [rows, H]
     return combine_tokens(out, disp, x2d.shape[0])
 
 

@@ -23,23 +23,42 @@ import torch
 from . import kernels
 
 
+# k-terms per float32 product in exact_int8_matmul: 1024 products of int8
+# codes sum to at most 2^24 in magnitude, where every integer is an f32
+_F32_EXACT_K = 1024
+
+
+def exact_int8_matmul(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 codes ``a_q`` [..., r, K] @ ``w_q`` [..., K, N] -> int32, exact.
+    On the CPU in float32 over k-chunks of 1024 (every partial sum is an
+    integer below 2^24, exact in any order; ~10x torch's int32 matmul),
+    summed in int32; on a card in float64 (torch has no CUDA int matmul;
+    every partial sum is below 2^53)."""
+    if a_q.device.type != "cpu":
+        return (a_q.double() @ w_q.double()).to(torch.int32)
+    k = a_q.shape[-1]
+    acc = None
+    for k0 in range(0, k, _F32_EXACT_K):
+        part = (a_q[..., k0:k0 + _F32_EXACT_K].float()
+                @ w_q[..., k0:k0 + _F32_EXACT_K, :].float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def grouped_int8_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
                        out_dtype) -> torch.Tensor:
     """The plain grouped product shared by the int8 GEMMs' plain versions:
     ``weight_of(e)`` gives expert e's [K, N] int8 codes. Accumulates
-    exactly: int32 on the CPU, float64 on a card (torch has no CUDA int
-    matmul; every partial sum of int8 products below 2^53 is exact in
-    float64). Reads ``group_sizes`` on the host: a reference, not the
-    serving path."""
+    exactly (``exact_int8_matmul``). Reads ``group_sizes`` on the host: a
+    reference, not the serving path."""
     m, n = lhs_q.shape[0], rhs_scale.shape[-1]
-    acc_dtype = torch.int32 if lhs_q.device.type == "cpu" else torch.float64
     out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, m)
         if end > start:
-            acc = lhs_q[start:end].to(acc_dtype) @ weight_of(e).to(acc_dtype)
-            res = acc.to(torch.int32).float() * lhs_scale[start:end] * rhs_scale[e]
+            acc = exact_int8_matmul(lhs_q[start:end], weight_of(e))
+            res = acc.float() * lhs_scale[start:end] * rhs_scale[e]
             out[start:end] = res.to(out_dtype)
         start += size
     return out

@@ -18,23 +18,22 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gmm_w8a8 import check_int8_gmm_operands
+from .gmm_w8a8 import check_int8_gmm_operands, exact_int8_matmul
 
 
 def gmm_w8a8_asym_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, rhs_zp, group_sizes,
                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of K9 (exact sums: int32 on the CPU, float64 on
-    a card; reads ``group_sizes`` on the host)."""
+    """Plain PyTorch version of K9 (exact sums, ``exact_int8_matmul``;
+    reads ``group_sizes`` on the host)."""
     m, n = lhs_q.shape[0], rhs_scale.shape[-1]
-    acc_dtype = torch.int32 if lhs_q.device.type == "cpu" else torch.float64
     out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, m)
         if end > start:
-            a = lhs_q[start:end].to(acc_dtype)
-            acc = (a @ rhs_q[e].to(acc_dtype)).to(torch.int32).float()
-            rsum = a.sum(-1, keepdim=True).to(torch.int32).float()
+            a = lhs_q[start:end]
+            acc = exact_int8_matmul(a, rhs_q[e]).float()
+            rsum = a.to(torch.int32).sum(-1, keepdim=True).float()
             sa = lhs_scale[start:end]
             res = acc * sa * rhs_scale[e] + rsum * sa * rhs_zp[e]
             out[start:end] = res.to(out_dtype)

@@ -25,22 +25,21 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gmm_w8a8 import check_int8_gmm_operands
+from .gmm_w8a8 import check_int8_gmm_operands, exact_int8_matmul
 
 
 def grouped_rows_plain(a_q, w_q, sa, sc, zp, gsize: int) -> torch.Tensor:
     """One expert's rows through K8's arithmetic -> f32 [r, N]: ``a_q`` [r, K]
     and ``w_q`` [K, N] int8 codes, ``sa`` [r, G], ``sc`` and the optional
-    ``zp`` [G, N] f32. Exact per-group sums (int32 on the CPU, float64 on a
-    card), then the f32 steps in ascending group order."""
+    ``zp`` [G, N] f32. Exact per-group sums (``exact_int8_matmul``), then
+    the f32 steps in ascending group order."""
     r, k = a_q.shape
     n = w_q.shape[-1]
     g = k // gsize
-    acc_dtype = torch.int32 if a_q.device.type == "cpu" else torch.float64
-    a = a_q.reshape(r, g, gsize).to(acc_dtype)
-    w = w_q.reshape(g, gsize, n).to(acc_dtype)
-    part = (a.permute(1, 0, 2) @ w).to(torch.int32).float()       # [G, r, N]
-    rsum = a.sum(-1).to(torch.int32).float()                      # [r, G]
+    a = a_q.reshape(r, g, gsize)
+    part = exact_int8_matmul(a.permute(1, 0, 2),
+                             w_q.reshape(g, gsize, n)).float()    # [G, r, N]
+    rsum = a.to(torch.int32).sum(-1).float()                      # [r, G]
     acc = torch.zeros((r, n), dtype=torch.float32, device=a_q.device)
     for j in range(g):
         acc = acc + part[j] * sa[:, j:j + 1] * sc[j]

@@ -39,7 +39,8 @@ KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
            "decode_attention_update_stacked_q8", "gmm_mixed_packed",
            "gmm_w4a8_packed", "gmm_weight_only", "gmm_weight_only_packed",
            "gmm_w8a8_grouped", "gmm_w8a8_asym", "gmm_mixed_packed_flex",
-           "gmm_mixed_wo_wxa", "gmm_bf16")
+           "gmm_mixed_wo_wxa", "gmm_bf16", "gmm_ffn_w8a8", "gmm_ffn_mixed_packed",
+           "gmm_w8a8_fusedquant", "gmm_ws")
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -87,6 +88,26 @@ _SIGNATURES = {
                                _I, _I, _I, _P],
     # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
     "mxmoe_gmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # lhs, s_a, gate_up, s_gu, down, s_d, group_sizes, act_bits_down, hq
+    # workspace, out, out_is_bf16, M, K, N, H, E, stream
+    "mxmoe_gmm_ffn_w8a8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _P],
+    # lhs, s_a, gu_cat, s_gu, gu_pf, gu_blk, down_cat, s_d, d_pf, d_blk,
+    # group_sizes, act_bits_down, hq workspace, out, out_is_bf16, M, K, N, H,
+    # E, stream
+    "mxmoe_gmm_ffn_mixed_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # N -> dynamic shared bytes of the two calls above
+    "mxmoe_gmm_ffn_smem_bytes": [_I],
+    # lhs, lhs_is_bf16, rhs, s_b, group_sizes, out, out_is_bf16, upper, M, K,
+    # N, E, stream
+    "mxmoe_gmm_w8a8_fusedquant": [_P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I,
+                                  _P],
+    # lhs, s_a, rhs, s_b, static sizes (host ints), out, packed, out_is_bf16,
+    # M, K, N, E, stream
+    "mxmoe_gmm_ws": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # K -> dynamic shared bytes of the call above
+    "mxmoe_gmm_ws_smem_bytes": [_I],
 }
 
 _lib = None

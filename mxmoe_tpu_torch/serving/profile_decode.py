@@ -70,7 +70,8 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({
         "model": args.model, "layers": args.layers, "slots": args.slots,
-        "quant": args.quant, "int8_kv": args.int8_kv, "prefill": args.prefill,
+        "quant": args.quant, "int8_kv": args.int8_kv, "fused_ffn": args.fused_ffn,
+        "prefill": args.prefill,
         "steps": STEPS, "step_ms": step_ms, "device_ms_per_step": device_ms,
         "busy_share": device_ms / step_ms,
         "launches_per_step": sum(n for _, n in by_name.values()) / STEPS,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9, K3 in its bf16- and int8-cache forms)
+"""The port's CUDA kernels (K1-K15, K3 in its bf16- and int8-cache forms)
 against their plain PyTorch versions on a card, over shapes and dtypes beyond
 the serving path's: GQA groups, f32 operands, ragged and empty expert groups,
 K not a multiple of the k-tile, S not a multiple of the S-chunk, every mix of
@@ -24,7 +24,10 @@ K4f (the flex form of K4) bitwise its plain version and bitwise K8 on the
 unpacked codes; K10's w x a experts bitwise K8 (K2 when per channel) and its
 weight-only experts bitwise K6 on the same operands and within K6's bound;
 K11 within ``gmm.error_over_bound`` (f32 accumulation over K terms, + 1 bf16
-ulp for a bf16 output) of the float64 product, for bf16 and f32 operands."""
+ulp for a bf16 output) of the float64 product, for bf16 and f32 operands.
+K12 (the whole FFN) bitwise its plain version, K13 bitwise its plain version
+and K12 on the equivalent int8 codes, K14 bitwise its plain version and K1 +
+K2, K15 bitwise K2 / K5 on the same aligned layout."""
 
 import pytest
 import torch
@@ -529,3 +532,133 @@ def test_gmm_bf16_kernel_within_bound(dev, sizes, k, n, dtype, out):
     _, ratio = gmm_float.error_over_bound(stock[:rows].contiguous(), x[:rows].contiguous(),
                                           w, gs)
     assert ratio <= 1.0 or dtype == torch.float32
+
+
+def _aligned_sizes(counts, align=32):
+    return [(c + align - 1) // align * align for c in counts]
+
+
+@pytest.mark.parametrize("sizes,tail,k,dtype,bits", [
+    ([48, 0, 80, 5], 11, 256, torch.bfloat16, 8),
+    ([64, 0, 64], 0, 2048, torch.float32, 4),
+    ([1, 300, 0, 33], 7, 80, torch.bfloat16, 8)])
+def test_gmm_w8a8_fusedquant_kernel_bitwise(dev, sizes, tail, k, dtype, bits):
+    """K14 bitwise its plain version and K1 (uniform bits) + K2; rows past the
+    sum stay unwritten."""
+    from mxmoe_tpu_torch.ops import gmm_w8a8_fusedquant as gfq
+
+    g = torch.Generator(device=dev).manual_seed(k)
+    m, e, n = sum(sizes) + tail, len(sizes), 384
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(dtype)
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((e, 1, n), generator=g, device=dev) * 0.01 + 1e-4
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    rows = sum(sizes)
+    for out in (torch.bfloat16, torch.float32):
+        before = kernels.launches["gmm_w8a8_fusedquant"]
+        got = gfq.gmm_w8a8_fusedquant(x, wq, ws, gs, a_bits=bits, out_dtype=out)
+        plain = gfq.gmm_w8a8_fusedquant_plain(x, wq, ws, gs, bits, out)
+        aq, asc = act_quant.quantize_rows_uniform(x, bits)
+        k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, ws, gs, out_dtype=out)
+        torch.cuda.synchronize()
+        assert kernels.launches["gmm_w8a8_fusedquant"] == before + 1
+        assert torch.equal(got[:rows], plain[:rows])
+        assert torch.equal(got[:rows], k2[:rows])
+
+
+@pytest.mark.parametrize("sizes,bm,k,n", [
+    ((32, 16, 0, 64, 16), 16, 64, 256),          # the reference test's layout
+    ((128, 0, 384, 128), 128, 2048, 2816),       # the headline's gate_up widths
+    ((256, 128, 0), 128, 1408, 2048),            # its down widths
+    ((0, 0, 48), 16, 128, 72)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gmm_ws_kernel_bitwise_k2_k5(dev, sizes, bm, k, n, out):
+    """K15 bitwise K2 (int8 weights) and K5 (packed weights) on the same
+    aligned layout, and their plain versions."""
+    from mxmoe_tpu_torch.ops import gmm_ws
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    m, e = sum(sizes), len(sizes)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = gmm_ws.gmm_w8a8_ws(aq, asc, wq, wsc, sizes, bm=bm, out_dtype=out)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs, out_dtype=out)
+    plain = gmm_ws.gmm_w8a8_ws_plain(aq, asc, wq, wsc, sizes, out)
+    packed = pack_int4_halves(w4)
+    got4 = gmm_ws.gmm_w4a8_packed_ws(aq, asc, packed, wsc, sizes, bm=bm, out_dtype=out)
+    k5 = gmm_w4a8_packed.gmm_w4a8_packed(aq, asc, packed, wsc, gs, out_dtype=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k2) and torch.equal(got, plain)
+    assert torch.equal(got4, k5)
+
+
+def _ffn_operands(dev, counts, k, n, h, seed, align=32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = _aligned_sizes(counts, align)
+    m, e = sum(sizes) + 16, len(sizes)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.02 + 1e-3
+    wgu = torch.randint(-127, 128, (e, k, 2 * n), generator=g, device=dev,
+                        dtype=torch.int8)
+    sgu = torch.rand((e, 1, 2 * n), generator=g, device=dev) * 2e-4 + 1e-5
+    wd = torch.randint(-127, 128, (e, n, h), generator=g, device=dev, dtype=torch.int8)
+    sd = torch.rand((e, 1, h), generator=g, device=dev) * 2e-3 + 1e-5
+    bits = torch.tensor([4, 6, 8][:e] * (e // 3 + 1), dtype=torch.int32,
+                        device=dev)[:e].contiguous()
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return aq, asc, wgu, sgu, wd, sd, gs, bits
+
+
+FFN_CASES = [([5, 0, 40, 64], 256, 128, 256),
+             ([16] + [0] * 59, 2048, 1408, 2048),          # one live expert
+             ([1, 3, 0, 2, 2, 1, 4, 3] + [0] * 52, 2048, 1408, 2048)]
+
+
+@pytest.mark.parametrize("counts,k,n,h", FFN_CASES)
+def test_gmm_ffn_w8a8_kernel_vs_plain(dev, counts, k, n, h):
+    """K12 bitwise its plain version (the same f32 steps in order; torch's
+    CUDA sigmoid is 1 / (1 + expf(-x)) as the kernel's); down bits 4 / 6 / 8,
+    empty experts, the aligned layout's tail rows unwritten."""
+    from mxmoe_tpu_torch.ops import gmm_ffn
+
+    aq, asc, wgu, sgu, wd, sd, gs, bits = _ffn_operands(dev, counts, k, n, h, k + n)
+    rows = int(gs.sum())
+    for out in (torch.bfloat16, torch.float32):
+        before = kernels.launches["gmm_ffn_w8a8"]
+        got = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits, out)
+        plain = gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits, out)
+        torch.cuda.synchronize()
+        assert kernels.launches["gmm_ffn_w8a8"] == before + 1
+        assert torch.equal(got[:rows], plain[:rows])
+
+
+@pytest.mark.parametrize("counts,k,n,h", FFN_CASES)
+@pytest.mark.parametrize("packing", ["none", "alternating", "all"])
+def test_gmm_ffn_mixed_packed_kernel_bitwise(dev, counts, k, n, h, packing):
+    """K13 bitwise its plain version and K12 on the equivalent int8 codes."""
+    from mxmoe_tpu_torch.ops import gmm_ffn
+
+    aq, asc, wgu, sgu, wd, sd, gs, bits = _ffn_operands(dev, counts, k, n, h, 7 + k)
+    e = gs.numel()
+    pf = {"none": [0] * e, "alternating": [int(i % 2 == 0) for i in range(e)],
+          "all": [1] * e}[packing]
+    pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+    wgu = torch.where(pfb, wgu.clamp(-8, 7), wgu)
+    wd = torch.where(pfb, wd.clamp(-8, 7), wd)
+    gu_cat, gu_blk = build_ragged_mixed(wgu, pf)
+    d_cat, d_blk = build_ragged_mixed(wd, pf)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    rows = int(gs.sum())
+    got = gmm_ffn.gmm_ffn_mixed_packed(aq, asc, gu_cat, sgu, i32(pf), i32(gu_blk),
+                                       d_cat, sd, i32(pf), i32(d_blk), gs, bits)
+    plain = gmm_ffn.gmm_ffn_mixed_packed_plain(aq, asc, gu_cat, sgu, i32(pf),
+                                               i32(gu_blk), d_cat, sd, i32(pf),
+                                               i32(d_blk), gs, bits)
+    k12 = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:rows], k12[:rows])
+    assert torch.equal(got[:rows], plain[:rows])
