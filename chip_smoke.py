@@ -42,7 +42,15 @@ failure raises and the script exits non-zero without a result line:
               (gmm_ffn_mixed_packed) bitwise its plain version and K12 on the
               equivalent codes (no expert, every other, every expert packed);
               K14 (gmm_w8a8_fusedquant) bitwise its plain version and K1 + K2;
-              K15 (gmm_ws) at the headline workload's shapes bitwise K2 / K5
+              K15 (gmm_ws) at the headline workload's shapes bitwise K2 / K5.
+              The read-only decode attention (decode_attention_stacked bf16 /
+              int8, decode_attention, decode_attention_q8) at K3's serving
+              cache, at the qwen2_moe shape and at ds2's MLA shape (dk 256
+              with its zero tail, dv 128, scale 1/sqrt(192)): within
+              K3_REL_BOUND per slot of the plain versions, the stacked forms
+              bitwise K3 / K3q after their write of the same step, the
+              per-layer forms bitwise the stacked ones; the bf16 forms timed
+              beside scaled_dot_product_attention
   4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
               through forward_cached on the CPU (plain versions) and on
               CUDA (kernels): one 256-token prefill chunk + 4 decode steps;
@@ -56,7 +64,13 @@ failure raises and the script exits non-zero without a result line:
               flex-packed (routed w4a4_g128_asym nibble-packed / w8a8_g-1_sym
               through K4f), bf16 experts through K11, and with the whole FFN
               in one launch: mixed-packed + int8 KV (K13), uniform w8a8 (K12),
-              and uniform w8a8 over the aligned dispatch unfused (K2)
+              and uniform w8a8 over the aligned dispatch unfused (K2). Then
+              full-width ds2, 3 layers (the dense first layer and two MoE
+              layers), mixed-packed + int8 KV (MLA through K3q at dk 256).
+              On the card, forward_logits over a 256-token prompt against a
+              one-chunk forward_cached prefill into a bf16 cache, within the
+              parity bound, for qwen2_moe (2 layers) and ds2 (3 layers),
+              mixed-packed
   5. storage  mixed (int8-stored) and mixed-packed params of one seed, 4
               layers, int8 KV cache: prefill + 16 decode steps give bitwise
               equal logits on the card; the same for the flex mix int8-stored
@@ -80,15 +94,21 @@ failure raises and the script exits non-zero without a result line:
               256-token prefill chunks), the aligned dispatch unfused (K2, no
               K12) and the flex mix (no K12 / K13: the guard falls through).
               At the full 24 layers: mixed-packed + int8 KV with the fused
-              FFN (K13, K1, K3q; shared expert K2; no K4), with peak memory
-              beside the bytes reckoned from the code. The launch counts are
+              FFN (K13, K1, K3q; shared expert K2; no K4). decode_attn="xla"
+              on uniform w8a8 (no K3). ds2 at the full 27 layers, mixed-packed
+              + int8 KV + int8 head (K3q, K1, K4, K2), mixtral and
+              qwen2_moe_57b at full width, 4 layers, uniform w8a8 (K1, K2,
+              K3 at G 4 / 7). Each serve prints its peak memory beside the
+              bytes reckoned from the config. The launch counts are
               set to 0 before each serve and read after it; every kernel
               named must have launched
   7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
               (K1, K2, K3q, K4 must be non-zero in its own launch counts),
               --quant w4a16_g128_asym (K6, K3), --quant none (K3),
-              --quant w8a8_g-1_sym --int8-head (K1, K2, K3) and mixed-packed
-              + int8 KV --fused-ffn on (K13, K1, K2, K3q)
+              --quant w8a8_g-1_sym --int8-head (K1, K2, K3), mixed-packed
+              + int8 KV --fused-ffn on (K13, K1, K2, K3q), and --model ds2
+              mixed-packed + int8 KV with --decode-attn auto (K3q) and xla
+              (no K3 / K3q)
   8. headline bench/headline.py (the counterpart of bench.py) in the
               process: the mixed one-launch and bucketed arms' outputs (K15)
               bitwise their --no-ws arms' (K2; K5 + K2), then both arms as
@@ -96,8 +116,8 @@ failure raises and the script exits non-zero without a result line:
               must launch
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
-serve or run, named beside them; K14 is reached by no serve in either
-package), the nvidia-smi line, and last
+serve or run, named beside them; K14 and the read-only decode attention are
+reached by no serve in either package), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -105,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -151,7 +172,17 @@ KERNEL_SOURCES = {
     "gmm_w8a8_fusedquant": ("mxmoe_tpu_torch/csrc/gmm_w8a8_fusedquant.cu",
                             "mxmoe_tpu/ops/pallas_gmm.py:1752"),
     "gmm_ws": ("mxmoe_tpu_torch/csrc/gmm_ws.cu", "mxmoe_tpu/ops/pallas_gmm.py:1906"),
+    # the read-only decode attention: K3 / K3q's bodies without the write
+    "decode_attention_stacked": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:593"),
+    "decode_attention_stacked_q8": (_DA_CU,
+                                    "mxmoe_tpu/serving/decode_attention.py:593"),
+    "decode_attention": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:688"),
+    "decode_attention_q8": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:749"),
 }
+READ_ONLY_ATTENTION = ("decode_attention_stacked", "decode_attention_stacked_q8",
+                       "decode_attention", "decode_attention_q8")
+# a serve's optional fields: MoEImpl fields, kernels that must not launch, model
+SERVE_DEFAULTS = (None, (), "qwen2_moe")
 # the scale group of the grouped schemes on the main path (g128)
 GSIZE = 128
 # K3 / K3q output bound, held per slot b against that slot's own scale
@@ -172,10 +203,14 @@ PARITY_BOUND = 0.125
 # operations per second by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
-# one PyTorch call that computes the same function, per kernel: only K11
+# one PyTorch call that computes the same function, per kernel: K11
 # (gmm_bf16) has one, the stock grouped product ``torch._grouped_mm`` that
 # ``ops.gmm.gmm``'s "ragged_dot" arm takes; its time is measured beside K11's.
-# For the others there is none (``library_ms`` null): torch has no per-row-bits
+# The bf16 read-only decode attention (decode_attention_stacked,
+# decode_attention) has ``scaled_dot_product_attention`` with a boolean
+# [B, 1, 1, S] length mask and ``enable_gqa``, timed beside them (used nowhere
+# in the port); its int8 forms have none (no library call takes per-position
+# scales). For the others there is none (``library_ms`` null): torch has no per-row-bits
 # quantizer, no grouped (per-expert) product over expert-sorted rows with int8
 # or nibble-packed operands, per-group scales, zero points or in-product
 # dequantization, and no single call writes the cache and attends over it;
@@ -962,6 +997,140 @@ def attention_kernels_vs_plain(rec: dict) -> None:
             del caches, caches2
 
 
+def read_attn_work(lengths, s_max, n_h, n_kv, dk, dv, elem_bytes,
+                   cache_pos_bytes) -> dict:
+    """The read-only decode attention on THESE lengths: a slot reads
+    min(len, S-1) + 1 cached positions (``cache_pos_bytes`` per kv head and
+    position, K and V and any scales), q in and the output out; nothing is
+    written to the cache."""
+    nbytes = ops = 0
+    for ln in lengths.tolist():
+        n_pos = min(max(ln, 0), s_max - 1) + 1
+        nbytes += n_pos * n_kv * cache_pos_bytes + n_h * (dk + dv) * elem_bytes
+        ops += 2 * n_h * n_pos * (dk + dv)
+    return work_bound(nbytes, ops, "bf16")
+
+
+def read_only_attention_vs_plain(rec: dict) -> None:
+    """decode_attention_stacked (bf16 / int8 cache), decode_attention and
+    decode_attention_q8 at K3's serving cache (B 4, S 2048, lengths 0, 700,
+    S, 1500; bf16 q), at two shapes: qwen2_moe (n_h = n_kv = 16, dk = dv =
+    128) and ds2's MLA (n_h = n_kv = 16, dk 256 whose last 64 lanes are the
+    zero padding, dv 128, scale 1/sqrt(192)). Each form within K3_REL_BOUND
+    per slot (+ 1 bf16 ulp) of its plain version; the stacked forms run on the
+    cache K3 / K3q has just written for the same step with the same q, and
+    equal K3 / K3q's output bitwise (one body: K3 takes the new position from
+    shared memory, the read-only form from the cache it was written to); the
+    per-layer forms equal the stacked one on that layer bitwise. The bf16
+    forms are timed beside ``scaled_dot_product_attention`` (boolean length
+    mask, ``enable_gqa``). The ds2 shape's numbers go to the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxmoe_tpu_torch.serving import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s_max, nl, layer = 4, 2048, 2, 1
+    lengths = torch.tensor([0, 700, s_max, 1500], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    pos = torch.arange(s_max, device=dev)
+    mask = (pos[None, :] <= lengths.clamp(max=s_max - 1)[:, None])[:, None, None, :]
+    shapes = {"qwen2_moe": (16, 16, 128, 128, 128),
+              "ds2_mla": (16, 16, 256, 128, 192)}    # n_h, n_kv, dk, dv, qk dim
+    for shape, (n_h, n_kv, dk, dv, d_qk) in shapes.items():
+        scale = 1.0 / d_qk ** 0.5
+
+        def zero_tail(t):                  # MLA: the padded lanes hold zeros
+            t[..., d_qk:] = 0
+            return t
+
+        def randn(*shape_):
+            return torch.randn(shape_, generator=gen, device=dev).to(torch.bfloat16)
+
+        def codes(d):
+            return torch.randint(-127, 128, (nl, b, n_kv, s_max, d), generator=gen,
+                                 device=dev, dtype=torch.int8)
+
+        def scales():
+            return torch.rand((nl, b, n_kv, s_max), generator=gen, device=dev) * 0.03 + 1e-3
+
+        q = zero_tail(randn(b, n_h, dk))
+        kn, vn = zero_tail(randn(b, n_kv, dk)), randn(b, n_kv, dv)
+        for quant in (False, True):
+            if quant:
+                caches = [zero_tail(codes(dk)), scales(), codes(dv), scales()]
+                pos_bytes = dk + dv + 8
+            else:
+                caches = [zero_tail(randn(nl, b, n_kv, s_max, dk)), None,
+                          randn(nl, b, n_kv, s_max, dv), None]
+                pos_bytes = 2 * (dk + dv)
+            upd, _ = da.decode_attention_update_stacked(q, kn, vn, *caches, lengths,
+                                                        layer, valid=valid,
+                                                        scale=scale)
+            layer_caches = [c if c is None else c[layer] for c in caches]
+            stacked_name = "decode_attention_stacked" + ("_q8" if quant else "")
+            per_layer_name = "decode_attention_q8" if quant else "decode_attention"
+
+            def stacked():
+                return da.decode_attention_stacked(q, *caches, lengths, layer,
+                                                   scale=scale)[0]
+
+            def stacked_plain():
+                return da.decode_attention_stacked_plain(q, *caches, lengths, layer,
+                                                         scale)
+
+            if quant:
+                def per_layer():
+                    return da.decode_attention_q8(q, *layer_caches, lengths,
+                                                  scale=scale)
+            else:
+                def per_layer():
+                    return da.decode_attention(q, layer_caches[0], layer_caches[2],
+                                               lengths, scale=scale)
+
+            out, ref, out_l = stacked(), stacked_plain(), per_layer()
+            torch.cuda.synchronize()
+            bitwise_update = torch.equal(out, upd)
+            bitwise_layer = torch.equal(out_l, out)
+            lib = {}
+            if not quant:
+                kk, vv = layer_caches[0], layer_caches[2]
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None, :], kk, vv, attn_mask=mask, scale=scale,
+                        enable_gqa=n_h != n_kv)
+
+                lib = {"library_ms": time_ms(library),
+                       "library_max_abs_diff": (library()[:, :, 0].float()
+                                                - ref.float()).abs().max().item()}
+            work = read_attn_work(lengths, s_max, n_h, n_kv, dk, dv, q.element_size(),
+                                  pos_bytes)
+            # the per-layer forms' plain version is the stacked one's on that layer
+            for name, kernel, plain, got in ((stacked_name, stacked, stacked_plain, out),
+                                             (per_layer_name, per_layer,
+                                              stacked_plain, out_l)):
+                rel = k3_slot_errors(got, ref)
+                t = {"max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                     "ms": time_ms(kernel), "plain_ms": time_ms(plain), **work,
+                     "library_ms": lib.get("library_ms")}
+                emit("kernels", kernel=name, shape=shape, regime="decode",
+                     dtype="bfloat16", B=b, S=s_max, n_h=n_h, n_kv=n_kv, dk=dk, dv=dv,
+                     scale=scale, lengths=lengths.tolist(), rel_err_per_slot=rel,
+                     bitwise_k3_after_its_write=bitwise_update,
+                     per_layer_bitwise_stacked=bitwise_layer,
+                     library_max_abs_diff=lib.get("library_max_abs_diff"),
+                     bound=f"{K3_REL_BOUND} * max|ref[b]| + 1 bf16 ulp", **t)
+                if shape == "ds2_mla":
+                    rec[name].update(t)
+            if not (bitwise_update and bitwise_layer):
+                raise AssertionError(
+                    f"{stacked_name} ({shape}): not bitwise K3 after its write "
+                    f"({bitwise_update}) or the per-layer form ({bitwise_layer})")
+            del caches, layer_caches
+
+
 def ffn_work(gs, k: int, n: int, h: int, expert_bytes, out_bytes: int = 2) -> dict:
     """K12 / K13 on THIS layout: every row the kernel is given (the aligned
     dispatch's padding rows included) is read as int8 codes and a scale and
@@ -1221,6 +1390,7 @@ def kernels_vs_plain() -> dict:
     scheme_kernels_vs_plain(rec)
     two_launch_kernels_vs_plain(rec)
     attention_kernels_vs_plain(rec)
+    read_only_attention_vs_plain(rec)
     fused_kernels_vs_plain(rec)
     combine_vs_index_add()
     return rec
@@ -1237,19 +1407,43 @@ def _top2_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
-def _full_width_model(layers: int, seed: int):
-    """qwen2_moe at its published widths, ``layers`` deep, with seeded random
-    bf16 weights made on the card -> (config, float params)."""
+def _full_width_model(layers: int, seed: int, model: str = "qwen2_moe"):
+    """``model`` (qwen2_moe, ds2, mixtral, qwen2_moe_57b) at its published
+    widths, ``layers`` deep (ds2's dense first layer counts), with seeded
+    random bf16 weights made on the card -> (config, float params)."""
     import torch
 
-    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B
+    from mxmoe_tpu_torch.models.configs import config_for
     from mxmoe_tpu_torch.models.model import init_params
 
-    cfg = dataclasses.replace(QWEN2_MOE_A2_7B, num_layers=layers)
+    cfg = dataclasses.replace(config_for(model), num_layers=layers)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     floats = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     return cfg, floats
+
+
+def _served_model(layers: int, seed: int, model: str, quant: str, pack: bool,
+                  int8_head: bool, impl_kw: dict | None):
+    """What ``serve`` runs: ``model`` at its published widths, ``layers``
+    deep, its seeded random bf16 weights drawn and quantized one MoE layer at
+    a time (``bench_serving.init_for_serving``, each layer through
+    ``prepare``, so the float model never exists whole) -> (config, params,
+    MoEImpl)."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import config_for
+    from mxmoe_tpu_torch.quant.qparams import quantize_lm_head
+    from mxmoe_tpu_torch.serving.bench_serving import init_for_serving
+
+    cfg = dataclasses.replace(config_for(model), num_layers=layers)
+    dev = torch.device("cuda")
+    params, impl = init_for_serving(
+        cfg, torch.Generator(device=dev).manual_seed(seed),
+        functools.partial(prepare, quant=quant, pack=pack, impl_kw=impl_kw), dev)
+    if int8_head:
+        params = quantize_lm_head(params)
+    return cfg, params, impl
 
 
 def _init_cache(cfg, batch, max_len, int8_kv, device):
@@ -1305,7 +1499,7 @@ def prepare(floats: dict, cfg, quant: str, pack: bool = False,
     from mxmoe_tpu_torch.serving.bench_serving import quantize_for_serving
 
     if quant in FLEX_SHARED:
-        qmc = flex_mixed_config(cfg.num_layers, cfg.num_experts, FLEX_SHARED[quant])
+        qmc = flex_mixed_config(cfg.num_moe_layers, cfg.num_experts, FLEX_SHARED[quant])
         params = quantize_model_experts_mixed(floats, cfg, qmc)
         impl = MoEImpl(quant="mixed")
     elif quant in FLOAT_ARMS:
@@ -1320,18 +1514,19 @@ def prepare(floats: dict, cfg, quant: str, pack: bool = False,
 
 
 def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
-                 impl_kw: dict | None = None, tries: int = 40) -> None:
-    """2-layer full-width slice on the CPU (plain versions), then the same
-    inputs on CUDA (kernels). The CPU run picks its inputs: a prompt, then
-    for each decode step one input token per slot, such that every compared
-    position's top-2 margin exceeds PARITY_BOUND. ``impl_kw`` as ``prepare``
-    takes it."""
+                 impl_kw: dict | None = None, tries: int = 40,
+                 model: str = "qwen2_moe", layers: int = 2) -> None:
+    """A full-width slice of ``model``, ``layers`` deep, on the CPU (plain
+    versions), then the same inputs on CUDA (kernels). The CPU run picks its
+    inputs: a prompt, then for each decode step one input token per slot,
+    such that every compared position's top-2 margin exceeds PARITY_BOUND.
+    ``impl_kw`` as ``prepare`` takes it."""
     import numpy as np
     import torch
 
     from mxmoe_tpu_torch.serving.decode import forward_cached
 
-    cfg, floats = _full_width_model(2, seed=1)
+    cfg, floats = _full_width_model(layers, seed=1, model=model)
     params, impl = prepare(floats, cfg, quant, pack, impl_kw=impl_kw)
     del floats
     cpu_params = _to(params, "cpu")
@@ -1400,7 +1595,8 @@ def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
     margin = _top2_margin(cpu).min().item()
     tok_cpu, tok_gpu = cpu.argmax(-1), gpu.argmax(-1)
     equal = tok_cpu == tok_gpu
-    emit("parity", quant=quant, packed=pack, int8_kv=int8_kv, layers=cfg.num_layers,
+    emit("parity", model=model, quant=quant, packed=pack, int8_kv=int8_kv,
+         layers=cfg.num_layers,
          fused_ffn=impl.fused_ffn, dispatch_align=impl.dispatch_align,
          prefill_valid=valid0.tolist(), decode_steps=steps, max_abs_err=err,
          bound=bound, max_abs_logit=cpu.abs().max().item(),
@@ -1414,6 +1610,42 @@ def slice_parity(quant: str, int8_kv: bool, pack: bool = False,
         raise AssertionError(f"slice parity: max|d logits|={err} > {bound}")
     if not bool(equal.all()):
         raise AssertionError("slice parity: greedy tokens differ")
+
+
+def forward_logits_vs_prefill(model: str, layers: int, quant: str = "mixed-packed",
+                              seed: int = 4) -> None:
+    """On the card, the full forward (``forward_logits`` over a 256-token
+    prompt) against a one-chunk ``forward_cached`` prefill of the same prompt
+    into an empty bf16 cache: logits within the parity bound (PARITY_ULPS
+    bf16 ulps at max|logits|, at most PARITY_BOUND)."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.models.model import forward_logits
+    from mxmoe_tpu_torch.serving.decode import forward_cached
+
+    cfg, floats = _full_width_model(layers, seed=seed, model=model)
+    params, impl = prepare(floats, cfg, quant)
+    del floats
+    dev = torch.device("cuda")
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32), device=dev)
+    full = forward_logits(params, prompt, cfg, impl).float()
+    cached, _ = forward_cached(params, prompt, _init_cache(cfg, 2, 512, False, dev),
+                               cfg, impl)
+    cached = cached.float()
+    torch.cuda.synchronize()
+    err = (full - cached).abs().max().item()
+    bound = min(PARITY_BOUND, PARITY_ULPS * bf16_ulp(cached.abs().max()).item())
+    finite = bool(torch.isfinite(full).all())
+    greedy = (full.argmax(-1) == cached.argmax(-1)).float().mean().item()
+    emit("forward_logits", model=model, layers=cfg.num_layers, quant=quant,
+         tokens=list(prompt.shape), max_abs_diff_vs_prefill=err, bound=bound,
+         max_abs_logit=cached.abs().max().item(), greedy_agree_share=greedy,
+         finite=finite)
+    if not (finite and full.shape == (2, 256, cfg.vocab_size) and err <= bound):
+        raise AssertionError(f"forward_logits ({model}): {err} from the cached "
+                             f"prefill > {bound}, or non-finite / misshapen")
 
 
 def storage_forms_bitwise(stored: str = "mixed", packed: str = "mixed-packed",
@@ -1468,16 +1700,23 @@ def _tensor_bytes(tensors) -> int:
 
 
 def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
-                    max_len: int) -> dict:
-    """Expert, shared-expert and KV-cache bytes as the storage code lays them
-    out (codes, f32 scales per channel or per group of GSIZE codes, zero
-    points where the form keeps them, the per-expert markers), to print
-    beside the measured tensor sizes."""
+                    max_len: int, int8_head: bool = False) -> dict:
+    """The bytes of each part of the served model as the storage code lays
+    them out, reckoned from the config: routed experts and the shared expert
+    of the MoE layers (codes, f32 scales per channel or per group of GSIZE
+    codes, zero points where the form keeps them, the per-expert markers), the
+    bf16 attention of every layer (GQA or MLA), ds2's bf16 dense MLP, the
+    embedding, the head (bf16 or int8 + f32 scales), norms and routers, the
+    KV cache (MLA: one
+    K / V per head, K at the padded width), and their total; to print beside
+    the measured tensor sizes and the peak."""
     from mxmoe_tpu_torch.quant.schemes import parse_scheme
     from mxmoe_tpu_torch.serving.bench_serving import MIXES
 
+    from mxmoe_tpu_torch.serving.kv_cache import mla_cache_k_dim
+
     h, n, e, nl = (cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
-                   cfg.num_layers)
+                   cfg.num_moe_layers)
     sn = cfg.shared_expert_intermediate_size
     codes = h * 2 * n + n * h                       # one expert, 1 byte a code
     shared_codes = h * 2 * sn + sn * h
@@ -1516,16 +1755,37 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
         experts = nl * e * (codes // (2 if pack else 1)
                             + 2 * scale_bytes(n, grouped))
         shared = shared_bf16
-    pos = 2 * cfg.head_dim * (1 if int8_kv else 2) + (8 if int8_kv else 0)
-    return {"experts": experts, "shared_expert": shared,
-            "kv_cache": nl * slots * cfg.num_kv_heads * max_len * pos}
+    if cfg.attention_type == "mla":
+        n_h, r, d_v = cfg.num_heads, cfg.kv_lora_rank, cfg.v_head_dim
+        attn = (h * n_h * cfg.qk_head_dim + h * (r + cfg.qk_rope_head_dim) + r
+                + r * n_h * (cfg.qk_nope_head_dim + d_v) + n_h * d_v * h)
+        n_kv, k_dim, v_dim = n_h, mla_cache_k_dim(cfg), d_v
+    else:
+        attn = (2 * h * cfg.q_dim + 2 * h * cfg.kv_dim
+                + cfg.attention_bias * (cfg.q_dim + 2 * cfg.kv_dim))
+        n_kv, k_dim, v_dim = cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+    pos = (k_dim + v_dim) * (1 if int8_kv else 2) + (8 if int8_kv else 0)
+    out = {"experts": experts, "shared_expert": shared,
+           "attention": cfg.num_layers * attn * 2,
+           "dense_mlp": cfg.first_dense_layers * 3 * h * cfg.dense_intermediate_size * 2,
+           "embed": cfg.vocab_size * h * 2,
+           "head": h * cfg.vocab_size * (1 if int8_head else 2)
+                   + cfg.vocab_size * 4 * int8_head,
+           # norms (two a layer and the final one), routers, shared-expert gates
+           "other": 2 * (2 * cfg.num_layers * h + h + nl * h * e
+                         + nl * h * (cfg.has_shared_expert_gate and sn > 0)),
+           "kv_cache": cfg.num_layers * slots * n_kv * max_len * pos}
+    out["total"] = sum(out.values())
+    return out
 
 
 def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
           pack: bool = False, int8_head: bool = False,
-          impl_kw: dict | None = None, absent: tuple = ()) -> dict:
-    """The Engine over qwen2_moe at its published widths, ``layers`` deep,
-    answering 4 requests; returns the kernels' launch counts of this serve.
+          impl_kw: dict | None = None, absent: tuple = (),
+          model: str = "qwen2_moe") -> dict:
+    """The Engine over ``model`` at its published widths, ``layers`` deep
+    (set up one MoE layer at a time: ``_served_model``), answering 4
+    requests; returns the kernels' launch counts of this serve.
     ``quant``, ``pack``, ``int8_head`` and ``impl_kw`` as ``prepare`` takes
     them; the kernels in ``expect`` must launch, those in ``absent`` not."""
     import numpy as np
@@ -1535,20 +1795,32 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
 
     t0 = time.perf_counter()
-    cfg, floats = _full_width_model(layers, seed=0)
-    params, impl = prepare(floats, cfg, quant, pack, int8_head, impl_kw)
-    del floats
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, impl = _served_model(layers, 0, model, quant, pack, int8_head,
+                                      impl_kw)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    nbytes = {"experts": 0, "shared_expert": 0, "other": 0}
-    for k, v in params["layers"].items():
-        key = ("experts" if k.startswith(("expert_", "act_bits_g", "act_bits_d",
-                                          "act_gsize_"))
-               else "shared_expert" if k.startswith(("shared_gate_up", "shared_down",
-                                                     "act_bits_shared", "shared_wo"))
-               else "other")
-        nbytes[key] += _tensor_bytes([v])
-    nbytes["other"] += _tensor_bytes(v for k, v in params.items() if k != "layers")
+    init_peak = torch.cuda.max_memory_allocated()
+    nbytes = {"experts": 0, "shared_expert": 0, "attention": 0, "dense_mlp": 0,
+              "embed": _tensor_bytes([params["embed"]]), "head": 0, "other": 0}
+    attn_keys = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "kv_a", "kv_a_norm", "kv_b")
+    for stack in (params["layers"], params.get("dense_layers", {})):
+        for k, v in stack.items():
+            key = ("experts" if k.startswith(("expert_", "act_bits_g", "act_bits_d",
+                                              "act_gsize_"))
+                   else "shared_expert" if k.startswith(("shared_gate_up",
+                                                         "shared_down",
+                                                         "act_bits_shared",
+                                                         "shared_wo"))
+                   else "attention" if k in attn_keys
+                   else "dense_mlp" if k.startswith("mlp_")
+                   else "other")
+            nbytes[key] += _tensor_bytes([v])
+    for k, v in params.items():
+        if k.startswith("lm_head"):
+            nbytes["head"] += _tensor_bytes([v])
+        elif k == "final_norm":
+            nbytes["other"] += _tensor_bytes([v])
     slots, max_len, max_new = 4, 2048, 32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1573,15 +1845,18 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
 
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
-    emit("serve", layers=cfg.num_layers, quant=quant, packed=pack, int8_kv=int8_kv,
+    nbytes["total"] = sum(nbytes.values())
+    emit("serve", model=model, layers=cfg.num_layers, quant=quant, packed=pack,
+         int8_kv=int8_kv, decode_attn=impl.decode_attn,
          int8_head=int8_head, mixed_weight_only=impl.mixed_weight_only,
          fused_ffn=impl.fused_ffn, dispatch_align=impl.dispatch_align,
          gmm_backend=impl.gmm_backend, requests=len(prompts), prompt_lens=[len(p) for p in prompts],
          max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         measured_bytes=nbytes,
-         reckoned_bytes=_reckoned_bytes(cfg, quant, pack, int8_kv, slots, max_len),
+         init_max_memory_allocated=init_peak, measured_bytes=nbytes,
+         reckoned_bytes=_reckoned_bytes(cfg, quant, pack, int8_kv, slots, max_len,
+                                        int8_head),
          launches=launches)
     if any(len(t) != max_new or not all(0 <= x < cfg.vocab_size for x in t)
            for t in toks):
@@ -1594,6 +1869,7 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     if stray:
         raise AssertionError(f"serve ({quant}, {impl_kw}): kernels launched that "
                              f"this path must not take: {stray}")
+    del eng, params
     return launches
 
 
@@ -1644,9 +1920,10 @@ def float_arms_agree() -> None:
         raise AssertionError(f"float arms: unexpected K11 launches {launches}")
 
 
-def bench_entry_point(quant_args: list, expect: tuple) -> None:
+def bench_entry_point(quant_args: list, expect: tuple, absent: tuple = ()) -> None:
     """The bench_serving entry point as a user calls it, at a small depth;
-    its launch counts are set to 0 before the call and read after it."""
+    its launch counts are set to 0 before the call and read after it: the
+    kernels in ``expect`` must launch, those in ``absent`` not."""
     from mxmoe_tpu_torch.ops import kernels
     from mxmoe_tpu_torch.serving import bench_serving
 
@@ -1659,16 +1936,19 @@ def bench_entry_point(quant_args: list, expect: tuple) -> None:
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
     emit("bench", **res, launches=launches)
     missing = [k for k in expect if launches[k] <= 0]
-    if missing:
+    stray = [k for k in absent if launches[k]]
+    if missing or stray:
         raise AssertionError(f"bench_serving {quant_args}: kernels never "
-                             f"launched: {missing}")
+                             f"launched: {missing}; launched but must not: {stray}")
     keys = {"model", "layers", "slots", "quant", "int8_head", "int8_kv",
             "prefill_ms", "prefill_tokens_per_s", "decode_attn", "decode_step_ms",
             "decode_tokens_per_s", "device"}
     if not (keys <= set(res) and res["decode_tokens_per_s"] > 0
             and res["prefill_ms"] > 0
             and res["int8_kv"] is ("--int8-kv" in quant_args)
-            and res["int8_head"] is ("--int8-head" in quant_args)):
+            and res["int8_head"] is ("--int8-head" in quant_args)
+            and res["decode_attn"] == (quant_args[quant_args.index("--decode-attn") + 1]
+                                       if "--decode-attn" in quant_args else "auto")):
         raise AssertionError(f"bench_serving: unexpected result {res}")
 
 
@@ -1694,8 +1974,8 @@ def headline_bench() -> int:
              headline.mixed_onelaunch_step),
             ("bucketed", headline.quantize_weights_mixed, headline.mixed_bucketed_step)):
         q = prep(operands, masks)
-        ws, _ = make(q, ws=True)()
-        no_ws, _ = make(q, ws=False)()
+        ws = make(q, ws=True)()
+        no_ws = make(q, ws=False)()
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(ws, no_ws)):
             _require_equal(a, b, f"headline {label} output {i}: K15 vs --no-ws")
@@ -1740,6 +2020,13 @@ def main() -> int:
                                           ("w8a8_g-1_sym", False, False, aligned)):
         torch.cuda.empty_cache()
         slice_parity(quant, int8_kv, pack, impl_kw)
+    # ds2 at full width, its dense first layer and two MoE layers (MLA over
+    # the 256-lane K cache: K3q at dk 256, G 1)
+    torch.cuda.empty_cache()
+    slice_parity("mixed-packed", True, model="ds2", layers=3)
+    for model, layers in (("qwen2_moe", 2), ("ds2", 3)):
+        torch.cuda.empty_cache()
+        forward_logits_vs_prefill(model, layers)
     torch.cuda.empty_cache()
     storage_forms_bitwise()
     torch.cuda.empty_cache()
@@ -1753,8 +2040,9 @@ def main() -> int:
     k4f, k10, k11 = "gmm_mixed_packed_flex", "gmm_mixed_wo_wxa", "gmm_bf16"
     k12, k13 = "gmm_ffn_w8a8", "gmm_ffn_mixed_packed"
     # name -> (layers, quant, int8 KV, packed, int8 head, kernels that must
-    # launch[, MoEImpl fields, kernels that must not]); a kernel's launches in
-    # the last line are those of the serve that `counts` below names for it
+    # launch[, MoEImpl fields[, kernels that must not[, model]]]); a kernel's
+    # launches in the last line are those of the serve that `counts` below
+    # names for it
     serves = {
         "uniform": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3)),
         "packed_w4": (4, "w4a8_g-1_sym", False, True, False,
@@ -1790,12 +2078,25 @@ def main() -> int:
                             (k1, "gmm_w8a8", k3), aligned, (k12,)),
         "flex_fused": (4, "flex", False, False, False, ("gmm_w8a8_grouped", k3),
                        fused, (k12, k13)),
+        # the plain decode attention (scatter + attention): no K3
+        "uniform_xla": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8"),
+                        {"decode_attn": "xla"}, (k3, k3q)),
+        # ds2 at the full 27 layers (1 dense + 26 MoE): MLA through K3q at dk
+        # 256, mixed-packed routed experts, w8a8 shared experts, the int8 head
+        "ds2": (27, "mixed-packed", True, False, True,
+                (k3q, k1, "gmm_mixed_packed", "gmm_w8a8"), None, (k3,), "ds2"),
+        # GQA at G 4 / 7, full width, 4 layers; mixtral has no shared expert
+        "mixtral": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
+                    None, (), "mixtral"),
+        "qwen2_57b": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
+                      None, (), "qwen2_moe_57b"),
     }
     ran = {}
     for name, (layers, quant, int8_kv, pack, head, expect, *extra) in serves.items():
         torch.cuda.empty_cache()
-        impl_kw, absent = (*extra, None, ())[:2]
-        ran[name] = serve(layers, quant, int8_kv, expect, pack, head, impl_kw, absent)
+        impl_kw, absent, model = (*extra, *SERVE_DEFAULTS[len(extra):])
+        ran[name] = serve(layers, quant, int8_kv, expect, pack, head, impl_kw, absent,
+                          model)
     # the flex serves go through K8 only: no K1, K2 or K9 for the routed
     # experts, and the grouped shared expert adds two K8 launches a layer
     if ran["flex"]["gmm_w8a8_grouped"] != 2 * ran["grouped"]["gmm_w8a8_grouped"]:
@@ -1820,25 +2121,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_entry_point(["--quant", "mixed-packed", "--int8-kv", "--fused-ffn", "on"],
                       (k13, k1, "gmm_w8a8", k3q))
+    for attn, expect, absent in (("auto", (k3q,), ()), ("xla", (), (k3q, k3))):
+        torch.cuda.empty_cache()
+        bench_entry_point(["--model", "ds2", "--quant", "mixed-packed", "--int8-kv",
+                           "--decode-attn", attn],
+                          (k1, "gmm_w8a8", "gmm_mixed_packed", *expect), absent)
     torch.cuda.empty_cache()
     ws_launches = headline_bench()
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
-    counts = {"mixed_fused": (k13, k3q, k1, "gmm_w8a8"), "flex_wo": (k10, k3),
-              "flex_packed": (k4f,), "mixed": ("gmm_mixed_packed",),
+    counts = {"ds2": (k3q, k1, "gmm_w8a8", "gmm_mixed_packed"), "mixed_fused": (k13,),
+              "uniform": (k3,), "flex_wo": (k10,), "flex_packed": (k4f,),
               "packed_w4": ("gmm_w4a8_packed",), "a16_packed": ("gmm_weight_only_packed",),
               "grouped": ("gmm_w8a8_grouped",), "asym": ("gmm_w8a8_asym",),
               "a16": ("gmm_weight_only",), "bf16_k11": (k11,), "uniform_fused": (k12,)}
     launches = {}
     for name, kernel_names in counts.items():
-        layers, quant, int8_kv, pack, _, _, *extra = serves[name]
-        label = (f"serve {quant}{' packed' if pack else ''}"
-                 f"{' int8-kv' if int8_kv else ''}{' fused' if extra else ''} "
-                 f"{layers} layers")
+        layers, quant, int8_kv, pack, head, _, *extra = serves[name]
+        impl_kw, _, model = (*extra, *SERVE_DEFAULTS[len(extra):])
+        label = (f"serve {model} {quant}{' packed' if pack else ''}"
+                 f"{' int8-kv' if int8_kv else ''}{' int8-head' if head else ''}"
+                 f"{' fused' if impl_kw else ''} {layers} layers")
         for kn in kernel_names:
             launches[kn] = (ran[name][kn], label)
-    launches["gmm_w8a8_fusedquant"] = (0, "kernels phase only: no serve reaches it "
-                                          "in either package")
+    for name in ("gmm_w8a8_fusedquant", *READ_ONLY_ATTENTION):
+        launches[name] = (0, "kernels phase only: no serve reaches it in either "
+                             "package")
     launches["gmm_ws"] = (ws_launches, "headline bench, mixed one-launch arm")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -28,9 +28,11 @@ Timing: CUDA events around one call of an arm (both workloads), the L2
 cache overwritten before each call, the two arms in turns, the median of
 ``REPEATS`` calls after warm-up. The reference's chained protocol, glitch
 filter and baseline memo exist for its remote TPU and are not ported. The
-bound comes from the H100's published peaks: max(bytes / 3.35 TB/s, sum
-2MNK / 1979 TOP/s int8), the bytes being what each launch of the arm must
-read and write once.
+bound is the workload's (``workload_bound``), one number for every arm of a
+mode, from the H100's published peaks: max(bytes / 3.35 TB/s, sum 2MNK /
+1979 TOP/s int8), the bytes being what the workload must move once in the
+mode's storage; no intermediate of an arm counts (the reference's workload
+roofline, ``bench.py``).
 
 Prints ONE JSON line: ``metric``, ``value`` (TFLOPS), ``unit``,
 ``vs_baseline``, ``bound_tflops``, ``bound_kind`` (bytes | operations),
@@ -171,51 +173,69 @@ def quantize_weights_mixed_onelaunch(operands, w4_masks, bm: int = BM):
     return out
 
 
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+def workload_bytes(wls, mode: str) -> int:
+    """The bytes the workload must move once in ``mode``'s storage: bf16
+    activations read once, the weights and per-channel f32 scales of every
+    expert with rows read once (the arms' even experts 4-bit, nibble-packed,
+    in ``mixed``; all int8 in ``w8a8``), the shared expert's int8 weights and
+    scales, bf16 outputs written once. No intermediate of an arm (the shared
+    expert's int32 accumulator, act-quant codes) counts."""
+    nbytes = 0
+    for wl in wls:
+        nbytes += 2 * wl.m_total * wl.k + 2 * wl.m_total * wl.n
+        for e, rows in enumerate(wl.group_sizes):
+            if rows > 0:
+                w4 = mode == "mixed" and e % 2 == 0
+                nbytes += wl.k * wl.n // (2 if w4 else 1) + 4 * wl.n
+        if wl.shared_m:
+            nbytes += (2 * wl.shared_m * wl.shared_k + wl.shared_k * wl.shared_n
+                       + 4 * wl.shared_n + 2 * wl.shared_m * wl.shared_n)
+    return nbytes
+
+
+def workload_bound(wls, mode: str) -> tuple[float, str]:
+    """(bound in TFLOPS on nominal sum 2MNK, "bytes" | "operations"): the
+    larger of ``workload_bytes`` over the memory rate and sum 2MNK over the
+    int8 dense peak. One number for every arm of a mode."""
+    flops = sum(wl.flops for wl in wls)
+    t_bytes = workload_bytes(wls, mode) / HBM_BYTES_PER_S
+    t_ops = flops / INT8_OPS_PER_S
+    return flops / max(t_bytes, t_ops) / 1e12, ("bytes" if t_bytes >= t_ops
+                                                 else "operations")
 
 
 def _shared_int8(sh):
     """The shared expert's int8 product: K1, the stock int8 matmul, the f32
-    epilogue (acc * s_a) * s_w -> bf16. Returns (output, bytes moved)."""
+    epilogue (acc * s_a) * s_w -> bf16."""
     x, swq, ssc = sh
     saq, sasc = act_quant.quantize_rows_uniform(x, 8)
     acc = torch._int_mm(saq, swq)
-    out = (acc.float() * sasc * ssc).to(torch.bfloat16)
-    return out, (_nbytes(x, saq, sasc) + _nbytes(saq, swq, acc)
-                 + _nbytes(acc, sasc, ssc, out))
+    return (acc.float() * sasc * ssc).to(torch.bfloat16)
 
 
 def baseline_step(operands):
     """bf16: the stock grouped product + a dense matmul for the shared
     expert."""
     def step():
-        outs, nb = [], 0
+        outs = []
         for lhs, rhs, gs, shared in operands:
-            o = gmm(lhs, rhs, gs, backend="ragged_dot")
-            outs.append(o)
-            nb += _nbytes(lhs, rhs, gs, o)
+            outs.append(gmm(lhs, rhs, gs, backend="ragged_dot"))
             if shared is not None:
                 outs.append(shared[0] @ shared[1])
-                nb += _nbytes(*shared, outs[-1])
-        return outs, nb
+        return outs
     return step
 
 
 def w8a8_step(qoperands):
     """K1 + K2 over the routed rows, the shared expert's int8 product."""
     def step():
-        outs, nb = [], 0
+        outs = []
         for lhs, wq, wsc, gs, sh in qoperands:
             aq, asc = act_quant.quantize_rows_uniform(lhs, 8)
-            o = gmm_w8a8(aq, asc, wq, wsc, gs)
-            outs.append(o)
-            nb += _nbytes(lhs, aq, asc) + _nbytes(aq, asc, wq, wsc, gs, o)
+            outs.append(gmm_w8a8(aq, asc, wq, wsc, gs))
             if sh is not None:
-                o, b = _shared_int8(sh)
-                outs.append(o)
-                nb += b
-        return outs, nb
+                outs.append(_shared_int8(sh))
+        return outs
     return step
 
 
@@ -225,21 +245,16 @@ def mixed_onelaunch_step(qmix, ws: bool = True):
               for p in qmix]
 
     def step():
-        outs, nb = [], 0
+        outs = []
         for p, gs in zip(qmix, gs_dev):
             aq, asc = act_quant.quantize_rows(p["lhs"], p["bits"])
             if ws:
-                o = gmm_w8a8_ws(aq, asc, p["wq"], p["wsc"], p["gs"], bm=BM)
+                outs.append(gmm_w8a8_ws(aq, asc, p["wq"], p["wsc"], p["gs"], bm=BM))
             else:
-                o = gmm_w8a8(aq, asc, p["wq"], p["wsc"], gs)
-            outs.append(o)
-            nb += (_nbytes(p["lhs"], p["bits"], aq, asc)
-                   + _nbytes(aq, asc, p["wq"], p["wsc"], o))
+                outs.append(gmm_w8a8(aq, asc, p["wq"], p["wsc"], gs))
             if p["shared"] is not None:
-                o, b = _shared_int8(p["shared"])
-                outs.append(o)
-                nb += b
-        return outs, nb
+                outs.append(_shared_int8(p["shared"]))
+        return outs
     return step
 
 
@@ -251,7 +266,7 @@ def mixed_bucketed_step(qmix, ws: bool = True):
                torch.tensor(p["gs8"], dtype=torch.int32, device=dev)) for p in qmix]
 
     def step():
-        outs, nb = [], 0
+        outs = []
         for p, (gs4, gs8) in zip(qmix, gs_dev):
             l4, l8 = p["lhs"][:p["m4"]], p["lhs"][p["m4"]:]
             aq4, asc4 = act_quant.quantize_rows_uniform(l4, 4)
@@ -263,14 +278,9 @@ def mixed_bucketed_step(qmix, ws: bool = True):
                 o4 = gmm_w4a8_packed(aq4, asc4, p["q4p"], p["sc4"], gs4)
                 o8 = gmm_w8a8(aq8, asc8, p["q8"], p["sc8"], gs8)
             outs += [o4, o8]
-            nb += (_nbytes(p["lhs"], aq4, asc4, aq8, asc8)
-                   + _nbytes(aq4, asc4, p["q4p"], p["sc4"], o4)
-                   + _nbytes(aq8, asc8, p["q8"], p["sc8"], o8))
             if p["shared"] is not None:
-                o, b = _shared_int8(p["shared"])
-                outs.append(o)
-                nb += b
-        return outs, nb
+                outs.append(_shared_int8(p["shared"]))
+        return outs
     return step
 
 
@@ -332,22 +342,20 @@ def main(argv=None) -> dict:
         for _ in range(WARMUP):
             base()
             ours()
-        nbytes = ours()[1]
         t_base, t_ours = [], []
         for i in range(REPEATS):            # in turns: A B B A ...
             for arm in ((base, ours) if i % 2 == 0 else (ours, base)):
                 (t_base if arm is base else t_ours).append(time_ms(arm))
     base_ms, our_ms = statistics.median(t_base), statistics.median(t_ours)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = total_flops / INT8_OPS_PER_S
+    bound_tflops, bound_kind = workload_bound(wls, args.mode)
     tflops = total_flops / (our_ms * 1e-3) / 1e12
     res = {
         "metric": METRICS[args.mode],
         "value": tflops,
         "unit": "TFLOPS",
         "vs_baseline": base_ms / our_ms,
-        "bound_tflops": total_flops / max(t_bytes, t_ops) / 1e12,
-        "bound_kind": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_tflops": bound_tflops,
+        "bound_kind": bound_kind,
         "samples": REPEATS,
         "ms": {"baseline": base_ms, name: our_ms},
         "device": torch.cuda.get_device_name(dev),

@@ -29,6 +29,17 @@
 //    P.V: one output column per thread, the position loop unrolled by 8.
 // Later work: vector P.V loads, cp.async staging.
 //
+// Read-only forms (kWrite = false, the same bodies compiled without the
+// write): the Pallas kernels decode_attention_stacked (stacked cache, bf16
+// or int8), decode_attention and decode_attention_q8 (a per-layer
+// [B, n_kv, S, d] cache: layer 0 of a one-layer stack). They take no
+// k_new / v_new / valid, write nothing, and read every position, lengths[b]
+// included, from the cache, clamped to S-1 (n_positions). For the per-layer
+// forms, which do not clamp, lengths[b] >= S attends all S positions either
+// way. On the cache that K3 / K3q has just written for the same step the
+// outputs are bitwise theirs: the row K3 takes from shared memory is the
+// row it wrote. Bound: cache bytes only.
+//
 // K3q, the int8-cache form (cache codes [L, B, n_kv, S, d] int8, scales
 // [L, B, n_kv, S] f32). Same grid, same merge kernel, same skip rule. Every
 // block quantizes the step's K and V vectors per (slot, kv head) in shared
@@ -70,7 +81,7 @@ __device__ __forceinline__ int n_positions(int raw_len, int S) {
   return min(max(raw_len, 0), S - 1) + 1;
 }
 
-template <typename T>
+template <typename T, bool kWrite>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                            const T* __restrict__ v_new,
@@ -98,22 +109,24 @@ decode_attn_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int p_begin = sp * kChunk;
   if (p_begin >= n_pos) return;                  // uniform across the block
   const int p_end = min(p_begin + kChunk, n_pos);
-  const bool wrote = valid[b] != 0 && raw_len >= 0 && raw_len < S;
+  const bool wrote = kWrite && valid[b] != 0 && raw_len >= 0 && raw_len < S;
 
   const size_t head = ((size_t)layer * B + b) * n_kv + h;
   __nv_bfloat16* ck = cache_k + head * S * dk;
   __nv_bfloat16* cv = cache_v + head * S * dv;
-  const T* kn = k_new + ((size_t)b * n_kv + h) * dk;
-  const T* vn = v_new + ((size_t)b * n_kv + h) * dv;
-  for (int d = tid; d < dk; d += kThreads) {
-    const __nv_bfloat16 x = __float2bfloat16_rn(ld(kn + d));
-    kn_s[d] = x;
-    if (sp == 0 && wrote) ck[(size_t)raw_len * dk + d] = x;
-  }
-  for (int d = tid; d < dv; d += kThreads) {
-    const __nv_bfloat16 x = __float2bfloat16_rn(ld(vn + d));
-    vn_s[d] = x;
-    if (sp == 0 && wrote) cv[(size_t)raw_len * dv + d] = x;
+  if (kWrite) {
+    const T* kn = k_new + ((size_t)b * n_kv + h) * dk;
+    const T* vn = v_new + ((size_t)b * n_kv + h) * dv;
+    for (int d = tid; d < dk; d += kThreads) {
+      const __nv_bfloat16 x = __float2bfloat16_rn(ld(kn + d));
+      kn_s[d] = x;
+      if (sp == 0 && wrote) ck[(size_t)raw_len * dk + d] = x;
+    }
+    for (int d = tid; d < dv; d += kThreads) {
+      const __nv_bfloat16 x = __float2bfloat16_rn(ld(vn + d));
+      vn_s[d] = x;
+      if (sp == 0 && wrote) cv[(size_t)raw_len * dv + d] = x;
+    }
   }
   const T* qb = q + ((size_t)b * n_h + (size_t)h * G) * dk;
   for (int i = tid; i < G * dk; i += kThreads) q_s[i] = ld(qb + i);
@@ -252,7 +265,7 @@ decode_attn_merge_kernel(const float* __restrict__ ws,
   }
 }
 
-template <typename T>
+template <typename T, bool kWrite>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* cache_k, void* cache_v, const int* lengths,
                    const int* valid, void* out, float* ws, int layer, int B,
@@ -264,12 +277,12 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                       + sizeof(float) * ((size_t)G * dk + (size_t)G * kBS + 3 * G);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_partial_kernel<T>,
+        decode_attn_partial_kernel<T, kWrite>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   if (B > 0) {
-    decode_attn_partial_kernel<T><<<dim3(n_kv, B, n_split), kThreads, smem, st>>>(
+    decode_attn_partial_kernel<T, kWrite><<<dim3(n_kv, B, n_split), kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_new),
         static_cast<const T*>(v_new), static_cast<__nv_bfloat16*>(cache_k),
         static_cast<__nv_bfloat16*>(cache_v), lengths, valid, ws, layer, B,
@@ -306,7 +319,7 @@ __device__ __forceinline__ float block_max(float v, float* red, int warp,
   return r;
 }
 
-template <typename T>
+template <typename T, bool kWrite>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_partial_q8_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                               const T* __restrict__ v_new,
@@ -337,37 +350,40 @@ decode_attn_partial_q8_kernel(const T* __restrict__ q, const T* __restrict__ k_n
   const int p_begin = sp * kChunk;
   if (p_begin >= n_pos) return;                  // uniform across the block
   const int p_end = min(p_begin + kChunk, n_pos);
-  const bool wrote = valid[b] != 0 && raw_len >= 0 && raw_len < S;
+  const bool wrote = kWrite && valid[b] != 0 && raw_len >= 0 && raw_len < S;
 
   const size_t head = ((size_t)layer * B + b) * n_kv + h;
   int8_t* ck = cache_k + head * S * dk;
   int8_t* cv = cache_v + head * S * dv;
   float* cks = cache_ks + head * S;
   float* cvs = cache_vs + head * S;
-  const T* kn = k_new + ((size_t)b * n_kv + h) * dk;
-  const T* vn = v_new + ((size_t)b * n_kv + h) * dv;
 
   // per-vector symmetric int8 quantization of the step's K and V
-  const float inv127 = (float)(1.0 / 127.0);
-  float ak = 0.f, av = 0.f;
-  for (int d = tid; d < dk; d += kThreads) ak = fmaxf(ak, fabsf(ld(kn + d)));
-  for (int d = tid; d < dv; d += kThreads) av = fmaxf(av, fabsf(ld(vn + d)));
-  const float ksc_new = __fmul_rn(fmaxf(block_max(ak, red_s, warp, lane), 1e-8f), inv127);
-  const float vsc_new = __fmul_rn(fmaxf(block_max(av, red_s, warp, lane), 1e-8f), inv127);
-  const bool store = sp == 0 && wrote;
-  for (int d = tid; d < dk; d += kThreads) {
-    const int8_t c = (int8_t)rintf(__fdiv_rn(ld(kn + d), ksc_new));
-    kn_s[d] = c;
-    if (store) ck[(size_t)raw_len * dk + d] = c;
-  }
-  for (int d = tid; d < dv; d += kThreads) {
-    const int8_t c = (int8_t)rintf(__fdiv_rn(ld(vn + d), vsc_new));
-    vn_s[d] = c;
-    if (store) cv[(size_t)raw_len * dv + d] = c;
-  }
-  if (store && tid == 0) {
-    cks[raw_len] = ksc_new;
-    cvs[raw_len] = vsc_new;
+  float ksc_new = 0.f, vsc_new = 0.f;
+  if (kWrite) {
+    const T* kn = k_new + ((size_t)b * n_kv + h) * dk;
+    const T* vn = v_new + ((size_t)b * n_kv + h) * dv;
+    const float inv127 = (float)(1.0 / 127.0);
+    float ak = 0.f, av = 0.f;
+    for (int d = tid; d < dk; d += kThreads) ak = fmaxf(ak, fabsf(ld(kn + d)));
+    for (int d = tid; d < dv; d += kThreads) av = fmaxf(av, fabsf(ld(vn + d)));
+    ksc_new = __fmul_rn(fmaxf(block_max(ak, red_s, warp, lane), 1e-8f), inv127);
+    vsc_new = __fmul_rn(fmaxf(block_max(av, red_s, warp, lane), 1e-8f), inv127);
+    const bool store = sp == 0 && wrote;
+    for (int d = tid; d < dk; d += kThreads) {
+      const int8_t c = (int8_t)rintf(__fdiv_rn(ld(kn + d), ksc_new));
+      kn_s[d] = c;
+      if (store) ck[(size_t)raw_len * dk + d] = c;
+    }
+    for (int d = tid; d < dv; d += kThreads) {
+      const int8_t c = (int8_t)rintf(__fdiv_rn(ld(vn + d), vsc_new));
+      vn_s[d] = c;
+      if (store) cv[(size_t)raw_len * dv + d] = c;
+    }
+    if (store && tid == 0) {
+      cks[raw_len] = ksc_new;
+      cvs[raw_len] = vsc_new;
+    }
   }
   const T* qb = q + ((size_t)b * n_h + (size_t)h * G) * dk;
   for (int i = tid; i < G * dk; i += kThreads) q_s[i] = ld(qb + i);
@@ -491,7 +507,7 @@ decode_attn_partial_q8_kernel(const T* __restrict__ q, const T* __restrict__ k_n
   }
 }
 
-template <typename T>
+template <typename T, bool kWrite>
 cudaError_t launch_q8(const void* q, const void* k_new, const void* v_new,
                       void* cache_k, void* cache_ks, void* cache_v,
                       void* cache_vs, const int* lengths, const int* valid,
@@ -503,12 +519,12 @@ cudaError_t launch_q8(const void* q, const void* k_new, const void* v_new,
       + sizeof(float) * ((size_t)G * dk + (size_t)G * kBS + 3 * G + kWarps);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_partial_q8_kernel<T>,
+        decode_attn_partial_q8_kernel<T, kWrite>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   if (B > 0) {
-    decode_attn_partial_q8_kernel<T><<<dim3(n_kv, B, n_split), kThreads, smem, st>>>(
+    decode_attn_partial_q8_kernel<T, kWrite><<<dim3(n_kv, B, n_split), kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_new),
         static_cast<const T*>(v_new), static_cast<int8_t*>(cache_k),
         static_cast<float*>(cache_ks), static_cast<int8_t*>(cache_v),
@@ -539,10 +555,11 @@ extern "C" int mxmoe_decode_attention_update(
   const int* val = static_cast<const int*>(valid);
   float* w = static_cast<float*>(ws);
   cudaError_t e = is_bf16
-      ? launch<__nv_bfloat16>(q, k_new, v_new, cache_k, cache_v, len, val,
-                              out, w, layer, B, n_h, n_kv, S, dk, dv, scale, st)
-      : launch<float>(q, k_new, v_new, cache_k, cache_v, len, val, out, w,
-                      layer, B, n_h, n_kv, S, dk, dv, scale, st);
+      ? launch<__nv_bfloat16, true>(q, k_new, v_new, cache_k, cache_v, len,
+                                    val, out, w, layer, B, n_h, n_kv, S, dk,
+                                    dv, scale, st)
+      : launch<float, true>(q, k_new, v_new, cache_k, cache_v, len, val, out,
+                            w, layer, B, n_h, n_kv, S, dk, dv, scale, st);
   return (int)e;
 }
 
@@ -557,11 +574,49 @@ extern "C" int mxmoe_decode_attention_update_q8(
   const int* val = static_cast<const int*>(valid);
   float* w = static_cast<float*>(ws);
   cudaError_t e = is_bf16
-      ? launch_q8<__nv_bfloat16>(q, k_new, v_new, cache_k, cache_ks, cache_v,
-                                 cache_vs, len, val, out, w, layer, B, n_h,
-                                 n_kv, S, dk, dv, scale, st)
-      : launch_q8<float>(q, k_new, v_new, cache_k, cache_ks, cache_v, cache_vs,
-                         len, val, out, w, layer, B, n_h, n_kv, S, dk, dv,
-                         scale, st);
+      ? launch_q8<__nv_bfloat16, true>(q, k_new, v_new, cache_k, cache_ks,
+                                       cache_v, cache_vs, len, val, out, w,
+                                       layer, B, n_h, n_kv, S, dk, dv, scale,
+                                       st)
+      : launch_q8<float, true>(q, k_new, v_new, cache_k, cache_ks, cache_v,
+                               cache_vs, len, val, out, w, layer, B, n_h, n_kv,
+                               S, dk, dv, scale, st);
+  return (int)e;
+}
+
+// The read-only forms: no step vectors, no write. A per-layer cache is
+// layer 0 of a one-layer stack (L = 1, layer = 0).
+extern "C" int mxmoe_decode_attention(
+    const void* q, int is_bf16, void* cache_k, void* cache_v,
+    const void* lengths, void* out, void* ws, int layer, int B, int n_h,
+    int n_kv, int S, int dk, int dv, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* w = static_cast<float*>(ws);
+  cudaError_t e = is_bf16
+      ? launch<__nv_bfloat16, false>(q, nullptr, nullptr, cache_k, cache_v, len,
+                                     nullptr, out, w, layer, B, n_h, n_kv, S,
+                                     dk, dv, scale, st)
+      : launch<float, false>(q, nullptr, nullptr, cache_k, cache_v, len,
+                             nullptr, out, w, layer, B, n_h, n_kv, S, dk, dv,
+                             scale, st);
+  return (int)e;
+}
+
+extern "C" int mxmoe_decode_attention_q8(
+    const void* q, int is_bf16, void* cache_k, void* cache_ks, void* cache_v,
+    void* cache_vs, const void* lengths, void* out, void* ws, int layer, int B,
+    int n_h, int n_kv, int S, int dk, int dv, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* w = static_cast<float*>(ws);
+  cudaError_t e = is_bf16
+      ? launch_q8<__nv_bfloat16, false>(q, nullptr, nullptr, cache_k, cache_ks,
+                                        cache_v, cache_vs, len, nullptr, out, w,
+                                        layer, B, n_h, n_kv, S, dk, dv, scale,
+                                        st)
+      : launch_q8<float, false>(q, nullptr, nullptr, cache_k, cache_ks, cache_v,
+                                cache_vs, len, nullptr, out, w, layer, B, n_h,
+                                n_kv, S, dk, dv, scale, st);
   return (int)e;
 }

@@ -140,6 +140,35 @@ DEEPSEEK_V2_LITE = MoEConfig(
 )
 
 
+def tiny_ds2(num_experts: int = 4, num_layers: int = 3) -> MoEConfig:
+    """Tiny DeepSeek-V2-style config (MLA + 1 dense first layer)."""
+    return MoEConfig(
+        vocab_size=256,
+        hidden_size=64,
+        num_layers=num_layers,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=24,
+        num_experts=num_experts,
+        top_k=2,
+        moe_intermediate_size=32,
+        shared_expert_intermediate_size=32,
+        norm_topk_prob=False,
+        has_shared_expert_gate=False,
+        routed_scaling_factor=1.0,
+        rope_theta=10000.0,
+        attention_bias=False,
+        attention_type="mla",
+        kv_lora_rank=32,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+        first_dense_layers=1,
+        dense_intermediate_size=128,
+        model_type="deepseek_v2",
+    )
+
+
 def tiny_qwen2_moe(num_experts: int = 8, num_layers: int = 2) -> MoEConfig:
     """Small random-init config for tests (structure-identical to qwen2_moe)."""
     return MoEConfig(
@@ -157,6 +186,26 @@ def tiny_qwen2_moe(num_experts: int = 8, num_layers: int = 2) -> MoEConfig:
         rope_theta=1_000_000.0,
         attention_bias=True,
         model_type="qwen2_moe",
+    )
+
+
+def tiny_mixtral(num_experts: int = 4, num_layers: int = 2) -> MoEConfig:
+    return MoEConfig(
+        vocab_size=512,
+        hidden_size=64,
+        num_layers=num_layers,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        num_experts=num_experts,
+        top_k=2,
+        moe_intermediate_size=48,
+        shared_expert_intermediate_size=0,
+        norm_topk_prob=True,
+        has_shared_expert_gate=False,
+        rms_norm_eps=1e-5,
+        attention_bias=False,
+        model_type="mixtral",
     )
 
 

@@ -1,7 +1,11 @@
-"""Transformer building blocks of the quantized serving slices (port of
-``mxmoe_tpu/models/layers.py``: ``rms_norm``, ``silu_mul``, ``MoEImpl``,
-``moe_ffn_dense``, ``moe_ffn_ragged``, ``moe_ffn_ragged_quant``,
-``shared_expert_ffn``, ``moe_block``).
+"""Transformer building blocks (port of ``mxmoe_tpu/models/layers.py``:
+``rms_norm``, ``silu_mul``, ``MoEImpl``, ``moe_ffn_dense``,
+``moe_ffn_ragged``, ``moe_ffn_ragged_quant``, ``shared_expert_ffn``,
+``moe_block``; the full forward's attention: ``rope_frequencies`` /
+``apply_rope`` (half-split), ``rope_frequencies_interleaved`` /
+``apply_rope_interleaved`` (DeepSeek MLA), ``attention``,
+``attention_block``, ``mla_attention_block``, ``dense_mlp_block``,
+``make_rope_tables``, ``attention_dispatch``, ``decoder_layer``).
 
 Layouts are the JAX package's: matmul weights [in, out] (a projection is
 ``x @ w``), expert weights [E, in, out] with gate/up fused as [E, H, 2N].
@@ -37,13 +41,19 @@ The shared expert runs in float or, real-quantized, through K2 with one
 group (per-channel symmetric), K8 with one group (grouped / asymmetric) or K6
 with one group (all-a16). Not ported, and raising ``NotImplementedError``
 with their ROADMAP item: the fake-quantized float paths (``act_bits_*``
-beside float expert weights, the layer-heterogeneous shared expert) and
-``online_had``.
+beside float expert weights, the layer-heterogeneous shared expert, the
+dense layer's ``act_bits_dense``), ``online_had`` and ring attention.
+
+``attention``'s backends: ``"xla"`` is the einsum softmax; ``"flash"`` is the
+reference's library flash attention, here the stock
+``scaled_dot_product_attention`` (causal) on a card and the einsum on the
+CPU, as the reference takes its library kernel only on its accelerator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +115,19 @@ class MoEImpl:
       decides; either implies a 32-row aligned dispatch when
       ``dispatch_align`` is unset. Per-channel symmetric w x a only: other
       schemes fall through to the two-launch branches.
+    attn_backend: the full forward's attention, as ``attention`` takes it:
+      ``"xla"`` (einsum softmax) or ``"flash"`` (the stock flash attention on
+      a card).
+    decode_attn: the cached forward's single-step attention: ``"fused"``
+      (K3 / K3q: the cache write and the attention in one kernel), ``"xla"``
+      (the plain way the prefill takes: ``scatter_layer_cache*`` +
+      ``attention_with*_cache``) or ``"auto"``: fused, which on a CPU tensor
+      is K3's plain version (the reference's rule: fused on its accelerator
+      or in interpret mode; its TPU-fitted crossover table is not read).
+      So ``"auto"`` and ``"fused"`` take the same path: on an H100 ``"xla"``
+      won at no measured point (``bench/decode_attn_crossover.py``), and
+      the two are folded together or ``"auto"`` learns a crossover once
+      one is measured.
     The JAX serving default holds for act quant: the single-pass kernel
     (``pallas_quant=True``, here K1).
     """
@@ -115,6 +138,15 @@ class MoEImpl:
     mixed_weight_only: bool = False
     dispatch_align: int | None = None
     fused_ffn: object = False
+    attn_backend: str = "xla"
+    decode_attn: str = "auto"
+
+    def use_fused_decode(self) -> bool:
+        """Whether a decode step takes the fused cache-write + attention."""
+        if self.decode_attn not in ("auto", "fused", "xla"):
+            raise ValueError(f"MoEImpl.decode_attn={self.decode_attn!r}: "
+                             "'auto' | 'fused' | 'xla'")
+        return self.decode_attn != "xla"
 
 
 _STORAGE_KEYS = ("expert_gate_up_q", "expert_gate_up_q_packed",
@@ -388,3 +420,174 @@ def moe_block(x: torch.Tensor, lp: dict, cfg: MoEConfig,
     if cfg.shared_expert_intermediate_size > 0:
         y = y + shared_expert_ffn(x2d, lp, cfg)
     return y.reshape(b, s, h)
+
+
+# ---------------------------------------------------------------------------
+# the full forward's attention and the dense layer
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, positions: torch.Tensor):
+    """cos/sin tables [..., head_dim] (f32) in the HF half-rotation
+    convention, for positions [S] (the full forward) or [B, S] (per-slot
+    positions of the cached forward)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=positions.device) / head_dim))
+    angles = positions.float()[..., None] * inv_freq               # [.., hd/2]
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [B, S, nH, hd]; cos/sin [S, hd] or [B, S, hd] (HF rotate_half
+    convention)."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return x * c + rotated * s
+
+
+def rope_frequencies_interleaved(rope_dim: int, theta: float,
+                                 positions: torch.Tensor):
+    """cos/sin [..., rope_dim/2] (f32) for the interleaved (complex)
+    convention of DeepSeek-V2 MLA, for positions [S] or [B, S]."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, rope_dim, 2, dtype=torch.float32,
+                                             device=positions.device) / rope_dim))
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [B, S, nH, d] rotated pairwise: (x[2i], x[2i+1]) as a complex number,
+    in f32; cos/sin [S, d/2] or [B, S, d/2]."""
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    c, s = cos[..., None, :], sin[..., None, :]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _causal_mask(s: int, t: int, device) -> torch.Tensor:
+    """[S, T]: query i attends keys [0, i + T - S] (the reference's
+    ``tril(ones(s, t), k=t - s)``)."""
+    return torch.ones((s, t), dtype=torch.bool, device=device).tril(t - s)
+
+
+def attention(q: torch.Tensor,    # [B, S, nH, hd]
+              k: torch.Tensor,    # [B, T, nKV, hd]
+              v: torch.Tensor,    # [B, T, nKV, hd]
+              causal: bool = True, backend: str = "xla") -> torch.Tensor:
+    """GQA attention; keys / values broadcast over the query groups ->
+    [B, S, nH, hd]. ``backend`` as the module docstring says; ``"ring"``
+    (sequence-parallel ring attention) waits for expert parallelism."""
+    b, s, n_h, hd = q.shape
+    n_kv = k.shape[2]
+    groups = n_h // n_kv
+    if backend == "ring":
+        raise NotImplementedError(
+            "attn_backend='ring' (sequence-parallel ring attention) is not "
+            "ported (ROADMAP queue A: EP and multi-host)")
+    if backend not in ("xla", "flash"):
+        raise ValueError(f"attention backend {backend!r}: 'xla' | 'flash' | 'ring'")
+    if backend == "flash" and causal and q.is_cuda:
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=1.0 / math.sqrt(hd), enable_gqa=groups > 1)
+        return out.transpose(1, 2)
+    qg = q.reshape(b, s, n_kv, groups, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    if causal:
+        mask = _causal_mask(s, k.shape[1], q.device)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bngst,btnh->bsngh", probs, v)
+    return out.reshape(b, s, n_h, hd)
+
+
+def attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
+                    attn_backend: str = "xla") -> torch.Tensor:
+    """GQA self-attention of one layer over a whole sequence [B, S, H]."""
+    b, s, _ = x.shape
+    q = x @ lp["wq"]
+    k = x @ lp["wk"]
+    v = x @ lp["wv"]
+    if cfg.attention_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), cos, sin)
+    k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), cos, sin)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    out = attention(q, k, v, causal=True, backend=attn_backend)
+    return out.reshape(b, s, -1) @ lp["wo"]
+
+
+def mla_qkv(x: torch.Tensor, lp: dict, cfg: MoEConfig, rope):
+    """Multi-head latent attention's q, k [B, S, nH, qk_head_dim] and v
+    [B, S, nH, v_head_dim] (DeepSeek-V2, q_lora_rank None): q = x W_q split
+    (nope, rope); the compressed kv = x W_kva split (c_kv -> RMSNorm -> W_kvb
+    -> (k_nope, v), and k_rope, shared by the heads); ``rope(t)`` rotates the
+    rope parts ([B, S, n, d_rope])."""
+    b, s, _ = x.shape
+    n_h = cfg.num_heads
+    d_nope, d_rope, d_v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q = (x @ lp["wq"]).reshape(b, s, n_h, d_nope + d_rope)
+    ckv = x @ lp["kv_a"]
+    c_kv = rms_norm(ckv[..., :cfg.kv_lora_rank], lp["kv_a_norm"], cfg.rms_norm_eps)
+    kv = (c_kv @ lp["kv_b"]).reshape(b, s, n_h, d_nope + d_v)
+    q_pe = rope(q[..., d_nope:])
+    k_pe = rope(ckv[..., cfg.kv_lora_rank:][:, :, None, :]).expand(b, s, n_h, d_rope)
+    q_full = torch.cat([q[..., :d_nope], q_pe], dim=-1)
+    k_full = torch.cat([kv[..., :d_nope], k_pe], dim=-1)
+    return q_full, k_full, kv[..., d_nope:]
+
+
+def mla_attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos,
+                        sin) -> torch.Tensor:
+    """Multi-head latent attention over a whole sequence (the HF
+    DeepseekV2Attention semantics): interleaved RoPE on the rope parts,
+    scale qk_head_dim^-1/2, causal."""
+    b, s, _ = x.shape
+    q, k, v = mla_qkv(x, lp, cfg, lambda t: apply_rope_interleaved(t, cos, sin))
+    scores = torch.einsum("bsnd,btnd->bnst", q, k).float()
+    scores = scores / math.sqrt(cfg.qk_head_dim)
+    scores = scores.masked_fill(~_causal_mask(s, s, x.device), float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bnst,btnd->bsnd", probs, v)
+    return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ lp["wo"]
+
+
+def dense_mlp_block(x: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tensor:
+    """Plain SwiGLU MLP of ds2's first dense layer(s)."""
+    if "act_bits_dense" in lp:
+        raise NotImplementedError(
+            "fake-quantized activations of the dense layer (act_bits_dense) are "
+            "not ported (ROADMAP queue A: calibrate)")
+    return silu_mul(x @ lp["mlp_gate_up"]) @ lp["mlp_down"]
+
+
+def make_rope_tables(cfg: MoEConfig, positions: torch.Tensor):
+    """cos/sin tables of the model family's rope convention."""
+    if cfg.attention_type == "mla":
+        return rope_frequencies_interleaved(cfg.qk_rope_head_dim, cfg.rope_theta,
+                                            positions)
+    return rope_frequencies(cfg.head_dim, cfg.rope_theta, positions)
+
+
+def attention_dispatch(x, lp, cfg: MoEConfig, cos, sin, attn_backend: str = "xla"):
+    """GQA or MLA attention, as the config says."""
+    if cfg.attention_type == "mla":
+        return mla_attention_block(x, lp, cfg, cos, sin)
+    return attention_block(x, lp, cfg, cos, sin, attn_backend=attn_backend)
+
+
+def decoder_layer(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
+                  impl: MoEImpl = MoEImpl(), dense_mlp: bool = False) -> torch.Tensor:
+    """One pre-norm decoder layer: attention, then the MoE block (or, for
+    a dense first layer, the SwiGLU MLP)."""
+    h = x + attention_dispatch(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps),
+                               lp, cfg, cos, sin, impl.attn_backend)
+    norm_h = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
+    if dense_mlp:
+        return h + dense_mlp_block(norm_h, lp, cfg)
+    return h + moe_block(norm_h, lp, cfg, impl)

@@ -40,7 +40,8 @@ KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
            "gmm_w4a8_packed", "gmm_weight_only", "gmm_weight_only_packed",
            "gmm_w8a8_grouped", "gmm_w8a8_asym", "gmm_mixed_packed_flex",
            "gmm_mixed_wo_wxa", "gmm_bf16", "gmm_ffn_w8a8", "gmm_ffn_mixed_packed",
-           "gmm_w8a8_fusedquant", "gmm_ws")
+           "gmm_w8a8_fusedquant", "gmm_ws", "decode_attention_stacked",
+           "decode_attention_stacked_q8", "decode_attention", "decode_attention_q8")
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,7 +59,15 @@ _SIGNATURES = {
     "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                          _P],
-    # B, n_h, n_kv, S, dv -> float32 workspace elements of the two calls above
+    # the read-only forms: q, is_bf16, cache_k, cache_v, lengths, out,
+    # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
+    "mxmoe_decode_attention": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
+    # q, is_bf16, cache_k, cache_ks, cache_v, cache_vs, lengths, out,
+    # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
+    "mxmoe_decode_attention_q8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _P],
+    # B, n_h, n_kv, S, dv -> float32 workspace elements of the four calls above
     "mxmoe_decode_attention_workspace_floats": [_I, _I, _I, _I, _I],
     # lhs, s_a, rhs_cat, s_b, group_sizes, pflags, blk_offsets, out,
     # out_is_bf16, M, K, N, E, stream

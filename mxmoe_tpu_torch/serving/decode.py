@@ -1,61 +1,71 @@
 """Cache-aware decoder forward: prefill and decode share one code path
-(port of the GQA part of ``mxmoe_tpu/serving/decode.py``, over the bf16
+(port of ``mxmoe_tpu/serving/decode.py``, GQA and MLA, over the bf16
 ``KVCache`` and the int8 ``QuantKVCache``).
 
 Both are [B, S_new] chunks against a cache; prefill uses S_new = chunk
 size with per-slot valid lengths, decode uses S_new = 1. A decode step
-(S_new == 1) always goes through ``decode_attention_update_stacked``
-(kernel K3 or K3q on CUDA, their plain versions on the CPU); prefill keeps
+(S_new == 1) goes through ``decode_attention_update_stacked`` (kernel K3
+or K3q on CUDA, their plain versions on the CPU) unless
+``MoEImpl.decode_attn`` is ``"xla"``; prefill, and ``"xla"`` decode, take
 the JAX package's plain path, ``scatter_layer_cache*`` +
-``attention_with*_cache``. The layer loop is a Python loop over
-``w[layer]`` views; the cache is written in place.
+``attention_with*_cache``. MLA pads q and k with zeros to the cache's K
+width and scales by 1/sqrt(qk_head_dim), not by the padded width. The dense
+first layers (ds2) run first; the cache's layer index counts them. The layer
+loop is a Python loop over ``w[layer]`` views; the cache is written in
+place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.nn.functional as F
 
 from ..models.configs import MoEConfig
-from ..models.layers import MoEImpl, moe_block, rms_norm
-from ..models.model import head_logits
+from ..models.layers import (MoEImpl, apply_rope, apply_rope_interleaved,
+                             dense_mlp_block, make_rope_tables, mla_qkv, moe_block,
+                             rms_norm)
+from ..models.model import head_logits, layer_stacks
 from .decode_attention import decode_attention_update_stacked
 from .kv_cache import (KVCache, QuantKVCache, attention_with_cache,
                        attention_with_quant_cache, scatter_layer_cache,
                        scatter_layer_cache_quant)
 
 
-def _rope_tables(cfg: MoEConfig, positions: torch.Tensor):
-    """cos/sin [B, S, hd] (float32) for per-slot positions [B, S]."""
-    hd = cfg.head_dim
-    inv_freq = 1.0 / (cfg.rope_theta ** (
-        torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd))
-    ang = positions.float()[..., None] * inv_freq             # [B, S, hd/2]
-    emb = torch.cat([ang, ang], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
-
-
-def _apply_rope_bs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """x [B, S, nH, hd], cos/sin [B, S, hd] (half-split convention)."""
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    c = cos[:, :, None, :].to(x.dtype)
-    s = sin[:, :, None, :].to(x.dtype)
-    return x * c + rotated * s
-
-
-def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, cache,
-                            layer: int, valid):
-    """GQA attention of one layer against the stacked ``cache`` (bf16 or
-    int8), whose K/V arrays are written in place."""
-    b, s, _ = x.shape
+def _attend_cached(q, k, v, cache, layer: int, valid, fused: bool,
+                   scale: float | None = None):
+    """Write this chunk's k / v [B, S, n_kv, d] into layer ``layer`` of the
+    stacked ``cache`` (bf16 or int8, in place) and attend q [B, S, n_h, dk]
+    over it -> [B, S, n_h, dv]: one fused kernel for a decode step when
+    ``fused``, else the scatter and the plain attention."""
+    s = q.shape[1]
     lengths = cache.lengths
     quant = isinstance(cache, QuantKVCache)
     if quant:
         ck, cks, cv, cvs = cache.k_q, cache.k_sc, cache.v_q, cache.v_sc
     else:
         ck, cks, cv, cvs = cache.k, None, cache.v, None
+    if fused and s == 1:
+        out, _ = decode_attention_update_stacked(
+            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+            ck, cks, cv, cvs, lengths, layer, valid=valid, scale=scale)
+        return out[:, None]
+    if quant:
+        scatter_layer_cache_quant(ck, cks, cv, cvs, layer, k, v, lengths,
+                                  valid=valid)
+        return attention_with_quant_cache(q, ck[layer], cks[layer], cv[layer],
+                                          cvs[layer], lengths, s, scale=scale)
+    scatter_layer_cache(ck, cv, layer, k, v, lengths, valid=valid)
+    return attention_with_cache(q, ck[layer], cv[layer], lengths, s, scale=scale)
+
+
+def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, cache,
+                            layer: int, valid, fused: bool = True):
+    """GQA attention of one layer against the stacked ``cache`` (bf16 or
+    int8), whose K/V arrays are written in place."""
+    b, s, _ = x.shape
     q = x @ lp["wq"]
     k = x @ lp["wk"]
     v = x @ lp["wv"]
@@ -63,23 +73,28 @@ def _attention_block_cached(x, lp, cfg: MoEConfig, cos, sin, cache,
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    q = _apply_rope_bs(q.reshape(b, s, cfg.num_heads, cfg.head_dim), cos, sin)
-    k = _apply_rope_bs(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), cos, sin)
+    q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), cos, sin)
+    k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    if s == 1:
-        out, _ = decode_attention_update_stacked(
-            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-            ck, cks, cv, cvs, lengths, layer, valid=valid)
-        out = out[:, None]
-    elif quant:
-        scatter_layer_cache_quant(ck, cks, cv, cvs, layer, k, v, lengths,
-                                  valid=valid)
-        out = attention_with_quant_cache(q, ck[layer], cks[layer], cv[layer],
-                                         cvs[layer], lengths, s)
-    else:
-        scatter_layer_cache(ck, cv, layer, k, v, lengths, valid=valid)
-        out = attention_with_cache(q, ck[layer], cv[layer], lengths, s)
+    out = _attend_cached(q, k, v, cache, layer, valid, fused)
     return out.reshape(b, s, -1) @ lp["wo"]
+
+
+def _attention_block_cached_mla(x, lp, cfg: MoEConfig, cos, sin, cache,
+                                layer: int, valid, fused: bool = True):
+    """MLA attention of one layer against the stacked cache (bf16 or int8;
+    the reference's ``_attention_block_cached_mla`` and
+    ``_attention_block_cached_quant_mla``): q and k zero-padded to the
+    cache's K width, scale 1/sqrt(qk_head_dim)."""
+    b, s, _ = x.shape
+    q, k, v = mla_qkv(x, lp, cfg, lambda t: apply_rope_interleaved(t, cos, sin))
+    pad = (cache.k_q if isinstance(cache, QuantKVCache) else cache.k).shape[-1] \
+        - cfg.qk_head_dim
+    if pad > 0:
+        q, k = F.pad(q, (0, pad)), F.pad(k, (0, pad))
+    out = _attend_cached(q, k, v, cache, layer, valid, fused,
+                         scale=1.0 / math.sqrt(cfg.qk_head_dim))
+    return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ lp["wo"]
 
 
 def forward_cached(params: dict, tokens: torch.Tensor,
@@ -97,16 +112,21 @@ def forward_cached(params: dict, tokens: torch.Tensor,
     embed = params["embed"]
     x = embed[tokens.long().clamp(0, embed.shape[0] - 1)]
     positions = cache.lengths.long()[:, None] + torch.arange(s_new, device=dev)
-    cos, sin = _rope_tables(cfg, positions)
+    cos, sin = make_rope_tables(cfg, positions)              # [B, S, ...]
+    attn = (_attention_block_cached_mla if cfg.attention_type == "mla"
+            else _attention_block_cached)
+    fused = impl.use_fused_decode()
     write_ok = (valid_lengths > 0).to(torch.int32)
-    layers = params["layers"]
-    for l in range(cfg.num_layers):
-        lp = {name: t[l] for name, t in layers.items()}
-        h = x + _attention_block_cached(
-            rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), lp, cfg, cos, sin,
-            cache, l, write_ok)
-        x = h + moe_block(rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps),
-                          lp, cfg, impl)
+    l = 0                        # the cache's layer: dense layers come first
+    for stack, dense in layer_stacks(params):
+        for i in range(stack["input_norm"].shape[0]):
+            lp = {name: t[i] for name, t in stack.items()}
+            h = x + attn(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), lp, cfg,
+                         cos, sin, cache, l, write_ok, fused)
+            norm_h = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
+            x = h + (dense_mlp_block(norm_h, lp, cfg) if dense
+                     else moe_block(norm_h, lp, cfg, impl))
+            l += 1
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = head_logits(params, x, cfg)
     new_len = torch.clamp(cache.lengths + valid_lengths.to(torch.int32),

@@ -1,17 +1,30 @@
-"""Fused decode-step cache write + attention (port of
-``mxmoe_tpu/serving/decode_attention.py:decode_attention_update_stacked``)
-— kernels K3 (bf16 cache) and K3q (int8 cache), ``csrc/decode_attention.cu``.
+"""Decode attention over the KV cache (port of
+``mxmoe_tpu/serving/decode_attention.py``), all in
+``csrc/decode_attention.cu``:
 
-One call per decode layer: write this step's K/V at ``lengths[b]`` of
-layer ``layer`` of the stacked [L, B, n_kv, S, hd] caches (IN PLACE; the
-write is skipped for ``valid[b] == 0`` or a full slot), then attend over
-positions [0, min(lengths[b], S-1)].
+- ``decode_attention_update_stacked``, the serving path's: kernels K3 (bf16
+  cache) and K3q (int8 cache). One call per decode layer: write this step's
+  K/V at ``lengths[b]`` of layer ``layer`` of the stacked [L, B, n_kv, S, hd]
+  caches (IN PLACE; the write is skipped for ``valid[b] == 0`` or a full
+  slot), then attend over positions [0, min(lengths[b], S-1)]. With
+  ``cache_ks`` / ``cache_vs`` given (the ``QuantKVCache`` layout: int8 codes
+  and [L, B, n_kv, S] f32 scales) the step's vectors are quantized per
+  (slot, kv head) as ``kv_cache._quant_vec`` does, codes and scales are
+  written, and the scales fold into the scores and the probs; the new
+  position is attended from its quantized form.
+- The read-only forms, the same kernel bodies compiled without the write:
+  ``decode_attention_stacked`` (the stacked cache, bf16 or int8, clamped to
+  S-1), ``decode_attention`` (a per-layer [B, n_kv, S, d] bf16 cache) and
+  ``decode_attention_q8`` (its int8 form with [B, n_kv, S] f32 scales). The
+  per-layer forms do not clamp: a slot with ``lengths[b] >= S`` attends all
+  S positions, which is what the clamp gives. The reference's per-layer
+  kernels refuse a stacked 5D cache (their block specs are 4D), and so do
+  these. ``block_s`` (the reference's S block) is accepted for parity and
+  changes nothing: the kernels split S into chunks of their own.
 
-With ``cache_ks`` / ``cache_vs`` given (the ``QuantKVCache`` layout: int8
-codes and [L, B, n_kv, S] f32 scales) the step's vectors are quantized per
-(slot, kv head) as ``kv_cache._quant_vec`` does, codes and scales are
-written, and the scales fold into the scores and the probs; the new
-position is attended from its quantized form.
+Every kernel takes the K3 domain: G = n_h / n_kv <= 8, dk in {64, 128, 256},
+dv <= 128 and a multiple of 8 (16 for an int8 cache); elsewhere a CUDA
+tensor raises (a CPU tensor takes the plain version at any shape).
 """
 
 from __future__ import annotations
@@ -35,9 +48,50 @@ def _masked_step_write(cache, new, lengths, layer, valid):
     cache[layer, bi, :, pos] = torch.where(ok, new.to(cache.dtype), cur)
 
 
+def _check_kernel_operands(name, q, cache_k, cache_ks, cache_v, cache_vs,
+                           lengths, layer):
+    """The checks every kernel of this file makes of q, the stacked caches
+    [L, B, n_kv, S, d] (bf16, or int8 with [L, B, n_kv, S] f32 scales),
+    ``lengths`` and ``layer``; raises ValueError (the K3 domain)."""
+    req = kernels.require
+    quant = cache_ks is not None
+    b, n_h, dk = q.shape
+    req(cache_k.dim() == 5 and cache_v.dim() == 5, f"{name}: 5D stacked caches")
+    nl, cb, n_kv, _, _ = cache_k.shape
+    dv = cache_v.shape[-1]
+    dev = q.device
+    caches = (cache_k, cache_ks, cache_v, cache_vs) if quant else (cache_k, cache_v)
+    req(all(t.is_cuda and t.device == dev and t.is_contiguous()
+            for t in (q, *caches, lengths)),
+        f"{name}: operands must be contiguous tensors on one CUDA device")
+    req(q.dtype in (torch.bfloat16, torch.float32), f"{name}: q must be bf16/f32")
+    code_dtype = torch.int8 if quant else torch.bfloat16
+    req(cache_k.dtype == code_dtype and cache_v.dtype == code_dtype,
+        f"{name}: caches must be {code_dtype}"
+        + (" with float32 scales" if quant else ""))
+    req(cb == b and cache_v.shape[:4] == cache_k.shape[:4]
+        and cache_k.shape[-1] == dk and n_h % n_kv == 0,
+        f"{name}: inconsistent shapes")
+    if quant:
+        req(cache_ks.dtype == torch.float32 and cache_vs.dtype == torch.float32
+            and cache_ks.shape == cache_k.shape[:4]
+            and cache_vs.shape == cache_k.shape[:4],
+            f"{name}: scales must be float32 [L, B, n_kv, S]")
+    req(lengths.dtype == torch.int32 and lengths.shape == (b,),
+        f"{name}: lengths must be int32 [B]")
+    req(0 <= layer < nl, f"{name}: layer {layer}")
+    req(n_h // n_kv <= 8 and dk in (64, 128, 256) and dv <= 128
+        and dv % (16 if quant else 8) == 0,
+        f"{name}: needs G<=8, dk in 64/128/256, dv<=128 and a multiple of "
+        "8 (16 for the int8 cache)")
+
+
 def _plain_attention(q, keys, vals, k_sc, v_sc, lengths, scale):
     """Full-softmax attention of one step over one layer's cache in f32
-    ([B, n_kv, S, d]); optional per-position scales [B, n_kv, S]."""
+    ([B, n_kv, S, d]); optional per-position scales [B, n_kv, S]. A slot
+    attends positions [0, min(lengths[b], S-1)]; with scales, the softmax
+    sums the unscaled probs and positions out of range are masked to 0
+    again after the v-scale multiply (a scale there may be garbage)."""
     b, n_h, dk = q.shape
     n_kv, s_max = keys.shape[1], keys.shape[2]
     qg = q.float().reshape(b, n_kv, n_h // n_kv, dk)
@@ -50,7 +104,8 @@ def _plain_attention(q, keys, vals, k_sc, v_sc, lengths, scale):
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     if v_sc is not None:
-        probs = probs * v_sc[:, :, None, :]
+        probs = torch.where(mask[:, None, None, :], probs * v_sc[:, :, None, :],
+                            0.0)
     out = torch.einsum("bngs,bnsd->bngd", probs, vals)
     return out.reshape(b, n_h, -1).to(q.dtype)
 
@@ -113,37 +168,18 @@ def decode_attention_update_stacked(
             out = decode_attention_update_plain(q, k_new, v_new, cache_k, cache_v,
                                                 lengths, layer, valid, scale)
         return out, caches
-    req = kernels.require
-    nl, cb, n_kv, s_max, _ = cache_k.shape
-    dv = cache_v.shape[-1]
+    _check_kernel_operands(name, q, cache_k, cache_ks, cache_v, cache_vs,
+                           lengths, layer)
+    n_kv, s_max, dv = cache_k.shape[2], cache_k.shape[3], cache_v.shape[-1]
     dev = q.device
     valid = valid.to(torch.int32)
+    req = kernels.require
     req(all(t.is_cuda and t.device == dev and t.is_contiguous()
-            for t in (q, k_new, v_new, *caches, lengths, valid)),
+            for t in (k_new, v_new, valid)),
         f"{name}: operands must be contiguous tensors on one CUDA device")
-    req(q.dtype in (torch.bfloat16, torch.float32)
-        and k_new.dtype == q.dtype and v_new.dtype == q.dtype,
-        f"{name}: q/k_new/v_new must share bf16/f32")
-    code_dtype = torch.int8 if quant else torch.bfloat16
-    req(cache_k.dtype == code_dtype and cache_v.dtype == code_dtype,
-        f"{name}: caches must be {code_dtype}"
-        + (" with float32 scales" if quant else ""))
-    req(cb == b and cache_v.shape[:4] == cache_k.shape[:4]
-        and cache_k.shape[-1] == dk and k_new.shape == (b, n_kv, dk)
-        and v_new.shape == (b, n_kv, dv) and n_h % n_kv == 0,
-        f"{name}: inconsistent shapes")
-    if quant:
-        req(cache_ks.dtype == torch.float32 and cache_vs.dtype == torch.float32
-            and cache_ks.shape == cache_k.shape[:4]
-            and cache_vs.shape == cache_k.shape[:4],
-            f"{name}: scales must be float32 [L, B, n_kv, S]")
-    req(lengths.dtype == torch.int32 and lengths.shape == (b,)
-        and valid.shape == (b,), f"{name}: lengths/valid")
-    req(0 <= layer < nl, f"{name}: layer {layer}")
-    req(n_h // n_kv <= 8 and dk in (64, 128, 256) and dv <= 128
-        and dv % (16 if quant else 8) == 0,
-        f"{name}: needs G<=8, dk in 64/128/256, dv<=128 and a multiple of "
-        "8 (16 for the int8 cache)")
+    req(k_new.dtype == q.dtype and v_new.dtype == q.dtype
+        and k_new.shape == (b, n_kv, dk) and v_new.shape == (b, n_kv, dv)
+        and valid.shape == (b,), f"{name}: k_new / v_new / valid")
     lib = kernels.lib()
     out = torch.empty((b, n_h, dv), dtype=q.dtype, device=dev)
     ws = torch.empty(lib.mxmoe_decode_attention_workspace_floats(
@@ -165,3 +201,124 @@ def decode_attention_update_stacked(
     kernels.check(err, counter)
     kernels.launches[counter] += 1
     return out, caches
+
+
+def decode_attention_stacked_plain(q, cache_k, cache_ks, cache_v, cache_vs,
+                                   lengths, layer: int, scale: float):
+    """Plain PyTorch version of the read-only stacked kernel (full softmax)."""
+    k_sc = None if cache_ks is None else cache_ks[layer]
+    v_sc = None if cache_vs is None else cache_vs[layer]
+    return _plain_attention(q, cache_k[layer].float(), cache_v[layer].float(),
+                            k_sc, v_sc, lengths, scale)
+
+
+def _read_only_launch(name, q, cache_k, cache_ks, cache_v, cache_vs, lengths,
+                      layer: int, scale: float):
+    """One launch of the read-only kernel over stacked caches -> out."""
+    _check_kernel_operands(name, q, cache_k, cache_ks, cache_v, cache_vs,
+                           lengths, layer)
+    b, n_h, dk = q.shape
+    n_kv, s_max, dv = cache_k.shape[2], cache_k.shape[3], cache_v.shape[-1]
+    lib = kernels.lib()
+    out = torch.empty((b, n_h, dv), dtype=q.dtype, device=q.device)
+    ws = torch.empty(lib.mxmoe_decode_attention_workspace_floats(
+        b, n_h, n_kv, s_max, dv), dtype=torch.float32, device=q.device)
+    head = (q.data_ptr(), int(q.dtype == torch.bfloat16))
+    tail = (lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), int(layer), b,
+            n_h, n_kv, s_max, dk, dv, float(scale), kernels.stream_ptr(q.device))
+    if cache_ks is None:
+        err = lib.mxmoe_decode_attention(*head, cache_k.data_ptr(),
+                                         cache_v.data_ptr(), *tail)
+    else:
+        err = lib.mxmoe_decode_attention_q8(
+            *head, cache_k.data_ptr(), cache_ks.data_ptr(), cache_v.data_ptr(),
+            cache_vs.data_ptr(), *tail)
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return out
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,        # [B, n_h, dk]
+    cache_k: torch.Tensor,  # [L, B, n_kv, S, dk] bf16 (int8 with scales)
+    cache_ks,               # [L, B, n_kv, S] f32, or None (bf16 cache)
+    cache_v: torch.Tensor,  # [L, B, n_kv, S, dv]
+    cache_vs,
+    lengths: torch.Tensor,  # [B] int32: the query sits at position lengths[b]
+    layer: int,
+    scale: float | None = None,
+    block_s: int = 512,
+):
+    """Read-only decode attention of one layer of the stacked cache ->
+    ``(out [B, n_h, dv], caches)``, ``caches`` the argument tensors,
+    unchanged: ``(cache_k, cache_v)`` or ``(cache_k, cache_ks, cache_v,
+    cache_vs)``. Positions [0, min(lengths[b], S-1)]. The int8 form scales
+    the scores by ``k_sc[t]`` and then ``scale``, and the P.V weights by
+    ``v_sc[t]``; the normaliser sums the unscaled probs. The kernel is K3's
+    body without the write (``decode_attention_stacked``, with an int8
+    cache ``decode_attention_stacked_q8``)."""
+    del block_s
+    quant = cache_ks is not None
+    if quant != (cache_vs is not None):
+        raise ValueError("decode_attention_stacked: cache_ks and cache_vs come "
+                         "together")
+    layer = int(layer)
+    scale = scale if scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
+    caches = (cache_k, cache_ks, cache_v, cache_vs) if quant else (cache_k, cache_v)
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(q, cache_k, cache_ks, cache_v,
+                                              cache_vs, lengths, layer, scale), caches
+    name = "decode_attention_stacked" + ("_q8" if quant else "")
+    return _read_only_launch(name, q, cache_k, cache_ks, cache_v, cache_vs,
+                             lengths, layer, scale), caches
+
+
+def _per_layer(name, *caches):
+    for c in caches:
+        if c.dim() != 4:
+            raise ValueError(f"{name}: a per-layer [B, n_kv, S, d] cache, got "
+                             f"{tuple(c.shape)} (the stacked cache takes "
+                             "decode_attention_stacked)")
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, n_h, dk] single-position queries
+    cache_k: torch.Tensor,  # [B, n_kv, S, dk] bf16
+    cache_v: torch.Tensor,  # [B, n_kv, S, dv]
+    lengths: torch.Tensor,  # [B] int32: the query sits at position lengths[b]
+    scale: float | None = None,
+    block_s: int = 512,
+) -> torch.Tensor:
+    """Read-only decode attention over a per-layer cache -> [B, n_h, dv]
+    (kernel ``decode_attention``)."""
+    del block_s
+    _per_layer("decode_attention", cache_k, cache_v)
+    scale = scale if scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
+    if q.device.type == "cpu":
+        return _plain_attention(q, cache_k.float(), cache_v.float(), None, None,
+                                lengths, scale)
+    return _read_only_launch("decode_attention", q, cache_k[None], None,
+                             cache_v[None], None, lengths, 0, scale)
+
+
+def decode_attention_q8(
+    q: torch.Tensor,         # [B, n_h, dk]
+    cache_kq: torch.Tensor,  # [B, n_kv, S, dk] int8
+    cache_ks: torch.Tensor,  # [B, n_kv, S] f32
+    cache_vq: torch.Tensor,  # [B, n_kv, S, dv] int8
+    cache_vs: torch.Tensor,  # [B, n_kv, S] f32
+    lengths: torch.Tensor,
+    scale: float | None = None,
+    block_s: int = 512,
+) -> torch.Tensor:
+    """The int8 form of :func:`decode_attention`: the scales fold into the
+    scores and the P.V weights (kernel ``decode_attention_q8``)."""
+    del block_s
+    _per_layer("decode_attention_q8", cache_kq, cache_vq)
+    scale = scale if scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
+    if q.device.type == "cpu":
+        return _plain_attention(q, cache_kq.float(), cache_vq.float(), cache_ks,
+                                cache_vs, lengths, scale)
+    return _read_only_launch("decode_attention_q8", q, cache_kq[None],
+                             cache_ks[None], cache_vq[None], cache_vs[None],
+                             lengths, 0, scale)

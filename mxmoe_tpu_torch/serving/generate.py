@@ -4,6 +4,8 @@
   python -m mxmoe_tpu_torch.serving.generate --model tiny --prompt "1 2 3" --max-new 8
   python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe \\
       --quant w8a8_g-1_sym --max-new 64
+  python -m mxmoe_tpu_torch.serving.generate --model ds2 --layers 4 \\
+      --quant mixed-packed --decode-attn xla
 
 ``--ckpt`` and ``--artifact`` wait for the loader port (ROADMAP queue A).
 """
@@ -12,13 +14,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
+
+from .bench_serving import DECODE_ATTN
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="tiny",
-                    help="tiny | qwen2_moe | qwen2_moe_57b | mixtral")
+                    help="tiny | tiny_ds2 | qwen2_moe | ds2 | qwen2_moe_57b | "
+                         "mixtral")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--quant", default="w8a8_g-1_sym",
                     help="what bench_serving --quant takes: a uniform expert "
@@ -26,6 +32,9 @@ def main(argv=None):
                          "mixed | mixed-packed | none (bf16 experts)")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--decode-attn", default="auto", choices=DECODE_ATTN,
+                    help="decode attention: the fused kernel or the plain "
+                         "scatter + attention ('auto': fused)")
     ap.add_argument("--chunk", type=int, default=16,
                     help="decode tokens per host read (decode_scan)")
     ap.add_argument("--max-new", type=int, default=16)
@@ -40,18 +49,20 @@ def main(argv=None):
     import torch
 
     from ..models import configs
-    from ..models.model import init_params
-    from .bench_serving import quantize_for_serving
+    from .bench_serving import init_for_serving, quantize_for_serving
     from .engine import Engine, EngineConfig
 
-    cfg = (configs.tiny_qwen2_moe(num_experts=8, num_layers=2)
-           if args.model == "tiny" else configs.config_for(args.model))
+    tiny = {"tiny": lambda: configs.tiny_qwen2_moe(num_experts=8, num_layers=2),
+            "tiny_ds2": lambda: configs.tiny_ds2(num_experts=8, num_layers=3)}
+    cfg = (tiny[args.model]() if args.model in tiny
+           else configs.config_for(args.model))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = torch.device(args.device or "cuda")
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, dtype=torch.bfloat16, device=device)
-    params, impl = quantize_for_serving(params, cfg, args.quant)
+    params, impl = init_for_serving(
+        cfg, gen, functools.partial(quantize_for_serving, quant=args.quant,
+                                    decode_attn=args.decode_attn), device)
     eng = Engine(params, cfg, EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
         prefill_chunk=min(256, args.max_len // 2),

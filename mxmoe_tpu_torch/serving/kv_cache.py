@@ -1,12 +1,14 @@
-"""KV cache for decode (port of the GQA part of
-``mxmoe_tpu/serving/kv_cache.py``: the bf16 ``KVCache`` and the int8
-``QuantKVCache`` with per-vector f32 scales).
+"""KV cache for decode (port of ``mxmoe_tpu/serving/kv_cache.py``: the bf16
+``KVCache`` and the int8 ``QuantKVCache`` with per-vector f32 scales, GQA
+and MLA).
 
 Layout: K/V stacked [L, B, n_kv, S_max, hd] (head-major), as in the JAX
-package. The torch cache is updated IN PLACE (``scatter_layer_cache*``,
+package; L counts every layer, dense first layers included. An MLA cache
+keeps one K/V per head (n_kv = num_heads), K at ``mla_cache_k_dim`` lanes
+(qk_head_dim padded with zeros to a multiple of 128: 192 -> 256) and V at
+v_head_dim. The torch cache is updated IN PLACE (``scatter_layer_cache*``,
 and kernel K3 / K3q in a decode step); the JAX package's donated-carry
-protocol has no counterpart here. MLA caches (and their padded K width)
-wait for the model-family port (ROADMAP queue A).
+protocol has no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,19 +31,29 @@ class KVCache:
         return self.k.shape[3]
 
 
-def _require_gqa(cfg: MoEConfig) -> None:
-    if cfg.attention_type != "gqa":
-        raise NotImplementedError(
-            "MLA caches are not ported yet (ROADMAP queue A: model families)")
+def mla_cache_k_dim(cfg: MoEConfig) -> int:
+    """MLA K-cache width: qk_head_dim padded up to a multiple of 128 (192 ->
+    256). The tail lanes hold zeros, which add nothing to q.k, and the
+    padded width is one that the decode kernels take (dk in 64/128/256)."""
+    return -(-cfg.qk_head_dim // 128) * 128
+
+
+def _cache_shapes(cfg: MoEConfig, batch: int, max_len: int):
+    """The K and V shapes [L, B, n_kv, S_max, d] of the family."""
+    if cfg.attention_type == "mla":
+        n_kv, k_dim, v_dim = cfg.num_heads, mla_cache_k_dim(cfg), cfg.v_head_dim
+    else:
+        n_kv, k_dim, v_dim = cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+    lead = (cfg.num_layers, batch, n_kv, max_len)
+    return (*lead, k_dim), (*lead, v_dim)
 
 
 def init_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cuda") -> KVCache:
-    _require_gqa(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    k_shape, v_shape = _cache_shapes(cfg, batch, max_len)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(k_shape, dtype=dtype, device=device),
+        v=torch.zeros(v_shape, dtype=dtype, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
@@ -115,17 +127,16 @@ class QuantKVCache:
 
 def init_quant_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
                         device="cuda") -> QuantKVCache:
-    _require_gqa(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    k_shape, v_shape = _cache_shapes(cfg, batch, max_len)
 
-    def codes():
+    def codes(shape):
         return torch.zeros(shape, dtype=torch.int8, device=device)
 
     def scales():
-        return torch.zeros(shape[:4], dtype=torch.float32, device=device)
+        return torch.zeros(k_shape[:4], dtype=torch.float32, device=device)
 
     return QuantKVCache(
-        k_q=codes(), k_sc=scales(), v_q=codes(), v_sc=scales(),
+        k_q=codes(k_shape), k_sc=scales(), v_q=codes(v_shape), v_sc=scales(),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 

@@ -71,6 +71,7 @@ def main(argv=None):
     print(json.dumps({
         "model": args.model, "layers": args.layers, "slots": args.slots,
         "quant": args.quant, "int8_kv": args.int8_kv, "fused_ffn": args.fused_ffn,
+        "decode_attn": args.decode_attn,
         "prefill": args.prefill,
         "steps": STEPS, "step_ms": step_ms, "device_ms_per_step": device_ms,
         "busy_share": device_ms / step_ms,

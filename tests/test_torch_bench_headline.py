@@ -6,6 +6,8 @@ bitwise the reference's ``_quantize_weights_mixed_onelaunch`` /
 operands (rows, padding, expert order, codes, scales, packed bytes, row
 bits and sizes; every value exact)."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,3 +106,54 @@ def test_headline_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         headline.main([])
+
+
+def test_bound_is_the_workloads_one_number_per_mode():
+    """The bound comes from the workload in the mode's storage, the same for
+    every arm of that mode (one launch, --bucketed, --no-ws): at the recorded
+    routed counts it is operations-bound at the int8 dense peak."""
+    wls = workloads.qwen2_moe_l10_bs8192()
+    m = sum(workloads.QWEN2_MOE_L10_BS8192_ROUTED_M)
+    assert m == 32762
+    assert all(x > 0 for x in workloads.QWEN2_MOE_L10_BS8192_ROUTED_M)
+    # gate_up (K 2048, N 2816) and down (K 1408, N 2048), 60 experts, 30 of
+    # them 4-bit in the mixed storage; the shared expert int8, 8192 rows
+    mixed = (2 * m * 2048 + 2 * m * 2816 + 30 * 2048 * 2816 // 2 + 30 * 2048 * 2816
+             + 60 * 4 * 2816 + 2 * 8192 * 2048 + 2048 * 11264 + 4 * 11264
+             + 2 * 8192 * 11264
+             + 2 * m * 1408 + 2 * m * 2048 + 30 * 1408 * 2048 // 2 + 30 * 1408 * 2048
+             + 60 * 4 * 2048 + 2 * 8192 * 5632 + 5632 * 2048 + 4 * 2048
+             + 2 * 8192 * 2048)
+    w8a8 = mixed + 30 * 2048 * 2816 // 2 + 30 * 1408 * 2048 // 2
+    assert headline.workload_bytes(wls, "mixed") == mixed
+    assert headline.workload_bytes(wls, "w8a8") == w8a8
+    flops = sum(wl.flops for wl in wls)
+    assert w8a8 / 3.35e12 < flops / 1979e12          # operations-bound
+    for mode in ("mixed", "w8a8"):
+        tflops, kind = headline.workload_bound(wls, mode)
+        assert kind == "operations" and tflops == pytest.approx(1979.0, rel=1e-12)
+    # a decode-sized workload is bytes-bound, and 4-bit experts lower it
+    small = [workloads.GroupGemmWorkload("s", (4,) * 60, k=2048, n=2816)]
+    (t_mixed, k_mixed), (t_w8, k_w8) = (headline.workload_bound(small, md)
+                                        for md in ("mixed", "w8a8"))
+    assert k_mixed == k_w8 == "bytes" and t_mixed > t_w8
+
+
+@pytest.mark.parametrize("mode", ["mixed", "w8a8"])
+def test_bound_is_the_same_for_every_arm(monkeypatch, mode):
+    """main() reports the workload's bound whatever the arm: with the timing
+    and the arms stubbed (no card here), every arm's line carries one
+    bound_tflops, and it is ``workload_bound``'s."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stub")
+    monkeypatch.setattr(headline, "build_fp_operands", lambda *a, **k: None)
+    monkeypatch.setattr(headline, "baseline_step", lambda ops: (lambda: []))
+    monkeypatch.setattr(headline, "make_arm",
+                        lambda args, ops: ((lambda: []), "arm"))
+    monkeypatch.setattr(headline, "time_ms", lambda fn: 1.0)
+    monkeypatch.setattr(torch, "Generator",
+                        lambda device=None: types.SimpleNamespace(manual_seed=lambda s: None))
+    arms = [[], ["--bucketed"], ["--no-ws"], ["--bucketed", "--no-ws"]]
+    res = [headline.main(["--mode", mode, *argv]) for argv in arms]
+    want = headline.workload_bound(workloads.qwen2_moe_l10_bs8192(), mode)
+    assert {(r["bound_tflops"], r["bound_kind"]) for r in res} == {want}

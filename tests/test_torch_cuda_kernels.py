@@ -1,4 +1,6 @@
-"""The port's CUDA kernels (K1-K15, K3 in its bf16- and int8-cache forms)
+"""The port's CUDA kernels (K1-K15, K3 in its bf16- and int8-cache forms, and
+the read-only decode attention: decode_attention_stacked, decode_attention,
+decode_attention_q8)
 against their plain PyTorch versions on a card, over shapes and dtypes beyond
 the serving path's: GQA groups, f32 operands, ragged and empty expert groups,
 K not a multiple of the k-tile, S not a multiple of the S-chunk, every mix of
@@ -662,3 +664,138 @@ def test_gmm_ffn_mixed_packed_kernel_bitwise(dev, counts, k, n, h, packing):
     torch.cuda.synchronize()
     assert torch.equal(got[:rows], k12[:rows])
     assert torch.equal(got[:rows], plain[:rows])
+
+
+# the read-only decode attention (decode_attention_stacked bf16 / int8,
+# decode_attention, decode_attention_q8): K3's bodies without the write
+_READ_ONLY = [(2, 128, 128, 128, torch.float32), (4, 64, 64, 1000, torch.bfloat16),
+              (1, 256, 128, 2048, torch.bfloat16), (7, 128, 128, 300, torch.float32)]
+
+
+def _read_only_caches(g, dev, quant, nl, b, n_kv, s_max, dk, dv):
+    if quant:
+        def codes(d):
+            return torch.randint(-127, 128, (nl, b, n_kv, s_max, d), generator=g,
+                                 device=dev, dtype=torch.int8)
+
+        def scales():
+            return torch.rand((nl, b, n_kv, s_max), generator=g, device=dev) * 0.03 + 1e-3
+
+        return [codes(dk), scales(), codes(dv), scales()]
+    return [torch.randn((nl, b, n_kv, s_max, d), generator=g, device=dev)
+            .to(torch.bfloat16) if d else None for d in (dk, 0, dv, 0)]
+
+
+@pytest.mark.parametrize("groups,dk,dv,s_max,dtype", _READ_ONLY)
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_read_only_kernels_vs_plain(dev, groups, dk, dv, s_max,
+                                                     dtype, quant):
+    """Each read-only form within K3's per-slot bound of its plain version;
+    nothing written; lengths 0, mid, S - 1, S and past S; the per-layer forms
+    give the stacked form's output on the same layer."""
+    g = torch.Generator(device=dev).manual_seed(groups * dk + quant)
+    nl, b, n_kv, layer = 2, 5, 2, 1
+    n_h = n_kv * groups
+    caches = _read_only_caches(g, dev, quant, nl, b, n_kv, s_max, dk, dv)
+    before = [None if c is None else c.clone() for c in caches]
+    q = torch.randn((b, n_h, dk), generator=g, device=dev).to(dtype)
+    lengths = torch.tensor([0, s_max // 2, s_max - 1, s_max, s_max + 9],
+                           dtype=torch.int32, device=dev)
+    scale = 0.77 / dk ** 0.5
+    name = "decode_attention_stacked" + ("_q8" if quant else "")
+    n0 = kernels.launches[name]
+    out, ret = da.decode_attention_stacked(q, *caches, lengths, layer, scale=scale)
+    ref = da.decode_attention_stacked_plain(q, *caches, lengths, layer, scale)
+    if quant:
+        per_layer = da.decode_attention_q8(q, *(c[layer] for c in caches), lengths,
+                                           scale=scale)
+        counter = "decode_attention_q8"
+    else:
+        per_layer = da.decode_attention(q, caches[0][layer], caches[2][layer],
+                                        lengths, scale=scale)
+        counter = "decode_attention"
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == n0 + 1 and kernels.launches[counter] >= 1
+    assert all(r is c for r, c in zip(ret, [c for c in caches if c is not None]))
+    for c, c0 in zip(caches, before):
+        assert c is None or torch.equal(c, c0)
+    _assert_within_slot_bound(out, ref, dtype)
+    assert torch.equal(per_layer, out)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_stacked_bitwise_the_update_after_its_write(dev, quant):
+    """On the cache K3 / K3q has just written, with the same q, the
+    read-only stacked form gives K3's output bit for bit (one body)."""
+    g = torch.Generator(device=dev).manual_seed(17 + quant)
+    nl, b, n_kv, groups, dk, dv, s_max, layer = 2, 4, 16, 1, 256, 128, 2048, 1
+    caches = _read_only_caches(g, dev, quant, nl, b, n_kv, s_max, dk, dv)
+    q = torch.randn((b, n_kv * groups, dk), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, n_kv, dk), generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, n_kv, dv), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([0, 700, s_max, 1500], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    scale = 1.0 / 192 ** 0.5
+    upd, _ = da.decode_attention_update_stacked(q, kn, vn, *caches, lengths, layer,
+                                                valid=valid, scale=scale)
+    ro, _ = da.decode_attention_stacked(q, *caches, lengths, layer, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(ro, upd)
+
+
+def test_read_only_wrappers_reject_bad_input(dev):
+    q = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device=dev)
+    c = torch.zeros((1, 2, 2, 64, 32), dtype=torch.bfloat16, device=dev)
+    lens = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dk in 64/128/256"):      # dk 32
+        da.decode_attention_stacked(q, c, None, c, None, lens, 0)
+    q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev)
+    c = torch.zeros((1, 2, 2, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="layer"):
+        da.decode_attention_stacked(q, c, None, c, None, lens, 1)
+    with pytest.raises(ValueError, match="lengths"):
+        da.decode_attention(q, c[0], c[0], lens.long())
+    with pytest.raises(ValueError, match="per-layer"):
+        da.decode_attention(q, c, c, lens)
+
+
+def test_fused_ffn_refuses_a_width_whose_h_row_does_not_fit(dev):
+    """Mixtral's expert N 14336: K12's f32 h row [32, N] exceeds a block's
+    shared memory, and the wrapper says so (no silent detour)."""
+    from mxmoe_tpu_torch.ops import gmm_ffn
+
+    k, n, h, e = 256, 14336, 256, 2
+    aq = torch.zeros((4, k), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        gmm_ffn.gmm_ffn_w8a8(
+            aq, torch.ones((4, 1), device=dev),
+            torch.zeros((e, k, 2 * n), dtype=torch.int8, device=dev),
+            torch.ones((e, 1, 2 * n), device=dev),
+            torch.zeros((e, n, h), dtype=torch.int8, device=dev),
+            torch.ones((e, 1, h), device=dev),
+            torch.tensor([4, 0], dtype=torch.int32, device=dev))
+
+
+def test_flash_attention_backend_on_the_card(dev):
+    """``attn_backend="flash"`` takes the stock scaled_dot_product_attention
+    on a card (GQA, causal): within 4 bf16 ulps of max|out| of the einsum
+    backend's output (both round their probabilities to bf16 before P.V, at
+    other points of the softmax; a wrong mask or scale moves outputs by
+    tenths); the full forward runs through it."""
+    from mxmoe_tpu_torch.models import configs, layers, model
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 96, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((2, 96, 2, 128), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((2, 96, 2, 128), generator=g, device=dev).to(torch.bfloat16)
+    flash = layers.attention(q, k, v, backend="flash").float()
+    xla = layers.attention(q, k, v, backend="xla").float()
+    ulp = torch.exp2(torch.floor(torch.log2(xla.abs().max())) - 7)
+    assert (flash - xla).abs().max() <= 4 * ulp
+    cfg = configs.tiny_mixtral()
+    params = model.init_params(cfg, g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=dev, generator=g)
+    out = model.forward_logits(params, toks, cfg, MoEImpl(attn_backend="flash"))
+    torch.cuda.synchronize()
+    assert out.shape == (2, 64, cfg.vocab_size) and bool(torch.isfinite(out).all())

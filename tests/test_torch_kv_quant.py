@@ -133,5 +133,11 @@ def test_init_and_convert_quant_cache():
     bf = kv_cache_from_jax(jkv.init_kv_cache(jax_configs.tiny_qwen2_moe(4, 2), 3, 16),
                            "cpu")
     assert isinstance(bf, tkv.KVCache) and bf.k.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tkv.init_quant_kv_cache(configs.config_for("ds2"), 1, 16, device="cpu")
+    # MLA: one K / V per head, K at the 128-padded width, as the reference
+    ds2 = jkv.init_quant_kv_cache(jax_configs.config_for("ds2"), 1, 16)
+    got = tkv.init_quant_kv_cache(configs.config_for("ds2"), 1, 16, device="cpu")
+    conv = kv_cache_from_jax(ds2, "cpu")
+    assert got.k_q.shape == (27, 1, 16, 16, 256) and got.v_q.shape[-1] == 128
+    for name in ("k_q", "k_sc", "v_q", "v_sc", "lengths"):
+        a, b = getattr(got, name), getattr(conv, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
