@@ -13,9 +13,17 @@ failure raises and the script exits non-zero without a result line:
               the serving shapes (qwen2_moe: H 2048, N 1408, E 60, top-4;
               decode M = 4 slots x 4, prefill M = 256 x 4), with its time
               (CUDA events, median of 25, the L2 cache overwritten before
-              each timed call) beside the plain version's and
+              each timed call) and device time (device_ms: the summed
+              durations of the kernels the call launched, torch.profiler,
+              median of 25) beside the plain version's and
               beside its bound: the larger of the bytes it must move over
               3.35 TB/s and its operations over the card's dense peak.
+              First the redesigned bodies at the edges of their schedules:
+              K2, K4, K5 and K9 at M 1, 4, 16, 17, 24, 64, 65, 256, routed
+              (two empty groups) and as one group (split-K), bitwise their
+              plain versions and K4 = K5 = K2 on the same codes; K3 / K3q at
+              lengths on the warp-chunk and S-block edges, G 1 / 4 / 7, the
+              write bitwise, the read-only form bitwise K3 / K3q after it.
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
               unpacked codes, K5 against K4 on an all-packed buffer); K3 and
               K3q caches (codes and scales) bitwise and their output per
@@ -129,7 +137,6 @@ import functools
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -137,6 +144,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 _DA_CU = "mxmoe_tpu_torch/csrc/decode_attention.cu"
+_DA_Q8_CU = "mxmoe_tpu_torch/csrc/decode_attention_q8.cu"
 _DA_PY = "mxmoe_tpu/serving/decode_attention.py:485"
 KERNEL_SOURCES = {
     "quantize_rows": ("mxmoe_tpu_torch/csrc/act_quant.cu",
@@ -144,7 +152,7 @@ KERNEL_SOURCES = {
     "gmm_w8a8": ("mxmoe_tpu_torch/csrc/gmm_w8a8.cu",
                  "mxmoe_tpu/ops/pallas_gmm.py:376"),
     "decode_attention_update_stacked": (_DA_CU, _DA_PY),
-    "decode_attention_update_stacked_q8": (_DA_CU, _DA_PY),
+    "decode_attention_update_stacked_q8": (_DA_Q8_CU, _DA_PY),
     "gmm_mixed_packed": ("mxmoe_tpu_torch/csrc/gmm_mixed_packed.cu",
                          "mxmoe_tpu/ops/pallas_gmm.py:1054"),
     "gmm_w4a8_packed": ("mxmoe_tpu_torch/csrc/gmm_w4a8_packed.cu",
@@ -174,10 +182,10 @@ KERNEL_SOURCES = {
     "gmm_ws": ("mxmoe_tpu_torch/csrc/gmm_ws.cu", "mxmoe_tpu/ops/pallas_gmm.py:1906"),
     # the read-only decode attention: K3 / K3q's bodies without the write
     "decode_attention_stacked": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:593"),
-    "decode_attention_stacked_q8": (_DA_CU,
+    "decode_attention_stacked_q8": (_DA_Q8_CU,
                                     "mxmoe_tpu/serving/decode_attention.py:593"),
     "decode_attention": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:688"),
-    "decode_attention_q8": (_DA_CU, "mxmoe_tpu/serving/decode_attention.py:749"),
+    "decode_attention_q8": (_DA_Q8_CU, "mxmoe_tpu/serving/decode_attention.py:749"),
 }
 READ_ONLY_ATTENTION = ("decode_attention_stacked", "decode_attention_stacked_q8",
                        "decode_attention", "decode_attention_q8")
@@ -255,32 +263,26 @@ def k3_slot_errors(out, ref):
     return rel.tolist()
 
 
-_L2_FLUSH = []
-
-
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call (CUDA events around each call). A
-    buffer larger than the card's 50 MB L2 cache is overwritten before each
-    timed call: on the serving path every layer brings its own weights, so a
-    kernel finds them in device memory, not in the cache a repeat left."""
-    import torch
+    """Median time of one call between CUDA events, the L2 cache overwritten
+    before each (``bench.timing.event_ms``)."""
+    from mxmoe_tpu_torch.bench.timing import event_ms
 
-    if not _L2_FLUSH:
-        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.int8,
-                                     device=torch.device("cuda")))
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        _L2_FLUSH[0].zero_()
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return event_ms(fn, reps, warmup)
+
+
+def device_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call: the summed durations of the kernels it
+    launched (torch.profiler; ``bench.timing.device_ms``)."""
+    from mxmoe_tpu_torch.bench.timing import device_ms as dev_ms
+
+    return dev_ms(fn, reps, warmup)
+
+
+def kernel_times(fn, reps: int = 25, warmup: int = 3) -> dict:
+    """A kernel row's two readings: ``ms`` (CUDA events around the call,
+    host work of the wrapper included) and ``device_ms``."""
+    return {"ms": time_ms(fn, reps, warmup), "device_ms": device_ms(fn, reps, warmup)}
 
 
 def probe() -> str:
@@ -419,7 +421,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
                     raise AssertionError(
                         f"K1 not bitwise at {regime} K={k} bits {label}: "
                         f"{(q != qp).sum().item()} codes differ")
-            t = {"ms": time_ms(lambda: act_quant.quantize_rows(x, bits)),
+            t = {**kernel_times(lambda: act_quant.quantize_rows(x, bits)),
                  "plain_ms": time_ms(lambda: act_quant.quantize_rows_plain(x, bits)),
                  **quant_rows_work(m, k, 2)}
             emit("kernels", kernel="quantize_rows", regime=regime, M=m, K=k,
@@ -439,7 +441,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
             ref = gmm.gmm_w8a8_plain(aq, asc, wq, wsc, gs)
             torch.cuda.synchronize()
             _require_equal(out, ref, f"K2 vs plain at {regime} K={k}")
-            t = {"ms": time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)),
+            t = {**kernel_times(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)),
                  "plain_ms": time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc, gs)),
                  **gmm_work(gs, k, nn, k * nn)}
             emit("kernels", kernel="gmm_w8a8", bitwise=True, **shape, **t)
@@ -459,7 +461,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
             _require_equal(out, ref, f"K4 vs plain at {regime} K={k}")
             _require_equal(out, k2, f"K4 vs K2 at {regime} K={k}")
             per_expert = [k * nn // 2 if f else k * nn for f in pflags]
-            t = {"ms": time_ms(lambda: gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs,
+            t = {**kernel_times(lambda: gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs,
                                                             pf, blk)),
                  "plain_ms": time_ms(lambda: gmp.gmm_mixed_packed_plain(
                      aq, asc, cat, wsc, gs, pf, blk)),
@@ -483,7 +485,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
             _require_equal(out, ref, f"K5 vs plain at {regime} K={k}")
             _require_equal(out, k4, f"K5 vs K4 at {regime} K={k}")
             _require_equal(out, k2, f"K5 vs K2 at {regime} K={k}")
-            t = {"ms": time_ms(lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)),
+            t = {**kernel_times(lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)),
                  "plain_ms": time_ms(lambda: g4p.gmm_w4a8_packed_plain(
                      aq, asc, packed, wsc, gs)),
                  **gmm_work(gs, k, nn, k * nn // 2)}
@@ -510,7 +512,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
             emit("kernels", kernel="quantize_rows",
                  use="shared expert, expanded bits", regime=regime, M=rows, K=k,
                  bitwise=True,
-                 ms=time_ms(lambda: act_quant.quantize_rows(x, bits)),
+                 **kernel_times(lambda: act_quant.quantize_rows(x, bits)),
                  plain_ms=time_ms(lambda: act_quant.quantize_rows_plain(x, bits)),
                  **quant_rows_work(rows, k, 2))
             aq = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
@@ -525,7 +527,7 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
             _require_equal(out, ref, f"K2 (shared expert) at {regime} K={k}")
             emit("kernels", kernel="gmm_w8a8", use="shared expert, one group",
                  regime=regime, M=rows, K=k, N=nn, bitwise=True,
-                 ms=time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
+                 **kernel_times(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
                  plain_ms=time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc,
                                                              one_group)),
                  **gmm_work(one_group, k, nn, k * nn))
@@ -560,7 +562,7 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
                              dtype=torch.int8)
 
     def timed(kernel, plain, work):
-        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
+        return {**kernel_times(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
                 **work}
 
     def int8_kernels(gs, m, k, nn, shape, keep, shared):
@@ -715,7 +717,7 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                              dtype=torch.int8)
 
     def timed(kernel, plain, work):
-        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
+        return {**kernel_times(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
                 **work}
 
     alternating = [int(i % 2 == 0) for i in range(e)]
@@ -828,6 +830,8 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                   gmm_work(gs, k, nn, 2 * k * nn, scale_rows=0, lhs_row_bytes=2 * k,
                            ops_type="bf16"))
         t["library_ms"] = time_ms(lambda: gfl.gmm(x, w, gs, backend="ragged_dot"))
+        t["library_device_ms"] = device_ms(lambda: gfl.gmm(x, w, gs,
+                                                           backend="ragged_dot"))
         emit("kernels", kernel="gmm_bf16", max_abs_err=err, err_over_bound=ratio,
              bound="(K + 1) * 2^-24 * sum|lhs||rhs| + 1 bf16 ulp, vs float64",
              library="torch._grouped_mm" if gfl.has_grouped_mm() else "masked products",
@@ -871,7 +875,7 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
         _require_equal(out, ref, f"K2 (int8 lm_head) at M={rows}")
         emit("kernels", kernel="gmm_w8a8", use="int8 lm_head, one group", M=rows,
              K=h, N=v, bitwise=True,
-             ms=time_ms(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
+             **kernel_times(lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, one_group)),
              plain_ms=time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc, one_group),
                               reps=5, warmup=1),
              quantize_rows_ms=time_ms(lambda: act_quant.quantize_rows_uniform(x, 8)),
@@ -982,7 +986,7 @@ def attention_kernels_vs_plain(rec: dict) -> None:
                     raise AssertionError(f"{label} cache write not bitwise ({dtype})")
             rel = k3_slot_errors(out, ref)
             err = (out.float() - ref.float()).abs().max().item()
-            t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            t = {**kernel_times(kernel), "plain_ms": time_ms(plain),
                  **decode_attn_work(lengths, valid, s_max, n_h, n_kv, hd, hd,
                                     q.element_size(), pos_bytes)}
             emit("kernels", kernel=name, regime="decode",
@@ -1103,6 +1107,7 @@ def read_only_attention_vs_plain(rec: dict) -> None:
                         enable_gqa=n_h != n_kv)
 
                 lib = {"library_ms": time_ms(library),
+                       "library_device_ms": device_ms(library),
                        "library_max_abs_diff": (library()[:, :, 0].float()
                                                 - ref.float()).abs().max().item()}
             work = read_attn_work(lengths, s_max, n_h, n_kv, dk, dv, q.element_size(),
@@ -1113,8 +1118,9 @@ def read_only_attention_vs_plain(rec: dict) -> None:
                                               stacked_plain, out_l)):
                 rel = k3_slot_errors(got, ref)
                 t = {"max_abs_err": (got.float() - ref.float()).abs().max().item(),
-                     "ms": time_ms(kernel), "plain_ms": time_ms(plain), **work,
-                     "library_ms": lib.get("library_ms")}
+                     **kernel_times(kernel), "plain_ms": time_ms(plain), **work,
+                     "library_ms": lib.get("library_ms"),
+                     "library_device_ms": lib.get("library_device_ms")}
                 emit("kernels", kernel=name, shape=shape, regime="decode",
                      dtype="bfloat16", B=b, S=s_max, n_h=n_h, n_kv=n_kv, dk=dk, dv=dv,
                      scale=scale, lengths=lengths.tolist(), rel_err_per_slot=rel,
@@ -1207,7 +1213,7 @@ def fused_kernels_vs_plain(rec: dict) -> None:
     f32 = torch.float32
 
     def timed(kernel, plain, work, reps=5):
-        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=reps, warmup=1),
+        return {**kernel_times(kernel), "plain_ms": time_ms(plain, reps=reps, warmup=1),
                 **work}
 
     # the reference test's set-up: K12 against the f32 oracle
@@ -1383,9 +1389,119 @@ def fused_kernels_vs_plain(rec: dict) -> None:
         del packed, aq
 
 
+def schedule_edges() -> None:
+    """The redesigned bodies at the edges of their schedules. The int8
+    grouped GEMM (K2, K4, K5, K9) at M 1, 4, 16, 17, 24, 64, 65, 256, routed
+    over 12 groups (two empty) and as one group (split-K): each bitwise its
+    plain version, K4 and K5 bitwise K2 on the same codes. K3 / K3q at
+    lengths on the warp-chunk and S-block edges, G 1 / 4 / 7: the write
+    bitwise, the output within K3_REL_BOUND per slot (+ 1 bf16 ulp), the
+    read-only form bitwise K3 / K3q after their write."""
+    import torch
+
+    from mxmoe_tpu_torch.ops import gmm_mixed_packed as gmp, gmm_w4a8_packed as g4p
+    from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gas
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
+    from mxmoe_tpu_torch.serving import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+    for m in (1, 4, 16, 17, 24, 64, 65, 256):
+        for layout in ("routed", "one_group"):
+            if layout == "routed":
+                counts = torch.bincount(torch.randint(0, 12, (m,), generator=gen,
+                                                      device=dev), minlength=12)
+                counts[1] = counts[5] = 0
+                counts[0] += m - int(counts.sum())
+                k, n = 1408, 2048
+            else:
+                counts, k, n = torch.tensor([m], device=dev), 2048, 1024
+            gs = counts.to(torch.int32)
+            e = gs.numel()
+            sched = gmm.int8_gmm_schedule(m, k, n, e)
+            aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+            w8 = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+            w4 = torch.randint(-8, 8, (e, k, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wsc = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01
+            zp = torch.rand((e, 1, n), generator=gen, device=dev) * 0.2 - 0.1
+            pflags = [i % 2 for i in range(e)]
+            mixed = w8.clone()
+            mixed[1::2] = w4[1::2]
+            cat, blk = build_ragged_mixed(mixed, pflags)
+            pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+            blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+            packed = pack_int4_halves(w4)
+            k2 = gmm.gmm_w8a8(aq, asc, w8, wsc, gs)
+            checks = (
+                ("K2", k2, gmm.gmm_w8a8_plain(aq, asc, w8, wsc, gs)),
+                ("K9", gas.gmm_w8a8_asym(aq, asc, w8, wsc, zp, gs),
+                 gas.gmm_w8a8_asym_plain(aq, asc, w8, wsc, zp, gs)),
+                ("K5", g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs),
+                 g4p.gmm_w4a8_packed_plain(aq, asc, packed, wsc, gs)),
+                ("K5 = K2", g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs),
+                 gmm.gmm_w8a8(aq, asc, w4, wsc, gs)),
+                ("K4", gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk),
+                 gmp.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk)),
+                ("K4 = K2", gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk),
+                 gmm.gmm_w8a8(aq, asc, mixed, wsc, gs)))
+            torch.cuda.synchronize()
+            for what, got, ref in checks:
+                _require_equal(got, ref, f"{what} at M {m} {layout}")
+            cases.append({"M": m, "layout": layout, "bm": sched.bm,
+                          "splits": sched.splits, "blocks": sched.blocks})
+    emit("schedule_edges", kernel="int8 grouped GEMM (K2, K4, K5, K9)",
+         bitwise=True, cases=cases)
+
+    n_kv, s_max, dv, layer = 2, 600, 128, 0
+    lens = [0, 15, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 599, 600]
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    valid = torch.ones((b,), dtype=torch.int32, device=dev)
+    valid[3] = 0
+    for groups, dk in ((1, 256), (4, 128), (7, 128)):
+        for quant in (False, True):
+            if quant:
+                caches = [torch.randint(-127, 128, (2, b, n_kv, s_max, d), generator=gen,
+                                        device=dev, dtype=torch.int8) if d else
+                          torch.rand((2, b, n_kv, s_max), generator=gen, device=dev)
+                          * 0.03 + 1e-3 for d in (dk, 0, dv, 0)]
+            else:
+                caches = [torch.randn((2, b, n_kv, s_max, d), generator=gen, device=dev)
+                          .to(torch.bfloat16) if d else None for d in (dk, 0, dv, 0)]
+            caches2 = [None if c is None else c.clone() for c in caches]
+            q = torch.randn((b, n_kv * groups, dk), generator=gen, device=dev).to(torch.bfloat16)
+            kn = torch.randn((b, n_kv, dk), generator=gen, device=dev).to(torch.bfloat16)
+            vn = torch.randn((b, n_kv, dv), generator=gen, device=dev).to(torch.bfloat16)
+            scale = 1.0 / dk ** 0.5
+            out, _ = da.decode_attention_update_stacked(q, kn, vn, *caches, lengths,
+                                                        layer, valid=valid, scale=scale)
+            if quant:
+                ref = da.decode_attention_update_q8_plain(q, kn, vn, *caches2, lengths,
+                                                          layer, valid, scale)
+            else:
+                ref = da.decode_attention_update_plain(q, kn, vn, caches2[0], caches2[2],
+                                                       lengths, layer, valid, scale)
+            ro, _ = da.decode_attention_stacked(q, *caches, lengths, layer, scale=scale)
+            torch.cuda.synchronize()
+            for got, want in zip(caches, caches2):
+                if got is not None and not torch.equal(got, want):
+                    raise AssertionError(f"K3 write not bitwise (G {groups}, {quant})")
+            rel = k3_slot_errors(out, ref)
+            _require_equal(ro, out, f"read-only vs K3 (G {groups}, int8 {quant})")
+            emit("schedule_edges", kernel="K3q" if quant else "K3", G=groups, dk=dk,
+                 lengths=lens, cache_bitwise=True, read_only_bitwise=True,
+                 rel_err_max=max(rel))
+
+
 def kernels_vs_plain() -> dict:
     """Each kernel vs its plain version; returns per-kernel records."""
     rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+    schedule_edges()
     gmm_kernels_vs_plain(rec)
     scheme_kernels_vs_plain(rec)
     two_launch_kernels_vs_plain(rec)
@@ -2007,6 +2123,8 @@ def main() -> int:
     smi = probe()
     build()
     rec = kernels_vs_plain()
+    from mxmoe_tpu_torch.bench import timing
+    emit("timing", device_ms_lost_traces=timing.LOST_TRACES[0])
     fused, aligned = {"fused_ffn": True}, {"dispatch_align": 32}
     for quant, int8_kv, pack, impl_kw in (("w8a8_g-1_sym", False, False, None),
                                           ("mixed-packed", True, False, None),
@@ -2152,9 +2270,11 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name][0], "launches_of": launches[name][1],
          "max_abs_err": rec[name]["max_abs_err"],
-         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
+         "ms": rec[name]["ms"], "device_ms": rec[name]["device_ms"],
+         "plain_ms": rec[name]["plain_ms"],
          "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
-         "library_ms": rec[name].get("library_ms")}
+         "library_ms": rec[name].get("library_ms"),
+         "library_device_ms": rec[name].get("library_device_ms")}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,368 @@
+"""The redesigned kernel bodies against the bodies they replaced, in one
+process on one card: decode attention (K3, K3q and the read-only forms) and
+the int8 grouped GEMM (K2, K4, K5, K9), at the decode shapes of the main
+path, by device time (``bench.timing.device_ms``) and event time, old and
+new in ABBA order.
+
+    python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR
+
+DIR holds the earlier ``mxmoe_tpu_torch/csrc`` (for example
+``git archive <commit> mxmoe_tpu_torch/csrc | tar -x -C DIR
+--strip-components 2``) in a directory that git ignores. Its
+decode_attention.cu and the four int8 GEMM sources are built into a library
+of their own with nvcc and called through their own C entry points, with the
+argument lists they had (``_OLD_SIGNATURES``); nothing in the package
+changes. Both outputs are compared (the GEMMs bitwise). One JSON line per
+case: both times, the bound (bytes of this case's inputs and outputs over
+3.35 TB/s, or operations over the int8 / bf16 peak) and the new body's share
+of it; for the bf16 attention cases also ``scaled_dot_product_attention``'s
+times. Then the card's ``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import glob
+import json
+import os
+import subprocess
+import tempfile
+
+import torch
+
+from ..models import configs
+from ..ops import gmm_mixed_packed as gmp, gmm_w4a8_packed as g4p
+from ..ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gas, kernels
+from ..ops.dispatch import make_dispatch, route_topk
+from ..quant.packing import build_ragged_mixed, pack_int4_halves
+from ..serving import decode_attention as da
+from ..utils.device import find_nvcc
+from . import timing
+from .timing import device_ms, event_ms
+
+REPS = 25          # timed calls a reading, as chip_smoke.py
+HBM = 3.35e12
+PEAK = {"int8": 1979e12, "bf16": 989e12}
+_OLD_SOURCES = ("decode_attention.cu", "gmm_w8a8.cu", "gmm_mixed_packed.cu",
+                "gmm_w4a8_packed.cu", "gmm_w8a8_asym.cu")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_OLD_SIGNATURES = {
+    "mxmoe_gmm_w8a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mxmoe_gmm_mixed_packed": [_P] * 8 + [_I] * 5 + [_P],
+    "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mxmoe_gmm_w8a8_asym": [_P] * 7 + [_I] * 5 + [_P],
+    "mxmoe_decode_attention_update": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+    "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I] + [_P] * 8 + [_I] * 7
+                                        + [_F, _P],
+    "mxmoe_decode_attention": [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+    "mxmoe_decode_attention_q8": [_P, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+    "mxmoe_decode_attention_workspace_floats": [_I] * 5,
+}
+
+
+def build_old(old_csrc: str) -> ctypes.CDLL:
+    """nvcc the earlier sources (one process each, together), link, load."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found")
+    out_dir = tempfile.mkdtemp(dir=kernels.BUILD_DIR, prefix="old_")
+    procs = []
+    for name in _OLD_SOURCES:
+        obj = os.path.join(out_dir, name[:-3] + ".o")
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *kernels.NVCC_FLAGS, "-c", "-o", obj, os.path.join(old_csrc, name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for obj, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the earlier {obj}:\n{err}")
+    lib_path = os.path.join(out_dir, "libold.so")
+    subprocess.run([nvcc, "-shared", "-o", lib_path,
+                    *sorted(glob.glob(os.path.join(out_dir, "*.o")))], check=True)
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _OLD_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _stream():
+    return kernels.stream_ptr(torch.device("cuda"))
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    tb, to = nbytes / HBM * 1e3, ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": int(nbytes)}
+
+
+def _ab(old, new, reps: int) -> dict:
+    """Old and new in the order old, new, new, old, by both readings; then
+    the new body's device time after a read-only L2 overwrite (no dirty
+    lines to write back during the call)."""
+    d = [device_ms(f, reps) for f in (old, new, new, old)]
+    e = [event_ms(f, reps) for f in (old, new, new, old)]
+    return {"old_device_ms": (d[0] + d[3]) / 2, "new_device_ms": (d[1] + d[2]) / 2,
+            "old_event_ms": (e[0] + e[3]) / 2, "new_event_ms": (e[1] + e[2]) / 2,
+            "device_ms_abba": d, "event_ms_abba": e,
+            "new_device_ms_read_overwrite": device_ms(new, reps, overwrite="read")}
+
+
+def _emit(case: str, **kv) -> None:
+    if "bound_ms" in kv and "new_device_ms" in kv:
+        kv["new_share_of_bound"] = kv["bound_ms"] / kv["new_device_ms"]
+        kv["old_share_of_bound"] = kv["bound_ms"] / kv["old_device_ms"]
+    print(json.dumps({"case": case, **kv}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the int8 grouped GEMM
+# ---------------------------------------------------------------------------
+
+def _old_gmm(lib, fn: str, out_shape, *ptrs_and_ints):
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device="cuda")
+
+    def call():
+        err = getattr(lib, fn)(*ptrs_and_ints[:-5], out.data_ptr(), 1,
+                               *ptrs_and_ints[-5:-1], _stream())
+        kernels.check(err, "old " + fn)
+        return out
+    return call
+
+
+def gmm_cases(lib, reps: int) -> None:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for model, tokens, shared in (("qwen2_moe", 4, True), ("ds2", 4, True)):
+        cfg = configs.config_for(model)
+        h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+        logits = torch.randn((tokens, e), generator=gen, device=dev)
+        gs = make_dispatch(route_topk(logits, cfg.top_k, cfg.norm_topk_prob),
+                           e).group_sizes
+        m = tokens * cfg.top_k
+        live = gs > 0
+        pflags = [int(i % 2 == 0) for i in range(e)]
+        pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+        sn = cfg.shared_expert_intermediate_size
+        shapes = [("routed", gs, m, k, nn) for k, nn in ((h, 2 * n), (n, h))]
+        if shared:
+            one = torch.full((1,), tokens, dtype=torch.int32, device=dev)
+            shapes += [("shared", one, tokens, k, nn) for k, nn in ((h, 2 * sn), (sn, h))]
+        for use, g_s, rows, k, nn in shapes:
+            ee = g_s.numel()
+            lv = g_s > 0
+            aq = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            asc = torch.rand((rows, 1), generator=gen, device=dev) * 0.05
+            wq = torch.randint(-127, 128, (ee, k, nn), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wsc = torch.rand((ee, 1, nn), generator=gen, device=dev) * 0.01
+            zp = torch.rand((ee, 1, nn), generator=gen, device=dev) * 0.2 - 0.1
+            base = rows * (k + 4) + int(lv.sum()) * nn * 4 + ee * 4 + rows * nn * 2
+            ops = 2 * rows * k * nn
+            sched = gmm.int8_gmm_schedule(rows, k, nn, ee)
+            shape = {"model": model, "use": use, "M": rows, "K": k, "N": nn,
+                     "live_groups": int(lv.sum()), "schedule": vars(sched)}
+            ints = (rows, k, nn, ee)
+            runs = [("gmm_w8a8", lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, g_s),
+                     _old_gmm(lib, "mxmoe_gmm_w8a8", (rows, nn), aq.data_ptr(),
+                              asc.data_ptr(), wq.data_ptr(), wsc.data_ptr(),
+                              g_s.data_ptr(), *ints, None),
+                     base + int(lv.sum()) * k * nn)]
+            if use == "routed":
+                runs.append(("gmm_w8a8_asym",
+                             lambda: gas.gmm_w8a8_asym(aq, asc, wq, wsc, zp, g_s),
+                             _old_gmm(lib, "mxmoe_gmm_w8a8_asym", (rows, nn),
+                                      aq.data_ptr(), asc.data_ptr(), wq.data_ptr(),
+                                      wsc.data_ptr(), zp.data_ptr(), g_s.data_ptr(),
+                                      *ints, None),
+                             base + int(lv.sum()) * (k + 4) * nn))
+                w4 = torch.randint(-8, 8, (ee, k, nn), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                mixed = wq.clone()
+                mixed[::2] = w4[::2]
+                cat, blk = build_ragged_mixed(mixed, pflags)
+                blk_t = torch.tensor(blk, dtype=torch.int32, device=dev)
+                packed = pack_int4_halves(w4)
+                per_expert = torch.tensor([k * nn // 2 if f else k * nn for f in pflags],
+                                          device=dev)
+                runs.append(("gmm_mixed_packed",
+                             lambda: gmp.gmm_mixed_packed(aq, asc, cat, wsc, g_s, pf,
+                                                          blk_t),
+                             _old_gmm(lib, "mxmoe_gmm_mixed_packed", (rows, nn),
+                                      aq.data_ptr(), asc.data_ptr(), cat.data_ptr(),
+                                      wsc.data_ptr(), g_s.data_ptr(), pf.data_ptr(),
+                                      blk_t.data_ptr(), *ints, None),
+                             base + int(per_expert[lv].sum()) + 8 * ee))
+                runs.append(("gmm_w4a8_packed",
+                             lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, g_s),
+                             _old_gmm(lib, "mxmoe_gmm_w4a8_packed", (rows, nn),
+                                      aq.data_ptr(), asc.data_ptr(), packed.data_ptr(),
+                                      wsc.data_ptr(), g_s.data_ptr(), *ints, None),
+                             base + int(lv.sum()) * k * nn // 2))
+            for name, new, old, nbytes in runs:
+                a, b = new(), old()
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} {model} {use} K={k}: new and old "
+                                         "bodies differ")
+                _emit(name, **shape, bitwise_old=True, **_ab(old, new, reps),
+                      **_bound(nbytes, ops, "int8"))
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+def attention_cases(lib, reps: int) -> None:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s_max, nl, layer = 4, 2048, 2, 1
+    lengths = torch.tensor([0, 700, s_max, 1500], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    n_pos = [min(max(x, 0), s_max - 1) + 1 for x in lengths.tolist()]
+    mask = (torch.arange(s_max, device=dev)[None, :]
+            <= lengths.clamp(max=s_max - 1)[:, None])[:, None, None, :]
+    # name -> n_h, n_kv, dk, dv, qk dim (scale)
+    shapes = {"qwen2_moe": (16, 16, 128, 128, 128), "ds2_mla": (16, 16, 256, 128, 192),
+              "mixtral": (32, 8, 128, 128, 128), "qwen2_moe_57b": (28, 4, 128, 128, 128)}
+    for shape, (n_h, n_kv, dk, dv, d_qk) in shapes.items():
+        scale = 1.0 / d_qk ** 0.5
+        q = torch.randn((b, n_h, dk), generator=gen, device=dev).to(torch.bfloat16)
+        kn = torch.randn((b, n_kv, dk), generator=gen, device=dev).to(torch.bfloat16)
+        vn = torch.randn((b, n_kv, dv), generator=gen, device=dev).to(torch.bfloat16)
+        for quant in (False, True):
+            if quant:
+                caches = [torch.randint(-127, 128, (nl, b, n_kv, s_max, d),
+                                        generator=gen, device=dev, dtype=torch.int8)
+                          if d else torch.rand((nl, b, n_kv, s_max), generator=gen,
+                                               device=dev) * 0.03 + 1e-3
+                          for d in (dk, 0, dv, 0)]
+                pos_bytes = dk + dv + 8
+            else:
+                caches = [torch.randn((nl, b, n_kv, s_max, d), generator=gen,
+                                      device=dev).to(torch.bfloat16) if d else None
+                          for d in (dk, 0, dv, 0)]
+                pos_bytes = 2 * (dk + dv)
+            ptrs = [c.data_ptr() for c in caches if c is not None]
+            ws_old = torch.empty(lib.mxmoe_decode_attention_workspace_floats(
+                b, n_h, n_kv, s_max, dv), dtype=torch.float32, device=dev)
+            out_old = torch.empty((b, n_h, dv), dtype=torch.bfloat16, device=dev)
+            tail = (lengths.data_ptr(), valid.data_ptr(), out_old.data_ptr(),
+                    ws_old.data_ptr(), layer, b, n_h, n_kv, s_max, dk, dv, scale)
+            ro_tail = tail[:1] + tail[2:]
+            upd_fn = "mxmoe_decode_attention_update" + ("_q8" if quant else "")
+            ro_fn = "mxmoe_decode_attention" + ("_q8" if quant else "")
+            head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), 1)
+
+            def old_update():
+                kernels.check(getattr(lib, upd_fn)(*head, *ptrs, *tail, _stream()),
+                              "old " + upd_fn)
+                return out_old
+
+            def new_update():
+                return da.decode_attention_update_stacked(q, kn, vn, *caches, lengths,
+                                                          layer, valid=valid,
+                                                          scale=scale)[0]
+
+            def old_read():
+                kernels.check(getattr(lib, ro_fn)(q.data_ptr(), 1, *ptrs, *ro_tail,
+                                                  _stream()), "old " + ro_fn)
+                return out_old
+
+            def new_read():
+                return da.decode_attention_stacked(q, *caches, lengths, layer,
+                                                   scale=scale)[0]
+
+            label = "K3q" if quant else "K3"
+            a = new_update()
+            ref = (da.decode_attention_update_q8_plain if quant else
+                   (lambda q_, k_, v_, ck, cks, cv, cvs, *r:
+                    da.decode_attention_update_plain(q_, k_, v_, ck, cv, *r)))(
+                q, kn, vn, *[None if c is None else c.clone() for c in caches],
+                lengths, layer, valid, scale)
+            bb = old_update().clone()
+            torch.cuda.synchronize()
+            rd = new_read()
+            torch.cuda.synchronize()
+            ops = sum(2 * n_h * p * (dk + dv) for p in n_pos)
+            upd_bytes = sum(p * n_kv * pos_bytes for p in n_pos) + b * (
+                n_h * dk + n_kv * (dk + dv) + n_h * dv) * 2
+            read_bytes = sum(p * n_kv * pos_bytes for p in n_pos) + b * n_h * (dk + dv) * 2
+            common = {"shape": shape, "n_h": n_h, "n_kv": n_kv, "dk": dk, "dv": dv,
+                      "B": b, "S": s_max, "lengths": lengths.tolist()}
+            _emit(label, **common,
+                  max_abs_err_vs_plain=(a.float() - ref.float()).abs().max().item(),
+                  max_abs_diff_old=(a.float() - bb.float()).abs().max().item(),
+                  read_only_bitwise=bool(torch.equal(rd, a)),
+                  **_ab(old_update, new_update, reps),
+                  **_bound(upd_bytes, ops, "bf16"))
+            lib_times = {}
+            if not quant:
+                kk, vv = caches[0][layer], caches[2][layer]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None, :], kk, vv, attn_mask=mask, scale=scale,
+                        enable_gqa=n_h != n_kv)
+
+                lib_times = {"sdpa_device_ms": device_ms(sdpa, reps),
+                             "sdpa_event_ms": event_ms(sdpa, reps),
+                             "sdpa_device_ms_read_overwrite": device_ms(
+                                 sdpa, reps, overwrite="read")}
+            _emit("decode_attention_stacked" + ("_q8" if quant else ""), **common,
+                  **_ab(old_read, new_read, reps), **_bound(read_bytes, ops, "bf16"),
+                  **lib_times)
+            # the per-layer forms: layer `layer` of the stack as a [B, n_kv,
+            # S, d] cache (the earlier wrapper passed it as layer 0 of one)
+            layer_caches = [None if c is None else c[layer] for c in caches]
+            layer_ptrs = [c.data_ptr() for c in layer_caches if c is not None]
+            pl_tail = (lengths.data_ptr(), out_old.data_ptr(), ws_old.data_ptr(), 0,
+                       b, n_h, n_kv, s_max, dk, dv, scale)
+
+            def old_layer():
+                kernels.check(getattr(lib, ro_fn)(q.data_ptr(), 1, *layer_ptrs,
+                                                  *pl_tail, _stream()), "old " + ro_fn)
+                return out_old
+
+            if quant:
+                def new_layer():
+                    return da.decode_attention_q8(q, *layer_caches, lengths, scale=scale)
+            else:
+                def new_layer():
+                    return da.decode_attention(q, layer_caches[0], layer_caches[2],
+                                               lengths, scale=scale)
+
+            if not torch.equal(new_layer(), rd):
+                raise AssertionError(f"{ro_fn} {shape}: per-layer form differs from "
+                                     "the stacked one")
+            _emit(ro_fn.removeprefix("mxmoe_"), **common,
+                  **_ab(old_layer, new_layer, reps), **_bound(read_bytes, ops, "bf16"))
+            del caches
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-csrc", required=True,
+                    help="directory of the earlier csrc sources")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("redesign_ab: needs a CUDA card")
+    kernels.lib()
+    old = build_old(args.old_csrc)
+    with torch.no_grad():
+        gmm_cases(old, REPS)
+        attention_cases(old, REPS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"nvidia_smi": smi.splitlines()[0],
+                      "device": torch.cuda.get_device_name(0),
+                      "lost_traces": timing.LOST_TRACES[0]}))
+
+
+if __name__ == "__main__":
+    main()

@@ -29,16 +29,38 @@
 // grouped-scale GEMM K8 (gmm_w8a8_grouped.cu) reuses the tiles and
 // mma_k_tile_rs below with its own kernel.
 //
-// Schedule (gmm_tile_walk.cuh, unchanged from the first K2). Rows outside the
-// block's expert are zero-filled on load and masked on store. mma.sync
-// m16n8k32 s8.s8.s32: 4 warps, a 64 x 128 block tile, 32 x 64 per warp; K in
-// steps of 64. The [K, N] weight tile is transposed in registers
-// (byte_perm 4x4) into a K-contiguous shared layout that the col-major B
-// fragment reads conflict-free; the next k-tile's global loads are started
-// into registers before the current tile's MMAs.
+// Two schedules, chosen by the wrapper from M (ops/gmm_w8a8.py::
+// int8_gmm_schedule, which the host knows without a sync):
+//
+// * Prefill (bm = 64; gmm_tile_walk.cuh). Rows outside the block's expert
+//   are zero-filled on load and masked on store. mma.sync m16n8k32
+//   s8.s8.s32: 4 warps, a 64 x 128 block tile, 32 x 64 per warp; K in steps
+//   of 64. The [K, N] weight tile is transposed in registers (byte_perm 4x4)
+//   into a K-contiguous shared layout that the col-major B fragment reads
+//   conflict-free; the next k-tile's global loads are started into
+//   registers before the current tile's MMAs. K14 (gmm_w8a8_fusedquant.cu)
+//   and K15 (gmm_ws.cu) use its tiles and mma_k_tile_rs.
+// * Decode (bm = 16, small M). At decode 16 routed rows spread over ~15
+//   experts, so a 64-row tile held 1-2 real rows, and the one-group shared
+//   expert's 88 / 16 column blocks filled few of the 132 SMs, each with one
+//   8 KB k-tile in flight. Here a block is one m16 row block x 64 columns
+//   (4 warps x 16 columns); the grid's m dimension is bounded by M itself
+//   (every live m-tile holds a row). Raw [64, 64] weight tiles and the A
+//   rows go through a DSTAGES-deep ring with 16-byte cp.async (rows outside
+//   the expert and k past the storage zero-filled), so three k-tiles are in
+//   flight a block; the weight tile is stored with its 16-byte pieces
+//   swizzled by k / 4, and the B fragment is gathered from it at the shared
+//   -> register step (four 32-bit loads and three byte_perm a register),
+//   conflict-free. When the grid would put fewer than about two blocks on
+//   each SM, K is split (grid.z, whole k-tiles each): every split writes its
+//   int32 partial (and the row sums) to a workspace and the last block of
+//   the tile, found by an atomic ticket, adds them in split order and runs
+//   the unchanged epilogue. int32 sums are exact, so the output is bitwise
+//   that of one pass.
 
 #pragma once
 
+#include "cp_async.cuh"
 #include "gmm_tile_walk.cuh"
 
 namespace {
@@ -288,17 +310,258 @@ gmm_int8_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The decode schedule
+// ---------------------------------------------------------------------------
+
+constexpr int DBM = 16, DBN = 64, DBK = 64, DSTAGES = 4;
+constexpr int DEC_A_TILE = DBM * A_STRIDE;      // bytes of one A k-tile
+constexpr int DEC_B_TILE = DBK * DBN;           // bytes of one raw weight k-tile
+constexpr int D_PART = DBM * DBN + DBM;      // int32 of a split's partial
+
+// byte offset of 16-byte piece `chunk` of weight row k in a raw tile: the
+// pieces of rows 4i..4i+3 are rotated by i, so the four k-groups a warp's
+// B fragments read at once fall in four different bank groups
+__device__ __forceinline__ int d_swz(int k, int chunk) {
+  return k * DBN + ((chunk ^ ((k >> 2) & 3)) << 4);
+}
+
+// the B fragment register of column c for codes k0..k0+3 (k0 % 4 == 0):
+// byte j = Bt[k0 + j][c]
+__device__ __forceinline__ uint32_t d_bcol(const int8_t* Bt, int k0, int c) {
+  const int8_t* p = Bt + d_swz(k0, c >> 4) + (c & 12);
+  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + DBN);
+  const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 2 * DBN);
+  const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 3 * DBN);
+  const uint32_t sel = (c & 3) | (((c & 3) + 4) << 4);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+}
+
+// one DBK-deep k-step of a warp's 16 x 16 tile; kNib: 0 int8 codes, 1 the
+// low nibbles, 2 the high nibbles of packed bytes (sign-extended)
+template <int kNib, bool kRowSum>
+__device__ __forceinline__ void d_mma_tile(const int8_t* At, const int8_t* Bt,
+                                           int (&acc)[2][4], int (&rsum)[2],
+                                           int wn, int gr, int tq) {
+#pragma unroll
+  for (int ks = 0; ks < DBK; ks += 32) {
+    uint32_t a[4];
+    const int8_t* p = At + gr * A_STRIDE + ks + tq * 4;
+    a[0] = *reinterpret_cast<const uint32_t*>(p);
+    a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE);
+    a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+    a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE + 16);
+    if constexpr (kRowSum) {
+      rsum[0] = __dp4a((int)a[0], 0x01010101, rsum[0]);
+      rsum[0] = __dp4a((int)a[2], 0x01010101, rsum[0]);
+      rsum[1] = __dp4a((int)a[1], 0x01010101, rsum[1]);
+      rsum[1] = __dp4a((int)a[3], 0x01010101, rsum[1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = wn + j * 8 + gr;
+      uint32_t b0 = d_bcol(Bt, ks + tq * 4, c), b1 = d_bcol(Bt, ks + 16 + tq * 4, c);
+      if constexpr (kNib == 1) {
+        b0 = sext4(b0 & 0x0F0F0F0Fu);
+        b1 = sext4(b1 & 0x0F0F0F0Fu);
+      } else if constexpr (kNib == 2) {
+        b0 = sext4((b0 >> 4) & 0x0F0F0F0Fu);
+        b1 = sext4((b1 >> 4) & 0x0F0F0F0Fu);
+      }
+      mma_s8(acc[j], a, b0, b1);
+    }
+  }
+}
+
+template <typename OutT, int kStorage, bool kAsym>
+__global__ void __launch_bounds__(kThreads)
+gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
+                       const int8_t* __restrict__ rhs, const float* __restrict__ s_b,
+                       const float* __restrict__ zp,
+                       const int* __restrict__ group_sizes,
+                       const int* __restrict__ pflags,
+                       const int* __restrict__ blk_offsets, OutT* __restrict__ out,
+                       int* __restrict__ ws, int* __restrict__ tickets, int M, int K,
+                       int N, int E, int kt_per_split) {
+  // a packed expert also needs the A columns K/2 further on (its high nibbles)
+  constexpr int kA = kStorage == kInt8Stacked ? 1 : 2;
+  __shared__ __align__(16) int8_t As[DSTAGES][kA][DEC_A_TILE];
+  __shared__ __align__(16) int8_t Bs[DSTAGES][DEC_B_TILE];
+  __shared__ int sizes[kMaxExperts];
+  __shared__ int tile_info[4];          // expert, first row, row begin, row end
+  __shared__ int is_last;
+
+  if (!block_tile<DBM>(group_sizes, E, M, sizes, tile_info)) return;
+  const int g = tile_info[0], m0 = tile_info[1];
+  const int row_lo = tile_info[2], row_hi = tile_info[3];
+  const int n0 = blockIdx.x * DBN;
+
+  const int K2 = K / 2;
+  bool packed = false;
+  const int8_t* w;
+  if constexpr (kStorage == kInt8Stacked) {
+    w = rhs + (size_t)g * K * N;
+  } else if constexpr (kStorage == kPackedStacked) {
+    packed = true;
+    w = rhs + (size_t)g * K2 * N;
+  } else {
+    packed = pflags[g] != 0;
+    w = rhs + (size_t)blk_offsets[g] * K2 * N;
+  }
+  const int Kw = packed ? K2 : K;         // rows of the storage block
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nk = max(min(kt0 + kt_per_split, (Kw + DBK - 1) / DBK) - kt0, 0);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3, wn = warp * 16;
+
+  // k-tile t of this split -> ring stage t % DSTAGES (one commit group)
+  auto issue = [&](int t) {
+    if (t < nk) {
+      const int k0 = (kt0 + t) * DBK, s = t % DSTAGES;
+      if (tid < 64 * kA) {                // A: 16 rows x 4 pieces (x 2 halves)
+        const int half = tid >> 6, c = tid & 63;
+        const int row = m0 + (c >> 2), k = k0 + (c & 3) * 16;
+        const bool live = row >= row_lo && row < row_hi && k < Kw && (half == 0 || packed);
+        cp_async16(&As[s][half][(c >> 2) * A_STRIDE + (c & 3) * 16],
+                   live ? lhs + (size_t)row * K + half * K2 + k : lhs, live ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {       // B: 64 rows x 4 pieces
+        const int u = tid + i * kThreads, r = u >> 2, c = u & 3;
+        const int k = k0 + r, col = n0 + c * 16;
+        const bool ok = k < Kw && col < N;
+        cp_async16(&Bs[s][d_swz(r, c)], ok ? w + (size_t)k * N + col : w, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+  int rsum[2] = {0, 0};
+#pragma unroll
+  for (int t = 0; t < DSTAGES - 1; ++t) issue(t);
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<DSTAGES - 2>();
+    __syncthreads();                      // tile t landed; stage t-1 is free
+    issue(t + DSTAGES - 1);
+    const int s = t % DSTAGES;
+    if (packed) {
+      d_mma_tile<1, kAsym>(As[s][0], Bs[s], acc, rsum, wn, gr, tq);
+      d_mma_tile<2, kAsym>(As[s][kA - 1], Bs[s], acc, rsum, wn, gr, tq);
+    } else {
+      d_mma_tile<0, kAsym>(As[s][0], Bs[s], acc, rsum, wn, gr, tq);
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (kAsym) {
+    rsum[0] = quad_sum(rsum[0]);
+    rsum[1] = quad_sum(rsum[1]);
+  }
+
+  if (gridDim.z > 1) {
+    // split-K: this split's partial, then the tile's last block adds them
+    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    int* part = ws + (tile * gridDim.z + blockIdx.z) * D_PART;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<int2*>(part + (gr + 8 * h) * DBN + wn + j * 8 + tq * 2) =
+            make_int2(acc[j][2 * h], acc[j][2 * h + 1]);
+    if (kAsym && warp == 0 && tq == 0) {
+      part[DBM * DBN + gr] = rsum[0];
+      part[DBM * DBN + gr + 8] = rsum[1];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      is_last = atomicAdd(tickets + tile, 1) == (int)gridDim.z - 1;
+      if (is_last) tickets[tile] = 0;     // every split has its ticket
+    }
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    const int* part0 = ws + tile * gridDim.z * D_PART;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+    rsum[0] = rsum[1] = 0;
+    for (int z = 0; z < (int)gridDim.z; ++z) {
+      const int* pz = part0 + (size_t)z * D_PART;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int2 v = __ldcg(reinterpret_cast<const int2*>(
+              pz + (gr + 8 * h) * DBN + wn + j * 8 + tq * 2));
+          acc[j][2 * h] += v.x;
+          acc[j][2 * h + 1] += v.y;
+        }
+      if constexpr (kAsym) {
+        rsum[0] += __ldcg(pz + DBM * DBN + gr);
+        rsum[1] += __ldcg(pz + DBM * DBN + gr + 8);
+      }
+    }
+  }
+
+  // epilogue: K2's, (acc * s_a) * s_b [+ (rsum * s_a) * zp], rounded once
+  const float* sb = s_b + (size_t)g * N;
+  const float* zb = kAsym ? zp + (size_t)g * N : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + gr + h * 8;
+    if (row < row_lo || row >= row_hi) continue;
+    const float sa = s_a[row];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = n0 + wn + j * 8 + tq * 2;
+      if (col >= N) continue;
+      float x = (float)acc[j][2 * h] * sa * sb[col];
+      float y = (float)acc[j][2 * h + 1] * sa * sb[col + 1];
+      if constexpr (kAsym) {
+        const float rs = __fmul_rn((float)rsum[h], sa);
+        x = __fadd_rn(x, __fmul_rn(rs, zb[col]));
+        y = __fadd_rn(y, __fmul_rn(rs, zb[col + 1]));
+      }
+      store2(out + (size_t)row * N + col, x, y);
+    }
+  }
+}
+
+// The schedule a launch takes, as the wrapper computed it
+// (ops/gmm_w8a8.py::int8_gmm_schedule): bm 64 (prefill body) or 16 (decode
+// body), grid_m m-tiles, splits x kt_per_split k-tiles; ws [grid_n * grid_m
+// * splits * D_PART] int32 and tickets [grid_n * grid_m] (zero) when splits
+// > 1.
+struct Int8Schedule {
+  int bm, grid_m, splits, kt_per_split;
+  int* ws;
+  int* tickets;
+};
+
 template <typename OutT, int kStorage, bool kAsym>
 cudaError_t launch_typed(const int8_t* lhs, const float* s_a, const int8_t* rhs,
                          const float* s_b, const float* zp, const int* gs,
                          const int* pflags,
                          const int* blk, void* out, int M, int K, int N, int E,
-                         cudaStream_t st) {
+                         const Int8Schedule& sc, cudaStream_t st) {
   if (M > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM + E - 1);
-    gmm_int8_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(
-        lhs, s_a, rhs, s_b, zp, gs, pflags, blk, static_cast<OutT*>(out), M, K, N,
-        E);
+    if (sc.bm == DBM) {
+      dim3 grid((N + DBN - 1) / DBN, sc.grid_m, sc.splits);
+      gmm_int8_decode_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pflags, blk, static_cast<OutT*>(out), sc.ws,
+          sc.tickets, M, K, N, E, sc.kt_per_split);
+    } else if (sc.bm == BM) {
+      dim3 grid((N + BN - 1) / BN, sc.grid_m);
+      gmm_int8_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pflags, blk, static_cast<OutT*>(out), M, K,
+          N, E);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   return cudaGetLastError();
 }
@@ -309,7 +572,9 @@ template <int kStorage, bool kAsym = false>
 int gmm_int8_launch(const void* lhs, const void* s_a, const void* rhs,
                     const void* s_b, const void* zp, const void* group_sizes,
                     const void* pflags, const void* blk_offsets, void* out,
-                    int out_is_bf16, int M, int K, int N, int E, void* stream) {
+                    int out_is_bf16, int M, int K, int N, int E, int bm,
+                    int grid_m, int splits, int kt_per_split, void* ws,
+                    void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const int8_t* b = static_cast<const int8_t*>(rhs);
@@ -319,11 +584,13 @@ int gmm_int8_launch(const void* lhs, const void* s_a, const void* rhs,
   const int* gs = static_cast<const int*>(group_sizes);
   const int* pf = static_cast<const int*>(pflags);
   const int* blk = static_cast<const int*>(blk_offsets);
+  const Int8Schedule sc{bm, grid_m, splits, kt_per_split, static_cast<int*>(ws),
+                        static_cast<int*>(tickets)};
   cudaError_t e = out_is_bf16
       ? launch_typed<__nv_bfloat16, kStorage, kAsym>(a, sa, b, sb, z, gs, pf, blk,
-                                                     out, M, K, N, E, st)
+                                                     out, M, K, N, E, sc, st)
       : launch_typed<float, kStorage, kAsym>(a, sa, b, sb, z, gs, pf, blk, out,
-                                             M, K, N, E, st);
+                                             M, K, N, E, sc, st);
   return (int)e;
 }
 

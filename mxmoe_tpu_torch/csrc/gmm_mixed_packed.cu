@@ -85,10 +85,13 @@ extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
                                       const void* pflags,
                                       const void* blk_offsets, void* out,
                                       int out_is_bf16, int M, int K, int N,
-                                      int E, void* stream) {
+                                      int E, int bm, int grid_m, int splits,
+                                      int kt_per_split, void* ws, void* tickets,
+                                      void* stream) {
   return gmm_int8_launch<kRaggedMixed>(lhs, s_a, rhs_cat, s_b, nullptr,
                                        group_sizes, pflags, blk_offsets, out,
-                                       out_is_bf16, M, K, N, E, stream);
+                                       out_is_bf16, M, K, N, E, bm, grid_m,
+                                       splits, kt_per_split, ws, tickets, stream);
 }
 
 // zp may be null (no asymmetric scheme: the row-sum term is compiled out)

@@ -19,8 +19,11 @@ extern "C" int mxmoe_gmm_w4a8_packed(const void* lhs, const void* s_a,
                                      const void* rhs_packed, const void* s_b,
                                      const void* group_sizes, void* out,
                                      int out_is_bf16, int M, int K, int N,
-                                     int E, void* stream) {
+                                     int E, int bm, int grid_m, int splits,
+                                     int kt_per_split, void* ws, void* tickets,
+                                     void* stream) {
   return gmm_int8_launch<kPackedStacked>(lhs, s_a, rhs_packed, s_b, nullptr,
                                          group_sizes, nullptr, nullptr, out,
-                                         out_is_bf16, M, K, N, E, stream);
+                                         out_is_bf16, M, K, N, E, bm, grid_m,
+                                         splits, kt_per_split, ws, tickets, stream);
 }

@@ -13,13 +13,14 @@
 //
 // Bound on the H100: weight bytes. Every expert a batch touches streams its
 // K x N int8 weights once per m-tile (decode: 16 rows over <=16 experts is
-// ~90 MB at gate_up width; prefill with 1024 rows touches all 60 experts,
-// ~350 MB against ~12 GOP, still below the int8 ridge). The kernel, its
-// schedule and its tiles are in gmm_int8_tile.cuh (storage kInt8Stacked),
-// shared with the packed-storage kernels. With E = 1 it is also the dense
-// int8 product of the real-quantized shared expert.
-// Later work: cp.async / TMA multi-stage pipelines, wgmma, and a persistent
-// weight-stationary schedule.
+// ~80 MB at gate_up width; prefill with 1024 rows touches all 60 experts,
+// ~350 MB against ~12 GOP, still below the int8 ridge). The kernel, its two
+// schedules (a 64 x 128 tile for prefill; one m16 row block, a cp.async
+// ring of raw weight tiles and split-K for decode) and its tiles are in
+// gmm_int8_tile.cuh (storage kInt8Stacked), shared with the packed-storage
+// kernels. With E = 1 it is also the dense int8 product of the
+// real-quantized shared expert. Later work: TMA and wgmma for the prefill
+// tile, a persistent weight-stationary schedule.
 
 #include "gmm_int8_tile.cuh"
 
@@ -27,8 +28,10 @@ extern "C" int mxmoe_gmm_w8a8(const void* lhs, const void* s_a,
                               const void* rhs, const void* s_b,
                               const void* group_sizes, void* out,
                               int out_is_bf16, int M, int K, int N, int E,
-                              void* stream) {
+                              int bm, int grid_m, int splits, int kt_per_split,
+                              void* ws, void* tickets, void* stream) {
   return gmm_int8_launch<kInt8Stacked>(lhs, s_a, rhs, s_b, nullptr,
                                        group_sizes, nullptr, nullptr, out,
-                                       out_is_bf16, M, K, N, E, stream);
+                                       out_is_bf16, M, K, N, E, bm, grid_m,
+                                       splits, kt_per_split, ws, tickets, stream);
 }

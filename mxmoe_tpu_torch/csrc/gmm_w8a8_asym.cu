@@ -24,8 +24,12 @@ extern "C" int mxmoe_gmm_w8a8_asym(const void* lhs, const void* s_a,
                                    const void* rhs, const void* s_b,
                                    const void* zp, const void* group_sizes,
                                    void* out, int out_is_bf16, int M, int K,
-                                   int N, int E, void* stream) {
+                                   int N, int E, int bm, int grid_m, int splits,
+                                   int kt_per_split, void* ws, void* tickets,
+                                   void* stream) {
   return gmm_int8_launch<kInt8Stacked, true>(lhs, s_a, rhs, s_b, zp,
                                              group_sizes, nullptr, nullptr, out,
-                                             out_is_bf16, M, K, N, E, stream);
+                                             out_is_bf16, M, K, N, E, bm, grid_m,
+                                             splits, kt_per_split, ws, tickets,
+                                             stream);
 }

@@ -32,7 +32,8 @@ import torch
 
 from . import kernels
 from ..quant.packing import unpack_int4_halves
-from .gmm_w8a8 import check_int8_gmm_operands, grouped_int8_plain
+from .gmm_w8a8 import (check_int8_gmm_operands, grouped_int8_plain,
+                       int8_launch_schedule)
 from .gmm_w8a8_grouped import grouped_scale_plain
 
 
@@ -112,11 +113,12 @@ def gmm_mixed_packed(
             out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
             kernels.stream_ptr(lhs_q.device))
     else:
+        sched, _ws = int8_launch_schedule(lhs_q, rhs_cat, n, e)
         err = kernels.lib().mxmoe_gmm_mixed_packed(
             lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
             rhs_scale.data_ptr(), group_sizes.data_ptr(), pflags.data_ptr(),
             blk_offsets.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), m, k, n, e,
+            int(out_dtype == torch.bfloat16), m, k, n, e, *sched,
             kernels.stream_ptr(lhs_q.device))
     kernels.check(err, name)
     kernels.launches[name] += 1

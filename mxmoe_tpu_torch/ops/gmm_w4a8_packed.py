@@ -16,7 +16,8 @@ import torch
 
 from . import kernels
 from ..quant.packing import unpack_int4_halves
-from .gmm_w8a8 import check_int8_gmm_operands, grouped_int8_plain
+from .gmm_w8a8 import (check_int8_gmm_operands, grouped_int8_plain,
+                       int8_launch_schedule)
 
 
 def gmm_w4a8_packed_plain(lhs_q, lhs_scale, rhs_packed, rhs_scale, group_sizes,
@@ -47,10 +48,11 @@ def gmm_w4a8_packed(
                     f"gmm_w4a8_packed: rhs_packed {tuple(rhs_packed.shape)} for "
                     f"K={k} (a multiple of 32), N={n}")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
+    sched, _ws = int8_launch_schedule(lhs_q, rhs_packed, n, e, packed=True)
     err = kernels.lib().mxmoe_gmm_w4a8_packed(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_packed.data_ptr(),
         rhs_scale.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e,
+        int(out_dtype == torch.bfloat16), m, k, n, e, *sched,
         kernels.stream_ptr(lhs_q.device))
     kernels.check(err, "gmm_w4a8_packed")
     kernels.launches["gmm_w4a8_packed"] += 1

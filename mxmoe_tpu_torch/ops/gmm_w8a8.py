@@ -13,14 +13,93 @@ Rows past ``sum(group_sizes)`` are left unwritten by the kernel
 
 The layer-stacked weight metadata of the TPU kernel (``group_base``,
 ``num_total_groups``) is not ported: a layer's weights are the view
-``w[layer]``. The TPU tile knobs (bm/bn/bk) are the kernel's own business.
+``w[layer]``. The TPU tile knobs (bm/bn/bk) have no counterpart: the card's
+schedule is ``int8_gmm_schedule``'s, shared by K2, K4, K5 and K9.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import kernels
+
+SMS = 132          # streaming multiprocessors of the H100
+SPLIT_BLOCKS = 2 * SMS    # K is split when a decode grid has fewer blocks
+DECODE_M = 64      # rows up to which the decode schedule (m16 tiles) is taken
+K_TILE = 64        # storage rows of one k-tile, both schedules
+_PART_INTS = 16 * 64 + 16    # int32 of one split's partial: m16 x 64 + row sums
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8GemmSchedule:
+    """How one launch of the int8 grouped GEMM body (K2 / K4 / K5 / K9)
+    covers [M, N]: ``bm`` x ``bn`` block tiles over ``grid_n`` x ``grid_m``
+    (logical m-tiles), K cut into ``splits`` ranges of ``k_tiles_per_split``
+    k-tiles; a split-K launch needs ``ws_ints`` int32 of workspace and
+    ``tickets`` zeroed counters."""
+    bm: int
+    bn: int
+    grid_n: int
+    grid_m: int
+    splits: int
+    k_tiles_per_split: int
+    ws_ints: int
+    tickets: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_n * self.grid_m * self.splits
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
+                      aligned: bool = True) -> Int8GemmSchedule:
+    """The one place the int8 grouped GEMM's schedule is chosen, from the
+    shapes the host knows (no sync on the routing).
+
+    Decode (``m <= DECODE_M``, N a multiple of 16, 16-byte aligned weights):
+    one m16 row block x 64 columns a block; the m-tiles are bounded by M
+    itself, since every live tile holds a row. When fewer than two blocks an
+    SM would run (``SPLIT_BLOCKS``), K is split into whole k-tiles so the
+    grid fills the card (at most 16 splits). Otherwise the prefill tile, 64 x 128,
+    over cdiv(M, 64) + E - 1 logical m-tiles. ``packed``: every expert's
+    storage holds K/2 rows (a ragged buffer's int8 experts hold K, and the
+    split is taken over K)."""
+    kw = k // 2 if packed else k
+    kt = max(_cdiv(kw, K_TILE), 1)
+    if m <= DECODE_M and n % 16 == 0 and aligned:
+        grid_n, grid_m = _cdiv(n, 64), min(_cdiv(m, 16) + e - 1, m)
+        base = grid_n * grid_m
+        tps = kt
+        if 0 < base < SPLIT_BLOCKS:
+            tps = _cdiv(kt, min(_cdiv(SPLIT_BLOCKS, base), kt, 16))
+        splits = _cdiv(kt, tps)
+        if splits == 1:
+            return Int8GemmSchedule(16, 64, grid_n, grid_m, 1, kt, 0, 0)
+        return Int8GemmSchedule(16, 64, grid_n, grid_m, splits, tps,
+                                base * splits * _PART_INTS, base)
+    return Int8GemmSchedule(64, 128, _cdiv(n, 128), _cdiv(m, 64) + e - 1, 1, kt,
+                            0, 0)
+
+
+def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False):
+    """``int8_gmm_schedule`` for these operands -> the C entry points'
+    schedule arguments (bm, grid_m, splits, k_tiles_per_split, workspace,
+    tickets) and the split-K workspace tensor (or None), which the caller
+    keeps alive until the launch is queued."""
+    m, k = lhs_q.shape
+    sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0)
+    if sched.splits == 1:
+        return (sched.bm, sched.grid_m, 1, sched.k_tiles_per_split, None, None), None
+    ws = torch.empty((sched.ws_ints,), dtype=torch.int32, device=lhs_q.device)
+    tk = kernels.tickets(lhs_q.device, sched.tickets)
+    return (sched.bm, sched.grid_m, sched.splits, sched.k_tiles_per_split,
+            ws.data_ptr(), tk.data_ptr()), ws
 
 
 # k-terms per float32 product in exact_int8_matmul: 1024 products of int8
@@ -59,6 +138,42 @@ def grouped_int8_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
         if end > start:
             acc = exact_int8_matmul(lhs_q[start:end], weight_of(e))
             res = acc.float() * lhs_scale[start:end] * rhs_scale[e]
+            out[start:end] = res.to(out_dtype)
+        start += size
+    return out
+
+
+def int8_split_k_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
+                       k_tiles_per_split: int, packed_of=lambda e: False,
+                       rhs_zp=None, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The decode schedule's split-K order, in plain PyTorch (for the tests):
+    per expert, its storage rows (K, or K/2 when ``packed_of(e)``: row r
+    holds codes r and K/2 + r) in ranges of ``k_tiles_per_split`` k-tiles,
+    one exact int32 partial per range (and the activations' row sums with
+    ``rhs_zp``), added in range order, then the epilogue of the plain
+    versions: ``(acc * s_a) * s_b [+ (rsum * s_a) * zp]``."""
+    m, k = lhs_q.shape
+    n = rhs_scale.shape[-1]
+    step = k_tiles_per_split * K_TILE
+    out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, m)
+        if end > start:
+            a, w = lhs_q[start:end], weight_of(e)
+            kw = k // 2 if packed_of(e) else k
+            acc = torch.zeros((end - start, n), dtype=torch.int32, device=a.device)
+            rsum = torch.zeros((end - start, 1), dtype=torch.int32, device=a.device)
+            for s0 in range(0, kw, step):
+                s1 = min(s0 + step, kw)
+                spans = [(s0, s1)] + ([(k // 2 + s0, k // 2 + s1)] if kw < k else [])
+                for r0, r1 in spans:
+                    acc += exact_int8_matmul(a[:, r0:r1], w[r0:r1])
+                    rsum += a[:, r0:r1].to(torch.int32).sum(-1, keepdim=True)
+            sa = lhs_scale[start:end]
+            res = acc.float() * sa * rhs_scale[e]
+            if rhs_zp is not None:
+                res = res + rsum.float() * sa * rhs_zp[e]
             out[start:end] = res.to(out_dtype)
         start += size
     return out
@@ -122,10 +237,11 @@ def gmm_w8a8(
     kernels.require(rhs_q.shape == (e, k, n) and rhs_scale.shape[0] == e,
                     f"gmm_w8a8: rhs {tuple(rhs_q.shape)} for K={k}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    sched, _ws = int8_launch_schedule(lhs_q, rhs_q, n, e)
     err = kernels.lib().mxmoe_gmm_w8a8(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e,
+        int(out_dtype == torch.bfloat16), m, k, n, e, *sched,
         kernels.stream_ptr(dev))
     kernels.check(err, "gmm_w8a8")
     kernels.launches["gmm_w8a8"] += 1

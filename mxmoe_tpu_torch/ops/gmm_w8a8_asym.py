@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gmm_w8a8 import check_int8_gmm_operands, exact_int8_matmul
+from .gmm_w8a8 import (check_int8_gmm_operands, exact_int8_matmul,
+                       int8_launch_schedule)
 
 
 def gmm_w8a8_asym_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, rhs_zp, group_sizes,
@@ -64,10 +65,11 @@ def gmm_w8a8_asym(
                     f"gmm_w8a8_asym: rhs_zp {tuple(rhs_zp.shape)} {rhs_zp.dtype} "
                     f"must be float32 [E, 1, N]")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
+    sched, _ws = int8_launch_schedule(lhs_q, rhs_q, n, e)
     err = kernels.lib().mxmoe_gmm_w8a8_asym(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), rhs_zp.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e,
+        out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e, *sched,
         kernels.stream_ptr(lhs_q.device))
     kernels.check(err, "gmm_w8a8_asym")
     kernels.launches["gmm_w8a8_asym"] += 1

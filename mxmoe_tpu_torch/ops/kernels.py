@@ -45,37 +45,44 @@ KERNELS = ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
 launches = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SCHED = [_I, _I, _I, _I, _P, _P]
 _SIGNATURES = {
     # x, x_is_bf16, bits, gain, q, scale, M, K, stream
     "mxmoe_quantize_rows": [_P, _I, _P, _F, _P, _P, _I, _I, _P],
-    # lhs, s_a, rhs, s_b, group_sizes, out, out_is_bf16, M, K, N, E, stream
-    "mxmoe_gmm_w8a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the int8 grouped GEMMs (K2, K4, K5, K9) end in the schedule of
+    # gmm_w8a8.int8_gmm_schedule: bm, grid_m, splits, k_tiles_per_split,
+    # workspace, tickets; then the stream.
+    # lhs, s_a, rhs, s_b, group_sizes, out, out_is_bf16, M, K, N, E, ...
+    "mxmoe_gmm_w8a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_SCHED, _P],
     # q, k_new, v_new, is_bf16, cache_k, cache_v, lengths, valid, out,
-    # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
-    "mxmoe_decode_attention_update": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # workspace, tickets, layer, B, n_h, n_kv, S, dk, dv, chunk, n_split,
+    # scale, stream
+    "mxmoe_decode_attention_update": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_new, v_new, is_bf16, cache_k, cache_ks, cache_v, cache_vs, lengths,
-    # valid, out, workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
+    # valid, out, workspace, tickets, layer, B, n_h, n_kv, S, dk, dv, chunk,
+    # n_split, scale, stream
     "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                         _P],
+                                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _F, _P],
     # the read-only forms: q, is_bf16, cache_k, cache_v, lengths, out,
-    # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
-    "mxmoe_decode_attention": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+    # workspace, tickets, layer, B, n_h, n_kv, S, dk, dv, chunk, n_split,
+    # scale, stream
+    "mxmoe_decode_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _P],
     # q, is_bf16, cache_k, cache_ks, cache_v, cache_vs, lengths, out,
-    # workspace, layer, B, n_h, n_kv, S, dk, dv, scale, stream
-    "mxmoe_decode_attention_q8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _P],
-    # B, n_h, n_kv, S, dv -> float32 workspace elements of the four calls above
-    "mxmoe_decode_attention_workspace_floats": [_I, _I, _I, _I, _I],
+    # workspace, tickets, layer, B, n_h, n_kv, S, dk, dv, chunk, n_split,
+    # scale, stream
+    "mxmoe_decode_attention_q8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # lhs, s_a, rhs_cat, s_b, group_sizes, pflags, blk_offsets, out,
-    # out_is_bf16, M, K, N, E, stream
+    # out_is_bf16, M, K, N, E, schedule, stream
     "mxmoe_gmm_mixed_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _P],
+                               _I, *_SCHED, _P],
     # lhs, s_a, rhs_packed, s_b, group_sizes, out, out_is_bf16, M, K, N, E,
-    # stream
-    "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # schedule, stream
+    "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_SCHED,
+                              _P],
     # lhs, rhs_q | rhs_packed, scale, zp, group_sizes, out, out_is_bf16, M, K,
     # N, E, gsize, stream
     "mxmoe_gmm_weight_only": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -85,8 +92,10 @@ _SIGNATURES = {
     # K, N, E, gsize, stream
     "mxmoe_gmm_w8a8_grouped": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P],
-    # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E, stream
-    "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E,
+    # schedule, stream
+    "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            *_SCHED, _P],
     # lhs, s_a, rhs_cat, s_b, zp (may be null), group_sizes, pflags,
     # blk_offsets, out, out_is_bf16, M, K, N, E, gsize, stream
     "mxmoe_gmm_mixed_packed_flex": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -192,6 +201,22 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+_tickets: dict = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 tickets on ``device``, all 0: the counters by which the
+    last block of a tile or head finds itself (decode attention, split-K).
+    Kept across calls: the last block resets its ticket to 0, so they are
+    zeroed once, when first made or grown."""
+    key = (device.type, device.index)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
 
 
 def check(err: int, name: str) -> None:

@@ -1,6 +1,7 @@
 """Decode attention over the KV cache (port of
-``mxmoe_tpu/serving/decode_attention.py``), all in
-``csrc/decode_attention.cu``:
+``mxmoe_tpu/serving/decode_attention.py``), in
+``csrc/decode_attention.cu`` (bf16 cache) and ``decode_attention_q8.cu``
+(int8 cache) over one body in ``decode_attention_tile.cuh``:
 
 - ``decode_attention_update_stacked``, the serving path's: kernels K3 (bf16
   cache) and K3q (int8 cache). One call per decode layer: write this step's
@@ -25,6 +26,12 @@
 Every kernel takes the K3 domain: G = n_h / n_kv <= 8, dk in {64, 128, 256},
 dv <= 128 and a multiple of 8 (16 for an int8 cache); elsewhere a CUDA
 tensor raises (a CPU tensor takes the plain version at any shape).
+
+The kernels split S into chunks of ``DA_CHUNK`` positions, one warp each,
+in tiles of ``DA_TILE`` positions with an online softmax per warp; a block's
+chunks are merged in order, then the blocks' partials in order (``decode_attn_schedule`` sizes the
+workspace; ``decode_attention_split_plain`` emulates that order on the CPU
+for the tests).
 """
 
 from __future__ import annotations
@@ -33,6 +40,86 @@ import torch
 
 from ..ops import kernels
 from .kv_cache import _quant_vec
+
+
+DA_CHUNK = 64      # positions of one warp's chunk
+DA_WARPS = 4       # warps (chunks) of one block: an S-block of 4 chunks
+DA_TILE = 16       # positions of one staged tile inside a chunk
+
+
+def decode_attn_schedule(b: int, n_h: int, n_kv: int, s_max: int, dv: int) -> dict:
+    """The kernels' split of S, in one place: ``DA_CHUNK`` positions a warp,
+    S-blocks of ``DA_WARPS`` chunks a block, ``n_split`` = cdiv(S, DA_WARPS *
+    DA_CHUNK) block partials per (slot, kv head), the f32 workspace they fill
+    ([B, n_kv, n_split, G, dv + 2]) and one ticket per (slot, kv head). The
+    C side takes these as given."""
+    n_split = -(-s_max // (DA_WARPS * DA_CHUNK))
+    return {"chunk": DA_CHUNK, "n_split": n_split,
+            "ws_floats": b * n_h * n_split * (dv + 2), "tickets": b * n_kv,
+            "blocks": n_kv * b * n_split}
+
+
+def _merge(parts):
+    """Partials (acc, max, sum) merged in their order."""
+    m_all = torch.stack([p[1] for p in parts]).amax(0)
+    l_all = torch.zeros_like(parts[0][2])
+    a_all = torch.zeros_like(parts[0][0])
+    for acc, m, l in parts:
+        f = torch.exp(m - m_all)
+        l_all = l_all + l * f
+        a_all = a_all + acc * f[..., None]
+    return a_all, m_all, l_all
+
+
+def decode_attention_split_plain(q, keys, vals, k_sc, v_sc, lengths, scale,
+                                 chunk: int = DA_CHUNK, tile: int = DA_TILE):
+    """The kernels' order of work, in plain f32 PyTorch (for the tests): the
+    attended positions of a slot in chunks of ``chunk``, each chunk an online
+    softmax over tiles of ``tile`` positions -> (acc, max, sum); the chunks
+    of an S-block (``DA_WARPS`` of them) merged in order, then the blocks in
+    order. ``keys`` / ``vals`` [B, n_kv, S, d] (int8 codes as floats with
+    scales [B, n_kv, S], or None). Returns [B, n_h, dv] f32."""
+    b, n_h, dk = q.shape
+    n_kv, s_max, dv = keys.shape[1], keys.shape[2], vals.shape[-1]
+    g = n_h // n_kv
+    qg = q.float().reshape(b, n_kv, g, dk)
+    out = torch.empty((b, n_kv, g, dv), dtype=torch.float32)
+    for bi in range(b):
+        n_pos = min(max(int(lengths[bi]), 0), s_max - 1) + 1
+        chunks = []
+        for c0 in range(0, n_pos, chunk):
+            m = torch.full((n_kv, g), float("-inf"))
+            l = torch.zeros((n_kv, g))
+            acc = torch.zeros((n_kv, g, dv))
+            for p0 in range(c0, min(c0 + chunk, n_pos), tile):
+                p1 = min(p0 + tile, c0 + chunk, n_pos)
+                s = torch.einsum("ngd,npd->ngp", qg[bi], keys[bi, :, p0:p1].float())
+                if k_sc is not None:
+                    s = s * k_sc[bi, :, None, p0:p1]
+                s = s * scale
+                m_new = torch.maximum(m, s.amax(-1))
+                e = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + e.sum(-1)
+                m = m_new
+                if v_sc is not None:
+                    e = e * v_sc[bi, :, None, p0:p1]
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "ngp,npd->ngd", e, vals[bi, :, p0:p1].float())
+            chunks.append((acc, m, l))
+        blocks = [_merge(chunks[i:i + DA_WARPS]) for i in range(0, len(chunks), DA_WARPS)]
+        a_all, _, l_all = _merge(blocks)
+        out[bi] = a_all / l_all.clamp_min(1e-30)[..., None]
+    return out.reshape(b, n_h, dv)
+
+
+def _workspace(b, n_h, n_kv, s_max, dv, device):
+    """The launch's workspace and tickets, sized by ``decode_attn_schedule``
+    -> (ws pointer, tickets pointer, chunk, n_split, workspace tensor)."""
+    sch = decode_attn_schedule(b, n_h, n_kv, s_max, dv)
+    ws = torch.empty((sch["ws_floats"],), dtype=torch.float32, device=device)
+    tk = kernels.tickets(device, sch["tickets"])
+    return ws.data_ptr(), tk.data_ptr(), sch["chunk"], sch["n_split"], ws
 
 
 def _masked_step_write(cache, new, lengths, layer, valid):
@@ -182,12 +269,11 @@ def decode_attention_update_stacked(
         and valid.shape == (b,), f"{name}: k_new / v_new / valid")
     lib = kernels.lib()
     out = torch.empty((b, n_h, dv), dtype=q.dtype, device=dev)
-    ws = torch.empty(lib.mxmoe_decode_attention_workspace_floats(
-        b, n_h, n_kv, s_max, dv), dtype=torch.float32, device=dev)
+    ws, tk, chunk, n_split, _ws = _workspace(b, n_h, n_kv, s_max, dv, dev)
     head = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             int(q.dtype == torch.bfloat16))
-    tail = (lengths.data_ptr(), valid.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            int(layer), b, n_h, n_kv, s_max, dk, dv, float(scale),
+    tail = (lengths.data_ptr(), valid.data_ptr(), out.data_ptr(), ws, tk,
+            int(layer), b, n_h, n_kv, s_max, dk, dv, chunk, n_split, float(scale),
             kernels.stream_ptr(dev))
     if quant:
         err = lib.mxmoe_decode_attention_update_q8(
@@ -221,11 +307,10 @@ def _read_only_launch(name, q, cache_k, cache_ks, cache_v, cache_vs, lengths,
     n_kv, s_max, dv = cache_k.shape[2], cache_k.shape[3], cache_v.shape[-1]
     lib = kernels.lib()
     out = torch.empty((b, n_h, dv), dtype=q.dtype, device=q.device)
-    ws = torch.empty(lib.mxmoe_decode_attention_workspace_floats(
-        b, n_h, n_kv, s_max, dv), dtype=torch.float32, device=q.device)
+    ws, tk, chunk, n_split, _ws = _workspace(b, n_h, n_kv, s_max, dv, q.device)
     head = (q.data_ptr(), int(q.dtype == torch.bfloat16))
-    tail = (lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), int(layer), b,
-            n_h, n_kv, s_max, dk, dv, float(scale), kernels.stream_ptr(q.device))
+    tail = (lengths.data_ptr(), out.data_ptr(), ws, tk, int(layer), b, n_h, n_kv,
+            s_max, dk, dv, chunk, n_split, float(scale), kernels.stream_ptr(q.device))
     if cache_ks is None:
         err = lib.mxmoe_decode_attention(*head, cache_k.data_ptr(),
                                          cache_v.data_ptr(), *tail)

@@ -29,7 +29,10 @@ K11 within ``gmm.error_over_bound`` (f32 accumulation over K terms, + 1 bf16
 ulp for a bf16 output) of the float64 product, for bf16 and f32 operands.
 K12 (the whole FFN) bitwise its plain version, K13 bitwise its plain version
 and K12 on the equivalent int8 codes, K14 bitwise its plain version and K1 +
-K2, K15 bitwise K2 / K5 on the same aligned layout."""
+K2, K15 bitwise K2 / K5 on the same aligned layout. The int8 grouped GEMM's
+two schedules (``int8_gmm_schedule``: m16 tiles and split-K at decode, the
+64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, and K3 / K3q at
+lengths on the edges of their warp chunks and S-blocks."""
 
 import pytest
 import torch
@@ -799,3 +802,120 @@ def test_flash_attention_backend_on_the_card(dev):
     out = model.forward_logits(params, toks, cfg, MoEImpl(attn_backend="flash"))
     torch.cuda.synchronize()
     assert out.shape == (2, 64, cfg.vocab_size) and bool(torch.isfinite(out).all())
+
+
+# the int8 grouped GEMM's decode schedule (m16 tiles, cp.async ring, split-K)
+# and its prefill tile, through K2 / K4 / K5 / K9 at every M of the schedule's
+# edges: each bitwise its plain version, K4 = K5 = K2 on the same codes
+_SCHED_M = [1, 4, 16, 17, 24, 64, 65, 256]
+
+
+def _spread(m, e, seed):
+    """m rows over e groups, some empty: a decode routing."""
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.bincount(torch.randint(0, e, (m,), generator=g), minlength=e)
+    counts[1] = 0
+    counts[0] += m - int(counts.sum())
+    return counts.tolist()
+
+
+@pytest.mark.parametrize("m", _SCHED_M)
+@pytest.mark.parametrize("layout", ["routed", "one_group"])
+def test_int8_gemm_schedules_bitwise_k2_k4_k5_k9(dev, m, layout):
+    from mxmoe_tpu_torch.ops.gmm_w8a8 import int8_gmm_schedule
+
+    if layout == "routed":
+        sizes, k, n = _spread(m, 12, m), 1408, 2048
+    else:                            # one group: the shared expert, split-K
+        sizes, k, n = [m], 2048, 1024
+    e = len(sizes)
+    sched = int8_gmm_schedule(m, k, n, e)
+    assert (sched.bm == 16) == (m <= 64)
+    if layout == "one_group" and m <= 16:
+        assert sched.splits > 1
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01
+    zp = torch.rand((e, 1, n), generator=g, device=dev) * 0.2 - 0.1
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    for out in (torch.bfloat16, torch.float32):
+        k2 = gmm_w8a8.gmm_w8a8(aq, asc, w8, wsc, gs, out_dtype=out)
+        k9 = gmm_w8a8_asym.gmm_w8a8_asym(aq, asc, w8, wsc, zp, gs, out_dtype=out)
+        k2_4 = gmm_w8a8.gmm_w8a8(aq, asc, w4, wsc, gs, out_dtype=out)
+        packed = pack_int4_halves(w4)
+        k5 = gmm_w4a8_packed.gmm_w4a8_packed(aq, asc, packed, wsc, gs, out_dtype=out)
+        pflags = [i % 2 for i in range(e)]
+        mixed = torch.where(torch.tensor(pflags, dtype=torch.bool, device=dev)[:, None, None],
+                            w4, w8)
+        cat, blk = build_ragged_mixed(mixed, pflags)
+        pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+        blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+        k4 = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk,
+                                               out_dtype=out)
+        k2_mixed = gmm_w8a8.gmm_w8a8(aq, asc, mixed, wsc, gs, out_dtype=out)
+        torch.cuda.synchronize()
+        assert torch.equal(k2, gmm_w8a8.gmm_w8a8_plain(aq, asc, w8, wsc, gs, out))
+        assert torch.equal(k9, gmm_w8a8_asym.gmm_w8a8_asym_plain(aq, asc, w8, wsc, zp,
+                                                                  gs, out))
+        assert torch.equal(k5, gmm_w4a8_packed.gmm_w4a8_packed_plain(
+            aq, asc, packed, wsc, gs, out))
+        assert torch.equal(k5, k2_4)
+        assert torch.equal(k4, gmm_mixed_packed.gmm_mixed_packed_plain(
+            aq, asc, cat, wsc, gs, pf, blk, out_dtype=out))
+        assert torch.equal(k4, k2_mixed)
+
+
+def test_int8_gemm_split_k_tickets_reset_between_launches(dev):
+    """Split-K launches one after another (the tickets left at 0 by each
+    tile's last block) give the same bits every time."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    aq = torch.randint(-127, 128, (4, 5632), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((4, 1), generator=g, device=dev)
+    wq = torch.randint(-127, 128, (1, 5632, 2048), generator=g, device=dev,
+                       dtype=torch.int8)
+    wsc = torch.rand((1, 1, 2048), generator=g, device=dev) * 0.01
+    gs = torch.tensor([4], dtype=torch.int32, device=dev)
+    ref = gmm_w8a8.gmm_w8a8_plain(aq, asc, wq, wsc, gs)
+    for _ in range(5):
+        got = gmm_w8a8.gmm_w8a8(aq, asc, wq, wsc, gs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert int(kernels.tickets(dev, 1).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("groups,dk", [(1, 256), (4, 128), (7, 128)])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_attention_chunk_edges(dev, groups, dk, quant):
+    """K3 / K3q at lengths on the warp-chunk (32) and block (128) edges:
+    the write bitwise, the output within the per-slot bound, and the
+    read-only form bitwise K3 / K3q after their write."""
+    g = torch.Generator(device=dev).manual_seed(groups * dk + quant)
+    nl, n_kv, s_max, layer, dv = 2, 2, 600, 0, 128
+    lens = [0, 15, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 599, 600]
+    b, n_h = len(lens), n_kv * groups
+    caches = _read_only_caches(g, dev, quant, nl, b, n_kv, s_max, dk, dv)
+    caches2 = [None if c is None else c.clone() for c in caches]
+    q = torch.randn((b, n_h, dk), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, n_kv, dk), generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, n_kv, dv), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    valid = torch.ones((b,), dtype=torch.int32, device=dev)
+    valid[3] = 0
+    scale = 1.0 / dk ** 0.5
+    out, _ = da.decode_attention_update_stacked(q, kn, vn, *caches, lengths, layer,
+                                                valid=valid, scale=scale)
+    if quant:
+        ref = da.decode_attention_update_q8_plain(q, kn, vn, *caches2, lengths, layer,
+                                                  valid, scale)
+    else:
+        ref = da.decode_attention_update_plain(q, kn, vn, caches2[0], caches2[2],
+                                               lengths, layer, valid, scale)
+    ro, _ = da.decode_attention_stacked(q, *caches, lengths, layer, scale=scale)
+    torch.cuda.synchronize()
+    for got, want in zip(caches, caches2):
+        assert got is None or torch.equal(got, want)
+    _assert_within_slot_bound(out, ref, torch.bfloat16)
+    assert torch.equal(ro, out)
