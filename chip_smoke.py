@@ -1181,6 +1181,50 @@ def _reference_ffn_setup(seed: int = 7):
             torch.tensor([4, 8, 8, 4, 6], dtype=torch.int32, device=dev))
 
 
+def ffn_row_count_edges(aq, asc, wgu, sgu, wd, sd, bits) -> None:
+    """K12 and K13 (no / every other / every expert packed) bitwise their
+    plain versions and each other, each launch counted once, at qwen2_moe's
+    widths with 1, 16, 17, 32, 33 and 64 rows an expert (an empty expert
+    among them), unaligned: the cluster body's one- and two-fragment tiles
+    and tiles that straddle two experts."""
+    import torch
+
+    from mxmoe_tpu_torch.ops import gmm_ffn, kernels
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed
+
+    counts = [1, 16, 0, 17, 32, 33, 64]
+    e, rows = len(counts), sum(counts)
+    dev = aq.device
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    a, sa = aq[:rows + 8].contiguous(), asc[:rows + 8].contiguous()
+    wg, sg, w2, s2, b = wgu[:e], sgu[:e], wd[:e], sd[:e], bits[:e].contiguous()
+    for label, pf in (("none packed", [0] * e),
+                      ("alternating", [int(i % 2 == 0) for i in range(e)]),
+                      ("all packed", [1] * e)):
+        pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+        wg4, w24 = torch.where(pfb, wg.clamp(-8, 7), wg), torch.where(pfb, w2.clamp(-8, 7), w2)
+        gu_cat, gu_blk = build_ragged_mixed(wg4, pf)
+        d_cat, d_blk = build_ragged_mixed(w24, pf)
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+        args = (a, sa, gu_cat, sg, i32(pf), i32(gu_blk), d_cat, s2, i32(pf), i32(d_blk), gs, b)
+        n12, n13 = kernels.launches["gmm_ffn_w8a8"], kernels.launches["gmm_ffn_mixed_packed"]
+        k12 = gmm_ffn.gmm_ffn_w8a8(a, sa, wg4, sg, w24, s2, gs, b)
+        k13 = gmm_ffn.gmm_ffn_mixed_packed(*args)
+        once = (kernels.launches["gmm_ffn_w8a8"] == n12 + 1
+                and kernels.launches["gmm_ffn_mixed_packed"] == n13 + 1)
+        p12 = gmm_ffn.gmm_ffn_w8a8_plain(a, sa, wg4, sg, w24, s2, gs, b)
+        p13 = gmm_ffn.gmm_ffn_mixed_packed_plain(*args)
+        torch.cuda.synchronize()
+        _require_equal(k12[:rows], p12[:rows], f"K12 vs plain at row-count edges, {label}")
+        _require_equal(k13[:rows], p13[:rows], f"K13 vs plain at row-count edges, {label}")
+        _require_equal(k13[:rows], k12[:rows], f"K13 vs K12 at row-count edges, {label}")
+        if not once:
+            raise AssertionError("K12 / K13 at the row-count edges: a call did not count "
+                                 "exactly one launch")
+        emit("kernels", kernel="gmm_ffn_w8a8 / gmm_ffn_mixed_packed", use="row-count edges",
+             rows_per_expert=counts, storage=label, bitwise=True, equals_gmm_ffn_w8a8=True)
+
+
 def fused_kernels_vs_plain(rec: dict) -> None:
     """K12-K15. K12 (gmm_ffn_w8a8) and K13 (gmm_ffn_mixed_packed) at the
     decode and prefill shapes over the aligned dispatch (32 rows): K12
@@ -1190,10 +1234,13 @@ def fused_kernels_vs_plain(rec: dict) -> None:
     test's set-up also within 2e-4 of the f32 oracle. K13 bitwise its plain
     version and K12 on the equivalent int8 codes (no expert packed, every
     other, all), timed beside its two-launch path (K4 + SwiGLU + K1 + K4).
-    K14 (gmm_w8a8_fusedquant) at the gate_up shape bitwise its
-    plain version and K1 + K2, timed beside them. K15 (gmm_ws) at the
-    headline workload's shapes, rows padded to 128: bitwise K2 (int8) and K5
-    (packed), timed beside them."""
+    K12 and K13 also at row counts on the edges of the cluster body's m16 /
+    m32 fragments (1, 16, 17, 32, 33, 64 rows an expert, unaligned: tiles
+    straddle experts), bitwise as above; both timed by device time beside
+    their two-launch paths. K14 (gmm_w8a8_fusedquant) at the gate_up shape
+    bitwise its plain version and K1 + K2, timed beside them. K15 (gmm_ws)
+    at the headline workload's shapes, rows padded to 128: bitwise K2
+    (int8) and K5 (packed), timed beside them."""
     import torch
 
     from mxmoe_tpu_torch.bench import workloads
@@ -1278,7 +1325,9 @@ def fused_kernels_vs_plain(rec: dict) -> None:
                   lambda: gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits),
                   ffn_work(gs, h, n, h, h * 2 * n + n * h))
         emit("kernels", kernel="gmm_ffn_w8a8", bitwise=True, down_bits="4/6/8",
-             vs_two_launch=gap, two_launch_ms=time_ms(two_launch), **shape, **t)
+             resident_clusters=gmm_ffn.resident_clusters(n, h),
+             vs_two_launch=gap, two_launch_ms=time_ms(two_launch),
+             two_launch_device_ms=device_ms(two_launch), **shape, **t)
         if decode:
             rec["gmm_ffn_w8a8"].update(t)
 
@@ -1315,12 +1364,17 @@ def fused_kernels_vs_plain(rec: dict) -> None:
 
             emit("kernels", kernel="gmm_ffn_mixed_packed", storage=label, bitwise=True,
                  equals_gmm_ffn_w8a8=True, packed_experts=sum(pf),
+                 resident_clusters=gmm_ffn.resident_clusters(n, h, ragged=True),
                  gmm_ffn_w8a8_same_codes_ms=time_ms(
                      lambda: gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu4, sgu, wd4, sd, gs, bits)),
-                 two_launch_ms=time_ms(two_launch_k4), **shape, **t)
+                 two_launch_ms=time_ms(two_launch_k4),
+                 two_launch_device_ms=device_ms(two_launch_k4), **shape, **t)
             if decode and label == "alternating":
                 rec["gmm_ffn_mixed_packed"].update(t)
             del gu_cat, d_cat, wgu4, wd4
+
+        if decode:
+            ffn_row_count_edges(aq, asc, wgu, sgu, wd, sd, bits)
 
         # K14 at the gate_up shape, on the unaligned dispatch
         gs_u = make_dispatch(routing, e).group_sizes

@@ -7,12 +7,23 @@ serving default), by routed rows, on one card.
     python -m mxmoe_tpu_torch.bench.fused_crossover [--quant w8a8_g-1_sym]
 
 The layer has the published widths of Qwen1.5-MoE-A2.7B and seeded random
-weights, quantized as ``bench_serving --quant`` does. Timing: CUDA events
-around one call, the L2 cache overwritten before each, the two arms in
-turns, the median of 15 calls after warm-up, at 4 to 4096 tokens (16 to
-16384 routed rows). Prints one JSON line per token count and a last line with the crossover: the fewest routed rows
-(tokens x top-k) at which the two-launch path was faster, beside the
-reference's ``fused_ffn="auto"`` rule (fuse at up to 2048 routed rows).
+weights, quantized as ``bench_serving --quant`` does. At 4 to 4096 tokens
+(16 to 16384 routed rows), two timings, the L2 cache overwritten before
+each call:
+
+- event time (CUDA events around one call: the layer's host work while the
+  card waits included), the two arms in turns, 31 turns after warm-up; the
+  ratio fused / two-launch of each turn, and its quartiles. An arm is
+  called faster only where the quartiles of the ratio lie on one side of 1,
+  else the point is "unresolved": host time on a shared machine spreads
+  more than the arms differ at some sizes.
+- device time (``bench.timing.device_ms``: the summed durations of the
+  kernels one call launched), median of 25 calls an arm.
+
+Prints one JSON line per token count and a last line with the routed rows
+(tokens x top-k) at which each arm was faster by event time, those left
+unresolved, the fewest routed rows at which two-launch was faster, beside
+the reference's ``fused_ffn="auto"`` rule (fuse at up to 2048 routed rows).
 Needs a card.
 """
 
@@ -30,9 +41,15 @@ from ..models.layers import moe_ffn_ragged_quant
 from ..models.model import init_params
 from ..serving.bench_serving import quantize_for_serving
 from .headline import time_ms
+from .timing import device_ms
 
 TOKENS = (4, 16, 64, 256, 512, 1024, 2048, 4096)
-REPEATS = 15
+REPEATS = 31
+
+
+def _quartiles(v: list) -> tuple:
+    q = statistics.quantiles(v, n=4, method="inclusive")
+    return q[0], statistics.median(v), q[2]
 
 
 def main(argv=None) -> list:
@@ -66,18 +83,26 @@ def main(argv=None) -> list:
                 order = list(calls) if i % 2 == 0 else list(calls)[::-1]
                 for name in order:
                     times[name].append(time_ms(calls[name]))
+            q = _quartiles([f / t for f, t in zip(times["fused"], times["two_launch"])])
+            dev_ms = {name: device_ms(fn) for name, fn in calls.items()}
             row = {"quant": args.quant, "tokens": tokens,
                    "routed_rows": tokens * cfg.top_k,
-                   **{f"{name}_ms": statistics.median(t) for name, t in times.items()}}
+                   **{f"{name}_ms": statistics.median(t) for name, t in times.items()},
+                   "fused_over_two_launch_q25_q50_q75": q,
+                   "verdict": ("fused" if q[2] < 1.0 else "two_launch" if q[0] > 1.0
+                               else "unresolved"),
+                   **{f"{name}_device_ms": t for name, t in dev_ms.items()}}
             row["fused_over_two_launch"] = row["fused_ms"] / row["two_launch_ms"]
+            row["device_fused_over_two_launch"] = (row["fused_device_ms"]
+                                                   / row["two_launch_device_ms"])
             print(json.dumps(row), flush=True)
             rows.append(row)
-    slower = [r["routed_rows"] for r in rows if r["fused_over_two_launch"] > 1.0]
+    at = lambda v: [r["routed_rows"] for r in rows if r["verdict"] == v]
     print(json.dumps({"quant": args.quant,
-                      "crossover_routed_rows": min(slower) if slower else None,
-                      "fused_faster_at_routed_rows": [
-                          r["routed_rows"] for r in rows
-                          if r["fused_over_two_launch"] <= 1.0],
+                      "crossover_routed_rows": min(at("two_launch"), default=None),
+                      "fused_faster_at_routed_rows": at("fused"),
+                      "two_launch_faster_at_routed_rows": at("two_launch"),
+                      "unresolved_at_routed_rows": at("unresolved"),
                       "reference_auto_rule": "fuse at routed rows <= 2048",
                       "device": torch.cuda.get_device_name(dev)}), flush=True)
     return rows

@@ -1,22 +1,32 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
-process on one card: decode attention (K3, K3q and the read-only forms) and
-the int8 grouped GEMM (K2, K4, K5, K9), at the decode shapes of the main
-path, by device time (``bench.timing.device_ms``) and event time, old and
-new in ABBA order.
+process on one card, at the shapes of the main path, by device time
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Three
+case sets, each against the csrc of the commit before its redesign:
 
-    python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR
+* ``gmm`` (against a csrc before the m16 decode schedule of
+  ``gmm_int8_tile.cuh``): the int8 grouped GEMM, K2, K4, K5, K9, at decode;
+* ``attention`` (before the warp-chunk body of ``decode_attention_tile.cuh``):
+  decode attention, K3, K3q and the read-only forms;
+* ``ffn`` (before the cluster body of ``gmm_ffn_tile.cuh``, when one block
+  took an m-tile and hq went through a device workspace): the whole expert
+  FFN, K12 and K13 (every other expert packed), qwen2_moe widths over the
+  32-row aligned dispatch at 16 and 64 routed rows and a 256-token prefill
+  chunk, with the clusters the new body's grid holds (``resident_clusters``:
+  more live m-tiles than that run in rounds).
+
+    python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
 DIR holds the earlier ``mxmoe_tpu_torch/csrc`` (for example
 ``git archive <commit> mxmoe_tpu_torch/csrc | tar -x -C DIR
---strip-components 2``) in a directory that git ignores. Its
-decode_attention.cu and the four int8 GEMM sources are built into a library
-of their own with nvcc and called through their own C entry points, with the
-argument lists they had (``_OLD_SIGNATURES``); nothing in the package
-changes. Both outputs are compared (the GEMMs bitwise). One JSON line per
-case: both times, the bound (bytes of this case's inputs and outputs over
-3.35 TB/s, or operations over the int8 / bf16 peak) and the new body's share
-of it; for the bf16 attention cases also ``scaled_dot_product_attention``'s
-times. Then the card's ``nvidia-smi`` name and power limit.
+--strip-components 2``) in a directory that git ignores. The case sets'
+earlier sources are built into a library of their own with nvcc and called
+through their own C entry points, with the argument lists they had
+(``_OLD``); nothing in the package changes. Both outputs are compared
+(the GEMMs and the FFN bitwise). One JSON line per case: both times, the
+bound (bytes of this case's inputs and outputs over 3.35 TB/s, or
+operations over the int8 / bf16 peak) and the new body's share of it; for
+the bf16 attention cases also ``scaled_dot_product_attention``'s times. Then
+the card's ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
@@ -44,31 +54,39 @@ from .timing import device_ms, event_ms
 REPS = 25          # timed calls a reading, as chip_smoke.py
 HBM = 3.35e12
 PEAK = {"int8": 1979e12, "bf16": 989e12}
-_OLD_SOURCES = ("decode_attention.cu", "gmm_w8a8.cu", "gmm_mixed_packed.cu",
-                "gmm_w4a8_packed.cu", "gmm_w8a8_asym.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_OLD_SIGNATURES = {
-    "mxmoe_gmm_w8a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mxmoe_gmm_mixed_packed": [_P] * 8 + [_I] * 5 + [_P],
-    "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mxmoe_gmm_w8a8_asym": [_P] * 7 + [_I] * 5 + [_P],
-    "mxmoe_decode_attention_update": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P],
-    "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I] + [_P] * 8 + [_I] * 7
-                                        + [_F, _P],
-    "mxmoe_decode_attention": [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
-    "mxmoe_decode_attention_q8": [_P, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-    "mxmoe_decode_attention_workspace_floats": [_I] * 5,
+# case set -> (earlier sources, their C entry points' argument lists)
+_OLD = {
+    "gmm": (("gmm_w8a8.cu", "gmm_mixed_packed.cu", "gmm_w4a8_packed.cu",
+             "gmm_w8a8_asym.cu"), {
+        "mxmoe_gmm_w8a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "mxmoe_gmm_mixed_packed": [_P] * 8 + [_I] * 5 + [_P],
+        "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "mxmoe_gmm_w8a8_asym": [_P] * 7 + [_I] * 5 + [_P]}),
+    "attention": (("decode_attention.cu",), {
+        "mxmoe_decode_attention_update": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7
+                                         + [_F, _P],
+        "mxmoe_decode_attention_update_q8": [_P, _P, _P, _I] + [_P] * 8 + [_I] * 7
+                                            + [_F, _P],
+        "mxmoe_decode_attention": [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+        "mxmoe_decode_attention_q8": [_P, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+        "mxmoe_decode_attention_workspace_floats": [_I] * 5}),
+    # ..., hq workspace, out, out_is_bf16, M, K, N, H, E, stream
+    "ffn": (("gmm_ffn_w8a8.cu", "gmm_ffn_mixed_packed.cu"), {
+        "mxmoe_gmm_ffn_w8a8": [_P] * 10 + [_I] * 6 + [_P],
+        "mxmoe_gmm_ffn_mixed_packed": [_P] * 14 + [_I] * 6 + [_P]}),
 }
 
 
-def build_old(old_csrc: str) -> ctypes.CDLL:
-    """nvcc the earlier sources (one process each, together), link, load."""
+def build_old(old_csrc: str, cases) -> ctypes.CDLL:
+    """nvcc the case sets' earlier sources (one process each, together),
+    link, load."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
     out_dir = tempfile.mkdtemp(dir=kernels.BUILD_DIR, prefix="old_")
     procs = []
-    for name in _OLD_SOURCES:
+    for name in (src for c in cases for src in _OLD[c][0]):
         obj = os.path.join(out_dir, name[:-3] + ".o")
         procs.append((obj, subprocess.Popen(
             [nvcc, *kernels.NVCC_FLAGS, "-c", "-o", obj, os.path.join(old_csrc, name)],
@@ -81,7 +99,7 @@ def build_old(old_csrc: str) -> ctypes.CDLL:
     subprocess.run([nvcc, "-shared", "-o", lib_path,
                     *sorted(glob.glob(os.path.join(out_dir, "*.o")))], check=True)
     lib = ctypes.CDLL(lib_path)
-    for name, argtypes in _OLD_SIGNATURES.items():
+    for name, argtypes in (kv for c in cases for kv in _OLD[c][1].items()):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -344,18 +362,95 @@ def attention_cases(lib, reps: int) -> None:
             del caches
 
 
+# ---------------------------------------------------------------------------
+# the whole expert FFN
+# ---------------------------------------------------------------------------
+
+def ffn_cases(lib, reps: int) -> None:
+    """K12 and K13 (every other expert packed), the one-block-per-tile body
+    against the cluster body."""
+    from ..ops import act_quant, gmm_ffn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg = configs.QWEN2_MOE_A2_7B
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+
+    def quant_w(shape):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        sc = w.abs().amax(1, keepdim=True) / 127.0
+        return torch.round(w / sc).to(torch.int8), sc
+
+    wgu, sgu = quant_w((e, h, 2 * n))
+    wd, sd = quant_w((e, n, h))
+    bits = torch.tensor([(4, 6, 8)[i % 3] for i in range(e)], dtype=torch.int32,
+                        device=dev)
+    pf = [int(i % 2 == 0) for i in range(e)]
+    pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+    wgu4 = torch.where(pfb, wgu.clamp(-8, 7), wgu)
+    wd4 = torch.where(pfb, wd.clamp(-8, 7), wd)
+    gu_cat, gu_blk = build_ragged_mixed(wgu4, pf)
+    d_cat, d_blk = build_ragged_mixed(wd4, pf)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    meta = (i32(pf), i32(gu_blk), i32(pf), i32(d_blk))
+    for regime, tokens in (("decode", 4), ("decode", 16), ("prefill", 256)):
+        disp = make_dispatch(route_topk(torch.randn((tokens, e), generator=gen,
+                                                    device=dev),
+                                        cfg.top_k, cfg.norm_topk_prob), e, align=32)
+        gs, m = disp.group_sizes, disp.token_ids.numel()
+        x = torch.randn((m, h), generator=gen, device=dev).to(torch.bfloat16)
+        aq, asc = act_quant.quantize_rows_uniform(x, 8)
+        rows, live = int(gs.sum()), gs > 0
+        hq = torch.empty((m, n), dtype=torch.int8, device=dev)
+        out_old = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
+        tail = (out_old.data_ptr(), 1, m, h, n, h, e)
+        shape = {"regime": regime, "routed_rows": tokens * cfg.top_k, "M": m,
+                 "rows": rows, "live_experts": int(live.sum()), "K": h, "N": n, "H": h}
+        for name, w_gu, w_d, packed in (("gmm_ffn_w8a8", wgu, wd, [0] * e),
+                                        ("gmm_ffn_mixed_packed", wgu4, wd4, pf)):
+            if packed[0] == 0:
+                new_args = (aq, asc, w_gu, sgu, w_d, sd, gs, bits)
+                new = lambda a=new_args: gmm_ffn.gmm_ffn_w8a8(*a)
+                ptrs = (aq, asc, w_gu, sgu, w_d, sd, gs, bits, hq)
+            else:
+                new_args = (aq, asc, gu_cat, sgu, meta[0], meta[1], d_cat, sd, meta[2],
+                            meta[3], gs, bits)
+                new = lambda a=new_args: gmm_ffn.gmm_ffn_mixed_packed(*a)
+                ptrs = (*new_args, hq)
+
+            def old(fn="mxmoe_" + name, p=tuple(t.data_ptr() for t in ptrs)):
+                kernels.check(getattr(lib, fn)(*p, *tail, _stream()), "old " + fn)
+                return out_old
+
+            a, b = new(), old().clone()
+            torch.cuda.synchronize()
+            if not torch.equal(a[:rows], b[:rows]):
+                raise AssertionError(f"{name} {regime} M={m}: the bodies differ")
+            per_expert = torch.tensor([(h * 2 * n + n * h) // (2 if f else 1)
+                                       for f in packed], device=dev)
+            nbytes = (rows * (h + 4) + int(per_expert[live].sum())
+                      + int(live.sum()) * (2 * n + h) * 4 + 2 * e * 4 + rows * h * 2)
+            _emit(name, **shape, packed_experts=sum(packed), bitwise_old=True,
+                  resident_clusters=gmm_ffn.resident_clusters(
+                      n, h, ragged=name == "gmm_ffn_mixed_packed"),
+                  **_ab(old, new, reps),
+                  **_bound(nbytes, 2 * rows * (h * 2 * n + n * h), "int8"))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
                     help="directory of the earlier csrc sources")
+    ap.add_argument("--cases", nargs="+", choices=sorted(_OLD), default=["ffn"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("redesign_ab: needs a CUDA card")
     kernels.lib()
-    old = build_old(args.old_csrc)
+    old = build_old(args.old_csrc, args.cases)
+    runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases}
     with torch.no_grad():
-        gmm_cases(old, REPS)
-        attention_cases(old, REPS)
+        for case in args.cases:
+            runs[case](old, REPS)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

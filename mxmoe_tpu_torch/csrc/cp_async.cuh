@@ -16,9 +16,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(d), "l"(src), "r"(src_bytes));
 }
 
+// the same, and the L2 fetches the whole 128-byte line around src (for
+// streams whose neighbouring pieces other blocks read soon after)
+__device__ __forceinline__ void cp_async16_l2(void* dst, const void* src,
+                                              int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src));
+}
+
+// 4 bytes, or 4 zeros when src_bytes = 0
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

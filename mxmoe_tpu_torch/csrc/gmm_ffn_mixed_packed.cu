@@ -21,11 +21,15 @@ extern "C" int mxmoe_gmm_ffn_mixed_packed(const void* lhs, const void* s_a,
                                           const void* down_cat, const void* s_d,
                                           const void* d_pf, const void* d_blk,
                                           const void* group_sizes,
-                                          const void* abits, void* hq_workspace,
-                                          void* out, int out_is_bf16, int M, int K,
-                                          int N, int H, int E, void* stream) {
+                                          const void* abits, void* out,
+                                          int out_is_bf16, int M, int K, int N,
+                                          int H, int E, void* stream) {
   return gmm_ffn_launch<kFfnRagged>(lhs, s_a, gu_cat, s_gu, gu_pf, gu_blk, down_cat,
-                                    s_d, d_pf, d_blk, group_sizes, abits,
-                                    hq_workspace, out, out_is_bf16, M, K, N, H, E,
-                                    stream);
+                                    s_d, d_pf, d_blk, group_sizes, abits, out,
+                                    out_is_bf16, M, K, N, H, E, stream);
+}
+
+// the clusters a launch's grid holds at widths N, H (bf16 out), or -(error)
+extern "C" int mxmoe_gmm_ffn_mixed_packed_clusters(int N, int H) {
+  return gmm_ffn_clusters<kFfnRagged>(N, H);
 }

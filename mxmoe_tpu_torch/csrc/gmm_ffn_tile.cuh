@@ -1,8 +1,10 @@
 // The whole expert FFN in one launch, shared by K12 gmm_ffn_w8a8
 // (gmm_ffn_w8a8.cu: int8 experts stacked [E, K, 2N] / [E, N, H]) and K13
 // gmm_ffn_mixed_packed (gmm_ffn_mixed_packed.cu: K4's ragged buffers, each
-// expert one nibble-packed K/2-row unit or two int8 units). Per m-tile of
-// FFN_BM = 32 expert-sorted rows of one expert e:
+// expert one nibble-packed K/2-row unit or two int8 units). It replaces the
+// Pallas bodies of mxmoe_tpu/ops/pallas_gmm.py:gmm_ffn_w8a8 and
+// gmm_ffn_mixed_packed. Per m-tile of FFN_BM = 32 expert-sorted rows of one
+// expert e:
 //
 //   gu    = ((float)(lhs_q @ w_gu[e]) * s_a) * s_gu[e]        [32, 2N] f32
 //   h     = (gate * sigmoid(gate)) * up,  sigmoid(x) = 1 / (1 + expf(-x))
@@ -11,24 +13,62 @@
 //   out   = OutT( ((float)(hq @ w_d[e]) * scale) * s_d[e] )   [32, H]
 //
 // Every product and sum of the f32 steps is rounded on its own (__fmul_rn,
-// __fadd_rn, __fdiv_rn: no FMA contraction, IEEE division), in the order
-// the plain version (ops/gmm_ffn.py) writes them, and the int32 sums are
-// exact, so packed and int8 storage of the same codes give the same bits.
+// __fdiv_rn: no FMA contraction, IEEE division), in the order the plain
+// version (ops/gmm_ffn.py) writes them, and the int32 sums are exact, so
+// any split of the columns, and packed or int8 storage of the same codes,
+// give the same bits.
 //
-// Schedule: one block per logical m-tile (gmm_tile_walk.cuh; on the aligned
-// dispatch every tile belongs to one expert; a tile that straddles two is
-// computed once per expert, rows masked). gate_up runs in passes of 64 gate
-// and the 64 matching up columns (4 warps of 16 rows x 64 columns, mma.sync
-// m16n8k32, K2's tiles and loaders, gmm_int8_tile.cuh); the gate warps park
-// their f32 values in shared memory, the up warps turn them into h there.
-// h [32, N] stays in shared memory in f32 (180 KB at N 1408: 2N = 2816 f32
-// columns would not fit, so gu never exists whole). The row amax and the
-// codes follow, hq goes to a device workspace [M, N] int8 that this block
-// alone writes and reads back (from L2) as the A operand of the down GEMM,
-// in passes of 128 columns. One block per m-tile gives ~14 blocks at decode
-// (M 16, ~14 live experts) on 132 SMs; splitting an m-tile's columns over a
-// thread block cluster that shares the row amax and hq through distributed
-// shared memory is the redesign (ROADMAP queue B).
+// Bound on the H100: the bytes of the live experts' weights (K * 2N + N * H
+// int8 codes each, 8.65 MB at qwen2_moe widths; chip_smoke.py ffn_work); at
+// decode ~15 experts hold the 16 routed rows, and each expert's weights are
+// read by one cluster, once.
+//
+// Schedule: a thread block cluster of FFN_C = 8 CTAs per logical m-tile
+// (gmm_tile_walk.cuh's walk; a tile that straddles two experts is computed
+// once per expert, rows masked). The grid holds the G clusters the card runs
+// at once (cudaOccupancyMaxActiveClusters at this launch's shared memory;
+// mxmoe_gmm_ffn_*_clusters reports it), and cluster c walks tiles c,
+// c + G, ...; the live tiles come first, so the first dead one ends the
+// walk (a grid of one cluster per tile slot, 118 at decode with ~13 live,
+// spent a tenth of a launch queueing dead clusters). The walk reads
+// blockIdx.y alone, so a cluster leaves as a whole, between its tiles.
+//  1. gate_up, columns split: CTA r owns the h columns of the 16-column
+//     units [r * N/16 / FFN_C, (r + 1) * N/16 / FFN_C): their gate and up
+//     weight columns over all of K. Raw [64, 64] weight sub-tiles and the A rows
+//     stream through a DSTAGES-deep ring of 16-byte cp.async pieces,
+//     swizzled by k / 4 (d_swz, gmm_int8_tile.cuh). A warp holds up to two
+//     quads; a quad is the gate and the up columns of one unit as four
+//     interleaved n8 tiles: lane gr reads one 4-byte word of a weight row
+//     (4 columns; lanes gr < 4 the gate unit, gr >= 4 the up unit, in
+//     sub-tiles of unlike bank half), and a 4 x 4 byte transpose of four
+//     rows gives the B registers of all four tiles (ffn_bquad: 4 LDS and 8
+//     PRMT for four MMAs, where a per-tile gather takes 16 LDS). SwiGLU
+//     pairs each gate value with its up value through one lane exchange
+//     (lanes tq, tq ^ 2). A packed byte tile feeds two k-steps (A columns
+//     r and K/2 + r). The CTA's h slice [32, <= 192] stays in its shared
+//     memory in f32.
+//  2. The down product's first weight k-tiles are put in flight, then the
+//     row amax: each CTA's partial amax goes to shared memory, a cluster
+//     barrier, and every CTA reads all FFN_C partials through distributed
+//     shared memory (mapa + ld.shared::cluster), so every CTA forms the
+//     same scale bits. Each quantizes its own slice into its copy of hq
+//     [32, N] int8 and stores it into the other CTAs' copies (16-byte
+//     st.shared::cluster); a second cluster barrier, after which hq is
+//     whole in every CTA and no CTA touches another's shared memory (the
+//     next tile's first barrier orders its stores after this tile's reads).
+//     No device workspace: hq never leaves the cluster.
+//  3. down, columns split: CTA r owns the output columns of the units
+//     [r * H/16 / FFN_C, (r + 1) * H/16 / FFN_C), in passes of 256 (a quad a
+//     warp: units a and a + 4), A = hq from its own shared memory, weights
+//     through the same ring.
+// Weight pieces ask the L2 for their whole 128-byte line (the CTAs of a
+// cluster read neighbouring 176-byte strips of each weight row).
+// A tile whose live rows fit 16 runs one m16 fragment (MI = 1), else two;
+// the aligned layout's 32-row padding keeps decode tiles at two.
+// Shared memory (ffn_layout): the ring region (gate_up stages, or down
+// stages + hq) and the f32 h slice: 140 KB at N 1408, H 2048.
+// Cluster size: 8 (the portable limit); 16 CTAs (non-portable) of smaller
+// slices were slower at every shape timed (PERF.md, "PR 8").
 
 #pragma once
 
@@ -36,14 +76,27 @@
 
 namespace {
 
-constexpr int FFN_BM = 32;                     // rows of an m-tile
-constexpr int FFN_A_TILE = FFN_BM * A_STRIDE;  // bytes of one A k-tile
-constexpr int FFN_B_TILE = BN * B_STRIDE;      // words of one 128-column B k-tile
-constexpr int FFN_H_PAD = 4;                   // f32 pad of an h row (banks)
+constexpr int FFN_BM = 32;                         // rows of an m-tile
+constexpr int FFN_C = 8;                           // CTAs of a cluster, one m-tile
+constexpr int FFN_THREADS = 256;                   // 8 warps a CTA
+constexpr int FFN_WARPS = FFN_THREADS / 32;
+constexpr int FFN_UNIT = 16;                       // columns of a split unit
+constexpr int FFN_GU_QUADS = 2;                    // h units (quads) a warp holds
+constexpr int FFN_MAX_HU = 12;                     // h units a CTA: 192 columns
+constexpr int FFN_DN_PASS = FFN_WARPS * 32;        // a down pass: 256 columns
+constexpr int FFN_A_TILE = FFN_BM * A_STRIDE;      // bytes of a 32-row A k-tile
+// a raw [64, 64] weight sub-tile and 64 bytes of pad: sub-tile s starts in
+// bank half s & 1, so two sub-tiles of unlike parity are read conflict-free
+// by the two halves of a warp
+constexpr int FFN_SUB = DEC_B_TILE + 64;
+constexpr int FFN_GU_PIECES =                      // gate_up B pieces a thread
+    (2 * DBK * FFN_MAX_HU + FFN_THREADS - 1) / FFN_THREADS;
+constexpr int FFN_DN_PIECES = DBK * (FFN_DN_PASS / FFN_UNIT) / FFN_THREADS;
+constexpr int FFN_H_PAD = 4;                       // f32 pad of an h row
 
 enum FfnStorage { kFfnStacked = 0, kFfnRagged = 1 };
 
-// one GEMM's weights for the block's expert: its storage block, the bytes
+// one GEMM's weights for the tile's expert: its storage block, the bytes
 // of a storage row, and whether it is nibble-packed (K/2 rows, halves layout)
 struct FfnWeights {
   const int8_t* w;
@@ -51,241 +104,607 @@ struct FfnWeights {
   bool packed;
 };
 
-// acc (each warp: 16 rows x 64 columns) = rows [m0, m0 + 32) of A (those in
-// [row_lo, row_hi), the others zero) times the weight columns c0 + [0, 64)
-// (warps 0, 1) and c1 + [0, 64) (warps 2, 3); columns >= ncols are zero.
-// K2's k-loop: the next k-tile's loads in flight during the MMAs; a packed
-// byte tile feeds two k-steps (A columns r0.. and K/2 + r0..), as K4.
-// Every thread of the block calls it.
-__device__ __forceinline__ void ffn_pass(const int8_t* A, int lda, int K, int m0,
-                                         int row_lo, int row_hi, FfnWeights wt,
-                                         int c0, int c1, int ncols, int8_t* As,
-                                         uint32_t* Bs, int (&acc)[1][8][4]) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp & 1) * 16, wn = (warp >> 1) * 64;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int K2 = K / 2;
-  const int Kw = wt.packed ? K2 : K;
-  int rsum[1][2] = {{0, 0}};                 // unused (no row sums)
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[0][j][c] = 0;
+// The dynamic shared memory of a launch, in bytes: the ring region holds
+// DSTAGES gate_up stages (A low / high halves, then the gate and the up
+// sub-tiles), or, from the end of gate_up on, DSTAGES down stages and hq
+// [32, N + 16] behind them; h [32, hss] f32 follows. bytes = -1 when a
+// CTA's h slice would exceed FFN_MAX_HU units.
+struct FfnLayout {
+  int gsub;       // sub-tiles of the gate part of a stage (= up part), odd
+  int gu_stage;   // bytes of a gate_up stage
+  int dn_stage;   // bytes of a down stage
+  int hqs;        // row stride of hq
+  int hq_off;     // offset of hq
+  int hs_off;     // offset of h
+  int hss;        // f32 row stride of h
+  int bytes;
+};
 
-  int4 ra, ra_hi;
-  uint32_t rb[4][4];
-  auto load_tile = [&](int k0) {
-    // A: 32 rows x 64 bytes, one 16-byte chunk a thread
-    const int row = m0 + (tid >> 2), k = k0 + (tid & 3) * 16;
-    const bool live = row >= row_lo && row < row_hi && k < Kw;
-    ra = live ? *reinterpret_cast<const int4*>(A + (size_t)row * lda + k)
-              : make_int4(0, 0, 0, 0);
-    ra_hi = (live && wt.packed)
-        ? *reinterpret_cast<const int4*>(A + (size_t)row * lda + K2 + k)
-        : make_int4(0, 0, 0, 0);
-    // B: 4(k) x 4(n) byte units, 16 across each of the two 64-column halves
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = tid + i * kThreads;
-      const int nu = u & 31, kk = k0 + (u >> 5) * 4;
-      const int col = nu < 16 ? c0 + nu * 4 : c1 + (nu - 16) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        rb[i][j] = (col < ncols && kk + j < Kw)
-            ? *reinterpret_cast<const uint32_t*>(wt.w + (size_t)(kk + j) * wt.ld + col)
-            : 0u;
-    }
-  };
-  auto store_tile = [&]() {
-    const int off = (tid >> 2) * A_STRIDE + (tid & 3) * 16;
-    *reinterpret_cast<int4*>(As + off) = ra;
-    if (wt.packed) *reinterpret_cast<int4*>(As + FFN_A_TILE + off) = ra_hi;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = tid + i * kThreads;
-      uint32_t* bcol = Bs + ((u & 31) * 4) * B_STRIDE + (u >> 5);
-      if (wt.packed) {
-        uint32_t lo[4], hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo[j] = sext4(rb[i][j] & 0x0F0F0F0Fu);
-          hi[j] = sext4((rb[i][j] >> 4) & 0x0F0F0F0Fu);
-        }
-        store_b_unit(bcol, lo);
-        store_b_unit(bcol + FFN_B_TILE, hi);
-      } else {
-        store_b_unit(bcol, rb[i]);
-      }
-    }
-  };
+__host__ __device__ inline FfnLayout ffn_layout(int N, int H) {
+  FfnLayout L;
+  const int hu = (N / FFN_UNIT + FFN_C - 1) / FFN_C;                   // most h units
+  const int du = ((H + FFN_UNIT - 1) / FFN_UNIT + FFN_C - 1) / FFN_C;  // and down units
+  const int dw = du * FFN_UNIT < FFN_DN_PASS ? du * FFN_UNIT : FFN_DN_PASS;
+  L.gsub = (hu * FFN_UNIT + DBN - 1) / DBN | 1;          // odd: up unlike gate
+  L.gu_stage = 2 * FFN_A_TILE + 2 * L.gsub * FFN_SUB;
+  L.dn_stage = (dw + DBN - 1) / DBN * FFN_SUB;
+  L.hqs = N + 16;
+  L.hq_off = DSTAGES * L.dn_stage;
+  const int dn_end = L.hq_off + FFN_BM * L.hqs, gu_end = DSTAGES * L.gu_stage;
+  L.hs_off = ((dn_end > gu_end ? dn_end : gu_end) + 15) / 16 * 16;
+  L.hss = hu * FFN_UNIT + FFN_H_PAD;
+  L.bytes = hu > FFN_MAX_HU ? -1 : L.hs_off + FFN_BM * L.hss * 4;
+  return L;
+}
 
-  load_tile(0);
-  for (int k0 = 0; k0 < Kw; k0 += BK) {
-    store_tile();
-    __syncthreads();
-    if (k0 + BK < Kw) load_tile(k0 + BK);
-    mma_k_tile_rs<1, false>(As, Bs, acc, rsum, wm, wn, gr, tq);
-    if (wt.packed)
-      mma_k_tile_rs<1, false>(As + FFN_A_TILE, Bs + FFN_B_TILE, acc, rsum, wm, wn,
-                              gr, tq);
-    __syncthreads();
-  }
+// --- thread block cluster: rank, barrier, distributed shared memory ---
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives (release), then waits
+// (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address of `p` (this CTA's shared memory) in CTA `rank`'s
+__device__ __forceinline__ unsigned dsmem_addr(const void* p, unsigned rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float dsmem_f32(unsigned a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void dsmem_st_v4(unsigned a, int4 v) {
+  asm volatile("st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
 }
 
 __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
-// dynamic shared bytes of a launch: h [32, N + pad] f32, then two A and two
-// B k-tiles (the second of each for a packed expert's high nibbles)
-__host__ __device__ inline size_t ffn_smem_bytes(int N) {
-  return (size_t)FFN_BM * (N + FFN_H_PAD) * 4 + 2 * FFN_A_TILE + 2 * FFN_B_TILE * 4;
+// four k-rows of a lane's word (rows p, p + 64, p + 128, p + 192 of a raw
+// sub-tile: 4 columns each) -> the B registers of the four interleaved n8
+// tiles: b[m] holds column m of the word for the four rows (byte j = row j)
+__device__ __forceinline__ void ffn_bquad(const int8_t* p, uint32_t (&b)[4]) {
+  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + DBN);
+  const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 2 * DBN);
+  const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 3 * DBN);
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
+  b[0] = __byte_perm(t0, t1, 0x5410);
+  b[1] = __byte_perm(t0, t1, 0x7632);
+  b[2] = __byte_perm(t2, t3, 0x5410);
+  b[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t nib_lo(uint32_t b) { return sext4(b & 0x0F0F0F0Fu); }
+__device__ __forceinline__ uint32_t nib_hi(uint32_t b) {
+  return sext4((b >> 4) & 0x0F0F0F0Fu);
+}
+
+// One k-tile of a warp's quads. A quad is four n8 tiles whose column n of
+// tile m is, for n < 4, column 4 n + m of the 16-column unit the lanes
+// gr < 4 read, else column 4 (n - 4) + m of the unit the lanes gr >= 4
+// read; boff[q] is this lane's byte offset of quad q's word in row 4 tq of
+// the stage's B area (rows + 16 and + 32 follow at fixed offsets). A from
+// At (row stride lda; with kPacked the high-nibble k-step's A from AtHi),
+// MI m16 fragments from row rb. Quads q < nq (warp-uniform) take part.
+template <bool kPacked, int MI, int kQ>
+__device__ __forceinline__ void ffn_quad_ktile(const int8_t* At, const int8_t* AtHi,
+                                               int lda, const int8_t* Bst,
+                                               const int (&boff)[kQ], int nq, int rb,
+                                               int (&acc)[kQ][4][MI][4], int gr, int tq) {
+#pragma unroll
+  for (int ks = 0; ks < DBK; ks += 32) {
+    uint32_t a[MI][4], ah[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      d_afrag(At + (rb + 16 * i) * lda, lda, ks, gr, tq, a[i]);
+      if constexpr (kPacked) d_afrag(AtHi + (rb + 16 * i) * lda, lda, ks, gr, tq, ah[i]);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (q >= nq) break;
+      uint32_t b0[4], b1[4];
+      ffn_bquad(Bst + boff[q] + ks * DBN, b0);
+      ffn_bquad(Bst + boff[q] + (ks + 16) * DBN, b1);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          if constexpr (kPacked) {
+            mma_s8(acc[q][m][i], a[i], nib_lo(b0[m]), nib_lo(b1[m]));
+            mma_s8(acc[q][m][i], ah[i], nib_hi(b0[m]), nib_hi(b1[m]));
+          } else {
+            mma_s8(acc[q][m][i], a[i], b0[m], b1[m]);
+          }
+        }
+    }
+  }
+}
+
+// warp 0 of the CTA: logical tile t -> info (find_tile's result, info[1]
+// the tile's first row), by prefix sums over 32 experts at a time: a cluster
+// walks its tiles one after another, and the serial walk of one thread sat
+// on that path once per tile
+template <int kBM>
+__device__ __forceinline__ void find_tile_warp(const int* sizes, int E, int M, int t,
+                                               int* info, int lane) {
+  int start = 0, tiles = 0;                // rows and tiles before this chunk
+  if (lane == 0) info[0] = -1;
+  __syncwarp();
+  for (int g0 = 0; g0 < E; g0 += 32) {
+    const int g = g0 + lane, s = g < E ? sizes[g] : 0;
+    int ps = s;                            // inclusive scans: rows, tiles
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, ps, off);
+      if (lane >= off) ps += v;
+    }
+    const int st = start + ps - s;
+    const int n = s > 0 ? (st + s - 1) / kBM - st / kBM + 1 : 0;
+    int pn = n;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, pn, off);
+      if (lane >= off) pn += v;
+    }
+    const int t0 = tiles + pn - n;
+    const bool hit = n > 0 && t >= t0 && t < t0 + n;
+    if (hit) {
+      info[0] = g;
+      info[1] = (st / kBM + t - t0) * kBM;
+      info[2] = st;
+      info[3] = min(st + s, M);
+    }
+    if (__any_sync(0xffffffffu, hit)) break;
+    start += __shfl_sync(0xffffffffu, ps, 31);
+    tiles += __shfl_sync(0xffffffffu, pn, 31);
+  }
+}
+
+// the FFN of one m-tile on one CTA of its cluster; MI m16 fragments from
+// tile row rb hold every live row. Every thread of the cluster calls it.
+template <int MI, typename OutT>
+__device__ __forceinline__ void ffn_tile(
+    int8_t* smem, const FfnLayout& L, float* part_amax, float* row_scale,
+    const int8_t* __restrict__ lhs, const float* __restrict__ s_a, FfnWeights wgu,
+    const float* __restrict__ sgu, FfnWeights wd, const float* __restrict__ sd,
+    float upper, OutT* __restrict__ out, int m0, int row_lo, int row_hi, int rb,
+    int K, int N, int H) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const unsigned rank = cluster_rank();
+  const int NU = N / FFN_UNIT, HU = (H + FFN_UNIT - 1) / FFN_UNIT;
+  const int u0 = rank * NU / FFN_C, hu = (rank + 1) * NU / FFN_C - u0;
+  const int hw = hu * FFN_UNIT, gc0 = u0 * FFN_UNIT;   // h columns [gc0, gc0 + hw)
+  const int d0 = rank * HU / FFN_C * FFN_UNIT;         // out columns [d0, d1)
+  const int d1 = min((int)(rank + 1) * HU / FFN_C * FFN_UNIT, H);
+  int8_t* hq = smem + L.hq_off;
+  float* hs = reinterpret_cast<float*>(smem + L.hs_off);
+
+  // ---- 1. gate_up -> h[:, gc0 : gc0 + hw) ----
+  const int K2 = K / 2, Kw = wgu.packed ? K2 : K;
+  const int gk = (Kw + DBK - 1) / DBK;
+  // this thread's weight pieces of a k-tile: row, stage offset, source offset
+  int grow[FFN_GU_PIECES], gdst[FFN_GU_PIECES], gsrc[FFN_GU_PIECES];
+#pragma unroll
+  for (int i = 0; i < FFN_GU_PIECES; ++i) {
+    const int u = tid + i * FFN_THREADS;
+    grow[i] = -1;
+    gdst[i] = gsrc[i] = 0;
+    if (u < 2 * DBK * hu) {
+      const int half = u / (DBK * hu), rem = u - half * DBK * hu;
+      const int r = rem / hu, cc = rem - r * hu;
+      grow[i] = r;
+      gdst[i] = 2 * FFN_A_TILE + (half * L.gsub + (cc >> 2)) * FFN_SUB + d_swz(r, cc & 3);
+      gsrc[i] = r * wgu.ld + half * N + gc0 + cc * FFN_UNIT;
+    }
+  }
+  // k-tile t -> ring stage t % DSTAGES (one commit group)
+  auto issue_gu = [&](int t) {
+    if (t < gk) {
+      int8_t* st = smem + (t % DSTAGES) * L.gu_stage;
+      const int k0 = t * DBK;
+      if (tid < (wgu.packed ? 2 : 1) * FFN_BM * 4) {   // A: 32 rows x 4 pieces (x 2)
+        const int half = tid >> 7, c = tid & 127;
+        const int row = m0 + (c >> 2), k = k0 + (c & 3) * 16;
+        const bool live = row >= row_lo && row < row_hi && k < Kw;
+        cp_async16(st + half * FFN_A_TILE + (c >> 2) * A_STRIDE + (c & 3) * 16,
+                   live ? lhs + (size_t)row * K + half * K2 + k : lhs, live ? 16 : 0);
+      }
+      const int8_t* wk = wgu.w + (size_t)k0 * wgu.ld;
+#pragma unroll
+      for (int i = 0; i < FFN_GU_PIECES; ++i) {
+        if (grow[i] >= 0) {
+          const bool ok = k0 + grow[i] < Kw;
+          cp_async16_l2(st + gdst[i], ok ? wk + gsrc[i] : wgu.w, ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (hw > 0) {
+#pragma unroll
+    for (int t = 0; t < DSTAGES - 1; ++t) issue_gu(t);
+  }
+
+  // the warp's quads: h units warp and warp + 8 (gate unit, lanes gr < 4;
+  // the same unit of up, gr >= 4). After the exchange with lane tq ^ 2, lane
+  // tq holds h column 16 u + 4 hn + m of tile m, hn = 2 (tq & 1) + (tq >> 1);
+  // its scales and the rows' s_a are read now, ahead of their use
+  const int gq = warp < hu ? (warp + FFN_WARPS < hu ? 2 : 1) : 0;
+  const int hn = 2 * (tq & 1) + (tq >> 1);
+  int gboff[FFN_GU_QUADS];
+  float4 gsc[FFN_GU_QUADS], usc[FFN_GU_QUADS];
+#pragma unroll
+  for (int q = 0; q < FFN_GU_QUADS; ++q) {
+    const int u = warp + FFN_WARPS * q;
+    gboff[q] = ((gr < 4 ? 0 : L.gsub) + (u >> 2)) * FFN_SUB + d_swz(4 * tq, u & 3)
+               + 4 * (gr & 3);
+    const int c = gc0 + 16 * u + 4 * hn;
+    gsc[q] = q < gq ? *reinterpret_cast<const float4*>(sgu + c) : make_float4(0, 0, 0, 0);
+    usc[q] = q < gq ? *reinterpret_cast<const float4*>(sgu + N + c)
+                    : make_float4(0, 0, 0, 0);
+  }
+  float sa[MI][2];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + rb + 16 * i + gr + 8 * hh;
+      sa[i][hh] = (row >= row_lo && row < row_hi) ? s_a[row] : 0.f;
+    }
+
+  int acc[FFN_GU_QUADS][4][MI][4];
+#pragma unroll
+  for (int q = 0; q < FFN_GU_QUADS; ++q)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[q][m][i][c] = 0;
+  if (hw > 0) {
+    for (int t = 0; t < gk; ++t) {
+      cp_async_wait<DSTAGES - 2>();
+      __syncthreads();                    // tile t landed; stage t-1 is free
+      issue_gu(t + DSTAGES - 1);
+      const int8_t* st = smem + (t % DSTAGES) * L.gu_stage;
+      if (wgu.packed)
+        ffn_quad_ktile<true, MI>(st, st + FFN_A_TILE, A_STRIDE, st + 2 * FFN_A_TILE,
+                                 gboff, gq, rb, acc, gr, tq);
+      else
+        ffn_quad_ktile<false, MI>(st, st, A_STRIDE, st + 2 * FFN_A_TILE, gboff, gq, rb,
+                                  acc, gr, tq);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                      // the ring is free
+  }
+
+  // ---- the down weights' first k-tiles, in flight from here on ----
+  const int Nw = wd.packed ? N / 2 : N;
+  const int dk = (Nw + DBK - 1) / DBK;
+  const bool al16 = wd.ld % 16 == 0;      // H % 16: whole 16-byte pieces
+  int drow[FFN_DN_PIECES], ddst[FFN_DN_PIECES], dcol[FFN_DN_PIECES];
+  auto setup_dn = [&](int pc) {           // the pieces of the pass from column pc
+    const int pu = (min(pc + FFN_DN_PASS, d1) - pc + FFN_UNIT - 1) / FFN_UNIT;
+#pragma unroll
+    for (int i = 0; i < FFN_DN_PIECES; ++i) {
+      const int u = tid + i * FFN_THREADS;
+      drow[i] = -1;
+      ddst[i] = dcol[i] = 0;
+      if (u < DBK * pu) {
+        const int r = u / pu, cc = u - r * pu;
+        drow[i] = r;
+        ddst[i] = (cc >> 2) * FFN_SUB + d_swz(r, cc & 3);
+        dcol[i] = pc + cc * FFN_UNIT;
+      }
+    }
+  };
+  auto issue_dn = [&](int t) {
+    if (t < dk) {
+      int8_t* st = smem + (t % DSTAGES) * L.dn_stage;
+      const int k0 = t * DBK;
+#pragma unroll
+      for (int i = 0; i < FFN_DN_PIECES; ++i) {
+        if (drow[i] >= 0) {
+          const bool ok = k0 + drow[i] < Nw;
+          const int8_t* src = wd.w + (size_t)(k0 + drow[i]) * wd.ld + dcol[i];
+          if (al16) {
+            cp_async16_l2(st + ddst[i], ok ? src : wd.w, ok ? 16 : 0);
+          } else {                        // 4-byte pieces up to column d1
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool okj = ok && dcol[i] + 4 * j < d1;
+              cp_async4_zfill(st + ddst[i] + 4 * j, okj ? src + 4 * j : wd.w,
+                              okj ? 4 : 0);
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (d0 < d1) {
+    setup_dn(d0);
+#pragma unroll
+    for (int t = 0; t < DSTAGES - 1; ++t) issue_dn(t);
+  }
+
+  // ---- 2. SwiGLU, row amax over the cluster, hq ----
+  // lane tq < 2 holds gate values, tq ^ 2 the up values of the same columns
+  // (its value v = tq >> 1 of each pair is the one this lane turns into h)
+#pragma unroll
+  for (int q = 0; q < FFN_GU_QUADS; ++q) {
+    if (q >= gq) break;
+    const int col = 16 * (warp + FFN_WARPS * q) + 4 * hn;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float hv[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int* a = acc[q][m][i];
+          const int mine = tq < 2 ? a[2 * hh] : a[2 * hh + 1];
+          const int theirs = __shfl_xor_sync(0xffffffffu, tq < 2 ? a[2 * hh + 1]
+                                                                 : a[2 * hh], 2);
+          const float sg = (&gsc[q].x)[m], su = (&usc[q].x)[m];
+          const float gt = (float)(tq < 2 ? mine : theirs) * sa[i][hh] * sg;
+          const float up = (float)(tq < 2 ? theirs : mine) * sa[i][hh] * su;
+          hv[m] = __fmul_rn(__fmul_rn(gt, sigmoid_rn(gt)), up);
+        }
+        *reinterpret_cast<float4*>(hs + (rb + 16 * i + gr + 8 * hh) * L.hss + col) =
+            make_float4(hv[0], hv[1], hv[2], hv[3]);
+      }
+  }
+  __syncthreads();
+  for (int r = rb + warp; r < rb + 16 * MI; r += FFN_WARPS) {
+    float amax = 0.f;
+    for (int c = lane; c < hw; c += 32) amax = fmaxf(amax, fabsf(hs[r * L.hss + c]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) part_amax[r] = amax;
+  }
+  cluster_sync();                         // 1: every CTA's partial amax is in place
+  if (tid < 16 * MI) {
+    const int r = rb + tid;
+    float amax = 0.f;
+#pragma unroll
+    for (int q = 0; q < FFN_C; ++q)
+      amax = fmaxf(amax, dsmem_f32(dsmem_addr(part_amax + r, q)));
+    row_scale[r] = __fdiv_rn(fmaxf(amax, 1e-8f), upper);
+  }
+  __syncthreads();
+  {
+    const int w4 = hw / 4;
+    for (int idx = tid; idx < 16 * MI * w4; idx += FFN_THREADS) {
+      const int rr = idx / w4, r = rb + rr, c = (idx - rr * w4) * 4;
+      const float s = row_scale[r];
+      const float4 x = *reinterpret_cast<const float4*>(hs + r * L.hss + c);
+      const uint32_t wq = ((uint32_t)((int)rintf(__fdiv_rn(x.x, s)) & 0xFF))
+                          | ((uint32_t)((int)rintf(__fdiv_rn(x.y, s)) & 0xFF) << 8)
+                          | ((uint32_t)((int)rintf(__fdiv_rn(x.z, s)) & 0xFF) << 16)
+                          | ((uint32_t)((int)rintf(__fdiv_rn(x.w, s)) & 0xFF) << 24);
+      *reinterpret_cast<uint32_t*>(hq + r * L.hqs + gc0 + c) = wq;
+    }
+  }
+  __syncthreads();                        // this CTA's codes in place
+  // ... and into the other CTAs' hq: 16-byte stores to their shared memory
+  {
+    const int nl = 16 * MI * hu;          // 16-byte pieces of the slice
+    for (int idx = tid; idx < nl * (FFN_C - 1); idx += FFN_THREADS) {
+      const int p = idx / nl, pi = idx - p * nl, rr = pi / hu;
+      const int off = (rb + rr) * L.hqs + gc0 + (pi - rr * hu) * FFN_UNIT;
+      dsmem_st_v4(dsmem_addr(hq + off, (rank + 1 + p) % FFN_C),
+                  *reinterpret_cast<const int4*>(hq + off));
+    }
+  }
+  cluster_sync();                         // 2: hq whole in every CTA; from here
+                                          // on no CTA touches another's memory
+
+  // ---- 3. down -> out[:, d0 : d1), (acc * scale) * s_d ----
+  // the warp's quad: units a (lanes gr < 4) and a + 4 (gr >= 4) of the pass,
+  // a = (warp & 3) + 8 (warp >> 2); lane tq holds, for v = 0, 1, the output
+  // columns 16 ua + 4 ((2 tq + v) & 3) + m of tile m, ua = tq < 2 ? a : a + 4
+  const int da = (warp & 3) + 8 * (warp >> 2);
+  const int dua = tq < 2 ? da : da + 4;
+  int dboff[1] = {((da + (gr < 4 ? 0 : 4)) >> 2) * FFN_SUB + d_swz(4 * tq, da & 3)
+                  + 4 * (gr & 3)};
+  for (int pc = d0; pc < d1; pc += FFN_DN_PASS) {
+    const int pw = min(FFN_DN_PASS, d1 - pc);
+    const int dq = 16 * da < pw ? 1 : 0;
+    float4 dsc[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int c = pc + 16 * dua + 4 * ((2 * tq + v) & 3);
+      dsc[v] = c < d1 ? *reinterpret_cast<const float4*>(sd + c) : make_float4(0, 0, 0, 0);
+    }
+    int acc2[1][4][MI][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc2[0][m][i][c] = 0;
+    for (int t = 0; t < dk; ++t) {
+      cp_async_wait<DSTAGES - 2>();
+      __syncthreads();
+      issue_dn(t + DSTAGES - 1);
+      const int8_t* st = smem + (t % DSTAGES) * L.dn_stage;
+      if (wd.packed)
+        ffn_quad_ktile<true, MI>(hq + t * DBK, hq + Nw + t * DBK, L.hqs, st, dboff, dq,
+                                 rb, acc2, gr, tq);
+      else
+        ffn_quad_ktile<false, MI>(hq + t * DBK, hq, L.hqs, st, dboff, dq, rb, acc2, gr,
+                                  tq);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                      // the ring is free: the next pass's loads
+    if (pc + FFN_DN_PASS < d1) {
+      setup_dn(pc + FFN_DN_PASS);
+#pragma unroll
+      for (int t = 0; t < DSTAGES - 1; ++t) issue_dn(t);
+    }
+    if (!dq) continue;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int col = pc + 16 * dua + 4 * ((2 * tq + v) & 3);
+      if (col >= d1) continue;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = rb + 16 * i + gr + 8 * hh, row = m0 + r;
+          if (row < row_lo || row >= row_hi) continue;
+          const float sh = row_scale[r];
+          float y[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            y[m] = (float)acc2[0][m][i][2 * hh + v] * sh * (&dsc[v].x)[m];
+          OutT* o = out + (size_t)row * H + col;
+          store2(o, y[0], y[1]);
+          store2(o + 2, y[2], y[3]);
+        }
+    }
+  }
 }
 
 template <typename OutT, int kStorage>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(FFN_THREADS, 1)
 gmm_ffn_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
                const int8_t* __restrict__ gu, const float* __restrict__ s_gu,
                const int* __restrict__ gu_pf, const int* __restrict__ gu_blk,
                const int8_t* __restrict__ dn, const float* __restrict__ s_d,
                const int* __restrict__ d_pf, const int* __restrict__ d_blk,
                const int* __restrict__ group_sizes, const int* __restrict__ abits,
-               int8_t* hq, OutT* __restrict__ out, int M, int K, int N, int H,
-               int E) {
-  extern __shared__ __align__(16) float h_s[];      // [FFN_BM][N + pad]
+               OutT* __restrict__ out, int M, int K, int N, int H, int E) {
+  extern __shared__ __align__(16) int8_t smem[];
   __shared__ int sizes[kMaxExperts];
   __shared__ int info[4];                  // expert, first row, row begin, end
+  __shared__ float part_amax[FFN_BM];
   __shared__ float row_scale[FFN_BM];
-  const int NP = N + FFN_H_PAD;
-  int8_t* As = reinterpret_cast<int8_t*>(h_s + FFN_BM * NP);
-  uint32_t* Bs = reinterpret_cast<uint32_t*>(As + 2 * FFN_A_TILE);
 
-  if (!block_tile<FFN_BM>(group_sizes, E, M, sizes, info)) return;
-  const int g = info[0], m0 = info[1], row_lo = info[2], row_hi = info[3];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp & 1) * 16, gr = lane >> 2, tq = lane & 3;
-  const bool up_warp = (warp >> 1) != 0;
+  const int tid = threadIdx.x;
+  const FfnLayout L = ffn_layout(N, H);
+  for (int e = tid; e < E; e += FFN_THREADS) sizes[e] = group_sizes[e];
+  // the cluster's logical m-tiles blockIdx.y, + gridDim.y, ...: the live
+  // tiles come first, so the first dead one ends the walk (of the whole
+  // cluster: the walk reads blockIdx.y alone)
+  for (int t = blockIdx.y;; t += gridDim.y) {
+    __syncthreads();                       // sizes in place; info read by all
+    if (tid < 32) find_tile_warp<FFN_BM>(sizes, E, M, t, info, tid);
+    __syncthreads();
+    const int g = info[0], m0 = info[1], row_lo = info[2], row_hi = info[3];
+    if (g < 0 || m0 >= row_hi) return;
 
-  FfnWeights wgu, wd;
-  if constexpr (kStorage == kFfnStacked) {
-    wgu = {gu + (size_t)g * K * 2 * N, 2 * N, false};
-    wd = {dn + (size_t)g * N * H, H, false};
-  } else {
-    wgu = {gu + (size_t)gu_blk[g] * (K / 2) * 2 * N, 2 * N, gu_pf[g] != 0};
-    wd = {dn + (size_t)d_blk[g] * (N / 2) * H, H, d_pf[g] != 0};
-  }
-
-  // 1. gate_up in pairs of 64 gate / 64 up columns -> h in shared memory
-  int acc[1][8][4];
-  const float* sgu = s_gu + (size_t)g * 2 * N;
-  for (int c = 0; c < N; c += 64) {
-    ffn_pass(lhs, K, K, m0, row_lo, row_hi, wgu, c, N + c, 2 * N, As, Bs, acc);
-    const int base = up_warp ? N + c : c;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm + gr + hh * 8, row = m0 + r;
-      const float sa = (row >= row_lo && row < row_hi) ? s_a[row] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int lc = j * 8 + tq * 2;
-        if (c + lc >= N) continue;
-        const float v0 = (float)acc[0][j][2 * hh] * sa * sgu[base + lc];
-        const float v1 = (float)acc[0][j][2 * hh + 1] * sa * sgu[base + lc + 1];
-        float* hp = h_s + r * NP + c + lc;
-        if (!up_warp) {
-          hp[0] = v0;
-          hp[1] = v1;
-        }
-        acc[0][j][2 * hh] = __float_as_int(v0);        // the up value, parked
-        acc[0][j][2 * hh + 1] = __float_as_int(v1);
-      }
+    FfnWeights wgu, wd;
+    if constexpr (kStorage == kFfnStacked) {
+      wgu = {gu + (size_t)g * K * 2 * N, 2 * N, false};
+      wd = {dn + (size_t)g * N * H, H, false};
+    } else {
+      wgu = {gu + (size_t)gu_blk[g] * (K / 2) * 2 * N, 2 * N, gu_pf[g] != 0};
+      wd = {dn + (size_t)d_blk[g] * (N / 2) * H, H, d_pf[g] != 0};
     }
-    __syncthreads();                       // the gate values are in h_s
-    if (up_warp) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm + gr + hh * 8;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int lc = j * 8 + tq * 2;
-          if (c + lc >= N) continue;
-          float* hp = h_s + r * NP + c + lc;
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float gt = hp[q];
-            hp[q] = __fmul_rn(__fmul_rn(gt, sigmoid_rn(gt)),
-                              __int_as_float(acc[0][j][2 * hh + q]));
-          }
-        }
-      }
-    }
+    const float upper = (float)((1 << (min(abits[g], 8) - 1)) - 1);
+    const float* sgu = s_gu + (size_t)g * 2 * N;
+    const float* sd = s_d + (size_t)g * H;
+    // the tile's live rows [lo, hi): one m16 fragment from row rb when they fit
+    const int lo = max(row_lo, m0) - m0, hi = min(row_hi, m0 + FFN_BM) - m0;
+    if (hi - lo <= 16)
+      ffn_tile<1>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
+                      out, m0, row_lo, row_hi, min(lo, 16), K, N, H);
+    else
+      ffn_tile<2>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
+                      out, m0, row_lo, row_hi, 0, K, N, H);
   }
-  __syncthreads();
+}
 
-  // 2. per-row requant at the expert's down bits; the codes to the workspace
-  {
-    const int b = min(abits[g], 8);
-    const float upper = (float)((1 << (b - 1)) - 1);
-    for (int r = warp; r < FFN_BM; r += kThreads / 32) {
-      const float* hr = h_s + r * NP;
-      float amax = 0.f;
-      for (int k = lane; k < N; k += 32) amax = fmaxf(amax, fabsf(hr[k]));
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float s = __fdiv_rn(fmaxf(amax, 1e-8f), upper);
-      if (lane == 0) row_scale[r] = s;
-      const int row = m0 + r;
-      if (row < row_lo || row >= row_hi) continue;
-      for (int k = lane * 4; k < N; k += 128) {
-        uint32_t wq = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wq |= (uint32_t)((int)rintf(__fdiv_rn(hr[k + j], s)) & 0xFF) << (8 * j);
-        *reinterpret_cast<uint32_t*>(hq + (size_t)row * N + k) = wq;
-      }
-    }
+// The launch configuration of layout L (a cluster of FFN_C CTAs, its
+// shared memory) and G, the clusters the card runs at once at that shared
+// memory (asked once per size).
+template <typename OutT, int kStorage>
+cudaError_t ffn_config(const FfnLayout& L, cudaLaunchConfig_t& cfg,
+                       cudaLaunchAttribute (&attr)[1], int& resident) {
+  auto kernel = gmm_ffn_kernel<OutT, kStorage>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       L.bytes);
+  if (e != cudaSuccess) return e;
+  cfg = {};
+  cfg.blockDim = dim3(FFN_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.bytes;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = FFN_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int cached = 0, cached_bytes = -1;
+  if (cached_bytes != L.bytes) {
+    cfg.gridDim = dim3(FFN_C, 1, 1);
+    e = cudaOccupancyMaxActiveClusters(&cached, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (cached < 1) return cudaErrorInvalidConfiguration;
+    cached_bytes = L.bytes;
   }
-  __syncthreads();
-
-  // 3. down in passes of 128 columns: (acc * scale) * s_d
-  const float* sd = s_d + (size_t)g * H;
-  const int wn = (warp >> 1) * 64;
-  for (int n0 = 0; n0 < H; n0 += BN) {
-    ffn_pass(hq, N, N, m0, row_lo, row_hi, wd, n0, n0 + 64, H, As, Bs, acc);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm + gr + hh * 8, row = m0 + r;
-      if (row < row_lo || row >= row_hi) continue;
-      const float sh = row_scale[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wn + j * 8 + tq * 2;
-        if (col >= H) continue;
-        store2(out + (size_t)row * H + col, (float)acc[0][j][2 * hh] * sh * sd[col],
-               (float)acc[0][j][2 * hh + 1] * sh * sd[col + 1]);
-      }
-    }
-  }
+  resident = cached;
+  return cudaSuccess;
 }
 
 template <typename OutT, int kStorage>
 cudaError_t launch_ffn(const int8_t* lhs, const float* s_a, const int8_t* gu,
                        const float* s_gu, const int* gu_pf, const int* gu_blk,
                        const int8_t* dn, const float* s_d, const int* d_pf,
-                       const int* d_blk, const int* gs, const int* abits, int8_t* hq,
-                       void* out, int M, int K, int N, int H, int E, cudaStream_t st) {
-  const size_t smem = ffn_smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(gmm_ffn_kernel<OutT, kStorage>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
+                       const int* d_blk, const int* gs, const int* abits, void* out,
+                       int M, int K, int N, int H, int E, cudaStream_t st) {
+  const FfnLayout L = ffn_layout(N, H);
+  if (L.bytes < 0) return cudaErrorInvalidValue;
   if (M > 0) {
-    dim3 grid(1, (M + FFN_BM - 1) / FFN_BM + E - 1);
-    gmm_ffn_kernel<OutT, kStorage><<<grid, kThreads, smem, st>>>(
-        lhs, s_a, gu, s_gu, gu_pf, gu_blk, dn, s_d, d_pf, d_blk, gs, abits, hq,
-        static_cast<OutT*>(out), M, K, N, H, E);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int resident = 0;
+    cudaError_t e = ffn_config<OutT, kStorage>(L, cfg, attr, resident);
+    if (e != cudaSuccess) return e;
+    // at most one cluster per logical m-tile
+    const int tiles = (M + FFN_BM - 1) / FFN_BM + E - 1;
+    cfg.gridDim = dim3(FFN_C, tiles < resident ? tiles : resident, 1);
+    cfg.stream = st;
+    e = cudaLaunchKernelEx(&cfg, gmm_ffn_kernel<OutT, kStorage>, lhs, s_a, gu, s_gu,
+                           gu_pf, gu_blk, dn, s_d, d_pf, d_blk, gs, abits,
+                           static_cast<OutT*>(out), M, K, N, H, E);
+    if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
+}
+
+// dynamic shared bytes of a launch; -1 when the widths do not fit the layout
+inline int ffn_smem_bytes(int N, int H) { return ffn_layout(N, H).bytes; }
+
+// G of a bf16-out launch at widths N, H (the grid's clusters), or -(the
+// CUDA error)
+template <int kStorage>
+int gmm_ffn_clusters(int N, int H) {
+  const FfnLayout L = ffn_layout(N, H);
+  if (L.bytes < 0) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int resident = 0;
+  const cudaError_t e = ffn_config<__nv_bfloat16, kStorage>(L, cfg, attr, resident);
+  return e == cudaSuccess ? resident : -(int)e;
 }
 
 // the C entry points' common body; the pf / blk pointers are null for the
@@ -295,22 +714,18 @@ int gmm_ffn_launch(const void* lhs, const void* s_a, const void* gu,
                    const void* s_gu, const void* gu_pf, const void* gu_blk,
                    const void* dn, const void* s_d, const void* d_pf,
                    const void* d_blk, const void* group_sizes, const void* abits,
-                   void* hq, void* out, int out_is_bf16, int M, int K, int N, int H,
-                   int E, void* stream) {
+                   void* out, int out_is_bf16, int M, int K, int N, int H, int E,
+                   void* stream) {
   auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   auto i32 = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* ws = static_cast<int8_t*>(hq);
-  cudaError_t e = out_is_bf16
-      ? launch_ffn<__nv_bfloat16, kStorage>(
-            i8(lhs), f32(s_a), i8(gu), f32(s_gu), i32(gu_pf), i32(gu_blk), i8(dn),
-            f32(s_d), i32(d_pf), i32(d_blk), i32(group_sizes), i32(abits), ws, out,
-            M, K, N, H, E, st)
-      : launch_ffn<float, kStorage>(
-            i8(lhs), f32(s_a), i8(gu), f32(s_gu), i32(gu_pf), i32(gu_blk), i8(dn),
-            f32(s_d), i32(d_pf), i32(d_blk), i32(group_sizes), i32(abits), ws, out,
-            M, K, N, H, E, st);
+#define FFN_LAUNCH(T)                                                                 \
+  launch_ffn<T, kStorage>(i8(lhs), f32(s_a), i8(gu), f32(s_gu), i32(gu_pf),           \
+                          i32(gu_blk), i8(dn), f32(s_d), i32(d_pf), i32(d_blk),       \
+                          i32(group_sizes), i32(abits), out, M, K, N, H, E, st)
+  const cudaError_t e = out_is_bf16 ? FFN_LAUNCH(__nv_bfloat16) : FFN_LAUNCH(float);
+#undef FFN_LAUNCH
   return (int)e;
 }
 

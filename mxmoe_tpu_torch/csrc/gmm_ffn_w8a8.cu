@@ -10,7 +10,8 @@
 // H int8 codes, 8.65 MB at qwen2_moe widths, read once per m-tile; ~14 live
 // experts at 16 routed rows). Against the two-launch path (K1, K2, SwiGLU, K1,
 // K2) it drops three launches, the gate_up output's round trip through
-// device memory in bf16 and that rounding: h stays f32 in shared memory.
+// device memory in bf16 and that rounding: h stays f32 in the cluster's
+// shared memory, and so does hq.
 
 #include "gmm_ffn_tile.cuh"
 
@@ -18,12 +19,16 @@ extern "C" int mxmoe_gmm_ffn_w8a8(const void* lhs, const void* s_a,
                                   const void* gateup, const void* s_gu,
                                   const void* down, const void* s_d,
                                   const void* group_sizes, const void* abits,
-                                  void* hq_workspace, void* out, int out_is_bf16,
-                                  int M, int K, int N, int H, int E, void* stream) {
+                                  void* out, int out_is_bf16, int M, int K, int N,
+                                  int H, int E, void* stream) {
   return gmm_ffn_launch<kFfnStacked>(lhs, s_a, gateup, s_gu, nullptr, nullptr, down,
-                                     s_d, nullptr, nullptr, group_sizes, abits,
-                                     hq_workspace, out, out_is_bf16, M, K, N, H, E,
-                                     stream);
+                                     s_d, nullptr, nullptr, group_sizes, abits, out,
+                                     out_is_bf16, M, K, N, H, E, stream);
 }
 
-extern "C" int mxmoe_gmm_ffn_smem_bytes(int N) { return (int)ffn_smem_bytes(N); }
+extern "C" int mxmoe_gmm_ffn_smem_bytes(int N, int H) { return ffn_smem_bytes(N, H); }
+
+// the clusters a launch's grid holds at widths N, H (bf16 out), or -(error)
+extern "C" int mxmoe_gmm_ffn_w8a8_clusters(int N, int H) {
+  return gmm_ffn_clusters<kFfnStacked>(N, H);
+}

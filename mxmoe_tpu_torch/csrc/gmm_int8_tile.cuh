@@ -338,6 +338,17 @@ __device__ __forceinline__ uint32_t d_bcol(const int8_t* Bt, int k0, int c) {
   return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
 }
 
+// the m16 x k32 A fragment at k-step ks of a row-major int8 tile (row
+// stride lda bytes) whose first row is the fragment's
+__device__ __forceinline__ void d_afrag(const int8_t* At, int lda, int ks, int gr,
+                                        int tq, uint32_t (&a)[4]) {
+  const int8_t* p = At + gr * lda + ks + tq * 4;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 16);
+}
+
 // one DBK-deep k-step of a warp's 16 x 16 tile; kNib: 0 int8 codes, 1 the
 // low nibbles, 2 the high nibbles of packed bytes (sign-extended)
 template <int kNib, bool kRowSum>
@@ -347,11 +358,7 @@ __device__ __forceinline__ void d_mma_tile(const int8_t* At, const int8_t* Bt,
 #pragma unroll
   for (int ks = 0; ks < DBK; ks += 32) {
     uint32_t a[4];
-    const int8_t* p = At + gr * A_STRIDE + ks + tq * 4;
-    a[0] = *reinterpret_cast<const uint32_t*>(p);
-    a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE);
-    a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-    a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * A_STRIDE + 16);
+    d_afrag(At, A_STRIDE, ks, gr, tq, a);
     if constexpr (kRowSum) {
       rsum[0] = __dp4a((int)a[0], 0x01010101, rsum[0]);
       rsum[0] = __dp4a((int)a[2], 0x01010101, rsum[0]);

@@ -22,6 +22,18 @@ K13 takes the weights in K4's ragged buffers (``gu_cat`` [R1, 2N],
 rows when ``pf[e]``, else two int8 units, from unit ``blk[e]``); its output
 is bitwise K12's on the equivalent int8 codes.
 
+The kernels' design (bound: the live experts' weight bytes): a thread block
+cluster of 8 CTAs per 32-row m-tile. CTA r computes the h columns of its
+share of 16-column units from their gate and up weight columns, the CTAs
+merge their partial row amax through distributed shared memory, each
+quantizes its h slice into its own and the others' copies of hq (stores to
+their shared memory) and computes its share of the output columns. Weights
+stream through a four-deep 16-byte ``cp.async`` ring; hq never leaves the
+cluster (no device workspace). Any split of the columns gives the plain
+versions' bits (int32 sums are exact, the f32 steps are per element and a
+max does not depend on order); ``tests/test_torch_ffn_split.py`` writes the
+split out in plain PyTorch.
+
 The kernels need the sizes on the device only. Rows past
 ``sum(group_sizes)`` stay unwritten by the kernels and zero in the plain
 versions. The TPU grid's ``bm`` / ``bn1`` / ``bn2`` / ``h_dtype`` (f32 here)
@@ -37,7 +49,6 @@ from . import kernels
 from ..quant.packing import unpack_int4_halves
 from ..quant.qparams import quantize_act_per_row_bits
 from .gmm_w8a8 import exact_int8_matmul
-
 
 def ffn_plain(lhs_q, lhs_scale, gate_up_of, gu_scale, down_of, down_scale,
               group_sizes, act_bits_down, out_dtype) -> torch.Tensor:
@@ -131,8 +142,9 @@ def _check(name, lhs_q, lhs_scale, gu_scale, down_scale, group_sizes, bits,
         and bits.shape == (e,), f"{name}: group_sizes / act_bits_down int32 [E]")
     req(k % 32 == 0 and n % 64 == 0 and h % 4 == 0,
         f"{name}: K={k} % 32, N={n} % 64, H={h} % 4")
-    req(kernels.lib().mxmoe_gmm_ffn_smem_bytes(n) <= 227 * 1024 - 4096 - 256,
-        f"{name}: N={n}: h [32, N] f32 does not fit a block's shared memory")
+    req(kernels.lib().mxmoe_gmm_ffn_smem_bytes(n, h) > 0,
+        f"{name}: N={n}: h [32, N] f32 over a cluster of 8 CTAs (at most 192 "
+        f"columns each) does not fit their shared memory")
     req(e <= 1024, f"{name}: at most 1024 experts")
     req(out_dtype in (torch.bfloat16, torch.float32), f"{name}: out dtype {out_dtype}")
 
@@ -163,12 +175,11 @@ def gmm_ffn_w8a8(
     kernels.require(gateup_q.shape == (e, k, 2 * n) and down_q.shape == (e, n, h),
                     f"gmm_ffn_w8a8: weights {tuple(gateup_q.shape)} "
                     f"{tuple(down_q.shape)} for K={k}")
-    hq = torch.empty((m, n), dtype=torch.int8, device=lhs_q.device)
     out = torch.empty((m, h), dtype=out_dtype, device=lhs_q.device)
     err = kernels.lib().mxmoe_gmm_ffn_w8a8(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), gateup_q.data_ptr(),
         gateup_scale.data_ptr(), down_q.data_ptr(), down_scale.data_ptr(),
-        group_sizes.data_ptr(), bits.data_ptr(), hq.data_ptr(), out.data_ptr(),
+        group_sizes.data_ptr(), bits.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), m, k, n, h, e,
         kernels.stream_ptr(lhs_q.device))
     kernels.check(err, "gmm_ffn_w8a8")
@@ -208,15 +219,25 @@ def gmm_ffn_mixed_packed(
                     and down_cat.dim() == 2 and down_cat.shape[0] % (n // 2) == 0,
                     f"gmm_ffn_mixed_packed: buffers {tuple(gu_cat.shape)} "
                     f"{tuple(down_cat.shape)} for K={k}, N={n}")
-    hq = torch.empty((m, n), dtype=torch.int8, device=lhs_q.device)
     out = torch.empty((m, h), dtype=out_dtype, device=lhs_q.device)
     err = kernels.lib().mxmoe_gmm_ffn_mixed_packed(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), gu_cat.data_ptr(),
         gu_scale.data_ptr(), gu_pf.data_ptr(), gu_blk.data_ptr(),
         down_cat.data_ptr(), down_scale.data_ptr(), down_pf.data_ptr(),
         down_blk.data_ptr(), group_sizes.data_ptr(), bits.data_ptr(),
-        hq.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        m, k, n, h, e, kernels.stream_ptr(lhs_q.device))
+        out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, h, e,
+        kernels.stream_ptr(lhs_q.device))
     kernels.check(err, "gmm_ffn_mixed_packed")
     kernels.launches["gmm_ffn_mixed_packed"] += 1
     return out
+
+
+def resident_clusters(n: int, h: int, ragged: bool = False) -> int:
+    """How many clusters of 8 CTAs the card runs at once for K12 (K13 with
+    ``ragged``) at widths N, H, bf16 out: the persistent grid's size, so a
+    launch with more live m-tiles than this runs them in rounds. Needs a
+    card."""
+    name = "mixed_packed" if ragged else "w8a8"
+    got = getattr(kernels.lib(), f"mxmoe_gmm_ffn_{name}_clusters")(n, h)
+    kernels.check(0 if got > 0 else -got, "gmm_ffn resident clusters")
+    return got

@@ -106,17 +106,18 @@ _SIGNATURES = {
                                _I, _I, _I, _P],
     # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
     "mxmoe_gmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # lhs, s_a, gate_up, s_gu, down, s_d, group_sizes, act_bits_down, hq
-    # workspace, out, out_is_bf16, M, K, N, H, E, stream
-    "mxmoe_gmm_ffn_w8a8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _P],
+    # lhs, s_a, gate_up, s_gu, down, s_d, group_sizes, act_bits_down, out,
+    # out_is_bf16, M, K, N, H, E, stream
+    "mxmoe_gmm_ffn_w8a8": [_P] * 9 + [_I] * 6 + [_P],
     # lhs, s_a, gu_cat, s_gu, gu_pf, gu_blk, down_cat, s_d, d_pf, d_blk,
-    # group_sizes, act_bits_down, hq workspace, out, out_is_bf16, M, K, N, H,
-    # E, stream
-    "mxmoe_gmm_ffn_mixed_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # N -> dynamic shared bytes of the two calls above
-    "mxmoe_gmm_ffn_smem_bytes": [_I],
+    # group_sizes, act_bits_down, out, out_is_bf16, M, K, N, H, E, stream
+    "mxmoe_gmm_ffn_mixed_packed": [_P] * 13 + [_I] * 6 + [_P],
+    # N, H -> dynamic shared bytes of the two calls above (-1: the widths do
+    # not fit the layout)
+    "mxmoe_gmm_ffn_smem_bytes": [_I, _I],
+    # N, H -> the clusters the grid of the call above holds (-error)
+    "mxmoe_gmm_ffn_w8a8_clusters": [_I, _I],
+    "mxmoe_gmm_ffn_mixed_packed_clusters": [_I, _I],
     # lhs, lhs_is_bf16, rhs, s_b, group_sizes, out, out_is_bf16, upper, M, K,
     # N, E, stream
     "mxmoe_gmm_w8a8_fusedquant": [_P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I,

@@ -28,7 +28,10 @@ weight-only experts bitwise K6 on the same operands and within K6's bound;
 K11 within ``gmm.error_over_bound`` (f32 accumulation over K terms, + 1 bf16
 ulp for a bf16 output) of the float64 product, for bf16 and f32 operands.
 K12 (the whole FFN) bitwise its plain version, K13 bitwise its plain version
-and K12 on the equivalent int8 codes, K14 bitwise its plain version and K1 +
+and K12 on the equivalent int8 codes (also at row counts on the edges of the
+cluster body's m16 / m32 fragments with tiles straddling experts, at
+qwen2_moe's decode and 256-token prefill shapes, each launch counted once,
+and over the width domain), K14 bitwise its plain version and K1 +
 K2, K15 bitwise K2 / K5 on the same aligned layout. The int8 grouped GEMM's
 two schedules (``int8_gmm_schedule``: m16 tiles and split-K at decode, the
 64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, and K3 / K3q at
@@ -669,6 +672,76 @@ def test_gmm_ffn_mixed_packed_kernel_bitwise(dev, counts, k, n, h, packing):
     assert torch.equal(got[:rows], plain[:rows])
 
 
+def _ffn_k12_k13(dev, aq, asc, wgu, sgu, wd, sd, gs, bits, pf, rows):
+    """K12 and K13 (experts with pf[e] packed, their codes clipped to the
+    4-bit range) bitwise their plain versions and each other, each launch
+    counted once, for both output types."""
+    from mxmoe_tpu_torch.ops import gmm_ffn
+
+    pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+    wgu = torch.where(pfb, wgu.clamp(-8, 7), wgu)
+    wd = torch.where(pfb, wd.clamp(-8, 7), wd)
+    gu_cat, gu_blk = build_ragged_mixed(wgu, pf)
+    d_cat, d_blk = build_ragged_mixed(wd, pf)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    meta = (i32(pf), i32(gu_blk), i32(pf), i32(d_blk))
+    for out in (torch.bfloat16, torch.float32):
+        n12, n13 = kernels.launches["gmm_ffn_w8a8"], kernels.launches["gmm_ffn_mixed_packed"]
+        k12 = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits, out)
+        k13 = gmm_ffn.gmm_ffn_mixed_packed(aq, asc, gu_cat, sgu, meta[0], meta[1], d_cat,
+                                           sd, meta[2], meta[3], gs, bits, out)
+        assert kernels.launches["gmm_ffn_w8a8"] == n12 + 1
+        assert kernels.launches["gmm_ffn_mixed_packed"] == n13 + 1
+        p12 = gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits, out)
+        p13 = gmm_ffn.gmm_ffn_mixed_packed_plain(aq, asc, gu_cat, sgu, meta[0], meta[1],
+                                                 d_cat, sd, meta[2], meta[3], gs, bits,
+                                                 out)
+        torch.cuda.synchronize()
+        assert torch.equal(k12[:rows], p12[:rows])
+        assert torch.equal(k13[:rows], p13[:rows])
+        assert torch.equal(k13[:rows], k12[:rows])
+
+
+# row counts on the edges of the cluster's m16 / m32 fragments, unaligned (a
+# tile straddles two experts); N 192 / H 132: CTAs owning 1 or 2 h units, a
+# down tail narrower than a 16-byte piece, a packed down k-tile half full
+FFN_EDGES = [([1, 16, 0, 17, 32, 33, 64], 256, 256, 128),
+             ([1, 16, 0, 17, 32, 33, 64], 2048, 1408, 2048),
+             ([3, 0, 20, 33, 1], 128, 192, 132)]
+
+
+@pytest.mark.parametrize("counts,k,n,h", FFN_EDGES)
+@pytest.mark.parametrize("packing", ["none", "alternating", "all"])
+def test_gmm_ffn_kernels_at_row_count_edges(dev, counts, k, n, h, packing):
+    aq, asc, wgu, sgu, wd, sd, gs, bits = _ffn_operands(dev, counts, k, n, h, n + h,
+                                                        align=1)
+    e = gs.numel()
+    pf = {"none": [0] * e, "alternating": [int(i % 2 == 0) for i in range(e)],
+          "all": [1] * e}[packing]
+    _ffn_k12_k13(dev, aq, asc, wgu, sgu, wd, sd, gs, bits, pf, int(gs.sum()))
+
+
+@pytest.mark.parametrize("tokens", [4, 16, 256])
+def test_gmm_ffn_kernels_at_the_serving_shapes(dev, tokens):
+    """qwen2_moe's widths over the 32-row aligned dispatch, as the fused
+    branch routes them: decode (4 tokens, M 1876; 16 tokens) and a
+    256-token prefill chunk, every other expert packed for K13."""
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
+    from mxmoe_tpu_torch.ops.dispatch import make_dispatch, route_topk
+
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    disp = make_dispatch(route_topk(torch.randn((tokens, e), generator=g, device=dev),
+                                    cfg.top_k, cfg.norm_topk_prob), e, align=32)
+    gs = disp.group_sizes
+    m = disp.token_ids.numel()
+    _, _, wgu, sgu, wd, sd, _, bits = _ffn_operands(dev, [1] * e, h, n, h, tokens)
+    aq = torch.randint(-127, 128, (m, h), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.02 + 1e-3
+    pf = [int(i % 2 == 0) for i in range(e)]
+    _ffn_k12_k13(dev, aq, asc, wgu, sgu, wd, sd, gs, bits, pf, int(gs.sum()))
+
+
 # the read-only decode attention (decode_attention_stacked bf16 / int8,
 # decode_attention, decode_attention_q8): K3's bodies without the write
 _READ_ONLY = [(2, 128, 128, 128, torch.float32), (4, 64, 64, 1000, torch.bfloat16),
@@ -777,6 +850,29 @@ def test_fused_ffn_refuses_a_width_whose_h_row_does_not_fit(dev):
             torch.zeros((e, n, h), dtype=torch.int8, device=dev),
             torch.ones((e, 1, h), device=dev),
             torch.tensor([4, 0], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("n,h,fits", [(1408, 4100, True), (1536, 2048, True),
+                                      (2560, 256, False), (14336, 256, False)])
+def test_fused_ffn_width_domain(dev, n, h, fits):
+    """The cluster layout takes every N the single-block body took (N % 64
+    == 0 up to 1536, any H % 4: at H 4100 a CTA runs three down passes and
+    a tail narrower than a 16-byte piece), bitwise its plain version; it
+    refuses qwen2_moe_57b's N 2560 and mixtral's 14336 with the message of
+    the test above."""
+    from mxmoe_tpu_torch.ops import gmm_ffn
+
+    aq, asc, wgu, sgu, wd, sd, gs, bits = _ffn_operands(dev, [3, 0, 20], 64, n, h, n,
+                                                        align=1)
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits)
+        return
+    rows = int(gs.sum())
+    got = gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu, sgu, wd, sd, gs, bits)
+    plain = gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:rows], plain[:rows])
 
 
 def test_flash_attention_backend_on_the_card(dev):
