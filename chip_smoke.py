@@ -21,7 +21,12 @@ failure raises and the script exits non-zero without a result line:
               First the redesigned bodies at the edges of their schedules:
               K2, K4, K5 and K9 at M 1, 4, 16, 17, 24, 64, 65, 256, routed
               (two empty groups) and as one group (split-K), bitwise their
-              plain versions and K4 = K5 = K2 on the same codes; K3 / K3q at
+              plain versions and K4 = K5 = K2 on the same codes; K8 and K4f
+              (the grouped-scale GEMM's two schedules: the m16 ring kernel
+              with split-K at whole groups up to M 64, the 32-row tile above)
+              on the same rows at g128 with zero points, bitwise their plain
+              versions and K4f = K8 (K 1408: a group spans the packed
+              halves); K3 / K3q at
               lengths on the warp-chunk and S-block edges, G 1 / 4 / 7, the
               write bitwise, the read-only form bitwise K3 / K3q after it.
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
@@ -377,6 +382,15 @@ def _routing_group_sizes(tokens: int, cfg, gen, device):
                          cfg.num_experts).group_sizes
 
 
+def _grouped_schedule(m: int, k: int, n: int, e: int) -> dict:
+    """The grouped-scale GEMM's schedule (K8, K4f) at g128, for the log."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
+
+    s = grouped_gmm_schedule(m, k, n, e, GSIZE)
+    return {"bm": s.bm, "grid_m": s.grid_m, "splits": s.splits,
+            "k_tiles_per_split": s.k_tiles_per_split}
+
+
 def _require_equal(got, ref, what: str) -> None:
     import torch
 
@@ -601,9 +615,11 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
                       gmm_work(gs, k, nn, k * nn, lhs_row_bytes=k + 4 * g,
                                scale_rows=g * (1 if zp is None else 2)))
             emit("kernels", kernel="gmm_w8a8_grouped", bitwise=True, gsize=GSIZE,
-                 rhs_zp=zp is not None, **shape, **t)
+                 rhs_zp=zp is not None, schedule=_grouped_schedule(m, k, nn, ne),
+                 **shape, **t)
             if keep and zp is None:
-                rec["gmm_w8a8_grouped"].update(t)
+                rec["gmm_w8a8_grouped"].update(t, schedule=_grouped_schedule(m, k, nn,
+                                                                            ne))
 
     def weight_only_kernels(gs, m, k, nn, shape, keep, shared, gsize=GSIZE):
         """K6 and (routed shapes only) K7, 4-bit codes, scale and zp per group."""
@@ -755,11 +771,13 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                      bitwise=True, equals_gmm_w8a8_grouped=True, gsize=GSIZE,
                      straddling_group=(k // 2) % GSIZE != 0, rhs_zp=zp is not None,
                      packed_experts=sum(pflags),
+                     schedule=_grouped_schedule(m, k, nn, e),
                      gmm_w8a8_grouped_same_codes_ms=time_ms(
                          lambda: ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)),
                      **shape, **t)
                 if keep and label == "alternating" and zp is not None:
-                    rec["gmm_mixed_packed_flex"].update(t)
+                    rec["gmm_mixed_packed_flex"].update(
+                        t, schedule=_grouped_schedule(m, k, nn, e))
             del cat, wq
 
     def wo_wxa(gs, m, k, nn, shape, keep, gsize, with_zp, mixes):
@@ -1447,7 +1465,9 @@ def schedule_edges() -> None:
     """The redesigned bodies at the edges of their schedules. The int8
     grouped GEMM (K2, K4, K5, K9) at M 1, 4, 16, 17, 24, 64, 65, 256, routed
     over 12 groups (two empty) and as one group (split-K): each bitwise its
-    plain version, K4 and K5 bitwise K2 on the same codes. K3 / K3q at
+    plain version, K4 and K5 bitwise K2 on the same codes. The grouped-scale
+    GEMM (K8, K4f) on the same rows and codes at g128 with zero points: each
+    bitwise its plain version, K4f bitwise K8 on the same codes. K3 / K3q at
     lengths on the warp-chunk and S-block edges, G 1 / 4 / 7: the write
     bitwise, the output within K3_REL_BOUND per slot (+ 1 bf16 ulp), the
     read-only form bitwise K3 / K3q after their write."""
@@ -1455,12 +1475,13 @@ def schedule_edges() -> None:
 
     from mxmoe_tpu_torch.ops import gmm_mixed_packed as gmp, gmm_w4a8_packed as g4p
     from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gas
+    from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
     from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
     from mxmoe_tpu_torch.serving import decode_attention as da
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
-    cases = []
+    cases, grouped_cases = [], []
     for m in (1, 4, 16, 17, 24, 64, 65, 256):
         for layout in ("routed", "one_group"):
             if layout == "routed":
@@ -1503,13 +1524,32 @@ def schedule_edges() -> None:
                  gmp.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs, pf, blk)),
                 ("K4 = K2", gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk),
                  gmm.gmm_w8a8(aq, asc, mixed, wsc, gs)))
+            # the grouped-scale GEMM on the same rows and codes, g128 + zp
+            g = k // GSIZE
+            gsc = torch.rand((m, g), generator=gen, device=dev) * 0.05
+            gwsc = torch.rand((e, g, n), generator=gen, device=dev) * 0.01
+            gzp = torch.randn((e, g, n), generator=gen, device=dev) * 0.02
+            k4f = gmp.gmm_mixed_packed(aq, gsc, cat, gwsc, gs, pf, blk, rhs_zp=gzp)
+            checks += (
+                ("K8", ggrp.gmm_w8a8_grouped(aq, gsc, w8, gwsc, gs, GSIZE, gzp),
+                 ggrp.gmm_w8a8_grouped_plain(aq, gsc, w8, gwsc, gs, GSIZE, gzp)),
+                ("K4f", k4f, gmp.gmm_mixed_packed_plain(aq, gsc, cat, gwsc, gs, pf,
+                                                        blk, rhs_zp=gzp)),
+                ("K4f = K8", k4f,
+                 ggrp.gmm_w8a8_grouped(aq, gsc, mixed, gwsc, gs, GSIZE, gzp)))
             torch.cuda.synchronize()
             for what, got, ref in checks:
                 _require_equal(got, ref, f"{what} at M {m} {layout}")
             cases.append({"M": m, "layout": layout, "bm": sched.bm,
                           "splits": sched.splits, "blocks": sched.blocks})
+            gsched = ggrp.grouped_gmm_schedule(m, k, n, e, GSIZE)
+            grouped_cases.append({"M": m, "layout": layout, "K": k, "bm": gsched.bm,
+                                  "grid_m": gsched.grid_m, "splits": gsched.splits,
+                                  "blocks": gsched.blocks})
     emit("schedule_edges", kernel="int8 grouped GEMM (K2, K4, K5, K9)",
          bitwise=True, cases=cases)
+    emit("schedule_edges", kernel="grouped-scale GEMM (K8, K4f)", gsize=GSIZE,
+         rhs_zp=True, bitwise=True, k4f_equals_k8=True, cases=grouped_cases)
 
     n_kv, s_max, dv, layer = 2, 600, 128, 0
     lens = [0, 15, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 599, 600]
@@ -2328,7 +2368,8 @@ def main() -> int:
          "plain_ms": rec[name]["plain_ms"],
          "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
          "library_ms": rec[name].get("library_ms"),
-         "library_device_ms": rec[name].get("library_device_ms")}
+         "library_device_ms": rec[name].get("library_device_ms"),
+         **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

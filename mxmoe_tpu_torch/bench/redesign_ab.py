@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Three
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Four
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -12,7 +12,13 @@ case sets, each against the csrc of the commit before its redesign:
   FFN, K12 and K13 (every other expert packed), qwen2_moe widths over the
   32-row aligned dispatch at 16 and 64 routed rows and a 256-token prefill
   chunk, with the clusters the new body's grid holds (``resident_clusters``:
-  more live m-tiles than that run in rounds).
+  more live m-tiles than that run in rounds);
+* ``grouped`` (before the m16 decode kernel of ``gmm_grouped_tile.cuh``,
+  when every M took the 32 x 128 body): the grouped-scale GEMMs at decode,
+  K8 and K4f (every other expert packed, or all), g128, qwen2_moe's routed
+  gate_up and down products at 16 routed rows and (K8) its grouped shared
+  expert (E = 1, M 4), without and with zero points, with the new body's
+  schedule.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -75,6 +81,10 @@ _OLD = {
     "ffn": (("gmm_ffn_w8a8.cu", "gmm_ffn_mixed_packed.cu"), {
         "mxmoe_gmm_ffn_w8a8": [_P] * 10 + [_I] * 6 + [_P],
         "mxmoe_gmm_ffn_mixed_packed": [_P] * 14 + [_I] * 6 + [_P]}),
+    # ..., out, out_is_bf16, M, K, N, E, gsize, stream (no schedule)
+    "grouped": (("gmm_w8a8_grouped.cu", "gmm_mixed_packed.cu"), {
+        "mxmoe_gmm_w8a8_grouped": [_P] * 7 + [_I] * 6 + [_P],
+        "mxmoe_gmm_mixed_packed_flex": [_P] * 9 + [_I] * 6 + [_P]}),
 }
 
 
@@ -437,6 +447,92 @@ def ffn_cases(lib, reps: int) -> None:
                   **_bound(nbytes, 2 * rows * (h * 2 * n + n * h), "int8"))
 
 
+# ---------------------------------------------------------------------------
+# the grouped-scale GEMMs
+# ---------------------------------------------------------------------------
+
+def grouped_cases(lib, reps: int) -> None:
+    """K8 and K4f at g128, the 32 x 128 body against the m16 ring body."""
+    from ..ops import gmm_w8a8_grouped as ggrp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = configs.QWEN2_MOE_A2_7B
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    sn, gsize, tokens = cfg.shared_expert_intermediate_size, 128, 4
+    gs = make_dispatch(route_topk(torch.randn((tokens, e), generator=gen, device=dev),
+                                  cfg.top_k, cfg.norm_topk_prob), e).group_sizes
+    one = torch.full((1,), tokens, dtype=torch.int32, device=dev)
+    storages = {"alternating": [int(i % 2 == 0) for i in range(e)],
+                "all packed": [1] * e}
+    for use, g_s, k, nn in (("gate_up", gs, h, 2 * n), ("down", gs, n, h),
+                            ("shared gate_up", one, h, 2 * sn),
+                            ("shared down", one, sn, h)):
+        ee, rows, groups = g_s.numel(), int(g_s.sum()), k // gsize
+        lv = g_s > 0
+        aq = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        asc = torch.rand((rows, groups), generator=gen, device=dev) * 0.05 + 1e-3
+        w8 = torch.randint(-127, 128, (ee, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w4 = torch.randint(-8, 8, (ee, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wsc = torch.rand((ee, groups, nn), generator=gen, device=dev) * 0.01 + 1e-4
+        wzp = torch.randn((ee, groups, nn), generator=gen, device=dev) * 0.02
+        sched = ggrp.grouped_gmm_schedule(rows, k, nn, ee, gsize)
+        shape = {"use": use, "M": rows, "K": k, "N": nn, "gsize": gsize,
+                 "live_groups": int(lv.sum()),
+                 "schedule": {"bm": sched.bm, "grid_m": sched.grid_m,
+                              "splits": sched.splits,
+                              "k_tiles_per_split": sched.k_tiles_per_split}}
+        out_old = torch.empty((rows, nn), dtype=torch.bfloat16, device=dev)
+        ints = (1, rows, k, nn, ee, gsize)
+
+        def old_call(fn, ptrs):
+            def call():
+                kernels.check(getattr(lib, fn)(*ptrs, out_old.data_ptr(), *ints,
+                                               _stream()), "old " + fn)
+                return out_old
+            return call
+
+        for zp in (None, wzp):
+            scale_bytes = int(lv.sum()) * groups * nn * 4 * (1 if zp is None else 2)
+            base = rows * (k + 4 * groups) + scale_bytes + ee * 4 + rows * nn * 2
+            zp_ptr = None if zp is None else zp.data_ptr()
+            runs = [("gmm_w8a8_grouped", None,
+                     lambda zp=zp: ggrp.gmm_w8a8_grouped(aq, asc, w8, wsc, g_s, gsize,
+                                                         zp),
+                     old_call("mxmoe_gmm_w8a8_grouped",
+                              (aq.data_ptr(), asc.data_ptr(), w8.data_ptr(),
+                               wsc.data_ptr(), zp_ptr, g_s.data_ptr())),
+                     base + int(lv.sum()) * k * nn)]
+            for label, pflags in storages.items() if ee > 1 else ():
+                pfb = torch.tensor(pflags, dtype=torch.bool, device=dev)
+                cat, blk = build_ragged_mixed(
+                    torch.where(pfb[:, None, None], w4, w8), pflags)
+                pf = pfb.to(torch.int32)
+                blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+                per_expert = torch.tensor([k * nn // 2 if f else k * nn
+                                           for f in pflags], device=dev)
+                runs.append(("gmm_mixed_packed_flex", label,
+                             lambda a=(cat, pf, blk), zp=zp: gmp.gmm_mixed_packed(
+                                 aq, asc, a[0], wsc, g_s, a[1], a[2], rhs_zp=zp),
+                             old_call("mxmoe_gmm_mixed_packed_flex",
+                                      (aq.data_ptr(), asc.data_ptr(), cat.data_ptr(),
+                                       wsc.data_ptr(), zp_ptr, g_s.data_ptr(),
+                                       pf.data_ptr(), blk.data_ptr())),
+                             base + int(per_expert[lv].sum()) + 8 * ee))
+            for name, storage, new, old, nbytes in runs:
+                a, b = new(), old().clone()
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} {use} {storage} zp={zp is not None}: "
+                                         "new and old bodies differ")
+                _emit(name, **shape, storage=storage, rhs_zp=zp is not None,
+                      bitwise_old=True, **_ab(old, new, reps),
+                      **_bound(nbytes, 2 * rows * k * nn, "int8"))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -447,7 +543,8 @@ def main(argv=None) -> None:
         raise SystemExit("redesign_ab: needs a CUDA card")
     kernels.lib()
     old = build_old(args.old_csrc, args.cases)
-    runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases}
+    runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases,
+            "grouped": grouped_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -27,7 +27,13 @@
 // steps and needs a second int32 scratch when K/2 is no multiple of the group
 // size; here a block walks logical k, an int8 expert's two units are one
 // [K, N] block, and a packed expert's code row k is byte row k or k - K/2, so
-// a group that spans the halves needs nothing of its own.
+// a group that spans the halves needs nothing of its own. Two bodies by the
+// wrapper's schedule (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule): the
+// 32 x 128 prefill body and, at decode M, the m16 x 64 ring kernel with
+// split-K at whole groups (gmm_grouped_tile.cuh), which walks a packed
+// expert's byte rows once, its high half's group sums held in shared memory
+// until the low half is folded (the straddling group's low part is added
+// to its held high part), or logical k where the hold does not fit.
 
 #include "gmm_grouped_tile.cuh"
 
@@ -59,22 +65,43 @@ gmm_mixed_packed_flex_kernel(const int8_t* __restrict__ lhs,
       tile_info[2], tile_info[3], blockIdx.x * BN, As, Bs);
 }
 
+// sc: bm GBM (prefill body over grid_m logical m-tiles) or DBM (the decode
+// kernel, grid_m x splits; ws / tickets when splits > 1)
+template <typename OutT, bool kZp>
+cudaError_t launch_flex_typed(const int8_t* lhs, const float* s_a, const int8_t* rhs,
+                              const float* s_b, const float* zp, const int* gs,
+                              const int* pf, const int* blk, void* out, int M, int K,
+                              int N, int E, int gsize, const Int8Schedule& sc,
+                              cudaStream_t st) {
+  if (M > 0) {
+    OutT* o = static_cast<OutT*>(out);
+    if (sc.bm == DBM) {
+      dim3 grid((N + DBN - 1) / DBN, sc.grid_m, sc.splits);
+      gmm_grouped_decode_kernel<OutT, kZp, true><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, sc.ws, sc.tickets, M, K, N, E,
+          gsize, sc.kt_per_split);
+    } else if (sc.bm == GBM) {
+      dim3 grid((N + BN - 1) / BN, sc.grid_m);
+      gmm_mixed_packed_flex_kernel<OutT, kZp><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, M, K, N, E, gsize);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return cudaGetLastError();
+}
+
 template <typename OutT>
 cudaError_t launch_flex(const int8_t* lhs, const float* s_a, const int8_t* rhs,
                         const float* s_b, const float* zp, const int* gs,
                         const int* pf, const int* blk, void* out, int M, int K,
-                        int N, int E, int gsize, cudaStream_t st) {
-  if (M > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + GBM - 1) / GBM + E - 1);
-    OutT* o = static_cast<OutT*>(out);
-    if (zp != nullptr)
-      gmm_mixed_packed_flex_kernel<OutT, true><<<grid, kThreads, 0, st>>>(
-          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, M, K, N, E, gsize);
-    else
-      gmm_mixed_packed_flex_kernel<OutT, false><<<grid, kThreads, 0, st>>>(
-          lhs, s_a, rhs, s_b, zp, gs, pf, blk, o, M, K, N, E, gsize);
-  }
-  return cudaGetLastError();
+                        int N, int E, int gsize, const Int8Schedule& sc,
+                        cudaStream_t st) {
+  return zp != nullptr
+      ? launch_flex_typed<OutT, true>(lhs, s_a, rhs, s_b, zp, gs, pf, blk, out, M,
+                                      K, N, E, gsize, sc, st)
+      : launch_flex_typed<OutT, false>(lhs, s_a, rhs, s_b, zp, gs, pf, blk, out, M,
+                                       K, N, E, gsize, sc, st);
 }
 
 }  // namespace
@@ -94,7 +121,8 @@ extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
                                        splits, kt_per_split, ws, tickets, stream);
 }
 
-// zp may be null (no asymmetric scheme: the row-sum term is compiled out)
+// zp may be null (no asymmetric scheme: the row-sum term is compiled out);
+// the schedule as mxmoe_gmm_mixed_packed's
 extern "C" int mxmoe_gmm_mixed_packed_flex(const void* lhs, const void* s_a,
                                            const void* rhs_cat, const void* s_b,
                                            const void* zp,
@@ -102,7 +130,9 @@ extern "C" int mxmoe_gmm_mixed_packed_flex(const void* lhs, const void* s_a,
                                            const void* pflags,
                                            const void* blk_offsets, void* out,
                                            int out_is_bf16, int M, int K, int N,
-                                           int E, int gsize, void* stream) {
+                                           int E, int gsize, int bm, int grid_m,
+                                           int splits, int kt_per_split, void* ws,
+                                           void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const int8_t* b = static_cast<const int8_t*>(rhs_cat);
@@ -112,10 +142,12 @@ extern "C" int mxmoe_gmm_mixed_packed_flex(const void* lhs, const void* s_a,
   const int* gs = static_cast<const int*>(group_sizes);
   const int* pf = static_cast<const int*>(pflags);
   const int* blk = static_cast<const int*>(blk_offsets);
+  const Int8Schedule sc{bm, grid_m, splits, kt_per_split, static_cast<int*>(ws),
+                        static_cast<int*>(tickets)};
   cudaError_t err = out_is_bf16
       ? launch_flex<__nv_bfloat16>(a, sa, b, sb, z, gs, pf, blk, out, M, K, N, E,
-                                   gsize, st)
-      : launch_flex<float>(a, sa, b, sb, z, gs, pf, blk, out, M, K, N, E, gsize,
+                                   gsize, sc, st)
+      : launch_flex<float>(a, sa, b, sb, z, gs, pf, blk, out, M, K, N, E, gsize, sc,
                            st);
   return (int)err;
 }

@@ -5,14 +5,18 @@
 // (_grouped_accum and its four bodies, with and without rhs_zp, k-blocked or
 // not).
 //
-// The arithmetic, the tile and the walk are gmm_grouped_tile.cuh's
-// (grouped_tile_body), shared with the flex form of gmm_mixed_packed and the
-// w x a experts of gmm_mixed_wo_wxa; this kernel feeds it int8-stored experts,
-// rhs [E, K, N]. With E = 1 it is the dense product of a grouped / asymmetric
-// shared expert; with G = 1 a per-channel product.
+// The arithmetic, the walk and both bodies are gmm_grouped_tile.cuh's: the
+// 32 x 128 prefill body grouped_tile_body (shared with the flex form of
+// gmm_mixed_packed and the w x a experts of gmm_mixed_wo_wxa) and, at decode
+// M, gmm_grouped_decode_kernel (m16 x 64 tiles, a cp.async ring of raw
+// weight tiles and fold operands, split-K at whole groups), as the wrapper's
+// schedule says (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule). This file
+// feeds them int8-stored experts, rhs [E, K, N]. With E = 1 it is the dense
+// product of a grouped / asymmetric shared expert; with G = 1 a per-channel
+// product.
 //
 // Bound on the H100: weight bytes (codes; the f32 scales and zero points add
-// 8 bytes per 128 codes).
+// 4 or 8 bytes per 128 codes and column).
 
 #include "gmm_grouped_tile.cuh"
 
@@ -39,32 +43,56 @@ gmm_grouped_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a
       tile_info[3], blockIdx.x * BN, As, Bs);
 }
 
-template <typename OutT>
-cudaError_t launch_grouped(const int8_t* lhs, const float* s_a, const int8_t* rhs,
-                           const float* s_b, const float* zp, const int* gs,
-                           void* out, int M, int K, int N, int E, int gsize,
-                           cudaStream_t st) {
+// sc: bm GBM (prefill body over grid_m logical m-tiles) or DBM (the decode
+// kernel, grid_m x splits; ws / tickets when splits > 1)
+template <typename OutT, bool kZp>
+cudaError_t launch_grouped_typed(const int8_t* lhs, const float* s_a,
+                                 const int8_t* rhs, const float* s_b,
+                                 const float* zp, const int* gs, void* out, int M,
+                                 int K, int N, int E, int gsize,
+                                 const Int8Schedule& sc, cudaStream_t st) {
   if (M > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + GBM - 1) / GBM + E - 1);
     OutT* o = static_cast<OutT*>(out);
-    if (zp != nullptr)
-      gmm_grouped_kernel<OutT, true><<<grid, kThreads, 0, st>>>(
+    if (sc.bm == DBM) {
+      dim3 grid((N + DBN - 1) / DBN, sc.grid_m, sc.splits);
+      gmm_grouped_decode_kernel<OutT, kZp, false><<<grid, kThreads, 0, st>>>(
+          lhs, s_a, rhs, s_b, zp, gs, nullptr, nullptr, o, sc.ws, sc.tickets, M, K,
+          N, E, gsize, sc.kt_per_split);
+    } else if (sc.bm == GBM) {
+      dim3 grid((N + BN - 1) / BN, sc.grid_m);
+      gmm_grouped_kernel<OutT, kZp><<<grid, kThreads, 0, st>>>(
           lhs, s_a, rhs, s_b, zp, gs, o, M, K, N, E, gsize);
-    else
-      gmm_grouped_kernel<OutT, false><<<grid, kThreads, 0, st>>>(
-          lhs, s_a, rhs, s_b, zp, gs, o, M, K, N, E, gsize);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   return cudaGetLastError();
 }
 
+template <typename OutT>
+cudaError_t launch_grouped(const int8_t* lhs, const float* s_a, const int8_t* rhs,
+                           const float* s_b, const float* zp, const int* gs,
+                           void* out, int M, int K, int N, int E, int gsize,
+                           const Int8Schedule& sc, cudaStream_t st) {
+  return zp != nullptr
+      ? launch_grouped_typed<OutT, true>(lhs, s_a, rhs, s_b, zp, gs, out, M, K, N,
+                                         E, gsize, sc, st)
+      : launch_grouped_typed<OutT, false>(lhs, s_a, rhs, s_b, zp, gs, out, M, K, N,
+                                          E, gsize, sc, st);
+}
+
 }  // namespace
 
-// zp may be null (symmetric weights: the row-sum term is compiled out)
+// zp may be null (symmetric weights: the row-sum term is compiled out); the
+// schedule as mxmoe_gmm_w8a8's: bm, grid_m, splits, k-tiles per split,
+// workspace, tickets
 extern "C" int mxmoe_gmm_w8a8_grouped(const void* lhs, const void* s_a,
                                       const void* rhs, const void* s_b,
                                       const void* zp, const void* group_sizes,
                                       void* out, int out_is_bf16, int M, int K,
-                                      int N, int E, int gsize, void* stream) {
+                                      int N, int E, int gsize, int bm, int grid_m,
+                                      int splits, int kt_per_split, void* ws,
+                                      void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const int8_t* b = static_cast<const int8_t*>(rhs);
@@ -72,9 +100,11 @@ extern "C" int mxmoe_gmm_w8a8_grouped(const void* lhs, const void* s_a,
   const float* sb = static_cast<const float*>(s_b);
   const float* z = static_cast<const float*>(zp);
   const int* gs = static_cast<const int*>(group_sizes);
+  const Int8Schedule sc{bm, grid_m, splits, kt_per_split, static_cast<int*>(ws),
+                        static_cast<int*>(tickets)};
   cudaError_t err = out_is_bf16
       ? launch_grouped<__nv_bfloat16>(a, sa, b, sb, z, gs, out, M, K, N, E, gsize,
-                                      st)
-      : launch_grouped<float>(a, sa, b, sb, z, gs, out, M, K, N, E, gsize, st);
+                                      sc, st)
+      : launch_grouped<float>(a, sa, b, sb, z, gs, out, M, K, N, E, gsize, sc, st);
   return (int)err;
 }

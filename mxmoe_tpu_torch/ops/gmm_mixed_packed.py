@@ -13,9 +13,10 @@ bitwise that of ``gmm_w8a8`` on the int8-stored codes: the int32 sum is
 exact and the epilogue is the same ``(acc * s_a) * s_b``, rounded once.
 
 Flex form (``lhs_scale`` [M, G], ``rhs_scale`` and the optional ``rhs_zp``
-[E, G, N] with G > 1, or ``rhs_zp`` given): ``gmm_w8a8_grouped``'s contract
-and arithmetic, groups of K / G codes in ascending order, so the output is
-bitwise that of ``gmm_w8a8_grouped`` on the int8-stored codes. A group is a
+[E, G, N] with G > 1, or ``rhs_zp`` given): ``gmm_w8a8_grouped``'s contract,
+arithmetic and schedule (``grouped_gmm_schedule``), groups of K / G codes in
+ascending order, so the output is bitwise that of ``gmm_w8a8_grouped`` on
+the int8-stored codes. A group is a
 range of k, wherever its codes lie: with K/2 no multiple of the group size
 (K 1408, g 128) the middle group takes the end of the low nibbles and the
 start of the high nibbles of a packed expert, or the end of the first and
@@ -34,7 +35,7 @@ from . import kernels
 from ..quant.packing import unpack_int4_halves
 from .gmm_w8a8 import (check_int8_gmm_operands, grouped_int8_plain,
                        int8_launch_schedule)
-from .gmm_w8a8_grouped import grouped_scale_plain
+from .gmm_w8a8_grouped import grouped_launch_schedule, grouped_scale_plain
 
 
 def _is_flex(lhs_scale, rhs_scale, rhs_zp) -> bool:
@@ -106,12 +107,13 @@ def gmm_mixed_packed(
         req(rhs_zp is None or (rhs_zp.shape == rhs_scale.shape
                                and rhs_zp.dtype == torch.float32),
             f"{name}: rhs_zp must be float32 of rhs_scale's shape")
+        sched, _ws = grouped_launch_schedule(lhs_q, rhs_cat, n, e, gsize)
         err = kernels.lib().mxmoe_gmm_mixed_packed_flex(
             lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
             rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
             group_sizes.data_ptr(), pflags.data_ptr(), blk_offsets.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
-            kernels.stream_ptr(lhs_q.device))
+            *sched, kernels.stream_ptr(lhs_q.device))
     else:
         sched, _ws = int8_launch_schedule(lhs_q, rhs_cat, n, e)
         err = kernels.lib().mxmoe_gmm_mixed_packed(

@@ -87,19 +87,24 @@ def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
                             0, 0)
 
 
-def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False):
-    """``int8_gmm_schedule`` for these operands -> the C entry points'
-    schedule arguments (bm, grid_m, splits, k_tiles_per_split, workspace,
-    tickets) and the split-K workspace tensor (or None), which the caller
-    keeps alive until the launch is queued."""
-    m, k = lhs_q.shape
-    sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0)
+def schedule_args(sched: Int8GemmSchedule, device):
+    """A schedule -> the C entry points' schedule arguments (bm, grid_m,
+    splits, k_tiles_per_split, workspace, tickets) and the split-K workspace
+    tensor (or None), which the caller keeps alive until the launch is
+    queued."""
     if sched.splits == 1:
         return (sched.bm, sched.grid_m, 1, sched.k_tiles_per_split, None, None), None
-    ws = torch.empty((sched.ws_ints,), dtype=torch.int32, device=lhs_q.device)
-    tk = kernels.tickets(lhs_q.device, sched.tickets)
+    ws = torch.empty((sched.ws_ints,), dtype=torch.int32, device=device)
+    tk = kernels.tickets(device, sched.tickets)
     return (sched.bm, sched.grid_m, sched.splits, sched.k_tiles_per_split,
             ws.data_ptr(), tk.data_ptr()), ws
+
+
+def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False):
+    """``int8_gmm_schedule`` for these operands -> ``schedule_args``."""
+    m, k = lhs_q.shape
+    sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0)
+    return schedule_args(sched, lhs_q.device)
 
 
 # k-terms per float32 product in exact_int8_matmul: 1024 products of int8
@@ -175,6 +180,107 @@ def int8_split_k_plain(lhs_q, lhs_scale, weight_of, rhs_scale, group_sizes,
             if rhs_zp is not None:
                 res = res + rsum.float() * sa * rhs_zp[e]
             out[start:end] = res.to(out_dtype)
+        start += size
+    return out
+
+
+def logical_rows(block, packed: bool, k: int, k0: int, k1: int) -> torch.Tensor:
+    """Code rows [k0, k1) of logical K from an expert's storage ``block``:
+    [K, N] int8 codes, or with ``packed`` [K/2, N] nibble-packed bytes in the
+    halves layout (code row k: byte row k, low nibble, below K/2; byte row
+    k - K/2, high nibble, above), sign-extended to int8. The rows may
+    straddle K/2."""
+    if not packed:
+        return block[k0:k1]
+    k2 = k // 2
+    b = block.to(torch.int32)
+    rows = []
+    if k0 < k2:
+        rows.append(((b[k0:min(k1, k2)] & 0xF) ^ 8) - 8)
+    if k1 > k2:
+        rows.append((((b[max(k0, k2) - k2:k1 - k2] >> 4) & 0xF) ^ 8) - 8)
+    return torch.cat(rows).to(torch.int8)
+
+
+HOLD_GROUPS = 8    # high-half groups the grouped decode body's one-pass walk holds
+
+
+def grouped_decode_plain(lhs_q, lhs_scale, storage_of, rhs_scale, group_sizes,
+                         gsize: int, k_tiles_per_split: int, rhs_zp=None,
+                         out_dtype=torch.bfloat16, one_pass: bool = True
+                         ) -> torch.Tensor:
+    """The grouped-scale decode body's order of work (K8 / K4f at decode M,
+    ``csrc/gmm_grouped_tile.cuh``), in plain PyTorch (for the tests). Per
+    expert, ``storage_of(e)`` -> (storage block, packed).
+
+    Logical walk: K in k-tiles of 64 codes, each tile's code rows read from
+    the storage by ``logical_rows`` (a packed expert's byte rows once for each
+    half of K; a tile or a scale group may straddle K/2), cut into splits of
+    ``k_tiles_per_split`` k-tiles; each split keeps one exact int32 sum (and
+    the activations' row sums with ``rhs_zp``) per group it touches; a
+    group's sums are added in split order.
+
+    One-pass walk (``one_pass``; a packed expert of an unsplit walk with K/2
+    % 64 == 0 and at most ``HOLD_GROUPS`` groups from K/2 on): byte tiles of
+    64 rows, each giving a low-nibble sum for logical k = r and a high-nibble
+    sum for k = K/2 + r; the high half's group sums are held, and the group
+    that straddles K/2 adds its low part to its held high part.
+
+    Either way the groups are folded in ascending order: ``acc += (isum *
+    s_a) * s_b [+ (rsum * s_a) * zp]``, every f32 step rounded on its own."""
+    m, k = lhs_q.shape
+    n = rhs_scale.shape[-1]
+    groups = k // gsize
+    kt = -(-k // K_TILE)
+    k2 = k // 2
+    out = torch.zeros((m, n), dtype=out_dtype, device=lhs_q.device)
+
+    def tile_sum(a, w, k0, k1):
+        return (exact_int8_matmul(a[:, k0:k1], w),
+                a[:, k0:k1].to(torch.int32).sum(-1, keepdim=True))
+
+    def add(sums, g, part):
+        sums[g] = part if g not in sums else (sums[g][0] + part[0], sums[g][1] + part[1])
+
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, m)
+        if end > start:
+            a = lhs_q[start:end]
+            block, packed = storage_of(e)
+            # parts[z][g]: (int32 sums, row sums) of group g in split (or
+            # half) z, added per group in order
+            parts = []
+            if (one_pass and packed and k_tiles_per_split >= kt and k2 % K_TILE == 0
+                    and groups - k2 // gsize <= HOLD_GROUPS):
+                low, high = {}, {}
+                for r0 in range(0, k2, K_TILE):
+                    # a byte tile read as a packed block of 2 x 64 codes: its
+                    # low nibbles are codes r0.., its high ones K/2 + r0..
+                    rows = block[r0:r0 + K_TILE]
+                    lo = logical_rows(rows, True, 2 * K_TILE, 0, K_TILE)
+                    hi = logical_rows(rows, True, 2 * K_TILE, K_TILE, 2 * K_TILE)
+                    add(low, r0 // gsize, tile_sum(a, lo, r0, r0 + K_TILE))
+                    add(high, (k2 + r0) // gsize,
+                        tile_sum(a, hi, k2 + r0, k2 + r0 + K_TILE))
+                parts = [low, high]
+            else:
+                for t0 in range(0, kt, k_tiles_per_split):
+                    part = {}
+                    for t in range(t0, min(t0 + k_tiles_per_split, kt)):
+                        k0, k1 = t * K_TILE, min((t + 1) * K_TILE, k)
+                        add(part, k0 // gsize,
+                            tile_sum(a, logical_rows(block, packed, k, k0, k1), k0, k1))
+                    parts.append(part)
+            sa = lhs_scale[start:end]
+            acc = torch.zeros((end - start, n), dtype=torch.float32, device=a.device)
+            for g in range(groups):
+                isum = sum(p[g][0] for p in parts if g in p)
+                rs = sum(p[g][1] for p in parts if g in p)
+                acc = acc + isum.float() * sa[:, g:g + 1] * rhs_scale[e, g]
+                if rhs_zp is not None:
+                    acc = acc + (rs.float() * sa[:, g:g + 1]) * rhs_zp[e, g]
+            out[start:end] = acc.to(out_dtype)
         start += size
     return out
 

@@ -17,7 +17,10 @@ bitwise. ``rhs_zp`` carries asymmetric weights (re-centred storage, ``w = q
 their scales replicated over G; E = 1 is the dense product of a grouped or
 asymmetric shared expert. The TPU kernel's k-blocking (``bk``, a sum of
 per-block partial sums for K above 4096) is not carried over: the kernel
-walks K once in group order.
+walks K in group order, in one block or, where the grid is short, split at
+whole groups with the groups' int32 sums added by the tile's last block
+(``grouped_gmm_schedule``, shared with the flex form of
+``gmm_mixed_packed``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,57 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gmm_w8a8 import check_int8_gmm_operands, exact_int8_matmul
+from .gmm_w8a8 import (DECODE_M, K_TILE, SPLIT_BLOCKS, _PART_INTS, Int8GemmSchedule,
+                       _cdiv, check_int8_gmm_operands, exact_int8_matmul,
+                       schedule_args)
+
+GROUPED_BM = 32    # rows of the prefill body's tile (gmm_grouped_tile.cuh GBM)
+MAX_SPLITS = 16
+
+
+def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
+                         aligned: bool = True) -> Int8GemmSchedule:
+    """The schedule of the grouped-scale GEMMs (K8, and K4f over any mix of
+    int8-stored and nibble-packed experts), from the shapes the host knows.
+
+    Decode (``int8_gmm_schedule``'s thresholds: ``m <= DECODE_M``, N a
+    multiple of 16, 16-byte aligned weights): one m16 row block x 64 columns
+    a block, m-tiles bounded by M, K walked in logical k-tiles of 64 codes
+    whatever the storage. Where fewer than ``SPLIT_BLOCKS`` blocks would run,
+    K is split at whole groups (with one group, at whole k-tiles), as few
+    groups a split as it takes to reach that many blocks, at most 16 splits;
+    each split holds ``gmax`` = k_tiles_per_split / (gsize / 64) groups and
+    the workspace one m16 x 64 int32 sum (+ 16 row sums) per tile, split and
+    group held. Otherwise the 32 x 128 prefill body over cdiv(M, 32) + E - 1
+    logical m-tiles."""
+    kt = max(_cdiv(k, K_TILE), 1)
+    if m <= DECODE_M and n % 16 == 0 and aligned:
+        grid_n, grid_m = _cdiv(n, 64), min(_cdiv(m, 16) + e - 1, m)
+        blocks = grid_n * grid_m
+        # a split holds whole units: groups of gsize / 64 k-tiles (G > 1) or
+        # k-tiles (one group)
+        unit = 1 if gsize == k else gsize // K_TILE
+        units = _cdiv(kt, unit)
+        per = units
+        if 0 < blocks < SPLIT_BLOCKS:
+            want = min(_cdiv(SPLIT_BLOCKS, blocks), units, MAX_SPLITS)
+            per = max(units // want, _cdiv(units, MAX_SPLITS))
+        splits = _cdiv(units, per)
+        if splits == 1:
+            return Int8GemmSchedule(16, 64, grid_n, grid_m, 1, kt, 0, 0)
+        gmax = 1 if gsize == k else per
+        return Int8GemmSchedule(16, 64, grid_n, grid_m, splits, per * unit,
+                                blocks * splits * gmax * _PART_INTS, blocks)
+    return Int8GemmSchedule(GROUPED_BM, 128, _cdiv(n, 128),
+                            _cdiv(m, GROUPED_BM) + e - 1, 1, kt, 0, 0)
+
+
+def grouped_launch_schedule(lhs_q, rhs, n: int, e: int, gsize: int):
+    """``grouped_gmm_schedule`` for these operands -> ``schedule_args``."""
+    m, k = lhs_q.shape
+    sched = grouped_gmm_schedule(m, k, n, e, gsize,
+                                 aligned=rhs.data_ptr() % 16 == 0)
+    return schedule_args(sched, lhs_q.device)
 
 
 def grouped_rows_plain(a_q, w_q, sa, sc, zp, gsize: int) -> torch.Tensor:
@@ -108,11 +161,12 @@ def gmm_w8a8_grouped(
                            and rhs_zp.dtype == torch.float32),
         "gmm_w8a8_grouped: rhs_zp must be float32 of rhs_scale's shape")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
+    sched, _ws = grouped_launch_schedule(lhs_q, rhs_q, n, e, gsize)
     err = kernels.lib().mxmoe_gmm_w8a8_grouped(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
         group_sizes.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
+        int(out_dtype == torch.bfloat16), m, k, n, e, gsize, *sched,
         kernels.stream_ptr(lhs_q.device))
     kernels.check(err, "gmm_w8a8_grouped")
     kernels.launches["gmm_w8a8_grouped"] += 1

@@ -89,17 +89,17 @@ _SIGNATURES = {
     "mxmoe_gmm_weight_only_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _P],
     # lhs, s_a, rhs, s_b, zp (may be null), group_sizes, out, out_is_bf16, M,
-    # K, N, E, gsize, stream
+    # K, N, E, gsize, schedule (gmm_w8a8_grouped.grouped_gmm_schedule), stream
     "mxmoe_gmm_w8a8_grouped": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _P],
+                               _I, *_SCHED, _P],
     # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E,
     # schedule, stream
     "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             *_SCHED, _P],
     # lhs, s_a, rhs_cat, s_b, zp (may be null), group_sizes, pflags,
-    # blk_offsets, out, out_is_bf16, M, K, N, E, gsize, stream
+    # blk_offsets, out, out_is_bf16, M, K, N, E, gsize, schedule, stream
     "mxmoe_gmm_mixed_packed_flex": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _P],
+                                    _I, _I, _I, _I, *_SCHED, _P],
     # lhs (bf16), lhs_q, s_a, rhs, s_b, zp (may be null), scheme_flags,
     # group_sizes, out, out_is_bf16, M, K, N, E, gsize, stream
     "mxmoe_gmm_mixed_wo_wxa": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -34,8 +34,10 @@ qwen2_moe's decode and 256-token prefill shapes, each launch counted once,
 and over the width domain), K14 bitwise its plain version and K1 +
 K2, K15 bitwise K2 / K5 on the same aligned layout. The int8 grouped GEMM's
 two schedules (``int8_gmm_schedule``: m16 tiles and split-K at decode, the
-64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, and K3 / K3q at
-lengths on the edges of their warp chunks and S-blocks."""
+64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, the grouped-scale
+GEMM's two (``grouped_gmm_schedule``: the m16 ring kernel with split-K at
+whole groups, the 32-row tile above M 64) through K8 / K4f bitwise, and K3 /
+K3q at lengths on the edges of their warp chunks and S-blocks."""
 
 import pytest
 import torch
@@ -197,6 +199,13 @@ def _grouped_operands(dev, sizes, k, n, groups):
     ([4], 5632, 2048, 128, torch.bfloat16),                   # E = 1, 44 groups
     ([33, 0, 2], 96, 64, -1, torch.float32),                  # one group, K % 64 != 0
     ([7, 40], 256, 32, 64, torch.bfloat16),                   # a group per k-tile
+    # the decode body (M <= 64): 1-64 rows an expert, routed and E = 1
+    ([1, 0, 16, 17, 0, 2], 1408, 2048, 128, torch.float32),
+    ([3, 61], 1408, 2048, 128, torch.bfloat16),               # M 64, no split
+    ([64], 2048, 1024, 128, torch.float32),                   # E = 1, split-K
+    ([4], 2048, 11264, 128, torch.bfloat16),                  # shared gate_up
+    ([4], 5632, 2048, -1, torch.float32),                     # one group, split
+    ([2, 0, 1, 1], 1408, 2048, -1, torch.bfloat16),           # one group, routed
 ])
 @pytest.mark.parametrize("asym", [False, True], ids=["sym", "zp"])
 def test_gmm_w8a8_grouped_kernel_bitwise(dev, sizes, k, n, gsize, out, asym):
@@ -423,6 +432,15 @@ _FLEX_PACKED = [
     ([1, 1, 0, 1, 1, 0, 0, 1], [1, 0, 1, 0, 1, 0, 1, 0], 2048, 2816, 128, torch.bfloat16),
     ([3, 200, 7], [0, 0, 0], 128, 64, 64, torch.bfloat16),        # no packed expert
     ([3, 200, 7], [1, 1, 1], 1408, 64, 128, torch.bfloat16),      # all packed
+    # the decode body (M <= 64): the straddling group at K 1408, a tile that
+    # straddles K/2 (K 192: K/2 = 96), 1-64 rows an expert, E = 1 split
+    ([1, 0, 16, 17, 0, 2], [1, 0, 1, 0, 1, 0], 1408, 2048, 128, torch.float32),
+    ([3, 5, 1], [1, 1, 1], 1408, 2048, 128, torch.bfloat16),
+    ([2, 7, 0, 30], [0, 0, 0, 0], 2048, 2816, 128, torch.bfloat16),
+    ([5, 0, 19, 8, 0, 12], [1, 1, 0, 1, 0, 0], 192, 48, 64, torch.bfloat16),
+    ([1, 63], [1, 0], 1408, 2048, 128, torch.float32),
+    ([4], [1], 2048, 11264, 128, torch.bfloat16),
+    ([4], [1], 1408, 2048, 128, torch.float32),
 ]
 
 
@@ -962,6 +980,78 @@ def test_int8_gemm_schedules_bitwise_k2_k4_k5_k9(dev, m, layout):
         assert torch.equal(k4, gmm_mixed_packed.gmm_mixed_packed_plain(
             aq, asc, cat, wsc, gs, pf, blk, out_dtype=out))
         assert torch.equal(k4, k2_mixed)
+
+
+@pytest.mark.parametrize("m", _SCHED_M)
+@pytest.mark.parametrize("layout", ["routed", "one_group"])
+def test_grouped_gemm_schedules_bitwise_k8_k4f(dev, m, layout):
+    """The grouped-scale GEMM's two schedules (``grouped_gmm_schedule``: the
+    m16 ring kernel with split-K at whole groups up to M 64, the 32-row tile
+    above) through K8 and K4f at g128 (K 1408: group 5 spans the packed
+    halves) and with one group, without and with zero points: each bitwise
+    its plain version, K4f (every other expert packed) bitwise K8 on the
+    same codes."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
+
+    if layout == "routed":
+        sizes, k, n = _spread(m, 12, m + 1), 1408, 2048
+    else:                            # one group of rows: split-K at decode
+        sizes, k, n = [m], 2048, 1024
+    e = len(sizes)
+    g = torch.Generator(device=dev).manual_seed(m + k + 1)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    pflags = [i % 2 for i in range(e)]
+    mixed = torch.where(torch.tensor(pflags, dtype=torch.bool, device=dev)[:, None, None],
+                        w4, w8)
+    cat, blk = build_ragged_mixed(mixed, pflags)
+    pf = torch.tensor(pflags, dtype=torch.int32, device=dev)
+    blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+    for gsize in (128, -1):
+        groups = 1 if gsize == -1 else k // gsize
+        sched = grouped_gmm_schedule(m, k, n, e, k if gsize == -1 else gsize)
+        assert (sched.bm == 16) == (m <= 64)
+        if layout == "one_group" and m <= 16:
+            assert sched.splits > 1
+        asc = torch.rand((m, groups), generator=g, device=dev) * 0.05
+        wsc = torch.rand((e, groups, n), generator=g, device=dev) * 0.01
+        wzp = torch.randn((e, groups, n), generator=g, device=dev) * 0.02
+        for zp, out in ((None, torch.bfloat16), (wzp, torch.float32)):
+            if zp is None and gsize == -1:
+                continue             # per channel without zp: K4's form, not K4f
+            k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w8, wsc, gs, gsize, zp,
+                                                   out_dtype=out)
+            k4f = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk,
+                                                    rhs_zp=zp, out_dtype=out)
+            k8_mixed = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, mixed, wsc, gs,
+                                                         gsize, zp, out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(k8, gmm_w8a8_grouped.gmm_w8a8_grouped_plain(
+                aq, asc, w8, wsc, gs, gsize, zp, out_dtype=out))
+            assert torch.equal(k4f, gmm_mixed_packed.gmm_mixed_packed_plain(
+                aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp, out_dtype=out))
+            assert torch.equal(k4f, k8_mixed)
+
+
+def test_grouped_gemm_split_k_tickets_reset_between_launches(dev):
+    """K8's split-K launches one after another (the shared expert's down
+    product: 11 splits of 4 groups) give the same bits every time."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    k, n, groups = 5632, 2048, 44
+    aq = torch.randint(-127, 128, (4, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((4, groups), generator=g, device=dev)
+    wq = torch.randint(-127, 128, (1, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((1, groups, n), generator=g, device=dev) * 0.01
+    wzp = torch.randn((1, groups, n), generator=g, device=dev) * 0.02
+    gs = torch.tensor([4], dtype=torch.int32, device=dev)
+    ref = gmm_w8a8_grouped.gmm_w8a8_grouped_plain(aq, asc, wq, wsc, gs, 128, wzp)
+    for _ in range(5):
+        got = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, 128, wzp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert int(kernels.tickets(dev, 1).abs().sum()) == 0
 
 
 def test_int8_gemm_split_k_tickets_reset_between_launches(dev):
