@@ -26,7 +26,12 @@ failure raises and the script exits non-zero without a result line:
               with split-K at whole groups up to M 64, the 32-row tile above)
               on the same rows at g128 with zero points, bitwise their plain
               versions and K4f = K8 (K 1408: a group spans the packed
-              halves); K3 / K3q at
+              halves); K6, K7 and K10 (the weight-only GEMM's two schedules,
+              one for the three: the m16 ring body with split-K over
+              byte-tile pairs up to M 64, the 32-row tile above) on the same
+              rows at g128 with zero points and per channel, K6 within its
+              bound, K7 = K6 and K10's weight-only rows = K6 bitwise, its
+              w x a rows = K8 / K2 bitwise; K3 / K3q at
               lengths on the warp-chunk and S-block edges, G 1 / 4 / 7, the
               write bitwise, the read-only form bitwise K3 / K3q after it.
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
@@ -37,7 +42,8 @@ failure raises and the script exits non-zero without a result line:
               against K8 with one group; K6 and K7 within their accumulation
               bound of a float64 product (gmm_weight_only.error_over_bound),
               K7 bitwise K6 on the unpacked codes; K8 and K6 also with one
-              group of rows at the shared expert's shapes.
+              group of rows at the shared expert's shapes; each K6 / K7 /
+              K10 line prints the schedule it ran (bm 16 at decode).
               K4f (the flex form of gmm_mixed_packed) bitwise its plain
               version and bitwise K8 on the unpacked codes, without and with a
               group that spans the two halves of K, without and with zero
@@ -391,6 +397,15 @@ def _grouped_schedule(m: int, k: int, n: int, e: int) -> dict:
             "k_tiles_per_split": s.k_tiles_per_split}
 
 
+def _wo_schedule(m: int, k: int, n: int, e: int, gsize: int = GSIZE) -> dict:
+    """The weight-only GEMMs' schedule (K6, K7, K10), for the log."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import weight_only_gmm_schedule
+
+    s = weight_only_gmm_schedule(m, k, n, e, k if gsize == -1 else gsize)
+    return {"bm": s.bm, "grid_m": s.grid_m, "splits": s.splits,
+            "k_tiles_per_split": s.k_tiles_per_split}
+
+
 def _require_equal(got, ref, what: str) -> None:
     import torch
 
@@ -638,11 +653,12 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
         t = timed(lambda: gwo.gmm_weight_only(x, w4, sc, zp, gs, gsize),
                   lambda: gwo.gmm_weight_only_plain(x, w4, sc, zp, gs, gsize),
                   gmm_work(gs, k, nn, k * nn, **scales))
+        sched = _wo_schedule(m, k, nn, ne, gsize)
         emit("kernels", kernel="gmm_weight_only", gsize=gsize, max_abs_err=err,
-             err_over_bound=ratio,
+             err_over_bound=ratio, schedule=sched,
              bound="K * 2^-24 * sum|lhs||w| + 1 bf16 ulp, vs float64", **shape, **t)
         if keep:
-            rec["gmm_weight_only"].update(max_abs_err=err, **t)
+            rec["gmm_weight_only"].update(max_abs_err=err, schedule=sched, **t)
         if shared or gsize == -1:
             return
         packed = pack_int4_halves(w4)
@@ -655,9 +671,9 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
                   gmm_work(gs, k, nn, k * nn // 2, **scales))
         emit("kernels", kernel="gmm_weight_only_packed", gsize=gsize,
              equals_gmm_weight_only=True, max_abs_err=err, err_over_bound=ratio,
-             **shape, **t)
+             schedule=sched, **shape, **t)
         if keep:
-            rec["gmm_weight_only_packed"].update(max_abs_err=err, **t)
+            rec["gmm_weight_only_packed"].update(max_abs_err=err, schedule=sched, **t)
 
     for regime, tokens in (("decode", 4), ("prefill", 256)):
         m = tokens * cfg.top_k
@@ -820,8 +836,9 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                       lambda: gmx.gmm_mixed_wo_wxa_plain(x, aq, asc, w4, wsc, flags,
                                                          gs, rhs_zp=zp),
                       mixed_wo_wxa_work(gs, flags, k, nn, g, with_zp))
+            sched = _wo_schedule(m, k, nn, e, gsize)
             emit("kernels", kernel="gmm_mixed_wo_wxa", body=body, flags=label,
-                 weight_only_experts=sum(fl), wxa_rows_bitwise=True,
+                 schedule=sched, weight_only_experts=sum(fl), wxa_rows_bitwise=True,
                  wo_rows_equal_gmm_weight_only=True, max_abs_err=err,
                  err_over_bound=ratio, gsize=gsize, rhs_zp=with_zp,
                  gmm_w8a8_grouped_same_codes_ms=time_ms(
@@ -830,7 +847,7 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                      lambda: gwo.gmm_weight_only(x, w4, wsc, zp6, gs, gsize)),
                  **shape, **t)
             if keep and body == "flex" and label == "alternating":
-                rec["gmm_mixed_wo_wxa"].update(max_abs_err=err, **t)
+                rec["gmm_mixed_wo_wxa"].update(max_abs_err=err, schedule=sched, **t)
 
     def float_gmm(gs, m, k, nn, shape, keep):
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -1467,7 +1484,12 @@ def schedule_edges() -> None:
     over 12 groups (two empty) and as one group (split-K): each bitwise its
     plain version, K4 and K5 bitwise K2 on the same codes. The grouped-scale
     GEMM (K8, K4f) on the same rows and codes at g128 with zero points: each
-    bitwise its plain version, K4f bitwise K8 on the same codes. K3 / K3q at
+    bitwise its plain version, K4f bitwise K8 on the same codes. The
+    weight-only GEMM (K6, K7, K10: one schedule) on the same rows, 4-bit
+    codes, at g128 with zero points and per channel: K6 within
+    ``gmm_weight_only.error_over_bound`` of the float64 product, K7 bitwise
+    K6, K10 (experts alternating) weight-only rows bitwise K6 and w x a rows
+    bitwise K8 (and K2 per channel). K3 / K3q at
     lengths on the warp-chunk and S-block edges, G 1 / 4 / 7: the write
     bitwise, the output within K3_REL_BOUND per slot (+ 1 bf16 ulp), the
     read-only form bitwise K3 / K3q after their write."""
@@ -1476,12 +1498,14 @@ def schedule_edges() -> None:
     from mxmoe_tpu_torch.ops import gmm_mixed_packed as gmp, gmm_w4a8_packed as g4p
     from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gas
     from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
+    from mxmoe_tpu_torch.ops import gmm_mixed_wo_wxa as gmx, gmm_weight_only as gwo
+    from mxmoe_tpu_torch.ops import gmm_weight_only_packed as gwop
     from mxmoe_tpu_torch.quant.packing import build_ragged_mixed, pack_int4_halves
     from mxmoe_tpu_torch.serving import decode_attention as da
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
-    cases, grouped_cases = [], []
+    cases, grouped_cases, wo_cases = [], [], []
     for m in (1, 4, 16, 17, 24, 64, 65, 256):
         for layout in ("routed", "one_group"):
             if layout == "routed":
@@ -1537,6 +1561,33 @@ def schedule_edges() -> None:
                                                         blk, rhs_zp=gzp)),
                 ("K4f = K8", k4f,
                  ggrp.gmm_w8a8_grouped(aq, gsc, mixed, gwsc, gs, GSIZE, gzp)))
+            # the weight-only GEMM on the same rows and 4-bit codes: K6, K7
+            # and K10 (experts alternating) on one schedule
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            fl = torch.tensor(pflags, dtype=torch.int32, device=dev)
+            wo_rows = torch.repeat_interleave(fl, gs.long()).bool()
+            for gsize, wsc_w, zp_w, sa_w in ((GSIZE, gwsc, gzp, gsc),
+                                             (-1, wsc, None, asc)):
+                zp6 = torch.zeros_like(wsc_w) if zp_w is None else zp_w
+                k6 = gwo.gmm_weight_only(x, w4, wsc_w, zp6, gs, gsize)
+                k10 = gmx.gmm_mixed_wo_wxa(x, aq, sa_w, w4, wsc_w, fl, gs, rhs_zp=zp_w)
+                wxa = (gmm.gmm_w8a8(aq, sa_w, w4, wsc_w, gs) if zp_w is None else
+                       ggrp.gmm_w8a8_grouped(aq, sa_w, w4, wsc_w, gs, gsize, zp_w))
+                checks += (
+                    (f"K7 = K6, gsize {gsize}",
+                     gwop.gmm_weight_only_packed(x, packed, wsc_w, zp6, gs, gsize), k6),
+                    (f"K10 weight-only rows = K6, gsize {gsize}", k10[wo_rows],
+                     k6[wo_rows]),
+                    (f"K10 w x a rows = {'K2' if zp_w is None else 'K8'}, gsize "
+                     f"{gsize}", k10[~wo_rows], wxa[~wo_rows]))
+                torch.cuda.synchronize()
+                _, ratio = gwo.error_over_bound(k6, x, w4, wsc_w, zp6, gs, gsize)
+                if not ratio <= 1.0:
+                    raise AssertionError(f"K6 outside its bound at M {m} {layout} "
+                                         f"gsize {gsize}: {ratio} of it")
+                wo_cases.append({"M": m, "layout": layout, "K": k, "gsize": gsize,
+                                 "err_over_bound": ratio,
+                                 **_wo_schedule(m, k, n, e, gsize)})
             torch.cuda.synchronize()
             for what, got, ref in checks:
                 _require_equal(got, ref, f"{what} at M {m} {layout}")
@@ -1550,6 +1601,9 @@ def schedule_edges() -> None:
          bitwise=True, cases=cases)
     emit("schedule_edges", kernel="grouped-scale GEMM (K8, K4f)", gsize=GSIZE,
          rhs_zp=True, bitwise=True, k4f_equals_k8=True, cases=grouped_cases)
+    emit("schedule_edges", kernel="weight-only GEMM (K6, K7, K10)",
+         k7_equals_k6=True, k10_weight_only_rows_equal_k6=True,
+         k10_wxa_rows_equal_k8_or_k2=True, cases=wo_cases)
 
     n_kv, s_max, dv, layer = 2, 600, 128, 0
     lens = [0, 15, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 599, 600]

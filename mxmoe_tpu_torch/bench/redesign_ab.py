@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Four
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Five
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -13,12 +13,22 @@ case sets, each against the csrc of the commit before its redesign:
   32-row aligned dispatch at 16 and 64 routed rows and a 256-token prefill
   chunk, with the clusters the new body's grid holds (``resident_clusters``:
   more live m-tiles than that run in rounds);
-* ``grouped`` (before the m16 decode kernel of ``gmm_grouped_tile.cuh``,
-  when every M took the 32 x 128 body): the grouped-scale GEMMs at decode,
+* ``grouped`` (against the csrc of the m16 decode kernel of
+  ``gmm_grouped_tile.cuh`` before it became a device body shared with K10;
+  its C entry points take the schedule): the grouped-scale GEMMs at decode,
   K8 and K4f (every other expert packed, or all), g128, qwen2_moe's routed
   gate_up and down products at 16 routed rows and (K8) its grouped shared
-  expert (E = 1, M 4), without and with zero points, with the new body's
-  schedule.
+  expert (E = 1, M 4), without and with zero points: the refactor leaves
+  both bitwise and, within the noise, as fast;
+* ``weight_only`` (before the m16 decode body of
+  ``gmm_weight_only_tile.cuh``, when every M took the 32 x 128 body and K10
+  ran the 32 x 128 bodies of K6 and K8): K6, K7 (the same codes packed) and
+  K10 (flex body, experts alternating, g128 with zero points) at
+  qwen2_moe's routed gate_up and down products at 16 routed rows, and K6
+  and K7 for its weight-only shared expert (E = 1, M 4). Old and new sum K
+  in other orders: each is held within ``gmm_weight_only.error_over_bound``
+  of the float64 product, the new K7 bitwise the new K6, and K10's w x a
+  rows old and new bitwise.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -81,10 +91,16 @@ _OLD = {
     "ffn": (("gmm_ffn_w8a8.cu", "gmm_ffn_mixed_packed.cu"), {
         "mxmoe_gmm_ffn_w8a8": [_P] * 10 + [_I] * 6 + [_P],
         "mxmoe_gmm_ffn_mixed_packed": [_P] * 14 + [_I] * 6 + [_P]}),
-    # ..., out, out_is_bf16, M, K, N, E, gsize, stream (no schedule)
+    # ..., out, out_is_bf16, M, K, N, E, gsize, schedule, stream
     "grouped": (("gmm_w8a8_grouped.cu", "gmm_mixed_packed.cu"), {
-        "mxmoe_gmm_w8a8_grouped": [_P] * 7 + [_I] * 6 + [_P],
-        "mxmoe_gmm_mixed_packed_flex": [_P] * 9 + [_I] * 6 + [_P]}),
+        "mxmoe_gmm_w8a8_grouped": [_P] * 7 + [_I] * 6 + [_I] * 4 + [_P] * 3,
+        "mxmoe_gmm_mixed_packed_flex": [_P] * 9 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
+    # ..., out, out_is_bf16, M, K, N, E, gsize, stream (no schedule)
+    "weight_only": (("gmm_weight_only.cu", "gmm_weight_only_packed.cu",
+                     "gmm_mixed_wo_wxa.cu"), {
+        "mxmoe_gmm_weight_only": [_P] * 6 + [_I] * 6 + [_P],
+        "mxmoe_gmm_weight_only_packed": [_P] * 6 + [_I] * 6 + [_P],
+        "mxmoe_gmm_mixed_wo_wxa": [_P] * 9 + [_I] * 6 + [_P]}),
 }
 
 
@@ -480,6 +496,7 @@ def grouped_cases(lib, reps: int) -> None:
         wsc = torch.rand((ee, groups, nn), generator=gen, device=dev) * 0.01 + 1e-4
         wzp = torch.randn((ee, groups, nn), generator=gen, device=dev) * 0.02
         sched = ggrp.grouped_gmm_schedule(rows, k, nn, ee, gsize)
+        sched_args, _ws = gmm.schedule_args(sched, dev)
         shape = {"use": use, "M": rows, "K": k, "N": nn, "gsize": gsize,
                  "live_groups": int(lv.sum()),
                  "schedule": {"bm": sched.bm, "grid_m": sched.grid_m,
@@ -491,7 +508,7 @@ def grouped_cases(lib, reps: int) -> None:
         def old_call(fn, ptrs):
             def call():
                 kernels.check(getattr(lib, fn)(*ptrs, out_old.data_ptr(), *ints,
-                                               _stream()), "old " + fn)
+                                               *sched_args, _stream()), "old " + fn)
                 return out_old
             return call
 
@@ -533,6 +550,115 @@ def grouped_cases(lib, reps: int) -> None:
                       **_bound(nbytes, 2 * rows * k * nn, "int8"))
 
 
+# ---------------------------------------------------------------------------
+# the weight-only GEMMs
+# ---------------------------------------------------------------------------
+
+def weight_only_cases(lib, reps: int) -> None:
+    """K6, K7 and K10 at g128 with zero points, the 32 x 128 bodies against
+    the m16 ring bodies."""
+    from ..ops import gmm_mixed_wo_wxa as gmx, gmm_w8a8_grouped as ggrp
+    from ..ops import gmm_weight_only as gwo, gmm_weight_only_packed as gwop
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cfg = configs.QWEN2_MOE_A2_7B
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    sn, gsize, tokens = cfg.shared_expert_intermediate_size, 128, 4
+    gs = make_dispatch(route_topk(torch.randn((tokens, e), generator=gen, device=dev),
+                                  cfg.top_k, cfg.norm_topk_prob), e).group_sizes
+    one = torch.full((1,), tokens, dtype=torch.int32, device=dev)
+    for use, g_s, k, nn in (("gate_up", gs, h, 2 * n), ("down", gs, n, h),
+                            ("shared gate_up", one, h, 2 * sn),
+                            ("shared down", one, sn, h)):
+        ee, rows, groups = g_s.numel(), int(g_s.sum()), k // gsize
+        lv = g_s > 0
+        live = int(lv.sum())
+        x = torch.randn((rows, k), generator=gen, device=dev).to(torch.bfloat16)
+        aq = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        asc = torch.rand((rows, groups), generator=gen, device=dev) * 0.05 + 1e-3
+        w4 = torch.randint(-8, 8, (ee, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        packed = pack_int4_halves(w4)
+        sc = torch.rand((ee, groups, nn), generator=gen, device=dev) * 0.02 + 1e-3
+        zp = torch.randn((ee, groups, nn), generator=gen, device=dev) * 0.05
+        flags = [int(i % 2 == 0) for i in range(ee)]
+        fl = torch.tensor(flags, dtype=torch.int32, device=dev)
+        sched = ggrp.weight_only_gmm_schedule(rows, k, nn, ee, gsize)
+        shape = {"use": use, "M": rows, "K": k, "N": nn, "gsize": gsize,
+                 "rhs_zp": True, "live_groups": live,
+                 "schedule": {"bm": sched.bm, "grid_m": sched.grid_m,
+                              "splits": sched.splits,
+                              "k_tiles_per_split": sched.k_tiles_per_split}}
+        ints = (1, rows, k, nn, ee, gsize)
+
+        def old_call(fn, ptrs):
+            out_old = torch.empty((rows, nn), dtype=torch.bfloat16, device=dev)
+
+            def call():
+                kernels.check(getattr(lib, fn)(*ptrs, out_old.data_ptr(), *ints,
+                                               _stream()), "old " + fn)
+                return out_old
+            return call
+
+        meta = rows * nn * 2 + ee * 4 + live * groups * nn * 8
+        wo_ops = 2 * rows * k * nn
+        runs = [("gmm_weight_only",
+                 lambda: gwo.gmm_weight_only(x, w4, sc, zp, g_s, gsize),
+                 old_call("mxmoe_gmm_weight_only",
+                          (x.data_ptr(), w4.data_ptr(), sc.data_ptr(), zp.data_ptr(),
+                           g_s.data_ptr())),
+                 _bound(meta + rows * 2 * k + live * k * nn, wo_ops, "bf16")),
+                ("gmm_weight_only_packed",
+                 lambda: gwop.gmm_weight_only_packed(x, packed, sc, zp, g_s, gsize),
+                 old_call("mxmoe_gmm_weight_only_packed",
+                          (x.data_ptr(), packed.data_ptr(), sc.data_ptr(),
+                           zp.data_ptr(), g_s.data_ptr())),
+                 _bound(meta + rows * 2 * k + live * k * nn // 2, wo_ops, "bf16"))]
+        wo_rows = torch.repeat_interleave(fl, g_s.long()).bool()
+        if ee > 1:
+            rows_wo = int(g_s[fl.bool()].sum())
+            rows_wxa = rows - rows_wo
+            t_ops = (2 * rows_wo * k * nn / PEAK["bf16"]
+                     + 2 * rows_wxa * k * nn / PEAK["int8"]) * 1e3
+            nbytes = (meta + rows_wo * 2 * k + rows_wxa * (k + 4 * groups)
+                      + live * k * nn)
+            t_bytes = nbytes / HBM * 1e3
+            runs.append(("gmm_mixed_wo_wxa",
+                         lambda: gmx.gmm_mixed_wo_wxa(x, aq, asc, w4, sc, fl, g_s,
+                                                      rhs_zp=zp),
+                         old_call("mxmoe_gmm_mixed_wo_wxa",
+                                  (x.data_ptr(), aq.data_ptr(), asc.data_ptr(),
+                                   w4.data_ptr(), sc.data_ptr(), zp.data_ptr(),
+                                   fl.data_ptr(), g_s.data_ptr())),
+                         {"bound_ms": max(t_bytes, t_ops), "bytes": int(nbytes),
+                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}))
+        k6 = runs[0][1]()
+        for name, new, old, bound in runs:
+            a, b = new(), old()
+            torch.cuda.synchronize()
+            rows_of = wo_rows if name == "gmm_mixed_wo_wxa" else torch.ones_like(wo_rows)
+            gs_wo = torch.where(fl.bool(), g_s, torch.zeros_like(g_s)) \
+                if name == "gmm_mixed_wo_wxa" else g_s
+            ratios = []
+            for got in (a, b):
+                r = torch.nonzero(rows_of)[:, 0]
+                ratios.append(gwo.error_over_bound(
+                    got[r].contiguous(), x[r].contiguous(), w4, sc, zp, gs_wo,
+                    gsize)[1])
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"{name} {use}: outside the bound {ratios}")
+            if not torch.equal(a[rows_of], k6[rows_of]):
+                raise AssertionError(f"{name} {use}: weight-only rows differ from K6")
+            if name == "gmm_mixed_wo_wxa" and not torch.equal(a[~wo_rows],
+                                                               b[~wo_rows]):
+                raise AssertionError(f"{name} {use}: w x a rows differ old / new")
+            _emit(name, **shape, new_err_over_bound=ratios[0],
+                  old_err_over_bound=ratios[1], equals_new_k6=True,
+                  **_ab(old, new, reps), **bound)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -544,7 +670,7 @@ def main(argv=None) -> None:
     kernels.lib()
     old = build_old(args.old_csrc, args.cases)
     runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases,
-            "grouped": grouped_cases}
+            "grouped": grouped_cases, "weight_only": weight_only_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

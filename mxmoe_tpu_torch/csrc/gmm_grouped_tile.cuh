@@ -303,33 +303,23 @@ constexpr int GD_HOLD_GROUPS = 8;
 // the end the groups from floor(K/2 / gsize) on are folded in ascending
 // order from the hold, the first (a group that straddles K/2, or all of K
 // when G = 1) with the low part still in the low sums added.
+//
+// The body takes the block's tile (expert e, rows [row_lo, row_hi) from m0,
+// columns from n0 = blockIdx.x * 64) and its shared memory as pointers: the
+// DSTAGES ring stages `st`, the one-pass hold `held` / `held_rs` (read only
+// with kMayPack; may be null otherwise) and the ticket flag `is_last`, so a
+// kernel may lay them over memory it shares with another body (K10).
 template <typename OutT, bool kZp, bool kMayPack>
-__global__ void __launch_bounds__(kThreads)
-gmm_grouped_decode_kernel(const int8_t* __restrict__ lhs,
-                          const float* __restrict__ s_a,
-                          const int8_t* __restrict__ rhs,
-                          const float* __restrict__ s_b,
-                          const float* __restrict__ zp,
-                          const int* __restrict__ group_sizes,
-                          const int* __restrict__ pflags,
-                          const int* __restrict__ blk_offsets,
-                          OutT* __restrict__ out, int* __restrict__ ws,
-                          int* __restrict__ tickets, int M, int K, int N, int E,
-                          int gsize, int kt_per_split) {
+__device__ __forceinline__ void grouped_decode_body(
+    const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
+    const int8_t* __restrict__ rhs, const float* __restrict__ s_b,
+    const float* __restrict__ zp, const int* __restrict__ pflags,
+    const int* __restrict__ blk_offsets, OutT* __restrict__ out,
+    int* __restrict__ ws, int* __restrict__ tickets, int K, int N, int gsize,
+    int kt_per_split, int e, int m0, int row_lo, int row_hi,
+    GdStage<kMayPack>* st, int* held, int (*held_rs)[DBM], int& is_last) {
   constexpr int kS = kZp ? 2 : 1;       // f32 rows a fold reads: s_b (and zp)
   using Stage = GdStage<kMayPack>;
-  __shared__ Stage st[DSTAGES];
-  // the one-pass walk's held high-half sums: [group][live row][64] and the
-  // groups' row sums [group][16]
-  __shared__ int held[kMayPack ? GD_HOLD_BYTES / 4 : 1];
-  __shared__ int held_rs[kMayPack ? GD_HOLD_GROUPS : 1][DBM];
-  __shared__ int sizes[kMaxExperts];
-  __shared__ int tile_info[4];          // expert, first row, row begin, row end
-  __shared__ int is_last;
-
-  if (!block_tile<DBM>(group_sizes, E, M, sizes, tile_info)) return;
-  const int e = tile_info[0], m0 = tile_info[1];
-  const int row_lo = tile_info[2], row_hi = tile_info[3];
   const int n0 = blockIdx.x * DBN;
 
   const int G = K / gsize, K2 = K / 2;
@@ -687,4 +677,34 @@ gmm_grouped_decode_kernel(const int8_t* __restrict__ lhs,
   }
 }
 
+// K8's and K4f's decode kernel: the block's tile, then the body over its
+// own static shared memory.
+template <typename OutT, bool kZp, bool kMayPack>
+__global__ void __launch_bounds__(kThreads)
+gmm_grouped_decode_kernel(const int8_t* __restrict__ lhs,
+                          const float* __restrict__ s_a,
+                          const int8_t* __restrict__ rhs,
+                          const float* __restrict__ s_b,
+                          const float* __restrict__ zp,
+                          const int* __restrict__ group_sizes,
+                          const int* __restrict__ pflags,
+                          const int* __restrict__ blk_offsets,
+                          OutT* __restrict__ out, int* __restrict__ ws,
+                          int* __restrict__ tickets, int M, int K, int N, int E,
+                          int gsize, int kt_per_split) {
+  __shared__ GdStage<kMayPack> st[DSTAGES];
+  // the one-pass walk's held high-half sums: [group][live row][64] and the
+  // groups' row sums [group][16]
+  __shared__ int held[kMayPack ? GD_HOLD_BYTES / 4 : 1];
+  __shared__ int held_rs[kMayPack ? GD_HOLD_GROUPS : 1][DBM];
+  __shared__ int sizes[kMaxExperts];
+  __shared__ int tile_info[4];          // expert, first row, row begin, row end
+  __shared__ int is_last;
+
+  if (!block_tile<DBM>(group_sizes, E, M, sizes, tile_info)) return;
+  grouped_decode_body<OutT, kZp, kMayPack>(
+      lhs, s_a, rhs, s_b, zp, pflags, blk_offsets, out, ws, tickets, K, N, gsize,
+      kt_per_split, tile_info[0], tile_info[1], tile_info[2], tile_info[3], st,
+      held, held_rs, is_last);
+}
 }  // namespace

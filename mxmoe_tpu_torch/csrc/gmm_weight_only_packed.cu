@@ -12,8 +12,10 @@
 // for both storages).
 //
 // Bound on the H100: weight bytes, half of K6's codes plus the same scale and
-// zp bytes. The kernel is gmm_weight_only_tile.cuh with packed storage: one
-// byte tile is split in registers into the two code tiles of a step.
+// zp bytes. The kernel is gmm_weight_only_tile.cuh with packed storage (the
+// schedule as K6's): the prefill body splits one byte tile in registers
+// into the two code tiles of a step; the decode body reads one byte tile a
+// pair and dequantizes its low and high nibbles for the two halves.
 
 #include "gmm_weight_only_tile.cuh"
 
@@ -22,7 +24,10 @@ extern "C" int mxmoe_gmm_weight_only_packed(const void* lhs,
                                             const void* scale, const void* zp,
                                             const void* group_sizes, void* out,
                                             int out_is_bf16, int M, int K, int N,
-                                            int E, int gsize, void* stream) {
+                                            int E, int gsize, int bm, int grid_m,
+                                            int splits, int kt_per_split, void* ws,
+                                            void* tickets, void* stream) {
   return gmm_wo_launch<true>(lhs, rhs_packed, scale, zp, group_sizes, out,
-                             out_is_bf16, M, K, N, E, gsize, stream);
+                             out_is_bf16, M, K, N, E, gsize, bm, grid_m, splits,
+                             kt_per_split, ws, tickets, stream);
 }

@@ -17,7 +17,9 @@ Both activation operands are passed for every row; a flag-1 row's int8 codes
 and a flag-0 row's float values are never read (the reference computes and
 ignores them too). On a card flag-0 rows agree bitwise with K8 (K2 when per
 channel) and flag-1 rows bitwise with K6 on the same operands: the kernel
-runs those kernels' bodies. Against the plain version flag-1 rows agree
+runs those kernels' bodies, both on the grid and split count of
+``gmm_w8a8_grouped.weight_only_gmm_schedule`` (K6's and K7's too): the
+32 x 128 tiles at prefill, m16 x 64 tiles at decode M. Against the plain version flag-1 rows agree
 within K6's accumulation bound (``gmm_weight_only.accumulation_bound``).
 
 The TPU grid's ``bm`` / ``bn`` / ``static_sizes`` / ``group_base`` have no
@@ -30,7 +32,7 @@ import torch
 
 from . import kernels
 from .gmm_w8a8 import check_int8_gmm_operands
-from .gmm_w8a8_grouped import grouped_rows_plain
+from .gmm_w8a8_grouped import grouped_rows_plain, weight_only_launch_schedule
 from .gmm_weight_only import dequantize_expert
 
 
@@ -101,11 +103,12 @@ def gmm_mixed_wo_wxa(
                            and rhs_zp.dtype == torch.float32),
         f"{name}: rhs_zp must be float32 of rhs_scale's shape")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    sched, _ws = weight_only_launch_schedule(lhs, rhs_q, n, e, gsize)
     err = kernels.lib().mxmoe_gmm_mixed_wo_wxa(
         lhs.data_ptr(), lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
         scheme_flags.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
+        int(out_dtype == torch.bfloat16), m, k, n, e, gsize, *sched,
         kernels.stream_ptr(lhs.device))
     kernels.check(err, name)
     kernels.launches[name] += 1

@@ -73,12 +73,50 @@ def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
                             _cdiv(m, GROUPED_BM) + e - 1, 1, kt, 0, 0)
 
 
+def weight_only_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
+                             aligned: bool = True) -> Int8GemmSchedule:
+    """The one schedule of K6 (``gmm_weight_only``), K7
+    (``gmm_weight_only_packed``) and K10 (``gmm_mixed_wo_wxa``, both of its
+    bodies on one grid), from the shapes the host knows. An f32 sum depends on
+    its order, so K6, K7 and K10's weight-only rows agree bitwise only where
+    they take their grid and split count from here.
+
+    Decode: ``grouped_gmm_schedule``'s m16 x 64 grid and split count, where
+    its decode domain holds and the weight-only decode body's does too: one
+    scale group (``gsize == k``), or groups of whole 64-code tiles with
+    K/2 % 64 == 0, so every half-tile of a byte-tile pair lies in one group.
+    What a split covers is each body's own. The weight-only body walks
+    byte-tile pairs (code rows [r0, r0 + 64) and [K/2 + r0, ..), P =
+    cdiv(K/2, 64) of them) and cuts them evenly: split z takes the pairs from
+    z * cdiv(P, splits), writes one f32 m16 x 64 partial (its low and high
+    halves' sums added), and the tile's last block adds the partials in
+    ascending split order (a split past the last pair writes none). The
+    w x a body (K8's, in K10) takes ``k_tiles_per_split`` logical k-tiles at
+    whole groups. The workspace (``ws_ints``) is the w x a body's [tiles,
+    splits, gmax, 16 x 64 + 16] int32 group parts, the larger per split; the
+    weight-only body writes split z's f32 partial at slot (tile, z, 0), so in
+    K10 every tile keeps to its own region whatever its body.
+
+    Otherwise the 32 x 128 prefill bodies over cdiv(M, 32) + E - 1 logical
+    m-tiles, unsplit."""
+    whole_tiles = gsize == k or (gsize % K_TILE == 0 and (k // 2) % K_TILE == 0)
+    return grouped_gmm_schedule(m, k, n, e, gsize, aligned=aligned and whole_tiles)
+
+
 def grouped_launch_schedule(lhs_q, rhs, n: int, e: int, gsize: int):
     """``grouped_gmm_schedule`` for these operands -> ``schedule_args``."""
     m, k = lhs_q.shape
     sched = grouped_gmm_schedule(m, k, n, e, gsize,
                                  aligned=rhs.data_ptr() % 16 == 0)
     return schedule_args(sched, lhs_q.device)
+
+
+def weight_only_launch_schedule(lhs, rhs, n: int, e: int, gsize: int):
+    """``weight_only_gmm_schedule`` for these operands -> ``schedule_args``."""
+    m, k = lhs.shape
+    sched = weight_only_gmm_schedule(m, k, n, e, gsize,
+                                     aligned=rhs.data_ptr() % 16 == 0)
+    return schedule_args(sched, lhs.device)
 
 
 def grouped_rows_plain(a_q, w_q, sa, sc, zp, gsize: int) -> torch.Tensor:

@@ -13,7 +13,10 @@ The dequantization's multiply and add round separately; the weights round
 once to the activations' dtype (bf16 on the serving path) before the
 product. The kernel sums K in another order than the plain version, so the
 two agree within f32 accumulation error plus one ulp of the output dtype,
-not bitwise (``accumulation_bound``). E = 1 is the dense product of a
+not bitwise (``accumulation_bound``). That order is the kernel's
+(``split_partials`` writes the decode body's out), and its grid and split
+count are ``gmm_w8a8_grouped.weight_only_gmm_schedule``'s, shared with K7
+and K10's weight-only rows, which therefore agree with K6 bitwise. E = 1 is the dense product of a
 weight-only shared expert.
 """
 
@@ -22,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .gmm_w8a8 import K_TILE
+from .gmm_w8a8_grouped import weight_only_launch_schedule
 
 
 def dequantize_expert(q_kn, scale_gn, zp_gn, gsize: int, dtype) -> torch.Tensor:
@@ -67,11 +72,71 @@ def accumulation_bound(lhs, weight_of, n, group_sizes) -> torch.Tensor:
     """Per-element bound [M, N] on |f32-accumulated product - exact product|
     for a K-term sum in any order: ``K * 2^-24 * sum_k |lhs[r,k]| |w[k,n]|``
     (each of the K - 1 additions rounds to within 2^-24 of a partial sum that
-    the absolute sum bounds; bf16 x bf16 products are exact in f32)."""
+    the absolute sum bounds; bf16 x bf16 products are exact in f32).
+
+    Any tree that sums K terms makes exactly K - 1 additions, so the bound
+    holds for every order the kernels take: the decode body's low and high
+    halves of each split, added once (``lo + hi``), and its splits' partials
+    added in ascending order are additions of that tree, not extra ones (a
+    zero-filled term past K adds exactly)."""
     k = lhs.shape[1]
     mag = grouped_weight_only_plain(lhs.abs(), lambda e: weight_of(e).abs(), n,
                                     group_sizes, torch.float64, torch.float64)
     return mag * (k * 2.0 ** -24)
+
+
+def split_partials(a, w, splits: int) -> list:
+    """The weight-only decode body's order of work for one expert's rows
+    (``csrc/gmm_weight_only_tile.cuh``), in plain PyTorch (for the tests):
+    ``a`` [r, K] activations, ``w`` [K, N] dequantized weights. Byte-tile
+    pairs p = 0 .. P - 1 (P = cdiv(K/2, 64): code rows [64 p, 64 p + 64) and
+    the same rows K/2 further on) are cut into runs of cdiv(P, splits), one a
+    split; per split the pairs' low halves are summed in f32 into one partial
+    and their high halves into another. Returns [(lo, hi)] for the splits
+    that hold a pair, in split order."""
+    k = a.shape[1]
+    k2 = k // 2
+    pairs = -(-k2 // K_TILE)
+    per = -(-pairs // splits)
+    a32, w32 = a.float(), w.float()
+    parts = []
+    for p0 in range(0, pairs, per):
+        lo = hi = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32,
+                              device=a.device)
+        for p in range(p0, min(p0 + per, pairs)):
+            r0, r1 = p * K_TILE, min((p + 1) * K_TILE, k2)
+            lo = lo + a32[:, r0:r1] @ w32[r0:r1]
+            hi = hi + a32[:, k2 + r0:k2 + r1] @ w32[k2 + r0:k2 + r1]
+        parts.append((lo, hi))
+    return parts
+
+
+def fold_partials(parts) -> torch.Tensor:
+    """``split_partials``' output -> the body's sum: each split's ``lo + hi``,
+    then the splits in ascending order."""
+    acc = None
+    for lo, hi in parts:
+        part = lo + hi
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def weight_only_split_plain(lhs, weight_of, n, group_sizes, splits: int,
+                            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6 / K7 / K10's weight-only rows in the decode body's order of work
+    (``split_partials`` folded by ``fold_partials``) over expert-sorted rows;
+    ``weight_of(e)`` gives expert e's [K, N] dequantized weights. Reads
+    ``group_sizes`` on the host."""
+    m = lhs.shape[0]
+    out = torch.zeros((m, n), dtype=out_dtype, device=lhs.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, m)
+        if end > start:
+            acc = fold_partials(split_partials(lhs[start:end], weight_of(e), splits))
+            out[start:end] = acc.to(out_dtype)
+        start += size
+    return out
 
 
 def error_over_bound(got, lhs, rhs_q, rhs_scale, rhs_zp, group_sizes, gsize):
@@ -151,10 +216,11 @@ def gmm_weight_only(
                     and rhs_scale.shape[-1] == n,
                     f"gmm_weight_only: rhs {tuple(rhs_q.shape)} for K={k}")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    sched, _ws = weight_only_launch_schedule(lhs, rhs_q, n, e, gsize)
     err = kernels.lib().mxmoe_gmm_weight_only(
         lhs.data_ptr(), rhs_q.data_ptr(), rhs_scale.data_ptr(), rhs_zp.data_ptr(),
         group_sizes.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        m, k, n, e, gsize, kernels.stream_ptr(lhs.device))
+        m, k, n, e, gsize, *sched, kernels.stream_ptr(lhs.device))
     kernels.check(err, "gmm_weight_only")
     kernels.launches["gmm_weight_only"] += 1
     return out

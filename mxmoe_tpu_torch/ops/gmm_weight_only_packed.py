@@ -16,6 +16,7 @@ import torch
 
 from . import kernels
 from ..quant.packing import unpack_int4_halves
+from .gmm_w8a8_grouped import weight_only_launch_schedule
 from .gmm_weight_only import (check_weight_only_operands, dequantize_expert,
                               grouped_weight_only_plain)
 
@@ -54,10 +55,11 @@ def gmm_weight_only_packed(
                     f"gmm_weight_only_packed: rhs_packed {tuple(rhs_packed.shape)} "
                     f"for K={k}, N={n}")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    sched, _ws = weight_only_launch_schedule(lhs, rhs_packed, n, e, gsize)
     err = kernels.lib().mxmoe_gmm_weight_only_packed(
         lhs.data_ptr(), rhs_packed.data_ptr(), rhs_scale.data_ptr(),
         rhs_zp.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
+        int(out_dtype == torch.bfloat16), m, k, n, e, gsize, *sched,
         kernels.stream_ptr(lhs.device))
     kernels.check(err, "gmm_weight_only_packed")
     kernels.launches["gmm_weight_only_packed"] += 1

@@ -84,10 +84,9 @@ _SIGNATURES = {
     "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_SCHED,
                               _P],
     # lhs, rhs_q | rhs_packed, scale, zp, group_sizes, out, out_is_bf16, M, K,
-    # N, E, gsize, stream
-    "mxmoe_gmm_weight_only": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mxmoe_gmm_weight_only_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _P],
+    # N, E, gsize, schedule (gmm_w8a8_grouped.weight_only_gmm_schedule), stream
+    "mxmoe_gmm_weight_only": [_P] * 6 + [_I] * 6 + [*_SCHED, _P],
+    "mxmoe_gmm_weight_only_packed": [_P] * 6 + [_I] * 6 + [*_SCHED, _P],
     # lhs, s_a, rhs, s_b, zp (may be null), group_sizes, out, out_is_bf16, M,
     # K, N, E, gsize, schedule (gmm_w8a8_grouped.grouped_gmm_schedule), stream
     "mxmoe_gmm_w8a8_grouped": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -101,9 +100,9 @@ _SIGNATURES = {
     "mxmoe_gmm_mixed_packed_flex": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, *_SCHED, _P],
     # lhs (bf16), lhs_q, s_a, rhs, s_b, zp (may be null), scheme_flags,
-    # group_sizes, out, out_is_bf16, M, K, N, E, gsize, stream
-    "mxmoe_gmm_mixed_wo_wxa": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _P],
+    # group_sizes, out, out_is_bf16, M, K, N, E, gsize, schedule (the same
+    # weight_only_gmm_schedule for both bodies), stream
+    "mxmoe_gmm_mixed_wo_wxa": [_P] * 9 + [_I] * 6 + [*_SCHED, _P],
     # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
     "mxmoe_gmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # lhs, s_a, gate_up, s_gu, down, s_d, group_sizes, act_bits_down, out,

@@ -36,8 +36,12 @@ K2, K15 bitwise K2 / K5 on the same aligned layout. The int8 grouped GEMM's
 two schedules (``int8_gmm_schedule``: m16 tiles and split-K at decode, the
 64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, the grouped-scale
 GEMM's two (``grouped_gmm_schedule``: the m16 ring kernel with split-K at
-whole groups, the 32-row tile above M 64) through K8 / K4f bitwise, and K3 /
-K3q at lengths on the edges of their warp chunks and S-blocks."""
+whole groups, the 32-row tile above M 64) through K8 / K4f bitwise, the
+weight-only GEMM's two (``weight_only_gmm_schedule``, one for K6, K7 and K10:
+the m16 ring body with split-K over byte-tile pairs, the 32-row tile above
+M 64) with K7 and K10's weight-only rows bitwise K6 and K10's w x a rows
+bitwise K8, and K3 / K3q at lengths on the edges of their warp chunks and
+S-blocks."""
 
 import pytest
 import torch
@@ -1033,6 +1037,68 @@ def test_grouped_gemm_schedules_bitwise_k8_k4f(dev, m, layout):
             assert torch.equal(k4f, gmm_mixed_packed.gmm_mixed_packed_plain(
                 aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp, out_dtype=out))
             assert torch.equal(k4f, k8_mixed)
+
+
+@pytest.mark.parametrize("m", _SCHED_M)
+@pytest.mark.parametrize("layout", ["routed", "one_group"])
+def test_weight_only_schedules_k6_k7_k10(dev, m, layout):
+    """The weight-only GEMMs' two schedules (``weight_only_gmm_schedule``, one
+    for K6, K7 and K10: the m16 ring body with split-K over byte-tile pairs up
+    to M 64, the 32-row tile above), routed over 12 groups (two empty, K 1408:
+    g128 group 5 spans the halves) and as one group (split-K at decode), at
+    g128 with zero points and per channel: K6 within ``error_over_bound`` of
+    the float64 product and the same bits on a second launch, K7 bitwise K6,
+    K10's weight-only rows bitwise K6 and its w x a rows bitwise K8 (and K2
+    per channel without zero points)."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import weight_only_gmm_schedule
+
+    if layout == "routed":
+        sizes, k, n = _spread(m, 12, m + 2), 1408, 2048
+        sizes[0] += sizes[5]
+        sizes[5] = 0
+    else:
+        sizes, k, n = [m], 2048, 1024
+    e = len(sizes)
+    g = torch.Generator(device=dev).manual_seed(m + k + 3)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    packed = pack_int4_halves(w4)
+    fl = torch.tensor([i % 2 for i in range(e)], dtype=torch.int32, device=dev)
+    wo_rows = torch.repeat_interleave(fl, gs.long()).bool()
+    for gsize in (128, -1):
+        groups = 1 if gsize == -1 else k // gsize
+        sched = weight_only_gmm_schedule(m, k, n, e, k if gsize == -1 else gsize)
+        assert (sched.bm == 16) == (m <= 64)
+        if layout == "one_group" and m <= 16:
+            assert sched.splits > 1
+        sc = torch.rand((e, groups, n), generator=g, device=dev) * 0.02 + 1e-3
+        zp = torch.randn((e, groups, n), generator=g, device=dev) * 0.05
+        zp10 = zp if gsize == 128 else None
+        zp6 = zp if gsize == 128 else torch.zeros_like(sc)
+        asc = torch.rand((m, groups), generator=g, device=dev) * 0.05
+        for out in (torch.bfloat16, torch.float32):
+            k6 = gmm_weight_only.gmm_weight_only(x, w4, sc, zp6, gs, gsize,
+                                                 out_dtype=out)
+            again = gmm_weight_only.gmm_weight_only(x, w4, sc, zp6, gs, gsize,
+                                                    out_dtype=out)
+            k7 = gmm_weight_only_packed.gmm_weight_only_packed(
+                x, packed, sc, zp6, gs, gsize, out_dtype=out)
+            k10 = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa(x, aq, asc, w4, sc, fl, gs,
+                                                    rhs_zp=zp10, out_dtype=out)
+            k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w4, sc, gs, gsize,
+                                                   zp10, out_dtype=out)
+            torch.cuda.synchronize()
+            _, ratio = gmm_weight_only.error_over_bound(k6, x, w4, sc, zp6, gs,
+                                                        gsize)
+            assert ratio <= 1.0
+            assert torch.equal(k6, again) and torch.equal(k7, k6)
+            assert torch.equal(k10[wo_rows], k6[wo_rows])
+            assert torch.equal(k10[~wo_rows], k8[~wo_rows])
+            if zp10 is None:
+                k2 = gmm_w8a8.gmm_w8a8(aq, asc, w4, sc, gs, out_dtype=out)
+                assert torch.equal(k10[~wo_rows], k2[~wo_rows])
 
 
 def test_grouped_gemm_split_k_tickets_reset_between_launches(dev):
