@@ -61,7 +61,11 @@ failure raises and the script exits non-zero without a result line:
               (gmm_ffn_mixed_packed) bitwise its plain version and K12 on the
               equivalent codes (no expert, every other, every expert packed);
               K14 (gmm_w8a8_fusedquant) bitwise its plain version and K1 + K2;
-              K15 (gmm_ws) at the headline workload's shapes bitwise K2 / K5.
+              K15 (gmm_ws, the wgmma body) at the headline workload's shapes
+              bitwise K2 / K5, and at mixtral's K 4096 / 14336 (full width,
+              int8 and packed; K the earlier full-K slice body refused)
+              bitwise its plain version. K1 at the headline's rows (36736 x
+              2048 / 1408, the shared expert's 8192 x 5632) bitwise.
               The read-only decode attention (decode_attention_stacked bf16 /
               int8, decode_attention, decode_attention_q8) at K3's serving
               cache, at the qwen2_moe shape and at ds2's MLA shape (dk 256
@@ -560,6 +564,35 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
                  plain_ms=time_ms(lambda: gmm.gmm_w8a8_plain(aq, asc, wq, wsc,
                                                              one_group)),
                  **gmm_work(one_group, k, nn, k * nn))
+
+
+def headline_quant_rows() -> None:
+    """K1 at the headline's rows (every expert's rows padded to 128: 36736 at
+    K 2048 and 1408; the shared expert's 8192 at K 5632, a block a row),
+    per-row bits 4 / 8 as the mixed arm gives them: codes and scales bitwise
+    the plain version, timed beside it."""
+    import torch
+
+    from mxmoe_tpu_torch.bench import workloads
+    from mxmoe_tpu_torch.ops import act_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    wl = workloads.qwen2_moe_l10_bs8192()[0]
+    m = sum((s + 127) // 128 * 128 for s in wl.group_sizes)
+    for rows, k in ((m, 2048), (m, 1408), (wl.shared_m, 5632)):
+        x = torch.randn((rows, k), generator=gen, device=dev).to(torch.bfloat16)
+        bits = torch.tensor([4.0, 8.0], device=dev).repeat(rows // 2).contiguous()
+        q, s = act_quant.quantize_rows(x, bits)
+        qp, sp = act_quant.quantize_rows_plain(x, bits)
+        torch.cuda.synchronize()
+        _require_equal(q, qp, f"K1 codes at the headline's {rows} x {k}")
+        _require_equal(s, sp, f"K1 scales at the headline's {rows} x {k}")
+        emit("kernels", kernel="quantize_rows", use="headline rows", M=rows, K=k,
+             bitwise=True, **kernel_times(lambda: act_quant.quantize_rows(x, bits)),
+             plain_ms=time_ms(lambda: act_quant.quantize_rows_plain(x, bits), reps=3),
+             **quant_rows_work(rows, k, 2))
+        del x, q, qp
 
 
 def scheme_kernels_vs_plain(rec: dict) -> None:
@@ -1477,6 +1510,36 @@ def fused_kernels_vs_plain(rec: dict) -> None:
                  lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)), **shape, **t)
         del packed, aq
 
+    # K15 at the K the full-K slice body refused: mixtral's (8 experts, top-2)
+    # gate_up K 4096 and down K 14336 at full width, 128 rows an expert
+    from mxmoe_tpu_torch.models.configs import config_for
+    mix = config_for("mixtral")
+    for k, nn in ((mix.hidden_size, 2 * mix.moe_intermediate_size),
+                  (mix.moe_intermediate_size, mix.hidden_size)):
+        ee = mix.num_experts
+        sizes = [128] * ee
+        m = sum(sizes)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((ee, 1, nn), generator=gen, device=dev) * 0.01
+        for form in ("int8", "packed"):
+            if form == "int8":
+                w = torch.randint(-127, 128, (ee, k, nn), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                out = gmm_ws.gmm_w8a8_ws(aq, asc, w, wsc, sizes)
+                ref = gmm_ws.gmm_w8a8_ws_plain(aq, asc, w, wsc, sizes)
+            else:
+                w = pack_int4_halves(torch.randint(-8, 8, (ee, k, nn), generator=gen,
+                                                   device=dev, dtype=torch.int8))
+                out = gmm_ws.gmm_w4a8_packed_ws(aq, asc, w, wsc, sizes)
+                ref = gmm_ws.gmm_w4a8_packed_ws_plain(aq, asc, w, wsc, sizes)
+            torch.cuda.synchronize()
+            _require_equal(out, ref, f"K15 {form} vs plain at mixtral K={k}")
+            emit("kernels", kernel="gmm_ws", form=form, use="mixtral width (a K the "
+                 "full-K slice body refused)", M=m, K=k, N=nn, bitwise=True)
+            del w, out, ref
+        del aq
+
 
 def schedule_edges() -> None:
     """The redesigned bodies at the edges of their schedules. The int8
@@ -1651,6 +1714,7 @@ def kernels_vs_plain() -> dict:
     rec = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
     schedule_edges()
     gmm_kernels_vs_plain(rec)
+    headline_quant_rows()
     scheme_kernels_vs_plain(rec)
     two_launch_kernels_vs_plain(rec)
     attention_kernels_vs_plain(rec)

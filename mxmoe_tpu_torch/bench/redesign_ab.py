@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Five
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Seven
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -28,7 +28,17 @@ case sets, each against the csrc of the commit before its redesign:
   and K7 for its weight-only shared expert (E = 1, M 4). Old and new sum K
   in other orders: each is held within ``gmm_weight_only.error_over_bound``
   of the float64 product, the new K7 bitwise the new K6, and K10's w x a
-  rows old and new bitwise.
+  rows old and new bitwise;
+* ``ws`` (before the wgmma body of ``gmm_ws.cu``, when a block held a
+  full-K 64-column weight slice in shared memory): K15 in both forms (int8,
+  nibble-packed) at the headline workload's gate_up and down products, every
+  expert's rows padded to 128, bitwise old = new, beside K2 / K5 on the same
+  codes and, labelled as another function (bf16 operands: the headline's
+  baseline, not K15's product), ``torch._grouped_mm`` on the same rows;
+* ``act_quant`` (before K1 kept its rows in registers): K1 at the
+  headline's rows (36736 x 2048 / 1408, the shared expert's 8192 x 5632),
+  prefill chunks (4096 and 1024 x 2048) and decode (16 x 2048), bf16,
+  per-row bits 4 / 8 / 16 and a gain, codes and scales bitwise old = new.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -69,7 +79,7 @@ from .timing import device_ms, event_ms
 
 REPS = 25          # timed calls a reading, as chip_smoke.py
 HBM = 3.35e12
-PEAK = {"int8": 1979e12, "bf16": 989e12}
+PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # case set -> (earlier sources, their C entry points' argument lists)
 _OLD = {
@@ -101,6 +111,12 @@ _OLD = {
         "mxmoe_gmm_weight_only": [_P] * 6 + [_I] * 6 + [_P],
         "mxmoe_gmm_weight_only_packed": [_P] * 6 + [_I] * 6 + [_P],
         "mxmoe_gmm_mixed_wo_wxa": [_P] * 9 + [_I] * 6 + [_P]}),
+    # lhs, s_a, rhs, s_b, static sizes (host ints), out, packed, out_is_bf16,
+    # M, K, N, E, stream
+    "ws": (("gmm_ws.cu",), {"mxmoe_gmm_ws": [_P] * 6 + [_I] * 6 + [_P]}),
+    # x, x_is_bf16, bits, gain, q, scale, M, K, stream
+    "act_quant": (("act_quant.cu",), {
+        "mxmoe_quantize_rows": [_P, _I, _P, _F, _P, _P, _I, _I, _P]}),
 }
 
 
@@ -659,6 +675,104 @@ def weight_only_cases(lib, reps: int) -> None:
                   **_ab(old, new, reps), **bound)
 
 
+# ---------------------------------------------------------------------------
+# the int8 grouped GEMM at large M (K15) and the activation quantizer (K1)
+# ---------------------------------------------------------------------------
+
+def ws_cases(lib, reps: int) -> None:
+    """K15, int8 and packed, at the headline's shapes: the full-K slice body
+    against the wgmma body, with K2 / K5 and bf16 ``torch._grouped_mm``."""
+    from ..ops import gmm as gfl, gmm_ws
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for wl in workloads.qwen2_moe_l10_bs8192():
+        sizes = [(s + 127) // 128 * 128 for s in wl.group_sizes]
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        m, k, nn, e = sum(sizes), wl.k, wl.n, len(sizes)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        host = (ctypes.c_int * e)(*sizes)
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+        ops = 2 * m * k * nn
+        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        wb = torch.randn((e, k, nn), generator=gen, device=dev).to(torch.bfloat16)
+        library = {"grouped_mm_bf16_device_ms": device_ms(
+                       lambda: gfl.gmm(xb, wb, gs, backend="ragged_dot"), reps),
+                   "grouped_mm_bf16_note": "bf16 operands: the headline's baseline, "
+                                           "not the same function"}
+        del xb, wb
+        for form in ("int8", "packed"):
+            packed = form == "packed"
+            if packed:
+                w = pack_int4_halves(torch.randint(-8, 8, (e, k, nn), generator=gen,
+                                                   device=dev, dtype=torch.int8))
+                new = lambda w=w: gmm_ws.gmm_w4a8_packed_ws(aq, asc, w, wsc, sizes)
+                sibling = lambda w=w: g4p.gmm_w4a8_packed(aq, asc, w, wsc, gs)
+            else:
+                w = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                new = lambda w=w: gmm_ws.gmm_w8a8_ws(aq, asc, w, wsc, sizes)
+                sibling = lambda w=w: gmm.gmm_w8a8(aq, asc, w, wsc, gs)
+
+            def old(w=w, packed=packed):
+                kernels.check(lib.mxmoe_gmm_ws(
+                    aq.data_ptr(), asc.data_ptr(), w.data_ptr(), wsc.data_ptr(), host,
+                    out_old.data_ptr(), int(packed), 1, m, k, nn, e, _stream()),
+                    "old mxmoe_gmm_ws")
+                return out_old
+
+            a, b, c = new(), old().clone(), sibling()
+            torch.cuda.synchronize()
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"gmm_ws {form} {wl.name}: new, old and "
+                                     f"{'K5' if packed else 'K2'} differ")
+            nbytes = m * (k + 4) + w.numel() + e * nn * 4 + m * nn * 2
+            _emit("gmm_ws", form=form, workload=wl.name, M=m, K=k, N=nn,
+                  bitwise_old=True, bitwise_sibling=True,
+                  sibling_device_ms=device_ms(sibling, reps), **library,
+                  **_ab(old, new, reps), **_bound(nbytes, ops, "int8"))
+            del w
+
+
+def act_quant_cases(lib, reps: int) -> None:
+    """K1 at the headline's, prefill and decode rows: the body that staged a
+    row in shared memory against the register bodies (a warp or a block a
+    row)."""
+    from ..ops import act_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    gain = 1.0 + 3.7e-4
+    for use, m, k in (("headline gate_up", 36736, 2048), ("headline down", 36736, 1408),
+                      ("headline shared down", 8192, 5632),
+                      ("prefill chunks", 4096, 2048), ("prefill chunk", 1024, 2048),
+                      ("decode", 16, 2048)):
+        x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        bits = torch.tensor([4.0, 8.0, 16.0], device=dev).repeat(m)[:m].contiguous()
+        q_old = torch.empty((m, k), dtype=torch.int8, device=dev)
+        s_old = torch.empty((m, 1), dtype=torch.float32, device=dev)
+
+        def old():
+            kernels.check(lib.mxmoe_quantize_rows(
+                x.data_ptr(), 1, bits.data_ptr(), gain, q_old.data_ptr(),
+                s_old.data_ptr(), m, k, _stream()), "old mxmoe_quantize_rows")
+            return q_old, s_old
+
+        def new():
+            return act_quant.quantize_rows(x, bits, gain)
+
+        (qa, sa), (qb, sb) = new(), old()
+        torch.cuda.synchronize()
+        if not (torch.equal(qa, qb) and torch.equal(sa, sb)):
+            raise AssertionError(f"quantize_rows {use}: new and old differ")
+        _emit("quantize_rows", use=use, M=m, K=k, bitwise_old=True,
+              **_ab(old, new, reps),
+              **_bound(m * k * 2 + m * 4 + m * k + m * 4, 3 * m * k, "f32"))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -670,7 +784,8 @@ def main(argv=None) -> None:
     kernels.lib()
     old = build_old(args.old_csrc, args.cases)
     runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases,
-            "grouped": grouped_cases, "weight_only": weight_only_cases}
+            "grouped": grouped_cases, "weight_only": weight_only_cases,
+            "ws": ws_cases, "act_quant": act_quant_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -1,18 +1,27 @@
-"""Variants of the weight-only decode body (``csrc/gmm_weight_only_tile.cuh``)
-against the package's own, in one process on one card, by device time
-(``bench.timing.device_ms``), in turns (the package's, each variant, then
-the same in reverse). A variant is an edited copy of ``mxmoe_tpu_torch/csrc``
-in a directory that git ignores; its three weight-only sources
-(``gmm_weight_only.cu``, ``gmm_weight_only_packed.cu``,
-``gmm_mixed_wo_wxa.cu``) are built into a library of their own, with the
-package's C signatures, and swapped in for the wrappers' library while they
-are timed. Shapes: qwen2_moe's routed gate_up and down at 16 routed rows
-(K6, K7, K10 with experts alternating) and its weight-only shared expert
-(E = 1, M 4: K6, K7), g128 with zero points. One JSON line per shape and
-kernel; whether each variant's output equals the package's bit for bit
-(a variant that drops work to time the rest does not).
+"""Variants of a kernel body against the package's own, in one process on
+one card, by device time (``bench.timing.device_ms``), in turns (the
+package's, each variant, then the same in reverse). A variant is an edited
+copy of ``mxmoe_tpu_torch/csrc`` in a directory that git ignores; the
+kernel's sources are built into a library of their own, with the package's
+C signatures, and swapped in for the wrappers' library while they are
+timed. One JSON line per shape and kernel; whether each variant's output
+equals the package's bit for bit (a variant that drops work to time the
+rest does not).
 
-    python -m mxmoe_tpu_torch.bench.variant_ab --variant name=DIR [...]
+    python -m mxmoe_tpu_torch.bench.variant_ab [--kernel weight_only|ws|act_quant] \\
+        --variant name=DIR [...]
+
+* ``weight_only`` (the default): the weight-only decode body
+  (``csrc/gmm_weight_only_tile.cuh``; sources ``gmm_weight_only.cu``,
+  ``gmm_weight_only_packed.cu``, ``gmm_mixed_wo_wxa.cu``) at qwen2_moe's
+  routed gate_up and down at 16 routed rows (K6, K7, K10 with experts
+  alternating) and its weight-only shared expert (E = 1, M 4: K6, K7), g128
+  with zero points.
+* ``ws``: K15's body (``gmm_ws.cu``), int8 and nibble-packed, at the
+  headline workload's gate_up and down (every expert's rows padded to 128).
+* ``act_quant``: K1's bodies (``act_quant.cu``) at the headline's rows
+  (36736 x 2048 / 1408, 8192 x 5632), prefill chunks (4096 and 1024 x 2048)
+  and decode (16 x 2048), bf16, per-row bits 4 / 8 / 16.
 
 ``--split-sweep`` times K6 and K7 at the shared expert's shapes instead, by
 split count (1-16), through the C entry points with schedules made by hand
@@ -42,23 +51,30 @@ from ..utils.device import find_nvcc
 from . import timing
 from .timing import device_ms
 
-SOURCES = ("gmm_weight_only.cu", "gmm_weight_only_packed.cu", "gmm_mixed_wo_wxa.cu")
-ENTRY_POINTS = ("mxmoe_gmm_weight_only", "mxmoe_gmm_weight_only_packed",
-                "mxmoe_gmm_mixed_wo_wxa")
+# kernel -> (its sources, its C entry points)
+KERNEL_SETS = {
+    "weight_only": (("gmm_weight_only.cu", "gmm_weight_only_packed.cu",
+                     "gmm_mixed_wo_wxa.cu"),
+                    ("mxmoe_gmm_weight_only", "mxmoe_gmm_weight_only_packed",
+                     "mxmoe_gmm_mixed_wo_wxa")),
+    "ws": (("gmm_ws.cu",), ("mxmoe_gmm_ws",)),
+    "act_quant": (("act_quant.cu",), ("mxmoe_quantize_rows",)),
+}
 GSIZE = 128
 
 
-def build_variant(csrc: str) -> ctypes.CDLL:
-    """nvcc a variant's weight-only sources (together), link, load."""
+def build_variant(csrc: str, kernel: str = "weight_only") -> ctypes.CDLL:
+    """nvcc a variant's sources of ``kernel`` (together), link, load."""
+    sources, entry_points = KERNEL_SETS[kernel]
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
     out = tempfile.mkdtemp(dir=kernels.BUILD_DIR, prefix="variant_")
-    objs = [os.path.join(out, s[:-3] + ".o") for s in SOURCES]
+    objs = [os.path.join(out, s[:-3] + ".o") for s in sources]
     procs = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", o,
                                os.path.join(csrc, s)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for s, o in zip(SOURCES, objs)]
+             for s, o in zip(sources, objs)]
     for p in procs:
         _, err = p.communicate()
         if p.returncode != 0:
@@ -66,7 +82,7 @@ def build_variant(csrc: str) -> ctypes.CDLL:
     path = os.path.join(out, "libvariant.so")
     subprocess.run([nvcc, "-shared", "-o", path, *objs], check=True)
     lib = ctypes.CDLL(path)
-    for name in ENTRY_POINTS:
+    for name in entry_points:
         getattr(lib, name).argtypes = kernels._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -96,7 +112,6 @@ def variants(named: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     libs = {"package": kernels.lib(), **{k: build_variant(d) for k, d in named.items()}}
-    order = list(libs) + list(libs)[::-1]
     for use, g_s, k, nn in _shapes(gen, dev):
         x, w4, sc, zp = _operands(gen, dev, g_s, k, nn)
         ee, rows = g_s.numel(), int(g_s.sum())
@@ -113,20 +128,76 @@ def variants(named: dict) -> None:
             runs["gmm_mixed_wo_wxa"] = lambda: gmx.gmm_mixed_wo_wxa(
                 x, aq, asc, w4, sc, fl, g_s, rhs_zp=zp)
         for name, fn in runs.items():
-            times = {v: [] for v in libs}
-            same = {}
-            try:
-                ref = fn().clone()
-                for v in order:
-                    kernels._lib = libs[v]
-                    same[v] = bool(torch.equal(fn(), ref))
-                    times[v].append(device_ms(fn))
-            finally:
-                kernels._lib = libs["package"]
+            times, same = _timed_in_turns(libs, fn)
             print(json.dumps({"use": use, "kernel": name, "M": rows, "K": k, "N": nn,
                               "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
                               "device_ms_turns": times, "bitwise_package": same}),
                   flush=True)
+
+
+def _timed_in_turns(libs: dict, fn) -> tuple[dict, dict]:
+    """Each library's device ms of ``fn`` in turns (there and back), and
+    whether its output equals the package's."""
+    order = list(libs) + list(libs)[::-1]
+    times = {v: [] for v in libs}
+    same = {}
+    try:
+        ref = fn().clone()
+        for v in order:
+            kernels._lib = libs[v]
+            same[v] = bool(torch.equal(fn(), ref))
+            times[v].append(device_ms(fn))
+    finally:
+        kernels._lib = libs["package"]
+    return times, same
+
+
+def ws_variants(named: dict) -> None:
+    from ..ops import gmm_ws
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    libs = {"package": kernels.lib(),
+            **{k: build_variant(d, "ws") for k, d in named.items()}}
+    for wl in workloads.qwen2_moe_l10_bs8192():
+        sizes = [(s + 127) // 128 * 128 for s in wl.group_sizes]
+        m, k, nn, e = sum(sizes), wl.k, wl.n, len(sizes)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        w8 = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w4 = pack_int4_halves(torch.randint(-8, 8, (e, k, nn), generator=gen,
+                                            device=dev, dtype=torch.int8))
+        for form, fn in (("int8", lambda: gmm_ws.gmm_w8a8_ws(aq, asc, w8, wsc, sizes)),
+                         ("packed", lambda: gmm_ws.gmm_w4a8_packed_ws(aq, asc, w4, wsc,
+                                                                      sizes))):
+            times, same = _timed_in_turns(libs, fn)
+            print(json.dumps({"kernel": "gmm_ws", "form": form, "workload": wl.name,
+                              "M": m, "K": k, "N": nn,
+                              "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
+                              "device_ms_turns": times, "bitwise_package": same}),
+                  flush=True)
+        del w8, w4
+
+
+def act_quant_variants(named: dict) -> None:
+    from ..ops import act_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    libs = {"package": kernels.lib(),
+            **{k: build_variant(d, "act_quant") for k, d in named.items()}}
+    for m, k in ((36736, 2048), (36736, 1408), (8192, 5632), (4096, 2048),
+                 (1024, 2048), (16, 2048)):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        bits = torch.tensor([4.0, 8.0, 16.0], device=dev).repeat(m)[:m].contiguous()
+        times, same = _timed_in_turns(libs, lambda: act_quant.quantize_rows(x, bits)[0])
+        print(json.dumps({"kernel": "quantize_rows", "M": m, "K": k,
+                          "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
+                          "device_ms_turns": times, "bitwise_package": same}),
+              flush=True)
 
 
 def split_sweep() -> None:
@@ -168,15 +239,21 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     help="name=DIR of an edited copy of mxmoe_tpu_torch/csrc")
+    ap.add_argument("--kernel", default="weight_only", choices=sorted(KERNEL_SETS))
     ap.add_argument("--split-sweep", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("variant_ab: needs a CUDA card")
     with torch.no_grad():
+        named = dict(v.split("=", 1) for v in args.variant)
         if args.split_sweep:
             split_sweep()
+        elif args.kernel == "ws":
+            ws_variants(named)
+        elif args.kernel == "act_quant":
+            act_quant_variants(named)
         else:
-            variants(dict(v.split("=", 1) for v in args.variant))
+            variants(named)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

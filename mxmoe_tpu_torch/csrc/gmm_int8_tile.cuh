@@ -39,7 +39,7 @@
 //   into a K-contiguous shared layout that the col-major B fragment reads
 //   conflict-free; the next k-tile's global loads are started into
 //   registers before the current tile's MMAs. K14 (gmm_w8a8_fusedquant.cu)
-//   and K15 (gmm_ws.cu) use its tiles and mma_k_tile_rs.
+//   uses its tiles and mma_k_tile_rs.
 // * Decode (bm = 16, small M). At decode 16 routed rows spread over ~15
 //   experts, so a 64-row tile held 1-2 real rows, and the one-group shared
 //   expert's 88 / 16 column blocks filled few of the 132 SMs, each with one

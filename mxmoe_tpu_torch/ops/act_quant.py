@@ -5,7 +5,10 @@ Semantics are bitwise those of ``quant.qparams.quantize_act_per_row_bits``:
   upper = 2^(min(bits,8)-1) - 1;  scale = max(amax(|x*gain|), 1e-8)/upper
   q     = round(x*gain/scale)  (int8, round-half-even)
 
-CPU tensors take the plain version; CUDA tensors launch K1 or raise.
+CPU tensors take the plain version; CUDA tensors launch K1 or raise. K1
+takes any K (``csrc/act_quant.cu``): many rows of at most 8 KB take a warp
+each, fewer or wider rows a block each, both with the row in registers; a K
+that is no multiple of 8 (or above 32768) goes through single-element loads.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ def quantize_rows(x: torch.Tensor, bits_per_row: torch.Tensor,
     req(x.dtype in (torch.bfloat16, torch.float32),
         f"quantize_rows: x dtype {x.dtype} (bf16/f32 only)")
     m, k = x.shape
-    req(k * 4 <= 227 * 1024, f"quantize_rows: K={k} row does not fit smem")
     bits = bits_per_row.to(device=x.device, dtype=torch.float32).contiguous()
     req(bits.shape == (m,), "quantize_rows: bits_per_row must be [M]")
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)

@@ -5,9 +5,14 @@ both through ``_gmm_ws_launch``) — kernel K15, ``csrc/gmm_ws.cu``.
 The function is ``gmm_w8a8``'s (``gmm_w4a8_packed``'s for nibble-packed
 weights) and the output is bitwise theirs on the same layout: the int32 sum
 is exact and the epilogue is the same ``(acc * s_a) * s_b``, rounded once.
-What differs is the schedule: a block holds one expert's full-K weight
-slice in shared memory and walks every m-tile of the expert's rows, so each
-weight byte leaves device memory once per launch.
+The kernel is a persistent wgmma body: one CTA an SM walks the work items
+of ``ws_work_items`` (group, 256-column n-tile, 128-row m-tile; CTA c takes
+items c, c + grid, ...), so the m-tiles of one n-column run side by side and
+the group's weight tile comes from L2 after its first read, which is the
+reference's weight-stationary intent. Each 128-deep k-tile of codes is
+loaded as four quarter boxes of 32 byte rows (``ws_k_tile_quarters``: for
+packed weights the low nibbles of rows c below K/2, the high nibbles of rows
+c - K/2 above), transposed into wgmma's K-major B layout in shared memory.
 
 ``static_sizes`` are concrete Python ints, as in the reference: every size
 a ``bm`` multiple (the aligned layout) and their sum M. They reach the
@@ -16,6 +21,8 @@ read-back happens; the reference's host schedule (slots, waits, loads of
 its double-buffered DMA) has no counterpart. ``bm`` is the alignment the
 layout promises (the reference's row tile); the kernel's own tile needs
 none. ``bn`` (the reference's column block) is the kernel's business.
+Domain of the kernel (TMA): K a multiple of 64, N of 16, operands 16-byte
+aligned, at most 512 groups; K has no upper cap below the int32 sum's.
 """
 
 from __future__ import annotations
@@ -29,6 +36,29 @@ from .gmm_w4a8_packed import gmm_w4a8_packed_plain
 from .gmm_w8a8 import gmm_w8a8_plain
 
 MAX_GROUPS = 512
+# the kernel's tiles: rows and columns of a work item, codes of a k-tile and
+# of one quarter box of raw weight rows (csrc/gmm_ws.cu)
+WS_BM, WS_BN, WS_BK, WS_QK = 128, 256, 128, 32
+# K x 127 x 128 must stay below 2^31 for the int32 sum to be exact
+MAX_K = 1 << 16
+
+
+def ws_work_items(sizes, n: int) -> list[tuple[int, int, int]]:
+    """K15's work items (group, n-tile, m-tile) in the order its persistent
+    CTAs walk them; CTA c of a grid of P takes items[c::P]."""
+    return [(g, j, i) for g, s in enumerate(sizes) for j in range(-(-n // WS_BN))
+            for i in range(-(-int(s) // WS_BM))]
+
+
+def ws_k_tile_quarters(k: int, packed: bool) -> list[list[tuple[int, bool]]]:
+    """For each 128-deep k-tile of codes, its four quarter boxes as (first
+    byte row of the weights, high nibble): codes c = 128 t + 32 q come from
+    rows c, or for packed weights from the low nibbles of rows c below K/2
+    and the high nibbles of rows c - K/2 above it. Rows past the weights
+    read as zeros."""
+    half = k // 2
+    return [[(c - half, True) if packed and c >= half else (c, False)
+             for c in range(t, t + WS_BK, WS_QK)] for t in range(0, k, WS_BK)]
 
 
 def _sizes(static_sizes, m: int, bm: int, name: str) -> list[int]:
@@ -66,15 +96,14 @@ def _launch(name, lhs_q, lhs_scale, rhs, rhs_scale, sizes, packed, out_dtype):
     req(lhs_scale.dtype == torch.float32 and lhs_scale.shape == (m, 1)
         and rhs_scale.dtype == torch.float32 and rhs_scale.shape == (e, 1, n),
         f"{name}: scales must be float32 [M, 1] / [E, 1, N]")
-    req(n % 4 == 0 and lhs_q.data_ptr() % 16 == 0 and rhs.data_ptr() % 4 == 0,
-        f"{name}: N={n} % 4, or a misaligned operand")
+    req(n % 16 == 0 and lhs_q.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0,
+        f"{name}: N={n} not a multiple of 16, or an operand not 16-byte aligned")
     req(out_dtype in (torch.bfloat16, torch.float32), f"{name}: out dtype {out_dtype}")
     req(len(sizes) == e and e <= MAX_GROUPS,
         f"{name}: {len(sizes)} sizes for {e} experts (at most {MAX_GROUPS})")
-    req(kdim == (k // 2 if packed else k) and k % 64 == 0,
-        f"{name}: rhs {tuple(rhs.shape)} for K={k} (K a multiple of 64)")
-    req(kernels.lib().mxmoe_gmm_ws_smem_bytes(k) <= 227 * 1024,
-        f"{name}: K={k}: a full-K weight slice does not fit shared memory")
+    req(kdim == (k // 2 if packed else k) and k % 64 == 0 and 0 < k <= MAX_K,
+        f"{name}: rhs {tuple(rhs.shape)} for K={k} (K a multiple of 64, at most "
+        f"{MAX_K})")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
     host_sizes = (ctypes.c_int * e)(*sizes)
     err = kernels.lib().mxmoe_gmm_ws(

@@ -124,8 +124,6 @@ _SIGNATURES = {
     # lhs, s_a, rhs, s_b, static sizes (host ints), out, packed, out_is_bf16,
     # M, K, N, E, stream
     "mxmoe_gmm_ws": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # K -> dynamic shared bytes of the call above
-    "mxmoe_gmm_ws_smem_bytes": [_I],
 }
 
 _lib = None

@@ -62,3 +62,24 @@ def test_cpu_tensors_take_the_plain_version():
     x = torch.randn(8, 32)
     act_quant.quantize_rows_uniform(x, 8)
     assert kernels.launches["quantize_rows"] == 0
+
+
+@pytest.mark.parametrize("m,k", [(9, 77), (6, 1003),          # K % 8 != 0
+                                 (3, 5632), (2, 20480)])      # the wide rows
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_quantize_rows_bitwise_vs_jax_at_every_row_width(m, k, dtype):
+    """The widths each of K1's three bodies takes (single elements when K %
+    8 != 0; a block a row past 8 KB): the port's plain version bitwise the
+    JAX kernel, with mixed bits and a gain."""
+    rng = np.random.default_rng(k + m)
+    x32 = rng.standard_normal((m, k)) * 2.0
+    if dtype == "bf16":
+        xj, xt = _bf16_pair(x32)
+    else:
+        xj, xt = jnp.asarray(x32, jnp.float32), torch.from_numpy(x32.astype(np.float32))
+    bits = rng.choice([4.0, 8.0, 16.0], m).astype(np.float32)
+    gain = 1.0 + 3.7e-4
+    q_j, s_j = jax_quantize_rows(xj, jnp.asarray(bits), gain=gain, bm=32, interpret=True)
+    q_t, s_t = act_quant.quantize_rows(xt, torch.from_numpy(bits), gain=gain)
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))

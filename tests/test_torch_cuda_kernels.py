@@ -32,7 +32,9 @@ and K12 on the equivalent int8 codes (also at row counts on the edges of the
 cluster body's m16 / m32 fragments with tiles straddling experts, at
 qwen2_moe's decode and 256-token prefill shapes, each launch counted once,
 and over the width domain), K14 bitwise its plain version and K1 +
-K2, K15 bitwise K2 / K5 on the same aligned layout. The int8 grouped GEMM's
+K2, K15 bitwise K2 / K5 on the same aligned layout (at the four models' K,
+512 groups, N no multiple of its tile; K % 64, N % 16 and 513 groups
+refused), K1 at decode to headline row counts and K 1000-20480. The int8 grouped GEMM's
 two schedules (``int8_gmm_schedule``: m16 tiles and split-K at decode, the
 64-row tile above M 64) through K2 / K4 / K5 / K9 bitwise, the grouped-scale
 GEMM's two (``grouped_gmm_schedule``: the m16 ring kernel with split-K at
@@ -65,7 +67,11 @@ def dev():
 
 @pytest.mark.parametrize("m,k,dtype", [(37, 64, torch.float32),
                                        (5, 2816, torch.bfloat16),
-                                       (300, 1408, torch.bfloat16)])
+                                       (300, 1408, torch.bfloat16),
+                                       (9, 1003, torch.bfloat16),    # K % 8 != 0
+                                       (7, 77, torch.float32),
+                                       (19, 2048, torch.float32),
+                                       (3, 6000, torch.float32)])    # a wide f32 row
 def test_quantize_rows_kernel_bitwise(dev, m, k, dtype):
     g = torch.Generator(device=dev).manual_seed(m)
     x = (torch.randn((m, k), generator=g, device=dev) * 3).to(dtype)
@@ -75,6 +81,21 @@ def test_quantize_rows_kernel_bitwise(dev, m, k, dtype):
     qp, sp = act_quant.quantize_rows_plain(x, bits, gain=1.0 + 3.7e-4)
     torch.cuda.synchronize()
     assert kernels.launches["quantize_rows"] == before + 1
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("k", [1000, 2048, 5632, 20480])
+@pytest.mark.parametrize("m", [1, 16, 1024, 36736])
+def test_quantize_rows_kernel_bitwise_at_every_row_width(dev, m, k):
+    """K1's bodies (a warp a row in registers up to 8 KB a row, a block a row
+    above) at decode, prefill and the headline's row counts, with mixed 4 /
+    8 / 16 bits and a gain."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = (torch.randn((m, k), generator=g, device=dev) * 3).to(torch.bfloat16)
+    bits = torch.tensor([4.0, 8.0, 16.0], device=dev).repeat(m)[:m].contiguous()
+    q, s = act_quant.quantize_rows(x, bits, gain=1.0 - 2.9e-4)
+    qp, sp = act_quant.quantize_rows_plain(x, bits, gain=1.0 - 2.9e-4)
+    torch.cuda.synchronize()
     assert torch.equal(q, qp) and torch.equal(s, sp)
 
 
@@ -599,8 +620,13 @@ def test_gmm_w8a8_fusedquant_kernel_bitwise(dev, sizes, tail, k, dtype, bits):
 @pytest.mark.parametrize("sizes,bm,k,n", [
     ((32, 16, 0, 64, 16), 16, 64, 256),          # the reference test's layout
     ((128, 0, 384, 128), 128, 2048, 2816),       # the headline's gate_up widths
-    ((256, 128, 0), 128, 1408, 2048),            # its down widths
-    ((0, 0, 48), 16, 128, 72)])
+    ((256, 128, 0), 128, 1408, 2048),            # its down widths (K/2 = 704)
+    ((0, 0, 48), 16, 128, 80),                   # N no multiple of the tile
+    ((128, 0, 256), 128, 4096, 1024),            # mixtral's gate_up K
+    ((128, 128), 128, 14336, 512),               # mixtral's down K
+    ((0, 256, 128), 128, 3584, 768),             # qwen2_moe_57b's gate_up K
+    ((128, 128), 128, 2560, 3584),               # its down K and N
+    (tuple((i % 3) * 16 for i in range(512)), 16, 256, 256)])   # 512 groups
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_gmm_ws_kernel_bitwise_k2_k5(dev, sizes, bm, k, n, out):
     """K15 bitwise K2 (int8 weights) and K5 (packed weights) on the same
@@ -624,6 +650,26 @@ def test_gmm_ws_kernel_bitwise_k2_k5(dev, sizes, bm, k, n, out):
     torch.cuda.synchronize()
     assert torch.equal(got, k2) and torch.equal(got, plain)
     assert torch.equal(got4, k5)
+
+
+def test_gmm_ws_domain(dev):
+    """K15 takes K a multiple of 64 at any width and N a multiple of 16, at
+    most 512 groups; outside that its wrapper raises."""
+    from mxmoe_tpu_torch.ops import gmm_ws
+
+    def call(m, k, n, e, sizes):
+        aq = torch.zeros((m, k), dtype=torch.int8, device=dev)
+        return gmm_ws.gmm_w8a8_ws(aq, torch.ones((m, 1), device=dev),
+                                  torch.zeros((e, k, n), dtype=torch.int8, device=dev),
+                                  torch.ones((e, 1, n), device=dev), sizes, bm=16)
+
+    assert call(16, 64, 16, 1, (16,)).shape == (16, 16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        call(16, 128, 72, 1, (16,))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        call(16, 96, 64, 1, (16,))
+    with pytest.raises(ValueError, match="at most 512"):
+        call(16, 64, 16, 513, (16,) + (0,) * 512)
 
 
 def _ffn_operands(dev, counts, k, n, h, seed, align=32):
