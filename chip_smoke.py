@@ -64,8 +64,16 @@ failure raises and the script exits non-zero without a result line:
               K15 (gmm_ws, the wgmma body) at the headline workload's shapes
               bitwise K2 / K5, and at mixtral's K 4096 / 14336 (full width,
               int8 and packed; K the earlier full-K slice body refused)
-              bitwise its plain version. K1 at the headline's rows (36736 x
-              2048 / 1408, the shared expert's 8192 x 5632) bitwise.
+              bitwise its plain version. K2 and K5 above the decode rows
+              (the wgmma body over group sizes read on the device) at the
+              qwen2_moe and ds2 256-token prefill chunks, the int8 shared
+              expert's prefill (one group, M 256) and the headline's 32762
+              unaligned rows, bitwise their plain versions (K15 on the
+              aligned layout is held against K2 / K5 above); K14 at decode
+              (its m16 body), a prefill chunk and the headline's rows (its
+              cooperative wgmma body) bitwise its plain version and K1 + K2.
+              K1 at the headline's rows (36736 x 2048 / 1408, the shared
+              expert's 8192 x 5632) bitwise.
               The read-only decode attention (decode_attention_stacked bf16 /
               int8, decode_attention, decode_attention_q8) at K3's serving
               cache, at the qwen2_moe shape and at ds2's MLA shape (dk 256
@@ -1541,6 +1549,109 @@ def fused_kernels_vs_plain(rec: dict) -> None:
         del aq
 
 
+def wgmma_body_vs_plain(rec: dict) -> None:
+    """K2 and K5 above the decode rows (the wgmma body over group sizes read
+    on the device) at the main path's prefill shapes: qwen2_moe's 256-token
+    chunk (M 1024 over 60 experts) and ds2's (M 1536 over 64), gate_up and
+    down, the int8 shared expert's prefill (one group, M 256), and the
+    headline's 32762 unaligned rows, each bitwise its plain version (K5 on
+    4-bit codes also bitwise K2 on them), the schedule printed, timed beside
+    its bound; the qwen2_moe chunk's gate_up goes into the kernels line as
+    ``prefill``. K14 at the headline's rows, bitwise K1 + K2 and timed beside
+    them (its decode and prefill rows are in ``fused_kernels_vs_plain``)."""
+    import torch
+
+    from mxmoe_tpu_torch.bench import workloads
+    from mxmoe_tpu_torch.models.configs import config_for
+    from mxmoe_tpu_torch.ops import act_quant, gmm_w4a8_packed as g4p
+    from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_fusedquant as gfq
+    from mxmoe_tpu_torch.ops.dispatch import make_dispatch, route_topk
+    from mxmoe_tpu_torch.quant.packing import pack_int4_halves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shapes = []
+    for model in ("qwen2_moe", "ds2"):
+        cfg = config_for(model)
+        h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+        logits = torch.randn((256, e), generator=gen, device=dev)
+        gs = make_dispatch(route_topk(logits, cfg.top_k, cfg.norm_topk_prob),
+                           e).group_sizes
+        shapes += [(f"{model} prefill chunk {proj}", gs, k, nn)
+                   for proj, k, nn in (("gate_up", h, 2 * n), ("down", n, h))]
+    qwen = config_for("qwen2_moe")
+    sn, h = qwen.shared_expert_intermediate_size, qwen.hidden_size
+    one = torch.full((1,), 256, dtype=torch.int32, device=dev)
+    shapes += [("shared expert prefill", one, h, 2 * sn),
+               ("shared expert prefill", one, sn, h)]
+    headline = torch.tensor(workloads.QWEN2_MOE_L10_BS8192_ROUTED_M, dtype=torch.int32,
+                            device=dev)
+    shapes += [(f"headline unaligned {wl.name}", headline, wl.k, wl.n)
+               for wl in workloads.qwen2_moe_l10_bs8192()]
+    for use, gs, k, nn in shapes:
+        m, e = int(gs.sum()), gs.numel()
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        w4 = torch.randint(-8, 8, (e, k, nn), generator=gen, device=dev, dtype=torch.int8)
+        packed = pack_int4_halves(w4)
+        w8 = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        k2 = gmm.gmm_w8a8(aq, asc, w8, wsc, gs)
+        k5 = g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs)
+        k2_4 = gmm.gmm_w8a8(aq, asc, w4, wsc, gs)
+        torch.cuda.synchronize()
+        _require_equal(k2, gmm.gmm_w8a8_plain(aq, asc, w8, wsc, gs), f"K2 at {use}")
+        _require_equal(k5, g4p.gmm_w4a8_packed_plain(aq, asc, packed, wsc, gs),
+                       f"K5 at {use}")
+        _require_equal(k5, k2_4, f"K5 vs K2 on 4-bit codes at {use}")
+        del w4, k2_4
+        for name, fn, plain, wbytes in (
+                ("gmm_w8a8", lambda: gmm.gmm_w8a8(aq, asc, w8, wsc, gs),
+                 lambda: gmm.gmm_w8a8_plain(aq, asc, w8, wsc, gs), k * nn),
+                ("gmm_w4a8_packed", lambda: g4p.gmm_w4a8_packed(aq, asc, packed, wsc, gs),
+                 lambda: g4p.gmm_w4a8_packed_plain(aq, asc, packed, wsc, gs),
+                 k * nn // 2)):
+            sched = gmm.int8_gmm_schedule(m, k, nn, e, name == "gmm_w4a8_packed",
+                                          wgmma=True)
+            if sched.bm != 128:
+                raise AssertionError(f"{name} at {use} did not take the wgmma body")
+            t = {**kernel_times(fn), **gmm_work(gs, k, nn, wbytes)}
+            if use == "qwen2_moe prefill chunk gate_up":
+                t["plain_ms"] = time_ms(plain, reps=3, warmup=1)
+                rec[name]["prefill"] = {"use": use, "M": m, "K": k, "N": nn, **t}
+            emit("kernels", kernel=name, use=use, bitwise=True, M=m, K=k, N=nn,
+                 live_groups=int((gs > 0).sum()), schedule={"bm": sched.bm,
+                 "bn": sched.bn}, **t)
+        del aq, w8, packed, k2, k5
+        torch.cuda.empty_cache()
+
+    # K14 at the headline's rows (the cooperative body), bitwise K1 + K2
+    wl = workloads.qwen2_moe_l10_bs8192()[0]
+    m, e = int(headline.sum()), headline.numel()
+    x = (torch.randn((m, wl.k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (e, wl.k, wl.n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand((e, 1, wl.n), generator=gen, device=dev) * 0.01 + 1e-4
+
+    def k1_k2():
+        q1, s1 = act_quant.quantize_rows_uniform(x, 8)
+        return gmm.gmm_w8a8(q1, s1, wq, ws, headline)
+
+    out = gfq.gmm_w8a8_fusedquant(x, wq, ws, headline)
+    ref = k1_k2()
+    torch.cuda.synchronize()
+    _require_equal(out, ref, "K14 vs K1 + K2 at the headline's rows")
+    emit("kernels", kernel="gmm_w8a8_fusedquant", use="headline unaligned rows",
+         bitwise=True, equals_quantize_rows_gmm_w8a8=True, M=m, K=wl.k, N=wl.n,
+         schedule={"bm": gfq.fusedquant_schedule(m, wl.k, wl.n, e).bm},
+         k1_k2_ms=time_ms(k1_k2), k1_k2_device_ms=device_ms(k1_k2),
+         **kernel_times(lambda: gfq.gmm_w8a8_fusedquant(x, wq, ws, headline)),
+         **gmm_work(headline, wl.k, wl.n, wl.k * wl.n, lhs_row_bytes=2 * wl.k))
+    del x, wq
+    torch.cuda.empty_cache()
+
+
 def schedule_edges() -> None:
     """The redesigned bodies at the edges of their schedules. The int8
     grouped GEMM (K2, K4, K5, K9) at M 1, 4, 16, 17, 24, 64, 65, 256, routed
@@ -1655,6 +1766,8 @@ def schedule_edges() -> None:
             for what, got, ref in checks:
                 _require_equal(got, ref, f"{what} at M {m} {layout}")
             cases.append({"M": m, "layout": layout, "bm": sched.bm,
+                          "k2_k5_bm": gmm.int8_gmm_schedule(m, k, n, e,
+                                                            wgmma=True).bm,
                           "splits": sched.splits, "blocks": sched.blocks})
             gsched = ggrp.grouped_gmm_schedule(m, k, n, e, GSIZE)
             grouped_cases.append({"M": m, "layout": layout, "K": k, "bm": gsched.bm,
@@ -1720,6 +1833,7 @@ def kernels_vs_plain() -> dict:
     attention_kernels_vs_plain(rec)
     read_only_attention_vs_plain(rec)
     fused_kernels_vs_plain(rec)
+    wgmma_body_vs_plain(rec)
     combine_vs_index_add()
     return rec
 
@@ -2487,7 +2601,8 @@ def main() -> int:
          "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
          "library_ms": rec[name].get("library_ms"),
          "library_device_ms": rec[name].get("library_device_ms"),
-         **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {})}
+         **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
+         **({"prefill": rec[name]["prefill"]} if "prefill" in rec[name] else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

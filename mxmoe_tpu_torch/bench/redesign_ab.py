@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Seven
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Nine
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -38,7 +38,20 @@ case sets, each against the csrc of the commit before its redesign:
 * ``act_quant`` (before K1 kept its rows in registers): K1 at the
   headline's rows (36736 x 2048 / 1408, the shared expert's 8192 x 5632),
   prefill chunks (4096 and 1024 x 2048) and decode (16 x 2048), bf16,
-  per-row bits 4 / 8 / 16 and a gain, codes and scales bitwise old = new.
+  per-row bits 4 / 8 / 16 and a gain, codes and scales bitwise old = new;
+* ``int8_large`` (before K2 / K5 above the decode rows took the wgmma body
+  with group sizes read on the device): K2 and K5 through their wrappers
+  (the body ``int8_gmm_schedule`` picks, printed) against the 64 x 128
+  mma.sync body, at the prefill chunks of qwen2_moe (M 1024 over 60
+  experts) and ds2 (M 1536 over 64), the int8 shared expert's prefill (one
+  group, M 256), qwen2_moe's routing at M 68 / 128 / 512 / 4096 / 8192 and the
+  headline's rows (32762 unaligned, 36736 aligned, where K15 on the same
+  codes is timed beside), bitwise old = new (= K15);
+* ``fusedquant`` (before K14's redesign, when every M took the 64 x 128
+  body and each n-tile block quantized its rows again): K14 at qwen2_moe's
+  gate_up, decode (M 16), a prefill chunk (M 1024) and the headline's rows
+  (32762), bf16 activations, bitwise old = new = K1 + K2, with K1 + K2 (the
+  package's kernels) timed beside.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -117,6 +130,16 @@ _OLD = {
     # x, x_is_bf16, bits, gain, q, scale, M, K, stream
     "act_quant": (("act_quant.cu",), {
         "mxmoe_quantize_rows": [_P, _I, _P, _F, _P, _P, _I, _I, _P]}),
+    # lhs, s_a, rhs, s_b, group_sizes, out, out_is_bf16, M, K, N, E, bm,
+    # grid_m, splits, k_tiles_per_split, workspace, tickets, stream
+    "int8_large": (("gmm_w8a8.cu", "gmm_w4a8_packed.cu"), {
+        "mxmoe_gmm_w8a8": [_P] * 6 + [_I] * 5 + [_I] * 4 + [_P] * 3,
+        "mxmoe_gmm_w4a8_packed": [_P] * 6 + [_I] * 5 + [_I] * 4 + [_P] * 3}),
+    # lhs, lhs_is_bf16, rhs, s_b, group_sizes, out, out_is_bf16, upper, M, K,
+    # N, E, stream
+    "fusedquant": (("gmm_w8a8_fusedquant.cu",), {
+        "mxmoe_gmm_w8a8_fusedquant": [_P, _I, _P, _P, _P, _P, _I, _F] + [_I] * 4
+                                     + [_P]}),
 }
 
 
@@ -773,6 +796,141 @@ def act_quant_cases(lib, reps: int) -> None:
               **_bound(m * k * 2 + m * 4 + m * k + m * 4, 3 * m * k, "f32"))
 
 
+def _routed_sizes(model: str, tokens: int, gen) -> list[int]:
+    """``tokens`` tokens routed over ``model``'s experts (random router
+    logits) -> the group sizes, as host ints."""
+    cfg = configs.config_for(model)
+    logits = torch.randn((tokens, cfg.num_experts), generator=gen, device="cuda")
+    routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob)
+    return make_dispatch(routing, cfg.num_experts).group_sizes.tolist()
+
+
+def int8_large_cases(lib, reps: int) -> None:
+    """K2 and K5 above the decode rows: the 64 x 128 mma.sync body against
+    the body the package's schedule takes there, with K15 beside on the
+    headline's aligned layout."""
+    from ..ops import gmm_ws
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    qwen = configs.config_for("qwen2_moe")
+    h, n = qwen.hidden_size, qwen.moe_intermediate_size
+    sn = qwen.shared_expert_intermediate_size
+    routed = workloads.QWEN2_MOE_L10_BS8192_ROUTED_M
+    shapes = []
+    for model, tokens in (("qwen2_moe", 256), ("ds2", 256)):
+        sizes = _routed_sizes(model, tokens, gen)
+        shapes += [(f"{model} prefill chunk {proj}", sizes, k, nn)
+                   for proj, k, nn in (("gate_up", h, 2 * n), ("down", n, h))]
+    shapes += [(f"shared expert prefill {proj}", [256], k, nn)
+               for proj, k, nn in (("gate_up", h, 2 * sn), ("down", sn, h))]
+    shapes += [(f"qwen2_moe M {4 * t} gate_up", _routed_sizes("qwen2_moe", t, gen), h,
+                2 * n) for t in (17, 32, 128, 1024, 2048)]
+    for label, sizes in (("headline", list(routed)),
+                         ("headline aligned", [(s + 127) // 128 * 128 for s in routed])):
+        shapes += [(f"{label} {proj}", sizes, k, nn)
+                   for proj, k, nn in (("gate_up", h, 2 * n), ("down", n, h))]
+    for use, sizes, k, nn in shapes:
+        m, e = sum(sizes), len(sizes)
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+        aligned = all(s % 128 == 0 for s in sizes)
+        for form in ("int8", "packed"):
+            packed = form == "packed"
+            if packed:
+                w = pack_int4_halves(torch.randint(-8, 8, (e, k, nn), generator=gen,
+                                                   device=dev, dtype=torch.int8))
+                new = lambda w=w: g4p.gmm_w4a8_packed(aq, asc, w, wsc, gs)
+                ws = lambda w=w: gmm_ws.gmm_w4a8_packed_ws(aq, asc, w, wsc, sizes)
+                fn = "mxmoe_gmm_w4a8_packed"
+            else:
+                w = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                new = lambda w=w: gmm.gmm_w8a8(aq, asc, w, wsc, gs)
+                ws = lambda w=w: gmm_ws.gmm_w8a8_ws(aq, asc, w, wsc, sizes)
+                fn = "mxmoe_gmm_w8a8"
+            kw = k // 2 if packed else k
+
+            def old(w=w, fn=fn, kw=kw):
+                kernels.check(getattr(lib, fn)(
+                    aq.data_ptr(), asc.data_ptr(), w.data_ptr(), wsc.data_ptr(),
+                    gs.data_ptr(), out_old.data_ptr(), 1, m, k, nn, e,
+                    64, (m + 63) // 64 + e - 1, 1, (kw + 63) // 64, None, None,
+                    _stream()), "old " + fn)
+                return out_old
+
+            a, b = new(), old().clone()
+            c = ws() if aligned else None
+            torch.cuda.synchronize()
+            if not (torch.equal(a, b) and (c is None or torch.equal(a, c))):
+                raise AssertionError(f"{fn} {use}: new, old (and K15) differ")
+            beside = {"k15_device_ms": device_ms(ws, reps)} if aligned else {}
+            sched = gmm.int8_gmm_schedule(m, k, nn, e, packed, wgmma=True)
+            nbytes = m * (k + 4) + live * (kw * nn + nn * 4) + e * 4 + m * nn * 2
+            _emit("gmm_w4a8_packed" if packed else "gmm_w8a8", form=form, use=use, M=m,
+                  K=k, N=nn, E=e, live_groups=live, schedule=vars(sched),
+                  bitwise_old=True, **beside, **_ab(old, new, reps),
+                  **_bound(nbytes, 2 * m * k * nn, "int8"))
+            del w
+        del aq, out_old
+        torch.cuda.empty_cache()
+
+
+def fusedquant_cases(lib, reps: int) -> None:
+    """K14 at qwen2_moe's gate_up, decode, prefill chunk and headline rows:
+    the 64 x 128 body against the new bodies, K1 + K2 beside."""
+    from ..ops import act_quant, gmm_w8a8_fusedquant as gfq
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    qwen = configs.config_for("qwen2_moe")
+    k, nn = qwen.hidden_size, 2 * qwen.moe_intermediate_size
+    for use, sizes in (("decode", _routed_sizes("qwen2_moe", 4, gen)),
+                       ("prefill chunk", _routed_sizes("qwen2_moe", 256, gen)),
+                       ("headline", list(workloads.QWEN2_MOE_L10_BS8192_ROUTED_M))):
+        m, e = sum(sizes), len(sizes)
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01 + 1e-4
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+
+        def old():
+            kernels.check(lib.mxmoe_gmm_w8a8_fusedquant(
+                x.data_ptr(), 1, wq.data_ptr(), wsc.data_ptr(), gs.data_ptr(),
+                out_old.data_ptr(), 1, 127.0, m, k, nn, e, _stream()),
+                "old mxmoe_gmm_w8a8_fusedquant")
+            return out_old
+
+        def new():
+            return gfq.gmm_w8a8_fusedquant(x, wq, wsc, gs)
+
+        def k1_k2():
+            aq, asc = act_quant.quantize_rows_uniform(x, 8)
+            return gmm.gmm_w8a8(aq, asc, wq, wsc, gs)
+
+        a, b, c = new(), old().clone(), k1_k2()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"gmm_w8a8_fusedquant {use}: new, old and K1 + K2 "
+                                 "differ")
+        nbytes = m * k * 2 + live * (k * nn + nn * 4) + e * 4 + m * nn * 2
+        _emit("gmm_w8a8_fusedquant", use=use, M=m, K=k, N=nn, E=e, live_groups=live,
+              bitwise_old=True, bitwise_k1_k2=True,
+              k1_k2_device_ms=device_ms(k1_k2, reps), k1_k2_event_ms=event_ms(k1_k2, reps),
+              **_ab(old, new, reps), **_bound(nbytes, 2 * m * k * nn, "int8"))
+        del x, wq, out_old
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -785,7 +943,8 @@ def main(argv=None) -> None:
     old = build_old(args.old_csrc, args.cases)
     runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases,
             "grouped": grouped_cases, "weight_only": weight_only_cases,
-            "ws": ws_cases, "act_quant": act_quant_cases}
+            "ws": ws_cases, "act_quant": act_quant_cases,
+            "int8_large": int8_large_cases, "fusedquant": fusedquant_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -8,7 +8,7 @@ timed. One JSON line per shape and kernel; whether each variant's output
 equals the package's bit for bit (a variant that drops work to time the
 rest does not).
 
-    python -m mxmoe_tpu_torch.bench.variant_ab [--kernel weight_only|ws|act_quant] \\
+    python -m mxmoe_tpu_torch.bench.variant_ab [--kernel weight_only|ws|act_quant|wgmma] \\
         --variant name=DIR [...]
 
 * ``weight_only`` (the default): the weight-only decode body
@@ -19,6 +19,12 @@ rest does not).
   with zero points.
 * ``ws``: K15's body (``gmm_ws.cu``), int8 and nibble-packed, at the
   headline workload's gate_up and down (every expert's rows padded to 128).
+* ``wgmma``: the wgmma body of ``gmm_ws_body.cuh`` and K14's bodies
+  (sources ``gmm_w8a8.cu``, ``gmm_w4a8_packed.cu``, ``gmm_ws.cu``,
+  ``gmm_w8a8_fusedquant.cu``): K2 and K5 at qwen2_moe's 256-token prefill
+  chunk (gate_up, down) and the headline's 32762 unaligned rows (gate_up),
+  K15 on the aligned layout, K14 at decode (M 16), the prefill chunk and
+  the headline's rows.
 * ``act_quant``: K1's bodies (``act_quant.cu``) at the headline's rows
   (36736 x 2048 / 1408, 8192 x 5632), prefill chunks (4096 and 1024 x 2048)
   and decode (16 x 2048), bf16, per-row bits 4 / 8 / 16.
@@ -59,6 +65,10 @@ KERNEL_SETS = {
                      "mxmoe_gmm_mixed_wo_wxa")),
     "ws": (("gmm_ws.cu",), ("mxmoe_gmm_ws",)),
     "act_quant": (("act_quant.cu",), ("mxmoe_quantize_rows",)),
+    "wgmma": (("gmm_w8a8.cu", "gmm_w4a8_packed.cu", "gmm_ws.cu",
+               "gmm_w8a8_fusedquant.cu"),
+              ("mxmoe_gmm_w8a8", "mxmoe_gmm_w4a8_packed", "mxmoe_gmm_ws",
+               "mxmoe_gmm_w8a8_fusedquant")),
 }
 GSIZE = 128
 
@@ -182,6 +192,66 @@ def ws_variants(named: dict) -> None:
         del w8, w4
 
 
+def wgmma_variants(named: dict) -> None:
+    from ..ops import gmm_w4a8_packed as g4p, gmm_w8a8 as g8, gmm_w8a8_fusedquant as gfq
+    from ..ops import gmm_ws
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    libs = {"package": kernels.lib(),
+            **{k: build_variant(d, "wgmma") for k, d in named.items()}}
+    cfg = configs.QWEN2_MOE_A2_7B
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+
+    def routed(tokens):
+        logits = torch.randn((tokens, e), generator=gen, device=dev)
+        return make_dispatch(route_topk(logits, cfg.top_k, cfg.norm_topk_prob),
+                             e).group_sizes
+
+    chunk = routed(256)
+    headline = torch.tensor(workloads.QWEN2_MOE_L10_BS8192_ROUTED_M, dtype=torch.int32,
+                            device=dev)
+    aligned = [(s + 127) // 128 * 128 for s in workloads.QWEN2_MOE_L10_BS8192_ROUTED_M]
+    for use, gs, k, nn in (("prefill chunk gate_up", chunk, h, 2 * n),
+                           ("prefill chunk down", chunk, n, h),
+                           ("headline gate_up", headline, h, 2 * n),
+                           ("headline aligned gate_up", None, h, 2 * n)):
+        sizes = aligned if gs is None else gs.tolist()
+        m = sum(sizes)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+        w8 = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w4 = pack_int4_halves(torch.randint(-8, 8, (e, k, nn), generator=gen,
+                                            device=dev, dtype=torch.int8))
+        if gs is None:
+            runs = {"gmm_ws": lambda: gmm_ws.gmm_w8a8_ws(aq, asc, w8, wsc, sizes)}
+        else:
+            runs = {"gmm_w8a8": lambda: g8.gmm_w8a8(aq, asc, w8, wsc, gs),
+                    "gmm_w4a8_packed": lambda: g4p.gmm_w4a8_packed(aq, asc, w4, wsc, gs)}
+        for name, fn in runs.items():
+            times, same = _timed_in_turns(libs, fn)
+            print(json.dumps({"use": use, "kernel": name, "M": m, "K": k, "N": nn,
+                              "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
+                              "device_ms_turns": times, "bitwise_package": same}),
+                  flush=True)
+        del aq, w8, w4
+    for use, gs in (("decode", routed(4)), ("prefill chunk", chunk),
+                    ("headline", headline)):
+        m = int(gs.sum())
+        x = (torch.randn((m, h), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (e, h, 2 * n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ws = torch.rand((e, 1, 2 * n), generator=gen, device=dev) * 0.01 + 1e-4
+        times, same = _timed_in_turns(libs, lambda: gfq.gmm_w8a8_fusedquant(x, wq, ws, gs))
+        print(json.dumps({"use": use, "kernel": "gmm_w8a8_fusedquant", "M": m, "K": h,
+                          "N": 2 * n,
+                          "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
+                          "device_ms_turns": times, "bitwise_package": same}), flush=True)
+
+
 def act_quant_variants(named: dict) -> None:
     from ..ops import act_quant
 
@@ -252,6 +322,8 @@ def main(argv=None) -> None:
             ws_variants(named)
         elif args.kernel == "act_quant":
             act_quant_variants(named)
+        elif args.kernel == "wgmma":
+            wgmma_variants(named)
         else:
             variants(named)
     smi = subprocess.run(

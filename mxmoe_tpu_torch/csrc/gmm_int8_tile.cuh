@@ -30,7 +30,8 @@
 // mma_k_tile_rs below with its own kernel.
 //
 // Two schedules, chosen by the wrapper from M (ops/gmm_w8a8.py::
-// int8_gmm_schedule, which the host knows without a sync):
+// int8_gmm_schedule, which the host knows without a sync); above the
+// decode rows K2 and K5 take a third body instead, gmm_ws_body.cuh's:
 //
 // * Prefill (bm = 64; gmm_tile_walk.cuh). Rows outside the block's expert
 //   are zero-filled on load and masked on store. mma.sync m16n8k32
@@ -38,8 +39,7 @@
 //   of 64. The [K, N] weight tile is transposed in registers (byte_perm 4x4)
 //   into a K-contiguous shared layout that the col-major B fragment reads
 //   conflict-free; the next k-tile's global loads are started into
-//   registers before the current tile's MMAs. K14 (gmm_w8a8_fusedquant.cu)
-//   uses its tiles and mma_k_tile_rs.
+//   registers before the current tile's MMAs.
 // * Decode (bm = 16, small M). At decode 16 routed rows spread over ~15
 //   experts, so a 64-row tile held 1-2 real rows, and the one-group shared
 //   expert's 88 / 16 column blocks filled few of the 132 SMs, each with one
@@ -56,9 +56,12 @@
 //   int32 partial (and the row sums) to a workspace and the last block of
 //   the tile, found by an atomic ticket, adds them in split order and runs
 //   the unchanged epilogue. int32 sums are exact, so the output is bitwise
-//   that of one pass.
+//   that of one pass. K14's decode body is this kernel with bf16 / f32
+//   activations (InT), quantized in the block.
 
 #pragma once
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "gmm_tile_walk.cuh"
@@ -381,7 +384,66 @@ __device__ __forceinline__ void d_mma_tile(const int8_t* At, const int8_t* Bt,
   }
 }
 
-template <typename OutT, int kStorage, bool kAsym>
+// 8 consecutive activations (16-byte aligned) as loaded, and as f32 (bf16 ->
+// f32 is exact); zero() stands for 8 zeros
+template <typename T> struct Raw8;
+template <> struct Raw8<__nv_bfloat16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { w = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void values(float (&v)[8]) const {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    }
+  }
+};
+template <> struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void values(float (&v)[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+// the int8 decode body's activations are codes: no Raw8 (never instantiated)
+template <> struct Raw8<int8_t> {
+  __device__ __forceinline__ void load(const int8_t*) {}
+  __device__ __forceinline__ void zero() {}
+  __device__ __forceinline__ void values(float (&v)[8]) const {}
+};
+
+// K1's arithmetic: the row scale, and 8 codes packed into 8 bytes
+__device__ __forceinline__ float fq_scale(float amax, float upper) {
+  return __fdiv_rn(fmaxf(amax, 1e-8f), upper);
+}
+__device__ __forceinline__ uint2 fq_codes8(const float (&v)[8], float s) {
+  uint32_t lo = 0, hi = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo |= (uint32_t)(__float2int_rn(__fdiv_rn(v[i], s)) & 0xFF) << (8 * i);
+    hi |= (uint32_t)(__float2int_rn(__fdiv_rn(v[4 + i], s)) & 0xFF) << (8 * i);
+  }
+  return make_uint2(lo, hi);
+}
+
+// InT int8_t: the activations are codes (lhs, s_a). Otherwise (K14, int8
+// stacked weights only) they are bf16 / f32 values x: the block first takes
+// the amax of each of its 16 rows over all of K (a warp a row, every split
+// the same, exact) while the first weight stages are in flight; then each
+// k-tile's 16 x 64 activations are loaded into registers two k-tiles ahead
+// (a thread 8 values), quantized beside the MMAs of the k-tile before and
+// stored into their A stage after them. Only weight tiles go through the
+// cp.async ring. upper = 2^(bits-1) - 1.
+template <typename OutT, int kStorage, bool kAsym, typename InT = int8_t>
 __global__ void __launch_bounds__(kThreads)
 gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
                        const int8_t* __restrict__ rhs, const float* __restrict__ s_b,
@@ -390,7 +452,10 @@ gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__
                        const int* __restrict__ pflags,
                        const int* __restrict__ blk_offsets, OutT* __restrict__ out,
                        int* __restrict__ ws, int* __restrict__ tickets, int M, int K,
-                       int N, int E, int kt_per_split) {
+                       int N, int E, int kt_per_split, const InT* __restrict__ x,
+                       float upper) {
+  constexpr bool kQuant = !std::is_same<InT, int8_t>::value;
+  static_assert(!kQuant || (kStorage == kInt8Stacked && !kAsym), "K14's decode body");
   // a packed expert also needs the A columns K/2 further on (its high nibbles)
   constexpr int kA = kStorage == kInt8Stacked ? 1 : 2;
   __shared__ __align__(16) int8_t As[DSTAGES][kA][DEC_A_TILE];
@@ -398,6 +463,7 @@ gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__
   __shared__ int sizes[kMaxExperts];
   __shared__ int tile_info[4];          // expert, first row, row begin, row end
   __shared__ int is_last;
+  __shared__ float row_scale[kQuant ? DBM : 1];
 
   if (!block_tile<DBM>(group_sizes, E, M, sizes, tile_info)) return;
   const int g = tile_info[0], m0 = tile_info[1];
@@ -427,7 +493,7 @@ gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__
   auto issue = [&](int t) {
     if (t < nk) {
       const int k0 = (kt0 + t) * DBK, s = t % DSTAGES;
-      if (tid < 64 * kA) {                // A: 16 rows x 4 pieces (x 2 halves)
+      if (!kQuant && tid < 64 * kA) {     // A: 16 rows x 4 pieces (x 2 halves)
         const int half = tid >> 6, c = tid & 63;
         const int row = m0 + (c >> 2), k = k0 + (c & 3) * 16;
         const bool live = row >= row_lo && row < row_hi && k < Kw && (half == 0 || packed);
@@ -449,16 +515,79 @@ gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__
   int rsum[2] = {0, 0};
 #pragma unroll
   for (int t = 0; t < DSTAGES - 1; ++t) issue(t);
+  // K14: thread tid quantizes row tid / 8, codes 8 (tid % 8) .. + 7 of a
+  // k-tile. Two register sets take the k-tiles in turn, odd and even, so
+  // each load is two k-tiles ahead of its use and no copy waits on one.
+  const int q_row = m0 + (tid >> 3), q_col = (tid & 7) * 8;
+  const bool q_live = kQuant && q_row >= row_lo && q_row < row_hi;
+  Raw8<InT> odd, even;
+  auto load_a = [&](Raw8<InT>& r, int t) {
+    const int k = (kt0 + t) * DBK + q_col;
+    if (q_live && t < nk && k < K) r.load(x + (size_t)q_row * K + k);
+    else r.zero();
+  };
+  auto quant_a = [&](const Raw8<InT>& r) {   // rows outside the expert: zeros
+    if (!q_live) return make_uint2(0u, 0u);
+    float v[8];
+    r.values(v);
+    return fq_codes8(v, row_scale[tid >> 3]);
+  };
+  auto store_a = [&](uint2 codes, int t) {          // into k-tile t's stage
+    *reinterpret_cast<uint2*>(&As[t % DSTAGES][0][(tid >> 3) * A_STRIDE + q_col]) = codes;
+  };
+  if constexpr (kQuant) {
+    load_a(even, 0);
+    load_a(odd, 1);
+    // the scale of each row from its amax over all of K (a warp a row)
+    for (int r = warp; r < DBM; r += kThreads / 32) {
+      const int row = m0 + r;
+      float amax = 0.f;
+      if (row >= row_lo && row < row_hi) {
+        // 8 chunks of 8 values a lane in flight at once
+        const InT* xr = x + (size_t)row * K;
+        for (int k0 = lane * 8; k0 < K; k0 += 2048) {
+          Raw8<InT> c[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (k0 + 256 * i < K) c[i].load(xr + k0 + 256 * i);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (k0 + 256 * i < K) {
+              float v[8];
+              c[i].values(v);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+            }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      if (lane == 0) row_scale[r] = fq_scale(amax, upper);
+    }
+    __syncthreads();
+    store_a(quant_a(even), 0);
+    load_a(even, 2);
+  }
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<DSTAGES - 2>();
     __syncthreads();                      // tile t landed; stage t-1 is free
     issue(t + DSTAGES - 1);
     const int s = t % DSTAGES;
+    // K14: k-tile t + 1's codes, computed beside the MMAs of t
+    uint2 codes;
+    if constexpr (kQuant) codes = (t & 1) ? quant_a(even) : quant_a(odd);
     if (packed) {
       d_mma_tile<1, kAsym>(As[s][0], Bs[s], acc, rsum, wn, gr, tq);
       d_mma_tile<2, kAsym>(As[s][kA - 1], Bs[s], acc, rsum, wn, gr, tq);
     } else {
       d_mma_tile<0, kAsym>(As[s][0], Bs[s], acc, rsum, wn, gr, tq);
+    }
+    if constexpr (kQuant) {
+      // k-tile t + 1's stage was last read by the MMAs of t - 3
+      if (t + 1 < nk) store_a(codes, t + 1);
+      if (t & 1) load_a(even, t + 3);
+      else load_a(odd, t + 3);
     }
   }
   cp_async_wait<0>();
@@ -521,7 +650,7 @@ gmm_int8_decode_kernel(const int8_t* __restrict__ lhs, const float* __restrict__
   for (int h = 0; h < 2; ++h) {
     const int row = m0 + gr + h * 8;
     if (row < row_lo || row >= row_hi) continue;
-    const float sa = s_a[row];
+    const float sa = kQuant ? row_scale[gr + h * 8] : s_a[row];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = n0 + wn + j * 8 + tq * 2;
@@ -560,7 +689,8 @@ cudaError_t launch_typed(const int8_t* lhs, const float* s_a, const int8_t* rhs,
       dim3 grid((N + DBN - 1) / DBN, sc.grid_m, sc.splits);
       gmm_int8_decode_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(
           lhs, s_a, rhs, s_b, zp, gs, pflags, blk, static_cast<OutT*>(out), sc.ws,
-          sc.tickets, M, K, N, E, sc.kt_per_split);
+          sc.tickets, M, K, N, E, sc.kt_per_split, static_cast<const int8_t*>(nullptr),
+          0.f);
     } else if (sc.bm == BM) {
       dim3 grid((N + BN - 1) / BN, sc.grid_m);
       gmm_int8_kernel<OutT, kStorage, kAsym><<<grid, kThreads, 0, st>>>(

@@ -9,11 +9,15 @@
 // contract and epilogue as K2; bitwise equal to K2 on the unpacked codes
 // and to K4 on an all-packed ragged buffer.
 //
-// Bound on the H100: weight bytes, half of K2's for the same codes. The
-// kernel is gmm_int8_tile.cuh with storage kPackedStacked: expert g starts
-// at g * K/2 * N and every byte tile feeds two MMA k-steps.
+// Bound on the H100: weight bytes, half of K2's for the same codes. K2's
+// three bodies, chosen the same way: gmm_int8_tile.cuh with storage
+// kPackedStacked (expert g starts at g * K/2 * N and every byte tile feeds
+// two MMA k-steps) at decode rows and outside the wgmma domain (also K % 64
+// != 0), the wgmma body of gmm_ws_body.cuh (packed: quarter boxes of low or
+// high nibbles) above them.
 
 #include "gmm_int8_tile.cuh"
+#include "gmm_ws_body.cuh"
 
 extern "C" int mxmoe_gmm_w4a8_packed(const void* lhs, const void* s_a,
                                      const void* rhs_packed, const void* s_b,
@@ -22,6 +26,9 @@ extern "C" int mxmoe_gmm_w4a8_packed(const void* lhs, const void* s_a,
                                      int E, int bm, int grid_m, int splits,
                                      int kt_per_split, void* ws, void* tickets,
                                      void* stream) {
+  if (bm == WS_BM)
+    return gmm_wsd_launch<true>(lhs, s_a, rhs_packed, s_b, group_sizes, out,
+                                 out_is_bf16, M, K, N, E, stream);
   return gmm_int8_launch<kPackedStacked>(lhs, s_a, rhs_packed, s_b, nullptr,
                                          group_sizes, nullptr, nullptr, out,
                                          out_is_bf16, M, K, N, E, bm, grid_m,

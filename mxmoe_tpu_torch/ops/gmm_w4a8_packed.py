@@ -48,7 +48,8 @@ def gmm_w4a8_packed(
                     f"gmm_w4a8_packed: rhs_packed {tuple(rhs_packed.shape)} for "
                     f"K={k} (a multiple of 32), N={n}")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
-    sched, _ws = int8_launch_schedule(lhs_q, rhs_packed, n, e, packed=True)
+    sched, _ws = int8_launch_schedule(lhs_q, rhs_packed, n, e, packed=True,
+                                      wgmma=True)
     err = kernels.lib().mxmoe_gmm_w4a8_packed(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_packed.data_ptr(),
         rhs_scale.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),

@@ -14,7 +14,9 @@ Rows past ``sum(group_sizes)`` are left unwritten by the kernel
 The layer-stacked weight metadata of the TPU kernel (``group_base``,
 ``num_total_groups``) is not ported: a layer's weights are the view
 ``w[layer]``. The TPU tile knobs (bm/bn/bk) have no counterpart: the card's
-schedule is ``int8_gmm_schedule``'s, shared by K2, K4, K5 and K9.
+schedule is ``int8_gmm_schedule``'s, shared by K2, K4, K5 and K9; above the
+decode rows K2 and K5 take the persistent wgmma body
+(``csrc/gmm_ws_body.cuh``), which reads ``group_sizes`` on the device.
 """
 
 from __future__ import annotations
@@ -28,7 +30,15 @@ from . import kernels
 SMS = 132          # streaming multiprocessors of the H100
 SPLIT_BLOCKS = 2 * SMS    # K is split when a decode grid has fewer blocks
 DECODE_M = 64      # rows up to which the decode schedule (m16 tiles) is taken
-K_TILE = 64        # storage rows of one k-tile, both schedules
+K_TILE = 64        # storage rows of one k-tile, both mma.sync schedules
+# rows from which K2 / K5 take the wgmma body (the 64 x 128 mma.sync tile
+# was the slower at every M measured above the decode rows, M 68-36736:
+# PERF.md), its tiles (rows and columns of a work item, codes of a
+# k-tile) and its K bound: K x 127 x 128 stays below 2^31, so the int32 sum
+# is exact
+WGMMA_MIN_M = DECODE_M + 1
+WGMMA_BM, WGMMA_BN, WGMMA_BK = 128, 256, 128
+WGMMA_MAX_K = 1 << 16
 _PART_INTS = 16 * 64 + 16    # int32 of one split's partial: m16 x 64 + row sums
 
 
@@ -57,8 +67,17 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def wgmma_domain(m: int, k: int, n: int, packed: bool, aligned: bool) -> bool:
+    """Whether the wgmma body takes these shapes: M above the decode rows,
+    N a multiple of 16 and 16-byte aligned operands (TMA), K within the int32
+    bound, packed K a multiple of 64 (a quarter box of 32 byte rows never
+    straddles K/2)."""
+    return (m >= WGMMA_MIN_M and n % 16 == 0 and aligned and 0 < k <= WGMMA_MAX_K
+            and k % (64 if packed else 16) == 0)
+
+
 def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
-                      aligned: bool = True) -> Int8GemmSchedule:
+                      aligned: bool = True, wgmma: bool = False) -> Int8GemmSchedule:
     """The one place the int8 grouped GEMM's schedule is chosen, from the
     shapes the host knows (no sync on the routing).
 
@@ -66,12 +85,18 @@ def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
     one m16 row block x 64 columns a block; the m-tiles are bounded by M
     itself, since every live tile holds a row. When fewer than two blocks an
     SM would run (``SPLIT_BLOCKS``), K is split into whole k-tiles so the
-    grid fills the card (at most 16 splits). Otherwise the prefill tile, 64 x 128,
-    over cdiv(M, 64) + E - 1 logical m-tiles. ``packed``: every expert's
-    storage holds K/2 rows (a ragged buffer's int8 experts hold K, and the
-    split is taken over K)."""
+    grid fills the card (at most 16 splits). ``wgmma`` (K2 and K5, stacked
+    storage) and ``wgmma_domain``: the persistent wgmma body, bm 128 (its
+    grid is the SM count; ``grid_m`` bounds the m-tiles of its walk,
+    cdiv(M, 128) + E, and ``k_tiles_per_split`` counts its 128-code
+    k-tiles). Otherwise the prefill tile, 64 x 128, over cdiv(M, 64) + E - 1
+    logical m-tiles. ``packed``: every expert's storage holds K/2 rows (a
+    ragged buffer's int8 experts hold K, and the split is taken over K)."""
     kw = k // 2 if packed else k
     kt = max(_cdiv(kw, K_TILE), 1)
+    if wgmma and wgmma_domain(m, k, n, packed, aligned):
+        return Int8GemmSchedule(WGMMA_BM, WGMMA_BN, _cdiv(n, WGMMA_BN),
+                                _cdiv(m, WGMMA_BM) + e, 1, _cdiv(k, WGMMA_BK), 0, 0)
     if m <= DECODE_M and n % 16 == 0 and aligned:
         grid_n, grid_m = _cdiv(n, 64), min(_cdiv(m, 16) + e - 1, m)
         base = grid_n * grid_m
@@ -100,10 +125,12 @@ def schedule_args(sched: Int8GemmSchedule, device):
             ws.data_ptr(), tk.data_ptr()), ws
 
 
-def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False):
+def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False,
+                         wgmma: bool = False):
     """``int8_gmm_schedule`` for these operands -> ``schedule_args``."""
     m, k = lhs_q.shape
-    sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0)
+    sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0,
+                              wgmma=wgmma)
     return schedule_args(sched, lhs_q.device)
 
 
@@ -343,7 +370,7 @@ def gmm_w8a8(
     kernels.require(rhs_q.shape == (e, k, n) and rhs_scale.shape[0] == e,
                     f"gmm_w8a8: rhs {tuple(rhs_q.shape)} for K={k}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    sched, _ws = int8_launch_schedule(lhs_q, rhs_q, n, e)
+    sched, _ws = int8_launch_schedule(lhs_q, rhs_q, n, e, wgmma=True)
     err = kernels.lib().mxmoe_gmm_w8a8(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),

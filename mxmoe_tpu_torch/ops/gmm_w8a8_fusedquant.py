@@ -17,6 +17,15 @@ test holds it to ``quantize_act_per_token + gmm_w8a8`` within 1e-5 only;
 ``tests/test_torch_gmm_ws.py`` pins that reading bitwise). The port keeps
 K1's.
 
+Two bodies, chosen by ``fusedquant_schedule`` from the shapes (no sync):
+at decode rows K2's m16 ring body and schedule, whose blocks take their
+rows' amax first and quantize each k-tile into its A stage; above them one
+cooperative launch that quantizes every row once into a workspace, meets at
+a grid barrier and runs the wgmma body of K2's large M over the codes
+(``csrc/gmm_w8a8_fusedquant.cu``). Outside the bodies' domain (N no
+multiple of 16, weights not 16-byte aligned) the wrapper runs K1 + K2, the
+same function in two launches.
+
 Rows past ``sum(group_sizes)`` stay unwritten by the kernel and zero in the
 plain version. Only tests call this in both packages (no serving branch
 reaches it).
@@ -28,7 +37,21 @@ import torch
 
 from . import kernels
 from ..quant.qparams import quantize_act_per_row_bits
-from .gmm_w8a8 import grouped_int8_plain
+from .act_quant import quantize_rows_uniform
+from .gmm_w8a8 import (DECODE_M, Int8GemmSchedule, gmm_w8a8, grouped_int8_plain,
+                       int8_gmm_schedule, schedule_args, wgmma_domain)
+
+
+def fusedquant_schedule(m: int, k: int, n: int, e: int,
+                        aligned: bool = True) -> Int8GemmSchedule | None:
+    """K14's body for these shapes, or None for K1 + K2: K2's decode
+    schedule at decode rows (M <= ``DECODE_M``), the wgmma body (bm 128)
+    above them where ``wgmma_domain`` takes the shapes. ``aligned``: the
+    weights are 16-byte aligned."""
+    if m <= DECODE_M:
+        return int8_gmm_schedule(m, k, n, e) if n % 16 == 0 and aligned else None
+    return int8_gmm_schedule(m, k, n, e, wgmma=True) \
+        if wgmma_domain(m, k, n, False, aligned) else None
 
 
 def gmm_w8a8_fusedquant_plain(lhs, rhs_q, rhs_scale, group_sizes, a_bits=8,
@@ -73,12 +96,25 @@ def gmm_w8a8_fusedquant(
     req(e <= 1024, "gmm_w8a8_fusedquant: at most 1024 experts")
     req(out_dtype in (torch.bfloat16, torch.float32),
         f"gmm_w8a8_fusedquant: out dtype {out_dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    dev = lhs.device
+    sched = fusedquant_schedule(m, k, n, e, aligned=rhs_q.data_ptr() % 16 == 0)
+    if sched is None:
+        aq, asc = quantize_rows_uniform(lhs, a_bits)
+        return gmm_w8a8(aq, asc, rhs_q, rhs_scale, group_sizes, out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    args, _ws = schedule_args(sched, dev)
+    q_ws = s_ws = bar = None
+    if sched.bm != 16:
+        q_ws = torch.empty((m, k), dtype=torch.int8, device=dev)
+        s_ws = torch.empty((m,), dtype=torch.float32, device=dev)
+        bar = kernels.grid_barrier(dev)
     err = kernels.lib().mxmoe_gmm_w8a8_fusedquant(
         lhs.data_ptr(), int(lhs.dtype == torch.bfloat16), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), float((1 << (a_bits - 1)) - 1),
-        m, k, n, e, kernels.stream_ptr(lhs.device))
+        m, k, n, e, *args,
+        *(None if t is None else t.data_ptr() for t in (q_ws, s_ws, bar)),
+        kernels.stream_ptr(dev))
     kernels.check(err, "gmm_w8a8_fusedquant")
     kernels.launches["gmm_w8a8_fusedquant"] += 1
     return out

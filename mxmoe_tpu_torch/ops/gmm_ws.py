@@ -28,19 +28,20 @@ aligned, at most 512 groups; K has no upper cap below the int32 sum's.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
 from . import kernels
 from .gmm_w4a8_packed import gmm_w4a8_packed_plain
-from .gmm_w8a8 import gmm_w8a8_plain
+from .gmm_w8a8 import WGMMA_BK, WGMMA_BM, WGMMA_BN, WGMMA_MAX_K, gmm_w8a8_plain
 
 MAX_GROUPS = 512
 # the kernel's tiles: rows and columns of a work item, codes of a k-tile and
-# of one quarter box of raw weight rows (csrc/gmm_ws.cu)
-WS_BM, WS_BN, WS_BK, WS_QK = 128, 256, 128, 32
+# of one quarter box of raw weight rows (csrc/gmm_ws_body.cuh)
+WS_BM, WS_BN, WS_BK, WS_QK = WGMMA_BM, WGMMA_BN, WGMMA_BK, 32
 # K x 127 x 128 must stay below 2^31 for the int32 sum to be exact
-MAX_K = 1 << 16
+MAX_K = WGMMA_MAX_K
 
 
 def ws_work_items(sizes, n: int) -> list[tuple[int, int, int]]:
@@ -48,6 +49,19 @@ def ws_work_items(sizes, n: int) -> list[tuple[int, int, int]]:
     CTAs walk them; CTA c of a grid of P takes items[c::P]."""
     return [(g, j, i) for g, s in enumerate(sizes) for j in range(-(-n // WS_BN))
             for i in range(-(-int(s) // WS_BM))]
+
+
+def ws_device_work_items(sizes, n: int, m: int) -> list[tuple[int, int, int, int, int]]:
+    """The walk of the wgmma body over group sizes read on the device (K2 /
+    K5 above the decode rows, K14's second phase): items (group, n-tile,
+    m-tile, first row, row end) in the order CTA c of a grid of P takes
+    items[c::P]. Group g's m-tiles start at its own first row start_g and
+    store rows [start_g, min(start_g + size_g, M)); a tile's rows past that
+    end are multiplied (rows past M read as zeros) and not stored."""
+    return [(g, j, i, s0 + i * WS_BM, min(s0 + s, m))
+            for g, (s0, s) in enumerate(zip(itertools.accumulate(sizes, initial=0), sizes))
+            for j in range(-(-n // WS_BN))
+            for i in range(-(-max(min(s, m - s0), 0) // WS_BM))]
 
 
 def ws_k_tile_quarters(k: int, packed: bool) -> list[list[tuple[int, bool]]]:

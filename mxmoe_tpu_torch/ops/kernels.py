@@ -118,9 +118,10 @@ _SIGNATURES = {
     "mxmoe_gmm_ffn_w8a8_clusters": [_I, _I],
     "mxmoe_gmm_ffn_mixed_packed_clusters": [_I, _I],
     # lhs, lhs_is_bf16, rhs, s_b, group_sizes, out, out_is_bf16, upper, M, K,
-    # N, E, stream
+    # N, E, schedule (gmm_w8a8_fusedquant.fusedquant_schedule), codes and
+    # scales workspaces, grid barrier, stream
     "mxmoe_gmm_w8a8_fusedquant": [_P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I,
-                                  _P],
+                                  *_SCHED, _P, _P, _P, _P],
     # lhs, s_a, rhs, s_b, static sizes (host ints), out, packed, out_is_bf16,
     # M, K, N, E, stream
     "mxmoe_gmm_ws": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -215,6 +216,21 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
         t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
         _tickets[key] = t
     return t
+
+
+_barriers: dict = {}
+
+
+def grid_barrier(device: torch.device) -> torch.Tensor:
+    """Two zeroed int32 on ``device`` (arrivals, generation) for a kernel's
+    grid barrier: its last arriver zeroes the count and advances the
+    generation, so one pair serves the device's launches one after another
+    (two launches running at once on two streams would need two). Kept apart
+    from ``tickets``, whose counters must stay zero."""
+    key = (device.type, device.index)
+    if key not in _barriers:
+        _barriers[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return _barriers[key]
 
 
 def check(err: int, name: str) -> None:

@@ -1217,3 +1217,170 @@ def test_decode_attention_chunk_edges(dev, groups, dk, quant):
         assert got is None or torch.equal(got, want)
     _assert_within_slot_bound(out, ref, torch.bfloat16)
     assert torch.equal(ro, out)
+
+
+# K2 / K5 above the decode rows: the wgmma body over group sizes read on the
+# device (csrc/gmm_ws_body.cuh), bitwise the 64 x 128 body it replaced there
+# (called through the C entry point with the old schedule) and the plain
+# versions; rows past sum(group_sizes) left as they were
+_HEADLINE_ROUTED = [
+    690, 486, 584, 788, 420, 590, 536, 676, 566, 476, 614, 724, 524, 610,
+    532, 310, 530, 810, 448, 410, 546, 572, 408, 450, 574, 420, 534, 562,
+    638, 502, 550, 590, 576, 564, 550, 510, 612, 604, 494, 702, 400, 602,
+    480, 472, 506, 458, 600, 616, 540, 534, 386, 656, 552, 574, 474, 606,
+    572, 334, 546, 572]
+_WGMMA_CASES = {
+    "m65": (_spread(65, 60, 65), 2048, 2816),
+    "m128": (_spread(128, 60, 128), 1408, 2048),
+    "chunk1024": (_spread(1024, 60, 1024), 2048, 2816),
+    "chunk1536": (_spread(1536, 64, 1536), 1408, 2048),
+    "headline32762": (_HEADLINE_ROUTED, 2048, 2816),
+    "empty_groups": ([0, 300, 0, 0, 77, 0, 129, 0], 1024, 512),
+    "one_group_wide": ([256], 2048, 11264),
+    "mixtral_gate_up": ([100, 7, 300, 0, 45, 90, 200, 58], 4096, 1024),
+    "mixtral_down": ([130, 70, 2, 90], 14336, 512),
+    "57b_gate_up": ([33, 0, 250, 101], 3584, 768),
+}
+
+
+def _old_body(fn, aq, asc, w, wsc, gs, out, packed):
+    """The 64 x 128 mma.sync body through the C entry point (``out`` is
+    written in place)."""
+    m, k = aq.shape
+    e, n = wsc.shape[0], wsc.shape[-1]
+    sched = gmm_w8a8.int8_gmm_schedule(max(m, gmm_w8a8.DECODE_M + 1), k, n, e, packed)
+    assert sched.bm == 64
+    args, _ws = gmm_w8a8.schedule_args(sched, aq.device)
+    kernels.check(getattr(kernels.lib(), fn)(
+        aq.data_ptr(), asc.data_ptr(), w.data_ptr(), wsc.data_ptr(), gs.data_ptr(),
+        out.data_ptr(), int(out.dtype == torch.bfloat16), m, k, n, e, *args,
+        kernels.stream_ptr(aq.device)), "old " + fn)
+
+
+@pytest.mark.parametrize("case", sorted(_WGMMA_CASES))
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8_wgmma_body_bitwise_old_body_and_plain(dev, case, out):
+    sizes, k, n = _WGMMA_CASES[case]
+    m, e = sum(sizes), len(sizes)
+    assert gmm_w8a8.int8_gmm_schedule(m, k, n, e, wgmma=True).bm == 128
+    assert gmm_w8a8.int8_gmm_schedule(m, k, n, e, True, wgmma=True).bm == 128
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    packed = pack_int4_halves(w4)
+    before = (kernels.launches["gmm_w8a8"], kernels.launches["gmm_w4a8_packed"])
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, w8, wsc, gs, out_dtype=out)
+    k5 = gmm_w4a8_packed.gmm_w4a8_packed(aq, asc, packed, wsc, gs, out_dtype=out)
+    old2 = torch.empty_like(k2)
+    old5 = torch.empty_like(k5)
+    _old_body("mxmoe_gmm_w8a8", aq, asc, w8, wsc, gs, old2, False)
+    _old_body("mxmoe_gmm_w4a8_packed", aq, asc, packed, wsc, gs, old5, True)
+    torch.cuda.synchronize()
+    assert (kernels.launches["gmm_w8a8"], kernels.launches["gmm_w4a8_packed"]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(k2, old2) and torch.equal(k5, old5)
+    assert torch.equal(k2, gmm_w8a8.gmm_w8a8_plain(aq, asc, w8, wsc, gs, out))
+    assert torch.equal(k5, gmm_w4a8_packed.gmm_w4a8_packed_plain(aq, asc, packed, wsc,
+                                                                   gs, out))
+
+
+def test_int8_wgmma_body_leaves_rows_past_the_groups(dev):
+    """Rows past sum(group_sizes), inside the last tile and past it, keep what
+    the output held; a group past M is cut at M."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    m, k, n = 700, 256, 512
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev)
+    wq = torch.randint(-127, 128, (3, k, n), generator=g, device=dev, dtype=torch.int8)
+    wsc = torch.rand((3, 1, n), generator=g, device=dev)
+    for sizes, rows in (([100, 0, 230], 330), ([400, 200, 300], 700)):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        out = torch.full((m, n), float("nan"), device=dev)
+        sched = gmm_w8a8.int8_gmm_schedule(m, k, n, 3, wgmma=True)
+        args, _ws = gmm_w8a8.schedule_args(sched, dev)
+        kernels.check(kernels.lib().mxmoe_gmm_w8a8(
+            aq.data_ptr(), asc.data_ptr(), wq.data_ptr(), wsc.data_ptr(), gs.data_ptr(),
+            out.data_ptr(), 0, m, k, n, 3, *args, kernels.stream_ptr(dev)), "gmm_w8a8")
+        ref = gmm_w8a8.gmm_w8a8_plain(aq, asc, wq, wsc, gs, torch.float32)
+        torch.cuda.synchronize()
+        assert sched.bm == 128
+        assert torch.equal(out[:rows], ref[:rows])
+        assert bool(torch.isnan(out[rows:]).all())
+
+
+# K14: the decode body (K2's m16 ring, rows quantized into shared memory) up
+# to M 64 and the cooperative wgmma body above, bitwise its plain version and
+# K1 + K2; outside the bodies' domain the wrapper runs K1 + K2
+@pytest.mark.parametrize("m", [1, 16, 64, 65, 1024, 32762])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gmm_w8a8_fusedquant_bodies_bitwise(dev, m, bits):
+    from mxmoe_tpu_torch.ops import gmm_w8a8_fusedquant as gfq
+
+    sizes = _HEADLINE_ROUTED if m == 32762 else _spread(m, 60, m)
+    k, n, e = 2048, 2816, len(sizes)
+    sched = gfq.fusedquant_schedule(m, k, n, e)
+    assert sched.bm == (16 if m <= 64 else 128)
+    g = torch.Generator(device=dev).manual_seed(m + bits)
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((e, 1, n), generator=g, device=dev) * 0.01 + 1e-4
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    for out in (torch.bfloat16, torch.float32):
+        before = kernels.launches["gmm_w8a8_fusedquant"]
+        got = gfq.gmm_w8a8_fusedquant(x, wq, ws, gs, a_bits=bits, out_dtype=out)
+        again = gfq.gmm_w8a8_fusedquant(x, wq, ws, gs, a_bits=bits, out_dtype=out)
+        plain = gfq.gmm_w8a8_fusedquant_plain(x, wq, ws, gs, bits, out)
+        aq, asc = act_quant.quantize_rows_uniform(x, bits)
+        k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, ws, gs, out_dtype=out)
+        torch.cuda.synchronize()
+        assert kernels.launches["gmm_w8a8_fusedquant"] == before + 2
+        assert torch.equal(got, plain) and torch.equal(got, k2) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,k,n,e", [(16, 14336, 512, 8), (48, 4096, 1024, 8),
+                                     (300, 14336, 512, 8), (200, 80, 384, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gmm_w8a8_fusedquant_wide_k_and_f32(dev, m, k, n, e, dtype):
+    """mixtral's K at decode (split-K) and above it (rows wider than a
+    warp's registers in the quantize phase: read twice), K 80, f32
+    activations."""
+    from mxmoe_tpu_torch.ops import gmm_w8a8_fusedquant as gfq
+
+    sizes = _spread(m, e, m + k)
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    x = (torch.randn((m, k), generator=g, device=dev) * 3).to(dtype)
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((e, 1, n), generator=g, device=dev) * 0.01 + 1e-4
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = kernels.launches["gmm_w8a8_fusedquant"]
+    got = gfq.gmm_w8a8_fusedquant(x, wq, ws, gs, out_dtype=torch.float32)
+    plain = gfq.gmm_w8a8_fusedquant_plain(x, wq, ws, gs, 8, torch.float32)
+    aq, asc = act_quant.quantize_rows_uniform(x, 8)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, wq, ws, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_w8a8_fusedquant"] == before + 1
+    assert torch.equal(got, plain) and torch.equal(got, k2)
+
+
+def test_gmm_w8a8_fusedquant_outside_the_domain_runs_k1_k2(dev):
+    from mxmoe_tpu_torch.ops import gmm_w8a8_fusedquant as gfq
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    sizes = [5, 0, 90]
+    x = torch.randn((95, 256), generator=g, device=dev).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (3, 256, 40), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((3, 1, 40), generator=g, device=dev) * 0.01
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert gfq.fusedquant_schedule(95, 256, 40, 3) is None
+    before = dict(kernels.launches)
+    got = gfq.gmm_w8a8_fusedquant(x, wq, ws, gs)
+    plain = gfq.gmm_w8a8_fusedquant_plain(x, wq, ws, gs)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_w8a8_fusedquant"] == before["gmm_w8a8_fusedquant"]
+    assert kernels.launches["quantize_rows"] == before["quantize_rows"] + 1
+    assert kernels.launches["gmm_w8a8"] == before["gmm_w8a8"] + 1
+    assert torch.equal(got, plain)

@@ -289,13 +289,16 @@ def test_emulation_catches_a_wrong_nibble():
 
 
 def test_redesigned_modules_import_no_jax():
-    """K15's and K1's wrappers and the benches that time them import neither
-    jax nor the JAX package."""
+    """The wrappers of the wgmma body (K15, K2 / K5, K14) and K1, and the
+    benches that time them, import neither jax nor the JAX package."""
     import subprocess
     import sys
 
     mods = ["mxmoe_tpu_torch.ops.gmm_ws", "mxmoe_tpu_torch.ops.act_quant",
-            "mxmoe_tpu_torch.bench.redesign_ab", "mxmoe_tpu_torch.bench.headline_profile"]
+            "mxmoe_tpu_torch.ops.gmm_w8a8", "mxmoe_tpu_torch.ops.gmm_w4a8_packed",
+            "mxmoe_tpu_torch.ops.gmm_w8a8_fusedquant",
+            "mxmoe_tpu_torch.bench.redesign_ab", "mxmoe_tpu_torch.bench.variant_ab",
+            "mxmoe_tpu_torch.bench.headline_profile"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
