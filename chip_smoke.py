@@ -127,9 +127,9 @@ failure raises and the script exits non-zero without a result line:
               At the full 24 layers: mixed-packed + int8 KV with the fused
               FFN (K13, K1, K3q; shared expert K2; no K4). decode_attn="xla"
               on uniform w8a8 (no K3). ds2 at the full 27 layers, mixed-packed
-              + int8 KV + int8 head (K3q, K1, K4, K2), mixtral and
-              qwen2_moe_57b at full width, 4 layers, uniform w8a8 (K1, K2,
-              K3 at G 4 / 7). Each serve prints its peak memory beside the
+              + int8 KV + int8 head (K3q, K1, K4, K2), mixtral (32 layers)
+              and qwen2_moe_57b (28 layers) at full width and depth, uniform
+              w8a8 (K1, K2, K3 at G 4 / 7). Each serve prints its peak memory beside the
               bytes reckoned from the config. The launch counts are
               set to 0 before each serve and read after it; every kernel
               named must have launched
@@ -145,10 +145,24 @@ failure raises and the script exits non-zero without a result line:
               bitwise their --no-ws arms' (K2; K5 + K2), then both arms as
               the entry point runs them, each printing its JSON line; K15
               must launch
+  9. offline  the offline path at full width, 2 layers (offline_phase): a
+              seeded HF-schema qwen2_moe checkpoint (models.synth_ckpt, bf16)
+              converted (models.convert on the card) into five artifacts,
+              each served through generate --artifact (Engine, 2 slots):
+              uniform w8a8 (K1, K2, K3; its tokens and logits bitwise those
+              of the same shards quantized in memory), the alternating w4a4 /
+              w8a8 mix with the w8a8 shared expert by RTN, GPTQ and GPTQ +
+              Hadamard (K1, K2, K3, K4; the rotated float model's logits
+              beside the float model's), and a w4a8_g128 mix with a
+              w8a8_g128 shared expert by GPTQ (K4f, K3; the shared expert
+              fake-quantized). Each line: convert seconds, artifact bytes,
+              GPTQ seconds a layer (float pass + Hessians, sweep), the share
+              of experts whose GPTQ proxy loss is below RTN's
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
-serve or run, named beside them; K14 and the read-only decode attention are
-reached by no serve in either package), the nvidia-smi line, and last
+serve or run, named beside them, and ``offline_launches`` those of each
+artifact's serve; K14 and the read-only decode attention are reached by no
+serve in either package), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -230,6 +244,10 @@ K3_REL_BOUND = 1e-5
 # other places; runs on an H100 read max|d| = 1 ulp (0.03125)
 PARITY_ULPS = 4
 PARITY_BOUND = 0.125
+# the Hadamard-rotated float32 model against the float32 model: max |d| of
+# the logits over max |logits| (the rotation is exact in real arithmetic;
+# float32 rounding of the rotated weights and activations stays far below)
+ROTATION_REL = 1e-3
 # the card's published peaks (H100 SXM, dense): device memory rate and
 # operations per second by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -2315,6 +2333,228 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     return launches
 
 
+def _reset_counts():
+    from mxmoe_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+
+
+def _counts() -> dict:
+    from mxmoe_tpu_torch.ops import kernels
+
+    return {k: v for k, v in kernels.launches.items() if v}
+
+
+# the offline phase's artifacts: name -> (convert arguments, kernels its serve
+# must launch). ``mixed``: bench_serving's alternating w4a4 / w8a8 experts,
+# w4 nibble-packed in the ragged buffer (K4), with the w8a8 shared expert
+# (K2 with one group); ``flex-gptq``: w4a8_g128 experts packed (K4f, its act
+# quant per k-group in torch ops: no K1) with a w8a8_g128 asymmetric shared
+# expert, which GPTQ fake-quantizes (float products)
+OFFLINE_ARTIFACTS = {
+    "uniform": (dict(quant="w8a8_g-1_sym"), ("quantize_rows", "gmm_w8a8",
+                                             "decode_attention_update_stacked")),
+    "mixed-rtn": (dict(qconfig="mixed", method="rtn"),
+                  ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
+                   "gmm_mixed_packed")),
+    "mixed-gptq": (dict(qconfig="mixed", method="gptq"),
+                   ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
+                    "gmm_mixed_packed")),
+    "mixed-gptq-had": (dict(qconfig="mixed", method="gptq-had"),
+                       ("quantize_rows", "gmm_w8a8", "decode_attention_update_stacked",
+                        "gmm_mixed_packed")),
+    "flex-gptq": (dict(qconfig="flex-g128", method="gptq"),
+                  ("gmm_mixed_packed_flex", "decode_attention_update_stacked")),
+}
+
+
+def _offline_qconfigs(cfg, root: str) -> dict:
+    """The qconfig JSON files of the offline phase -> {name: path}."""
+    from mxmoe_tpu_torch.quant.schemes import (QLayerConfig, QModelConfig,
+                                               build_uniform_expert, parse_scheme)
+    from mxmoe_tpu_torch.serving.bench_serving import alternating_mixed_config
+
+    e = cfg.num_experts
+    flex = {str(i): build_uniform_expert(parse_scheme("w4a8_g128_sym"))
+            for i in range(e)}
+    flex[str(e)] = build_uniform_expert(parse_scheme("w8a8_g128_asym"))
+    mixes = {"mixed": alternating_mixed_config(cfg.num_layers, e),
+             "flex-g128": QModelConfig(layers={str(l): QLayerConfig(experts=dict(flex))
+                                               for l in range(cfg.num_layers)})}
+    paths = {}
+    for name, qmc in mixes.items():
+        paths[name] = os.path.join(root, f"{name}.json")
+        qmc.save(paths[name])
+    return paths
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+# the offline phase's model: full width, depth cut for the smoke's time and disk
+OFFLINE_MODEL, OFFLINE_LAYERS = "qwen2_moe", 2
+
+
+def offline_phase(device: str = "cuda") -> dict:
+    """The offline path at full width, ``OFFLINE_LAYERS`` deep: a seeded
+    HF-schema checkpoint (``synth_ckpt``) -> ``convert`` (uniform RTN, then a
+    qconfig mix by RTN, GPTQ and GPTQ + Hadamard, and a grouped GPTQ mix) ->
+    the artifact served through ``generate --artifact`` (Engine, 2 slots), in
+    a temporary directory under the git-ignored build directory, removed at
+    the end. The uniform artifact's greedy tokens and logits must be bitwise
+    those of the same shards quantized in memory; every serve on the card
+    must launch the kernels its artifact needs; every GPTQ convert must bring
+    each reached expert's proxy loss below RTN's. Returns each serve's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.models import configs, convert, model as model_mod, synth_ckpt
+    from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
+    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.quant.rotation import rotate_model_hadamard_host
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+    from mxmoe_tpu_torch.serving import generate
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+
+    dev = torch.device(device)
+    check_kernels = dev.type == "cuda"  # a CPU tensor launches no kernel
+    model, layers = OFFLINE_MODEL, OFFLINE_LAYERS
+    cfg = dataclasses.replace(configs.config_for(model), num_layers=layers)
+    build_dir = os.path.join(HERE, "mxmoe_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="offline-", dir=build_dir)
+    smi = smi_line() if dev.type == "cuda" else "cpu"
+    launches = {}
+    try:
+        ckpt = os.path.join(root, "hf")
+        t0 = time.perf_counter()
+        nbytes = synth_ckpt.make_checkpoint(cfg, ckpt, seed=0, dtype=torch.bfloat16)
+        emit("offline_ckpt", model=model, layers=layers, bytes_written=nbytes,
+             seconds=time.perf_counter() - t0, dtype="bf16", card=smi)
+        qconfigs = _offline_qconfigs(cfg, root)
+        rng = np.random.default_rng(0)
+        prompt = rng.integers(0, cfg.vocab_size, 48).tolist()
+        max_new = 16
+        gen_args = ["--model", model, "--slots", "2", "--max-new", str(max_new),
+                    "--prompt", " ".join(map(str, prompt)), "--device", device]
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        for name, (kw, expect) in OFFLINE_ARTIFACTS.items():
+            kw = dict(kw)
+            if "qconfig" in kw:
+                kw["qconfig"] = qconfigs[kw["qconfig"]]
+            out = os.path.join(root, name)
+            stats = {}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            convert.convert(ckpt, model, out, layers=layers, device=device,
+                            stats=stats, **kw)
+            t_convert = time.perf_counter() - t0
+            art_bytes = _dir_bytes(out)
+            peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+            t0 = time.perf_counter()
+            params, cfg_a, impl = generate.load_artifact(out, cfg, dev)
+            t_load = time.perf_counter() - t0
+            _reset_counts()
+            got = generate.main(gen_args + ["--artifact", out])
+            launches[name] = _counts()
+            if len(got) != max_new or not all(0 <= t < cfg.vocab_size for t in got):
+                raise AssertionError(f"offline {name}: a request came back short or "
+                                     "out of vocab")
+            missing = [k for k in expect if not launches[name].get(k)]
+            if check_kernels and missing:
+                raise AssertionError(f"offline {name}: kernels never launched on the "
+                                     f"artifact's serve: {missing}")
+            shown = dict(kw, **({"qconfig": os.path.basename(kw["qconfig"])}
+                                if "qconfig" in kw else {}))
+            rec = {"artifact": name, "convert": shown,
+                   "convert_s": t_convert, "artifact_bytes": art_bytes,
+                   "convert_peak_device_bytes": peak, "load_s": t_load,
+                   "tokens": got, "launches": launches[name]}
+            if stats:
+                rec["gptq_layers"] = stats["layers"]
+                g = torch.cat(stats["proxy"]["gptq"])
+                r = torch.cat(stats["proxy"]["rtn"])
+                # an expert (or shared family) no calibration row reached has a
+                # zero Hessian: both losses 0, counted apart
+                live = r > 0
+                rec["proxy_loss_below_rtn_share"] = float((g[live] < r[live]).double().mean())
+                rec["proxy_loss_families"] = int(live.sum())
+                rec["proxy_loss_unreached"] = int((~live).sum())
+                rec["proxy_loss_gptq_over_rtn_median"] = float((g[live] / r[live]).median())
+                if (rec["proxy_loss_below_rtn_share"] < 1.0
+                        or not rec["proxy_loss_gptq_over_rtn_median"] < 1.0):
+                    raise AssertionError(f"offline {name}: GPTQ's proxy loss is not "
+                                         f"below RTN's on every reached expert: {rec}")
+            with torch.no_grad():
+                lg_art = model_mod.forward_logits(params, toks, cfg_a, impl)
+            if name == "uniform":
+                # the same shards quantized in memory, no artifact between
+                mem = params_from_safetensors(ckpt, cfg)
+                mem = quantize_model_experts_uniform(mem, parse_scheme(kw["quant"]),
+                                                     device=dev)
+                mem = _to(mem, dev)
+                art, flat = convert._flatten(params), convert._flatten(mem)
+                if sorted(art) != sorted(flat):
+                    raise AssertionError("offline uniform: the artifact's keys are "
+                                         "not the in-memory quantization's")
+                for k, v in flat.items():
+                    if art[k].dtype != v.dtype or not torch.equal(art[k], v):
+                        raise AssertionError(f"offline uniform: {k} differs from the "
+                                             "in-memory quantization")
+                with torch.no_grad():
+                    lg_mem = model_mod.forward_logits(mem, toks, cfg_a, impl)
+                eng = Engine(mem, cfg_a, EngineConfig(batch_slots=2, max_len=512,
+                                                      prefill_chunk=256), impl)
+                rid = eng.submit(prompt, max_new_tokens=max_new)
+                want = eng.run_to_completion(chunk=16)[rid]
+                rec["in_memory_tokens_equal"] = want == got
+                rec["in_memory_logits_bitwise"] = bool(torch.equal(lg_mem, lg_art))
+                if want != got or not torch.equal(lg_mem, lg_art):
+                    raise AssertionError("offline uniform: the artifact serves other "
+                                         "tokens or logits than the in-memory model")
+                del mem, eng, art, flat
+            if name == "mixed-gptq-had":
+                # the rotation (the convert's Q: a generator seeded 0) is exact:
+                # the float model against the rotated one, in float32 (held to
+                # ROTATION_REL), and stored in bf16 as the artifact stores it
+                # (printed: bf16 rounding moves router logits, and a flipped
+                # top-k choice moves the logits past any rounding bound)
+                for dt in (torch.float32, torch.bfloat16):
+                    flt = _to(params_from_safetensors(ckpt, cfg, dtype=dt), dev)
+                    with torch.no_grad():
+                        lf = model_mod.forward_logits(flt, toks, cfg, MoEImpl()).float()
+                        rot = rotate_model_hadamard_host(
+                            flt, cfg, torch.Generator().manual_seed(0), device=dev)
+                        lr = model_mod.forward_logits(rot, toks, cfg, MoEImpl()).float()
+                    tag = "f32" if dt == torch.float32 else "bf16"
+                    rec[f"rotation_{tag}_max_abs_logit_diff"] = float((lf - lr).abs().max())
+                    rec[f"rotation_{tag}_max_abs_logit"] = float(lf.abs().max())
+                    del flt, rot
+                if not (rec["rotation_f32_max_abs_logit_diff"]
+                        <= ROTATION_REL * rec["rotation_f32_max_abs_logit"]):
+                    raise AssertionError(f"offline: the rotated float model is not the "
+                                         f"float model: {rec}")
+            if not bool(torch.isfinite(lg_art).all()):
+                raise AssertionError(f"offline {name}: non-finite logits")
+            rec["max_abs_logit"] = float(lg_art.abs().max())
+            emit("offline", card=smi, **rec)
+            del params
+            shutil.rmtree(out)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def float_arms_agree() -> None:
     """The two arms of the float path, K11 and the stock grouped product, on
     one 4-layer full-width model and the same tokens (a 256-token prefill
@@ -2529,10 +2769,12 @@ def main() -> int:
         # 256, mixed-packed routed experts, w8a8 shared experts, the int8 head
         "ds2": (27, "mixed-packed", True, False, True,
                 (k3q, k1, "gmm_mixed_packed", "gmm_w8a8"), None, (k3,), "ds2"),
-        # GQA at G 4 / 7, full width, 4 layers; mixtral has no shared expert
-        "mixtral": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
+        # GQA at G 4 / 7, full width and full depth (mixtral 32 layers, no
+        # shared expert; qwen2_moe_57b 28 layers, its experts quantized one
+        # slice of experts at a time)
+        "mixtral": (32, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
                     None, (), "mixtral"),
-        "qwen2_57b": (4, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
+        "qwen2_57b": (28, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
                       None, (), "qwen2_moe_57b"),
     }
     ran = {}
@@ -2572,6 +2814,8 @@ def main() -> int:
                           (k1, "gmm_w8a8", "gmm_mixed_packed", *expect), absent)
     torch.cuda.empty_cache()
     ws_launches = headline_bench()
+    torch.cuda.empty_cache()
+    offline = offline_phase()
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
     counts = {"ds2": (k3q, k1, "gmm_w8a8", "gmm_mixed_packed"), "mixed_fused": (k13,),
@@ -2601,6 +2845,7 @@ def main() -> int:
          "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
          "library_ms": rec[name].get("library_ms"),
          "library_device_ms": rec[name].get("library_device_ms"),
+         "offline_launches": {art: n[name] for art, n in offline.items() if n.get(name)},
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
          **({"prefill": rec[name]["prefill"]} if "prefill" in rec[name] else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))

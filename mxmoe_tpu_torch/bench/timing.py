@@ -90,15 +90,16 @@ SESSION_REPS = 5     # calls in one profiled run
 LOST_TRACES = [0]    # profiled runs taken again because they lost markers
 
 
-def device_ms(fn, reps: int = 25, warmup: int = 3, attempts: int = 5,
+def device_ms(fn, reps: int = 25, warmup: int = 3, attempts: int = 20,
               overwrite: str = "write") -> float:
     """Median over the repeats of the summed kernel durations of one call,
     profiled ``SESSION_REPS`` calls at a time. A run whose trace lost marker
     kernels (the profiler dropped activity records) cannot be cut into calls:
     it is taken again, up to ``attempts`` times (counted in
-    ``LOST_TRACES``). ``overwrite``: "write" (``zero_``, the L2 left full of
-    dirty lines that the call's traffic must write back) or "read" (a sum
-    over the buffer: clean lines, nothing to write back)."""
+    ``LOST_TRACES``; on an H100 one call once lost 5 runs in a row).
+    ``overwrite``: "write" (``zero_``, the L2 left full of dirty lines that
+    the call's traffic must write back) or "read" (a sum over the buffer:
+    clean lines, nothing to write back)."""
     import torch
 
     for _ in range(warmup):

@@ -37,12 +37,15 @@ per-channel symmetric w x a domain, int8-stored (K12 ``gmm_ffn_w8a8``) or
 over the ragged packed buffer (K13 ``gmm_ffn_mixed_packed``); every other
 layer falls through to the two-launch branches above, on the aligned layout.
 
-The shared expert runs in float or, real-quantized, through K2 with one
-group (per-channel symmetric), K8 with one group (grouped / asymmetric) or K6
-with one group (all-a16). Not ported, and raising ``NotImplementedError``
-with their ROADMAP item: the fake-quantized float paths (``act_bits_*``
-beside float expert weights, the layer-heterogeneous shared expert, the
-dense layer's ``act_bits_dense``), ``online_had`` and ring attention.
+The shared expert runs in float, fake-quantized (float weights beside
+``act_bits_shared``: its inputs quantized per token, ``_act_fq_per_row``;
+what the quantizers emit for a layer-heterogeneous or grouped shared
+expert), or, real-quantized, through K2 with one group (per-channel
+symmetric), K8 with one group (grouped / asymmetric) or K6 with one group
+(all-a16). Not ported, and raising ``NotImplementedError`` with their
+ROADMAP item: the fake-quantized routed experts (``act_bits_*`` beside float
+expert weights) and the dense layer's ``act_bits_dense``, ``online_had`` and
+ring attention.
 
 ``attention``'s backends: ``"xla"`` is the einsum softmax; ``"flash"`` is the
 reference's library flash attention, here the stock
@@ -345,6 +348,17 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     return combine_tokens(out, disp, x2d.shape[0])
 
 
+def _act_fq_per_row(x: torch.Tensor, bits_per_row: torch.Tensor) -> torch.Tensor:
+    """Per-token symmetric fake-quant with a per-row bitwidth (16 and more
+    pass the row through), in ``x``'s dtype: the reference's act-quant hook
+    for fake-quantized weights."""
+    upper = torch.exp2(bits_per_row.float() - 1.0) - 1.0                # [M]
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-10) / upper
+    q = torch.round(xf / scale[:, None]) * scale[:, None]
+    return torch.where((bits_per_row >= 16)[:, None], xf, q).to(x.dtype)
+
+
 def _shared_expert_quant(x2d: torch.Tensor, lp: dict) -> torch.Tensor:
     """Real-quantized shared expert, each dense product a grouped GEMM with
     one group. Per-channel symmetric w x a: per-token act quant (K1) and K2
@@ -396,9 +410,12 @@ def shared_expert_ffn(x2d: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tens
     if "shared_gate_up_q" in lp:
         out = _shared_expert_quant(x2d, lp)
     elif "act_bits_shared" in lp:
-        raise NotImplementedError(
-            "the fake-quantized shared expert (layer-heterogeneous schemes) "
-            "is not ported (ROADMAP queue A: quantizer)")
+        # fake-quantized weights: the inputs of both products quantized per
+        # token to the layer's act bits (16 passes them through)
+        bits = lp["act_bits_shared"]                                # [2]
+        t = x2d.shape[0]
+        h = silu_mul(_act_fq_per_row(x2d, bits[0].expand(t)) @ lp["shared_gate_up"])
+        out = _act_fq_per_row(h, bits[1].expand(t)) @ lp["shared_down"]
     else:
         out = silu_mul(x2d @ lp["shared_gate_up"]) @ lp["shared_down"]
     if cfg.has_shared_expert_gate:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .rtn import quantize
@@ -103,16 +104,36 @@ def _to_signed_storage(codes, scale, zp, bits: float, sym: bool):
     return (codes - shift).to(torch.int8), scale, zp + shift * scale
 
 
+def _fused_zero_point(w_nk: torch.Tensor, zp: torch.Tensor, cfg: QLinearConfig):
+    """The signed-storage zero point as the reference's compiled uniform
+    quantizer rounds it: XLA folds ``zp + shift * (range * f32(1/upper))``
+    into one multiply-add by the f32 constant ``shift / upper``, so the
+    scale's own rounding never enters it (rounded once here, in float64)."""
+    upper = float((1 << int(cfg.w_bits)) - 1)
+    shift = float(1 << (int(cfg.w_bits) - 1))
+    coef = float(np.float32(shift) * np.float32(1.0 / upper))
+    k = w_nk.shape[-1]
+    g = k if cfg.w_gsize == -1 else cfg.w_gsize
+    wg = w_nk.float().reshape(*w_nk.shape[:-1], k // g, g)
+    rng = wg.amax(-1) * cfg.w_clip[1] - wg.amin(-1) * cfg.w_clip[0]
+    return (zp.double() + rng.double() * coef).float()
+
+
 def quantize_weight_kn(w_kn: torch.Tensor, cfg: QLinearConfig,
                        scale_by_reciprocal: bool = True) -> PackedTensor:
     """Quantize a weight stored [.., K, N] with groups along K per column;
     scale/zp come out [.., K//g, N]. ``scale_by_reciprocal``: see
-    ``rtn.quantize``."""
-    q = quantize(w_kn.transpose(-1, -2), cfg.w_bits, cfg.w_gsize, cfg.w_sym,
-                 cfg.w_clip, scale_by_reciprocal)
+    ``rtn.quantize`` (on, the compiled reference is followed in the
+    asymmetric zero point too: ``_fused_zero_point``)."""
+    w_nk = w_kn.transpose(-1, -2)
+    q = quantize(w_nk, cfg.w_bits, cfg.w_gsize, cfg.w_sym, cfg.w_clip,
+                 scale_by_reciprocal)
     eff_sym = cfg.w_sym or cfg.w_bits == 1.5
     values, scale, zp = _to_signed_storage(q.codes, q.scale, q.zp,
                                            cfg.w_bits, eff_sym)
+    if (scale_by_reciprocal and not eff_sym and cfg.w_bits >= 2
+            and not isinstance(cfg.w_clip, str)):
+        zp = _fused_zero_point(w_nk, q.zp, cfg)
     g = w_kn.shape[-2] if cfg.w_gsize == -1 else cfg.w_gsize
     return PackedTensor(values.transpose(-1, -2).contiguous(),
                         scale.transpose(-1, -2).contiguous(),

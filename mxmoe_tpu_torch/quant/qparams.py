@@ -29,8 +29,18 @@ from typing import NamedTuple
 import torch
 
 from .packing import pack_ragged_stack, quantize_weight_kn
-from .quantizer import act_gsize_arrays
 from .schemes import QLinearConfig, QModelConfig, flex_family_info
+
+# f32 elements a slice of experts may hold while it quantizes (512 MiB; the
+# temporaries of ``quantize_weight_kn`` take a few times that)
+SLICE_ELEMS = 1 << 27
+
+
+def expert_slices(num_experts: int, k: int, n: int):
+    """[start, end) ranges of experts of at most ``SLICE_ELEMS`` f32
+    elements of [K, N] weights each (at least one expert a slice)."""
+    step = max(1, SLICE_ELEMS // (k * n))
+    return [(e0, min(e0 + step, num_experts)) for e0 in range(0, num_experts, step)]
 
 
 class QuantLinearParams(NamedTuple):
@@ -119,25 +129,32 @@ def quantize_act_rows_flex(x: torch.Tensor, bits_per_row: torch.Tensor,
     return q.to(torch.int8), scale
 
 
-def quantize_model_experts_uniform(params: dict, cfg: QLinearConfig) -> dict:
+def quantize_model_experts_uniform(params: dict, cfg: QLinearConfig,
+                                   device=None) -> dict:
     """Float params -> params whose routed expert weights are quantized
     (``expert_*`` replaced by ``expert_*_q/_sc/_zp``).
 
-    Streams one layer at a time: only one layer's f32 working set exists
-    at once, so full-width models quantize on one card. The float expert
-    stacks are dropped from the returned dict (the caller's dict keeps
-    them alive only if the caller holds it)."""
+    Streams one layer, and in it one slice of experts (``expert_slices``), at
+    a time: only that slice's f32 working set exists at once, so full-width,
+    full-depth models quantize on one card beside their quantized stacks
+    (the experts are independent, so the output is that of one pass).
+    ``device`` runs the work (default: the params' device); the results stay
+    on the params' device, so host-staged params are quantized on the card
+    one slice at a time. The float expert stacks are dropped from the
+    returned dict."""
     layers = dict(params["layers"])
     for name in ("expert_gate_up", "expert_down"):
         w = layers.pop(name)                       # [L, E, K, N]
+        dev = torch.device(device) if device is not None else w.device
         nl, e, k, n = w.shape
         g = 1 if cfg.w_gsize == -1 else k // cfg.w_gsize
         q = torch.empty((nl, e, k, n), dtype=torch.int8, device=w.device)
         sc = torch.empty((nl, e, g, n), dtype=torch.float32, device=w.device)
         zp = torch.empty_like(sc)
         for l in range(nl):
-            qp = quantize_expert_weights(w[l], cfg)
-            q[l], sc[l], zp[l] = qp.q, qp.scale, qp.zp
+            for e0, e1 in expert_slices(e, k, n):
+                qp = quantize_expert_weights(w[l, e0:e1].to(dev), cfg)
+                q[l, e0:e1], sc[l, e0:e1], zp[l, e0:e1] = qp.q, qp.scale, qp.zp
         del w
         layers[f"{name}_q"] = q
         layers[f"{name}_sc"] = sc
@@ -169,7 +186,7 @@ def _replicate_groups(t: torch.Tensor, gdim: int) -> torch.Tensor:
 
 def quantize_model_experts_mixed(params: dict, model_cfg,
                                  qmodel_cfg: QModelConfig,
-                                 pack_w4: bool = False) -> dict:
+                                 pack_w4: bool = False, device=None) -> dict:
     """Real-quantize routed experts with per-expert mixed schemes.
 
     Every w<=8, a<=8 scheme shares the int8 kernels: per-expert bitwidths
@@ -200,13 +217,19 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
     ``shared_*_q`` [L, K, N], ``shared_*_sc`` [L, G, N], ``shared_*_zp`` when
     a layer's scheme is asymmetric, ``act_bits_shared`` [L, 2], and the
     marker ``shared_wo`` [L, 1] when every layer is a16 (weight-only). A
-    shared expert that is a16 in some layers and a<=8 in others takes the
-    reference's fake-quant fallback, which is not ported and raises.
+    shared expert that is a16 in some layers and a<=8 in others, or keeps
+    float weights in some, takes the reference's fallback: its weights are
+    fake-quantized in place (``quantizer._fq_weight_kn``, bf16 stays bf16)
+    beside ``act_bits_shared``, which the forward applies per token.
 
-    Quantizes one layer at a time on the params' device, so only one
-    layer's f32 working set exists at once. Scales are rounded as the
-    reference's op-by-op mixed quantizer rounds them (a true division).
+    Quantizes one layer, and in it one slice of a scheme's experts, at a
+    time on ``device`` (default: the params' device), the results on the
+    params' device, so only one slice's f32 working set exists at once.
+    Scales are rounded as the reference's op-by-op mixed quantizer rounds
+    them (a true division).
     """
+    from .quantizer import _fq_weight_kn, act_gsize_arrays
+
     e = model_cfg.num_experts
     layers = dict(params["layers"])
     num_layers = layers["router"].shape[0]
@@ -214,6 +237,7 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
     new = {}
     for name, lin in (("expert_gate_up", "gate"), ("expert_down", "down")):
         w = layers.pop(name)                          # [L, E, K, N]
+        work = torch.device(device) if device is not None else w.device
         kdim, n = w.shape[-2], w.shape[-1]
         for l in range(num_layers):
             for ei in range(e):
@@ -237,12 +261,13 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
                 q_l = torch.empty((e, kdim, n), dtype=torch.int8, device=w.device)
                 for eids in buckets.values():
                     c = lcfg.experts[str(eids[0])].qmap()[lin]
-                    idx = torch.tensor(eids, device=w.device)
-                    qp = quantize_expert_weights(w[l][idx], c,
-                                                 scale_by_reciprocal=False)
-                    q_l[idx] = qp.q
-                    sc[l, idx] = _replicate_groups(qp.scale, gdim)
-                    zp[l, idx] = _replicate_groups(qp.zp, gdim)
+                    for s0, s1 in expert_slices(len(eids), kdim, n):
+                        idx = torch.tensor(eids[s0:s1], device=w.device)
+                        qp = quantize_expert_weights(w[l][idx].to(work), c,
+                                                     scale_by_reciprocal=False)
+                        q_l[idx] = qp.q.to(w.device)
+                        sc[l, idx] = _replicate_groups(qp.scale, gdim).to(w.device)
+                        zp[l, idx] = _replicate_groups(qp.zp, gdim).to(w.device)
                 yield q_l
 
         if pack_w4:
@@ -285,43 +310,51 @@ def quantize_model_experts_mixed(params: dict, model_cfg,
         cs = [qm[lin] for qm in qmaps for lin in ("gate", "down")]
         w_int = all(c.w_bits <= 8 for c in cs)
         all_a16 = w_int and all(c.a_bits >= 16 for c in cs)
-        if not (w_int and (all_a16 or all(c.a_bits <= 8 for c in cs))):
-            raise NotImplementedError(
-                "a shared expert whose schemes mix a16 with a<=8 across layers "
-                "(or keep float weights) takes the fake-quant fallback, which "
-                "is not ported (ROADMAP queue A: quantizer)")
-        for name, lin in (("shared_gate_up", "gate"), ("shared_down", "down")):
-            w = layers.pop(name)                      # [L, K, N]
-            kdim, n = w.shape[-2], w.shape[-1]
-            # stored at the finest group size across layers, as the routed
-            # flex families are
-            g_min = min(kdim if qm[lin].w_gsize == -1 else qm[lin].w_gsize
-                        for qm in qmaps)
-            gdim = kdim // g_min
-            q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-            sc = torch.empty((num_layers, gdim, n), dtype=torch.float32,
-                             device=w.device)
-            zp = torch.empty_like(sc)
-            for l in range(num_layers):
-                qp = quantize_expert_weights(w[l][None], qmaps[l][lin],
-                                             scale_by_reciprocal=False)
-                q[l] = qp.q[0]
-                sc[l] = _replicate_groups(qp.scale[0], gdim)
-                zp[l] = _replicate_groups(qp.zp[0], gdim)
-            layers[f"{name}_q"] = q
-            layers[f"{name}_sc"] = sc
-            if any(not qm[lin].w_sym for qm in qmaps):
-                layers[f"{name}_zp"] = zp
         layers["act_bits_shared"] = torch.tensor(
             [[float(qm["gate"].a_bits), float(qm["down"].a_bits)] for qm in qmaps],
             dtype=torch.float32, device=dev)
-        if all_a16:
-            # a static marker: its presence selects the weight-only branch
-            layers["shared_wo"] = torch.zeros((num_layers, 1), dtype=torch.float32,
-                                              device=dev)
+        if w_int and (all_a16 or all(c.a_bits <= 8 for c in cs)):
+            _quantize_shared(layers, qmaps, work)
+            if all_a16:
+                # a static marker: its presence selects the weight-only branch
+                layers["shared_wo"] = torch.zeros((num_layers, 1),
+                                                  dtype=torch.float32, device=dev)
+        else:
+            # the reference's fallback: fake-quantized float weights
+            for name, lin in (("shared_gate_up", "gate"), ("shared_down", "down")):
+                w = layers[name]                      # [L, K, N]
+                layers[name] = torch.stack([
+                    _fq_weight_kn(w[l].to(work), qmaps[l][lin]).to(w.device)
+                    for l in range(num_layers)])
 
     layers.update(new)
     return {**params, "layers": layers}
+
+
+def _quantize_shared(layers: dict, qmaps: list, work) -> None:
+    """Real-quantize the shared expert of every layer in place of its float
+    stacks (``shared_*_q`` / ``_sc`` / ``_zp``), at the finest group size
+    its layers use, as the routed flex families are stored; on ``work``."""
+    num_layers = len(qmaps)
+    for name, lin in (("shared_gate_up", "gate"), ("shared_down", "down")):
+        w = layers.pop(name)                          # [L, K, N]
+        kdim, n = w.shape[-2], w.shape[-1]
+        g_min = min(kdim if qm[lin].w_gsize == -1 else qm[lin].w_gsize
+                    for qm in qmaps)
+        gdim = kdim // g_min
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        sc = torch.empty((num_layers, gdim, n), dtype=torch.float32, device=w.device)
+        zp = torch.empty_like(sc)
+        for l in range(num_layers):
+            qp = quantize_expert_weights(w[l][None].to(work), qmaps[l][lin],
+                                         scale_by_reciprocal=False)
+            q[l] = qp.q[0]
+            sc[l] = _replicate_groups(qp.scale[0], gdim)
+            zp[l] = _replicate_groups(qp.zp[0], gdim)
+        layers[f"{name}_q"] = q
+        layers[f"{name}_sc"] = sc
+        if any(not qm[lin].w_sym for qm in qmaps):
+            layers[f"{name}_zp"] = zp
 
 
 def quantize_lm_head(params: dict) -> dict:

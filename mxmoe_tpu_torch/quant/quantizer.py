@@ -1,15 +1,30 @@
-"""The part of ``mxmoe_tpu/quant/quantizer.py`` the serving slices read:
-``act_gsize_arrays``, the flex markers shared by the real-quantized params
-(``qparams.quantize_model_experts_mixed``) and, once ported, the fake-quant
-evaluation path. The fake-quant transforms themselves come with the
-calibration port (ROADMAP queue A).
+"""Model quantization orchestrator (port of the parts of
+``mxmoe_tpu/quant/quantizer.py`` that produce servable params:
+``act_gsize_arrays``, ``_fq_weight_kn``, ``_shared_cfgs``,
+``make_moe_hessian_fn`` and ``quantize_model_experts_mixed_gptq``).
+
+GPTQ runs layer by layer: the Hessians of a layer come from its float pass
+over the calibration rows, and the rows go on to the next layer through the
+layer with its experts quantized (the reference's ``llama_sequential``
+order). The fake-quant evaluation path (``quantize_model_fake``) comes with
+the calibration port.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
-from .schemes import QModelConfig, flex_family_info
+from ..models.configs import MoEConfig
+from ..models.layers import make_rope_tables, silu_mul
+from ..ops.dispatch import gather_tokens, make_dispatch, route_topk
+from ..ops.gmm import gmm
+from .calibrate import layer_forward_fp
+from .gptq import accumulate_hessian, gptq_quantize_kn
+from .packing import _to_signed_storage, pack_ragged_stack
+from .rtn import fake_quant
+from .schemes import QLinearConfig, QModelConfig, flex_family_info
 
 
 def act_gsize_arrays(qmodel_cfg: QModelConfig, cfg, num_layers: int,
@@ -38,3 +53,265 @@ def act_gsize_arrays(qmodel_cfg: QModelConfig, cfg, num_layers: int,
                     ag[l, ei, :] = float(c.a_gsize)
         out[key] = ag.to(device)
     return out
+
+
+def _fq_weight_kn(w_kn: torch.Tensor, cfg: QLinearConfig) -> torch.Tensor:
+    """Fake-quant [.., K, N] weights, grouped along K per output column (op
+    by op in the reference: scales by true division), in ``w_kn``'s dtype."""
+    if cfg.w_bits >= 16:
+        return w_kn
+    w_nk = fake_quant(w_kn.transpose(-1, -2), cfg.w_bits, cfg.w_gsize, cfg.w_sym,
+                      cfg.w_clip)
+    return w_nk.transpose(-1, -2).to(w_kn.dtype)
+
+
+def _shared_cfgs(layer_cfg, num_experts: int):
+    """The shared expert's schemes (config index E), or None."""
+    key = str(num_experts)
+    if key in layer_cfg.experts:
+        return layer_cfg.experts[key].qmap()
+    return None
+
+
+def make_moe_hessian_fn(cfg: MoEConfig, backend: str):
+    """Per-layer GPTQ Hessians ``fn(x2d, lp) -> {name: H}`` for the routed
+    experts (per expert, from their routed rows: ``expert_gate_up`` from the
+    MoE input, ``expert_down`` from the SwiGLU output of the float experts)
+    and the shared expert (all rows). One function for every GPTQ path, so
+    they agree on what a Hessian is."""
+
+    def hessians_for_layer(x2d: torch.Tensor, lp: dict) -> dict:
+        routing = route_topk(x2d @ lp["router"], cfg.top_k, cfg.norm_topk_prob,
+                             cfg.routed_scaling_factor)
+        disp = make_dispatch(routing, cfg.num_experts)
+        xs = gather_tokens(x2d, disp)
+        h_pre = silu_mul(gmm(xs, lp["expert_gate_up"], disp.group_sizes,
+                             backend=backend))
+        out = {"expert_gate_up": accumulate_hessian(xs, disp.group_sizes,
+                                                    cfg.num_experts),
+               "expert_down": accumulate_hessian(h_pre, disp.group_sizes,
+                                                 cfg.num_experts)}
+        if "shared_gate_up" in lp:
+            sh = silu_mul(x2d @ lp["shared_gate_up"])
+            out["shared_gate_up"] = accumulate_hessian(x2d)
+            out["shared_down"] = accumulate_hessian(sh)
+        return out
+
+    return hessians_for_layer
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def proxy_loss(w_fq: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """tr(dW^T H dW) per expert for [E, K, N] weights and [E, K, K] Hessians
+    (dW = w_fq - w): the layer-output error GPTQ minimizes, in float64."""
+    dw = w_fq.double() - w.double()                           # [E, K, N]
+    return (torch.bmm(h.double(), dw) * dw).sum((1, 2))
+
+
+def quantize_model_experts_mixed_gptq(
+        params: dict, cfg: MoEConfig, qmodel_cfg: QModelConfig,
+        calib_tokens: torch.Tensor, backend: str = "ragged_dot",
+        pack_w4: bool = False, rotation: torch.Tensor | None = None,
+        hadamard: bool = False, act_order: bool = False, device=None,
+        stats: dict | None = None) -> dict:
+    """Real-quantize the routed (and shared) experts with GPTQ codes, in the
+    layout of ``qparams.quantize_model_experts_mixed``, so the artifact
+    serves through the same kernels with GPTQ's accuracy.
+
+    The scheme domain is the RTN variant's: integer weights of at most 8
+    bits, w x a (a <= 8) or weight-only (a >= 16), grouped and asymmetric
+    ones included. Grouped schemes take STATIC groups (per-group params from
+    the original weights), so the scales stay aligned to the original
+    K-groups, with ``act_order`` too. ``hadamard=True`` fuses the norms and
+    rotates the model first (gptq-had) by ``rotation`` (an orthogonal [H, H]
+    matrix; default ``random_hadamard_matrix(H)`` from a generator seeded 0),
+    layer by layer and IN PLACE in the params' stacks and dtype (the
+    reference's host path); the result is the rotated model, served as it
+    is. A shared expert configured at index E in
+    every layer is real-quantized when all its layers are per-channel
+    symmetric w x a, and otherwise fake-quantized by GPTQ (float weights and
+    ``act_bits_shared``). Dense-first layers (ds2) are refused, as in the
+    reference.
+
+    ``device`` runs the work (default: the params' device): one layer at a
+    time goes to it and the results come back to the params' device, so a
+    full-depth model stays on the host beside one layer of device work.
+    ``stats``, when given, is
+    filled per layer with the seconds of the float pass and Hessians and of
+    the sweeps, and per expert family with GPTQ's and RTN's proxy losses
+    (``proxy_loss`` on the calibration Hessians)."""
+    if "dense_layers" in params:
+        raise NotImplementedError(
+            "GPTQ real-quant does not handle dense-first layers (ds2); use the "
+            "RTN real quantizer")
+    home = params["layers"]["router"].device
+    device = torch.device(device) if device is not None else home
+    if hadamard:
+        from .rotation import rotate_model_hadamard_host
+
+        params = rotate_model_hadamard_host(params, cfg, torch.Generator().manual_seed(0),
+                                            rotation, device)
+
+    e = cfg.num_experts
+    layers = params["layers"]
+    num_layers = layers["router"].shape[0]
+    toks = calib_tokens.to(device=params["embed"].device, dtype=torch.long)
+    x = params["embed"][toks.clamp(0, params["embed"].shape[0] - 1)].to(device)
+    cos, sin = make_rope_tables(cfg, torch.arange(toks.shape[1], device=device))
+    hessians_for_layer = make_moe_hessian_fn(cfg, backend)
+
+    flex_info = {
+        "expert_gate_up": flex_family_info(qmodel_cfg, num_layers, e, "gate",
+                                           cfg.hidden_size),
+        "expert_down": flex_family_info(qmodel_cfg, num_layers, e, "down",
+                                        cfg.moe_intermediate_size)}
+    # the shared expert is real-quantized all or nothing, decided from the
+    # whole config: grouped / asymmetric shared schemes are fake-quantized
+    shared_all = "shared_gate_up" in layers and all(
+        _shared_cfgs(qmodel_cfg.layer(l), e) is not None for l in range(num_layers))
+
+    def shared_pc_sym(l):
+        sc = _shared_cfgs(qmodel_cfg.layer(l), e)
+        return all(q.w_bits <= 8 and q.w_sym and q.w_gsize == -1 and q.a_bits <= 8
+                   for q in (sc["gate"], sc["down"]))
+
+    shared_ok = shared_all and all(shared_pc_sym(l) for l in range(num_layers))
+    shared_fake = shared_all and not shared_ok
+
+    acc: dict[str, list] = {}
+    pf_all = {"expert_gate_up": [], "expert_down": []}
+    gb = torch.zeros((num_layers, e))
+    db = torch.zeros((num_layers, e))
+    sb = torch.zeros((num_layers, 2))
+    if stats is not None:
+        stats.setdefault("layers", [])
+        stats.setdefault("proxy", {"gptq": [], "rtn": []})
+
+    for l in range(num_layers):
+        t0 = time.perf_counter()
+        lp = {k: v[l].to(device) for k, v in layers.items()}
+        _, x2d = layer_forward_fp(x, lp, cfg, cos, sin, backend)
+        hs = hessians_for_layer(x2d, lp)
+        if stats is not None:
+            _sync(device)
+        t1 = time.perf_counter()
+        lcfg = qmodel_cfg.layer(l)
+        qlp = dict(lp)
+        for name, lin in (("expert_gate_up", "gate"), ("expert_down", "down")):
+            w = lp[name]                                      # [E, K, N]
+            kdim, n = w.shape[-2], w.shape[-1]
+            any_flex, g_min, _ = flex_info[name]
+            gdim = kdim // g_min if any_flex else 1
+            buckets: dict[str, list[int]] = {}
+            pf_l = [0] * e
+            for ei in range(e):
+                c = lcfg.experts[str(ei)].qmap()[lin]
+                if c.w_bits > 8 or 8 < c.a_bits < 16:
+                    raise ValueError(
+                        "GPTQ real-quant supports int w<=8 w x a (a<=8) and "
+                        f"weight-only (a>=16) schemes, got {c.scheme_name}")
+                if pack_w4:
+                    if c.a_bits > 8:
+                        raise ValueError(f"pack_w4 requires pure w x a mixes, got "
+                                         f"{c.scheme_name}")
+                    pf_l[ei] = int(c.w_bits <= 4)
+                buckets.setdefault(c.scheme_name, []).append(ei)
+            pf_all[name].append(pf_l)
+            q_l = torch.zeros((e, kdim, n), dtype=torch.int8, device=home)
+            sc_l = torch.zeros((e, gdim, n), dtype=torch.float32, device=home)
+            zp_l = torch.zeros_like(sc_l)
+            fq_l = torch.zeros((e, kdim, n), dtype=torch.float32, device=device)
+            for eids in buckets.values():
+                c = lcfg.experts[str(eids[0])].qmap()[lin]
+                idx = torch.tensor(eids, device=device)
+                h_sub = hs[name][idx]
+                res = gptq_quantize_kn(w[idx], h_sub, c, act_order=act_order,
+                                       static_groups=c.w_gsize != -1)
+                codes, scale_kn, zp_kn = _to_signed_storage(
+                    res.codes, res.scale.transpose(-1, -2), res.zp.transpose(-1, -2),
+                    c.w_bits, c.w_sym or c.w_bits == 1.5)
+                rep = gdim // scale_kn.shape[-2]
+                hidx = idx.to(home)
+                q_l[hidx] = codes.to(home)
+                sc_l[hidx] = scale_kn.repeat_interleave(rep, dim=-2).to(home)
+                zp_l[hidx] = zp_kn.repeat_interleave(rep, dim=-2).to(home)
+                fq_l[idx] = res.w_fq
+                if stats is not None:
+                    stats["proxy"]["gptq"].append(proxy_loss(res.w_fq, w[idx], h_sub).cpu())
+                    stats["proxy"]["rtn"].append(
+                        proxy_loss(_fq_weight_kn(w[idx].float(), c), w[idx], h_sub).cpu())
+            acc.setdefault(f"{name}_q", []).append(q_l)
+            acc.setdefault(f"{name}_sc", []).append(sc_l)
+            acc.setdefault(f"{name}_zp", []).append(zp_l)
+            qlp[name] = fq_l.to(w.dtype)
+
+        for ei in range(e):
+            qm = lcfg.experts[str(ei)].qmap()
+            gb[l, ei] = float(qm["gate"].a_bits)
+            db[l, ei] = float(qm["down"].a_bits)
+
+        if shared_ok or shared_fake:
+            sh_cfg = _shared_cfgs(lcfg, e)
+            for name, lin in (("shared_gate_up", "gate"), ("shared_down", "down")):
+                c = sh_cfg[lin]
+                kw = ({} if shared_ok else
+                      {"act_order": act_order, "static_groups": c.w_gsize != -1})
+                res = gptq_quantize_kn(lp[name][None], hs[name][None], c, **kw)
+                fq = res.w_fq[0].to(lp[name].dtype)
+                if shared_ok:
+                    acc.setdefault(f"{name}_q", []).append(
+                        res.codes[0].to(torch.int8).to(home))
+                    acc.setdefault(f"{name}_sc", []).append(
+                        res.scale[0].transpose(-1, -2).to(home))
+                else:
+                    acc.setdefault(f"{name}_fake", []).append(fq.to(home))
+                qlp[name] = fq
+            sb[l] = torch.tensor([float(sh_cfg["gate"].a_bits),
+                                  float(sh_cfg["down"].a_bits)])
+        if stats is not None:
+            _sync(device)
+        t2 = time.perf_counter()
+        # on through the QUANTIZED layer; qlp's fake weights live only for it
+        x, _ = layer_forward_fp(x, qlp, cfg, cos, sin, backend)
+        del lp, qlp, hs
+        if stats is not None:
+            _sync(device)
+            stats["layers"].append({"hessian_s": t1 - t0, "sweep_s": t2 - t1,
+                                    "propagate_s": time.perf_counter() - t2})
+
+    new = dict(layers)
+    for name in ("expert_gate_up", "expert_down"):
+        del new[name]
+        any_flex, _, any_asym = flex_info[name]
+        sc_acc = torch.stack(acc[f"{name}_sc"])
+        zp_acc = torch.stack(acc[f"{name}_zp"])
+        if pack_w4:
+            (new[f"{name}_qcat"], new[f"{name}_blk"],
+             new[f"{name}_pf"]) = pack_ragged_stack(iter(acc.pop(f"{name}_q")),
+                                                    pf_all[name])
+            new[f"{name}_sc"] = sc_acc
+            if any_asym:
+                new[f"{name}_zp"] = zp_acc
+        else:
+            new[f"{name}_q"] = torch.stack(acc.pop(f"{name}_q"))
+            new[f"{name}_sc"] = sc_acc
+            if any_asym or not any_flex:
+                new[f"{name}_zp"] = zp_acc
+    new["act_bits_gateup"] = gb.to(home)
+    new["act_bits_down"] = db.to(home)
+    new.update(act_gsize_arrays(qmodel_cfg, cfg, num_layers, home))
+    if shared_ok:
+        for name in ("shared_gate_up", "shared_down"):
+            del new[name]
+            new[f"{name}_q"] = torch.stack(acc[f"{name}_q"])
+            new[f"{name}_sc"] = torch.stack(acc[f"{name}_sc"])
+        new["act_bits_shared"] = sb.to(home)
+    elif shared_fake:
+        for name in ("shared_gate_up", "shared_down"):
+            new[name] = torch.stack(acc[f"{name}_fake"])
+        new["act_bits_shared"] = sb.to(home)
+    return {**params, "layers": new}

@@ -81,11 +81,13 @@ DECODE_ATTN = ("auto", "fused", "xla")
 
 
 def quantize_for_serving(params: dict, cfg, quant: str, shared_quant: bool = True,
-                         fused_ffn: object = False, decode_attn: str = "auto"):
+                         fused_ffn: object = False, decode_attn: str = "auto",
+                         device=None):
     """``--quant`` -> (quantized params, MoEImpl); ``fused_ffn`` and
     ``decode_attn`` as ``MoEImpl`` takes them. The routed experts are those
     of the MoE layers (``cfg.num_moe_layers``; ds2's dense first layer keeps
-    its float MLP)."""
+    its float MLP). ``device`` runs the quantization (default: the params'
+    device); the params stay where they are."""
     from ..models.layers import MoEImpl
     from ..quant.qparams import (quantize_model_experts_mixed,
                                  quantize_model_experts_uniform)
@@ -94,7 +96,8 @@ def quantize_for_serving(params: dict, cfg, quant: str, shared_quant: bool = Tru
         routed, pack_w4, weight_only = MIXES[quant]
         qmc = alternating_mixed_config(cfg.num_moe_layers, cfg.num_experts,
                                        shared_quant, routed)
-        params = quantize_model_experts_mixed(params, cfg, qmc, pack_w4=pack_w4)
+        params = quantize_model_experts_mixed(params, cfg, qmc, pack_w4=pack_w4,
+                                              device=device)
         return params, MoEImpl(quant="mixed", mixed_weight_only=weight_only,
                                fused_ffn=fused_ffn, decode_attn=decode_attn)
     if not quant or quant == "none":
@@ -105,7 +108,7 @@ def quantize_for_serving(params: dict, cfg, quant: str, shared_quant: bool = Tru
         # path quantizes activations symmetrically (as the mixed quantizer
         # reads the same names)
         qc = dataclasses.replace(qc, a_sym=True)
-    return (quantize_model_experts_uniform(params, qc),
+    return (quantize_model_experts_uniform(params, qc, device=device),
             MoEImpl(quant=qc, fused_ffn=fused_ffn, decode_attn=decode_attn))
 
 

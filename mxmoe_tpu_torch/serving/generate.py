@@ -1,13 +1,21 @@
-"""Generation CLI: drive the serving engine end to end with random weights
-(port of ``mxmoe_tpu/serving/generate.py``).
+"""Generation CLI: drive the serving engine end to end (port of
+``mxmoe_tpu/serving/generate.py``).
 
   python -m mxmoe_tpu_torch.serving.generate --model tiny --prompt "1 2 3" --max-new 8
   python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe \\
       --quant w8a8_g-1_sym --max-new 64
   python -m mxmoe_tpu_torch.serving.generate --model ds2 --layers 4 \\
       --quant mixed-packed --decode-attn xla
+  python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe --ckpt <hf_dir>
+  python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe --artifact <dir>
 
-``--ckpt`` and ``--artifact`` wait for the loader port (ROADMAP queue A).
+The weights: seeded random (default), an HF checkpoint (``--ckpt``: float
+params, quantized with ``--quant`` when it is given) or a converted artifact
+(``--artifact``, ``models.convert``: its depth and its serving mode come from
+the artifact: a per-expert mix when it carries ``act_bits_gateup`` beside
+quantized experts, else ``mxmoe_meta.json``'s uniform ``quant``, else
+float). ``--prompt-text`` / ``--tokenizer`` need a tokenizer and are not
+ported.
 """
 
 from __future__ import annotations
@@ -20,16 +28,61 @@ import time
 from .bench_serving import DECODE_ATTN
 
 
+def _to(params: dict, device) -> dict:
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+def load_artifact(path: str, cfg, device, decode_attn: str = "auto"):
+    """A converted artifact on ``device`` -> (params, config, MoEImpl). The
+    depth is the artifact's (a wrong-depth KV cache would be written past its
+    layers); the serving mode follows its keys and ``mxmoe_meta.json``: a
+    per-expert mix (weight-only experts, act bits 16, through K10) when the
+    layers carry ``act_bits_gateup`` beside quantized experts, else the
+    uniform ``quant`` of the meta, else float."""
+    from ..models.convert import load_meta, load_params
+    from ..models.layers import MoEImpl
+    from ..quant.schemes import parse_scheme
+
+    params = load_params(path, device)
+    meta = load_meta(path)
+    lp = params["layers"]
+    depth = int(lp["router"].shape[0]) + (
+        int(params["dense_layers"]["input_norm"].shape[0])
+        if "dense_layers" in params else 0)
+    if cfg.num_layers != depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    if "act_bits_gateup" in lp and ("expert_gate_up_q" in lp
+                                    or "expert_gate_up_qcat" in lp):
+        impl = MoEImpl(quant="mixed", decode_attn=decode_attn,
+                       mixed_weight_only=bool((lp["act_bits_gateup"] >= 16).any()
+                                              or (lp["act_bits_down"] >= 16).any()))
+    elif meta.get("quant"):
+        qc = parse_scheme(meta["quant"])
+        if qc.a_bits < 16 and not qc.a_sym:
+            # activations are symmetric on every real-quantized path
+            qc = dataclasses.replace(qc, a_sym=True)
+        impl = MoEImpl(quant=qc, decode_attn=decode_attn)
+    else:
+        impl = MoEImpl(decode_attn=decode_attn)
+    return params, cfg, impl
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="tiny",
                     help="tiny | tiny_ds2 | qwen2_moe | ds2 | qwen2_moe_57b | "
                          "mixtral")
+    ap.add_argument("--ckpt", default=None, help="HF safetensors dir")
+    ap.add_argument("--artifact", default=None,
+                    help="converted artifact dir (models.convert): weights and "
+                         "serving mode from the artifact and mxmoe_meta.json")
     ap.add_argument("--layers", type=int, default=None)
-    ap.add_argument("--quant", default="w8a8_g-1_sym",
+    ap.add_argument("--quant", default=None,
                     help="what bench_serving --quant takes: a uniform expert "
                          "scheme, e.g. w8a8_g-1_sym or w4a16_g128_asym, or "
-                         "mixed | mixed-packed | none (bf16 experts)")
+                         "mixed | mixed-packed | none (bf16 experts); default "
+                         "w8a8_g-1_sym for random weights, float for --ckpt")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--decode-attn", default="auto", choices=DECODE_ATTN,
@@ -60,9 +113,22 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = torch.device(args.device or "cuda")
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params, impl = init_for_serving(
-        cfg, gen, functools.partial(quantize_for_serving, quant=args.quant,
-                                    decode_attn=args.decode_attn), device)
+    if args.artifact:
+        params, cfg, impl = load_artifact(args.artifact, cfg, device,
+                                          args.decode_attn)
+    elif args.ckpt:
+        from ..models.hf_loader import params_from_safetensors
+
+        params = params_from_safetensors(args.ckpt, cfg)
+        params, impl = quantize_for_serving(params, cfg, args.quant or "none",
+                                            decode_attn=args.decode_attn,
+                                            device=device)
+        params = _to(params, device)
+    else:
+        params, impl = init_for_serving(
+            cfg, gen, functools.partial(quantize_for_serving,
+                                        quant=args.quant or "w8a8_g-1_sym",
+                                        decode_attn=args.decode_attn), device)
     eng = Engine(params, cfg, EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
         prefill_chunk=min(256, args.max_len // 2),
@@ -85,6 +151,7 @@ def main(argv=None):
     print(f"output tokens : {out}")
     print(f"device {device}: prefill {t_prefill * 1e3:.1f} ms; decode {len(out)} "
           f"tok in {t_decode * 1e3:.1f} ms = {len(out) / max(t_decode, 1e-9):.1f} tok/s")
+    return out
 
 
 if __name__ == "__main__":

@@ -187,8 +187,8 @@ def _layer(models, l=0):
 
 def test_unported_branches_raise_with_their_roadmap_item(models):
     """Malformed layers raise; the branches that raised before they were
-    ported (flex over the packed buffer, the bf16 path, the int8 head) now
-    give their result (the name stays)."""
+    ported (flex over the packed buffer, the bf16 path, the int8 head, the
+    fake-quantized shared expert) now give their result (the name stays)."""
     cfg_t, impl_t = models[1], models[5]
     x = torch.zeros((1, 3, cfg_t.hidden_size))
     lp = _layer(models)
@@ -229,11 +229,15 @@ def test_unported_branches_raise_with_their_roadmap_item(models):
     torch.testing.assert_close(moe_block(xr, flp, cfg_t, MoEImpl()),
                                moe_block(xr, flp, cfg_t, MoEImpl(kind="dense")),
                                rtol=1e-5, atol=1e-6)
+    # the fake-quantized shared expert (float weights beside act_bits_shared)
+    # is ported: at 16 bits its act quant passes the rows through
     fake_shared = {k: v for k, v in lp.items() if not k.startswith("shared_")}
-    fake_shared.update(shared_gate_up=torch.zeros(1), shared_down=torch.zeros(1),
-                       shared_gate=lp["shared_gate"])
-    with pytest.raises(NotImplementedError, match="quantizer"):
-        moe_block(x, fake_shared, cfg_t, impl_t)
+    fake_shared.update(shared_gate_up=flp["shared_gate_up"],
+                       shared_down=flp["shared_down"], shared_gate=flp["shared_gate"],
+                       act_bits_shared=torch.tensor([16.0, 16.0]))
+    no_shared = {k: v for k, v in fake_shared.items() if k != "act_bits_shared"}
+    torch.testing.assert_close(moe_block(xr, fake_shared, cfg_t, impl_t),
+                               moe_block(xr, no_shared, cfg_t, impl_t), rtol=0, atol=0)
     # the int8 head: within one 8-bit step of the float head on both operands
     from mxmoe_tpu_torch.quant.qparams import quantize_lm_head
     head8 = quantize_lm_head(float_t)

@@ -155,12 +155,19 @@ def test_quantize_model_experts_mixed_unported_domains_raise(pattern, pack_w4, m
 
 def test_quantize_model_experts_mixed_heterogeneous_shared_raises():
     """A shared expert that is a16 in one layer and a8 in the other takes the
-    reference's fake-quant fallback, which is not ported."""
-    cfg_j, cfg_t, _, params_t = _float_model()
-    qmc = _mixed_qmc(schemes, 4, [("w8a8_g-1_sym",)] * 2,
-                     shared=("w8a8_g-1_sym", "w4a16_g-1_sym"))
-    with pytest.raises(NotImplementedError, match="fake-quant"):
-        quantize_model_experts_mixed(params_t, cfg_t, qmc)
+    reference's fake-quant fallback (it raised before the fallback was
+    ported; the name stays): fake-quantized float weights and act_bits_shared,
+    bitwise the reference's."""
+    cfg_j, cfg_t, params_j, params_t = _float_model()
+    shared = ("w8a8_g-1_sym", "w4a16_g-1_sym")
+    ref = jax_quantize_mixed(params_j, cfg_j, _mixed_qmc(jax_schemes, 4,
+                             [("w8a8_g-1_sym",)] * 2, shared))["layers"]
+    got = quantize_model_experts_mixed(params_t, cfg_t, _mixed_qmc(
+        schemes, 4, [("w8a8_g-1_sym",)] * 2, shared))["layers"]
+    assert sorted(got) == sorted(ref)
+    assert "shared_gate_up_q" not in got and got["shared_gate_up"].dtype == torch.float32
+    for key in ("shared_gate_up", "shared_down", "act_bits_shared"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), err_msg=key)
 
 
 def test_weight_roundtrip_error_bounded():
