@@ -158,11 +158,32 @@ failure raises and the script exits non-zero without a result line:
               fake-quantized). Each line: convert seconds, artifact bytes,
               GPTQ seconds a layer (float pass + Hessians, sweep), the share
               of experts whose GPTQ proxy loss is below RTN's
+ 10. solve    the solve half at full width, 2 layers, on the offline phase's
+              checkpoint (written once for both, removed after them;
+              solve_phase): the gate trace over 8 x 512 synthetic tokens
+              through K11 (every layer's access counts sum to tokens x
+              top-k), the calibration losses by RTN over w8a8_g-1_sym,
+              w4a4_g-1_sym and w4a16_g128_asym and by GPTQ for w4a4 (every
+              entry of an expert the trace routed rows to finite and > 0,
+              of one it routed none to exactly 0; w4a4 >= w8a8 on >= 99 %
+              of the routed entries), the performance table of those schemes and their
+              _packed forms (K2, K5, K6, K7; every inc > 0) and the
+              one-launch fit (K1, K2, K4, K11; every rate within the card's
+              peak for its kind), each fit's residuals, the analytic
+              roofline's agreement with the table; the MILP (r 0.5, 6
+              bits, the trace's batch) under the table and under the fit
+              (each layer within the budget, gate = up, two schemes or
+              more); convert --qconfig of the one-launch solution by RTN on
+              the card and generate --artifact (2 slots, 48 + 16 tokens):
+              the kernels its storage selects must launch, and its first
+              chunk's logits are printed beside quantize_model_fake's
+              forward of the same qconfig. Each step's seconds
 
 Then a {"kernels": [...]} line (each kernel's launches are those of one
-serve or run, named beside them, and ``offline_launches`` those of each
-artifact's serve; K14 and the read-only decode attention are reached by no
-serve in either package), the nvidia-smi line, and last
+serve or run, named beside them, ``offline_launches`` those of each
+artifact's serve and ``solve_launches`` those of each solve step; K14 and
+the read-only decode attention are reached by no serve in either package),
+the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -2396,24 +2417,47 @@ def _dir_bytes(path: str) -> int:
 OFFLINE_MODEL, OFFLINE_LAYERS = "qwen2_moe", 2
 
 
-def offline_phase(device: str = "cuda") -> dict:
-    """The offline path at full width, ``OFFLINE_LAYERS`` deep: a seeded
-    HF-schema checkpoint (``synth_ckpt``) -> ``convert`` (uniform RTN, then a
-    qconfig mix by RTN, GPTQ and GPTQ + Hadamard, and a grouped GPTQ mix) ->
-    the artifact served through ``generate --artifact`` (Engine, 2 slots), in
-    a temporary directory under the git-ignored build directory, removed at
-    the end. The uniform artifact's greedy tokens and logits must be bitwise
-    those of the same shards quantized in memory; every serve on the card
-    must launch the kernels its artifact needs; every GPTQ convert must bring
-    each reached expert's proxy loss below RTN's. Returns each serve's
-    launch counts."""
+def _offline_cfg():
+    from mxmoe_tpu_torch.models import configs
+
+    return dataclasses.replace(configs.config_for(OFFLINE_MODEL), num_layers=OFFLINE_LAYERS)
+
+
+def offline_checkpoint(root: str, device: str = "cuda") -> str:
+    """The seeded HF-schema checkpoint of the offline and solve phases
+    (``synth_ckpt``, bf16, full width, ``OFFLINE_LAYERS`` deep), written once
+    under ``root`` -> its directory."""
+    import torch
+
+    from mxmoe_tpu_torch.models import synth_ckpt
+
+    ckpt = os.path.join(root, "hf")
+    t0 = time.perf_counter()
+    nbytes = synth_ckpt.make_checkpoint(_offline_cfg(), ckpt, seed=0, dtype=torch.bfloat16)
+    emit("offline_ckpt", model=OFFLINE_MODEL, layers=OFFLINE_LAYERS, bytes_written=nbytes,
+         seconds=time.perf_counter() - t0, dtype="bf16",
+         card=smi_line() if device.startswith("cuda") else "cpu")
+    return ckpt
+
+
+def offline_phase(ckpt: str, device: str = "cuda") -> dict:
+    """The offline path at full width, ``OFFLINE_LAYERS`` deep: the seeded
+    HF-schema checkpoint ``ckpt`` (``offline_checkpoint``) -> ``convert``
+    (uniform RTN, then a qconfig mix by RTN, GPTQ and GPTQ + Hadamard, and a
+    grouped GPTQ mix) -> the artifact served through ``generate --artifact``
+    (Engine, 2 slots), in a temporary directory under the git-ignored build
+    directory, removed at the end. The uniform artifact's greedy tokens and
+    logits must be bitwise those of the same shards quantized in memory;
+    every serve on the card must launch the kernels its artifact needs; every
+    GPTQ convert must bring each reached expert's proxy loss below RTN's.
+    Returns each serve's launch counts."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
 
-    from mxmoe_tpu_torch.models import configs, convert, model as model_mod, synth_ckpt
+    from mxmoe_tpu_torch.models import convert, model as model_mod
     from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
     from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
     from mxmoe_tpu_torch.models.layers import MoEImpl
@@ -2425,18 +2469,13 @@ def offline_phase(device: str = "cuda") -> dict:
     dev = torch.device(device)
     check_kernels = dev.type == "cuda"  # a CPU tensor launches no kernel
     model, layers = OFFLINE_MODEL, OFFLINE_LAYERS
-    cfg = dataclasses.replace(configs.config_for(model), num_layers=layers)
+    cfg = _offline_cfg()
     build_dir = os.path.join(HERE, "mxmoe_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     root = tempfile.mkdtemp(prefix="offline-", dir=build_dir)
     smi = smi_line() if dev.type == "cuda" else "cpu"
     launches = {}
     try:
-        ckpt = os.path.join(root, "hf")
-        t0 = time.perf_counter()
-        nbytes = synth_ckpt.make_checkpoint(cfg, ckpt, seed=0, dtype=torch.bfloat16)
-        emit("offline_ckpt", model=model, layers=layers, bytes_written=nbytes,
-             seconds=time.perf_counter() - t0, dtype="bf16", card=smi)
         qconfigs = _offline_qconfigs(cfg, root)
         rng = np.random.default_rng(0)
         prompt = rng.integers(0, cfg.vocab_size, 48).tolist()
@@ -2550,6 +2589,296 @@ def offline_phase(device: str = "cuda") -> dict:
             shutil.rmtree(out)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# the solve phase: the calibrated schemes (RTN), the one calibrated by GPTQ,
+# the profiled schemes, the calibration tokens (samples x length) and the
+# solve's targets
+SOLVE_SCHEMES = ("w8a8_g-1_sym", "w4a4_g-1_sym", "w4a16_g128_asym")
+SOLVE_GPTQ_SCHEME = "w4a4_g-1_sym"
+SOLVE_PROFILED = SOLVE_SCHEMES + ("w4a4_g-1_sym_packed", "w4a16_g128_asym_packed")
+SOLVE_TOKENS = (8, 512)
+SOLVE_WBITS, SOLVE_R = 6.0, 0.5
+# the share of (layer, expert, linear) entries whose w4a4 loss must reach the
+# w8a8 loss
+SOLVE_ORDER_SHARE = 0.99
+# a fitted one-launch rate's peak: the card's published one for its kind;
+# the nibble unpack (elements per second) against the CUDA cores' f32 op rate
+# (at least one operation an element)
+FIT_PEAKS = {"int8_tflops_eff": PEAK_OPS_PER_S["int8"] / 1e12,
+             "bf16_tflops_eff": PEAK_OPS_PER_S["bf16"] / 1e12,
+             "hbm_gbps_eff": HBM_BYTES_PER_S / 1e9,
+             "quant_gbps_eff": HBM_BYTES_PER_S / 1e9,
+             "unpack_gops": PEAK_OPS_PER_S["f32"] / 1e9}
+
+
+def served_kernels(params: dict, impl) -> list:
+    """The kernels a served artifact's storage selects (``models.layers``'s
+    branches): K3 for the attention, then per routed family K4 / K4f over the
+    ragged packed buffer, K10 with weight-only experts, K8 for a flex family,
+    K2 otherwise, with K1 wherever the rows are quantized per token; the
+    shared expert's K6 / K8 / K1 + K2 where it is real-quantized."""
+    lp = params["layers"]
+    out = ["decode_attention_update_stacked"]
+    for prefix, ag in (("expert_gate_up", "act_gsize_gateup"),
+                       ("expert_down", "act_gsize_down")):
+        flex = ag in lp
+        if f"{prefix}_qcat" in lp:
+            out += ["gmm_mixed_packed_flex"] if flex else ["quantize_rows",
+                                                           "gmm_mixed_packed"]
+        elif impl.mixed_weight_only:
+            out += ["gmm_mixed_wo_wxa"] + ([] if flex else ["quantize_rows"])
+        else:
+            out += ["gmm_w8a8_grouped"] if flex else ["quantize_rows", "gmm_w8a8"]
+    if "shared_gate_up_q" in lp:
+        if "shared_wo" in lp:
+            out.append("gmm_weight_only")
+        elif (lp["shared_gate_up_sc"].shape[-2] > 1 or "shared_gate_up_zp" in lp
+              or "shared_down_zp" in lp):
+            out.append("gmm_w8a8_grouped")
+        else:
+            out += ["quantize_rows", "gmm_w8a8"]
+    return sorted(set(out))
+
+
+def _solve_gates(qmc, problems, name: str) -> dict:
+    """The solved mix's gates: each layer's size-weighted average weight bits
+    within the budget, gate == up for every expert, two schemes or more."""
+    from mxmoe_tpu_torch.quant.schemes import LINEAR_NAMES, strategy_bits
+
+    used, avg = set(), {}
+    for key, prob in problems:
+        experts = qmc.layers[key].experts
+        tot = 0.0
+        for e, size in enumerate(prob.sizes):
+            qm = experts[str(e)].qmap()
+            if qm["gate"].scheme_name != qm["up"].scheme_name:
+                raise AssertionError(f"solve ({name}): layer {key} expert {e} gate != up")
+            for lin in LINEAR_NAMES:
+                used.add(qm[lin].scheme_name)
+                tot += size * strategy_bits(qm[lin].scheme_name)[0]
+        avg[key] = tot / (3.0 * float(sum(prob.sizes)))
+        if avg[key] > SOLVE_WBITS + 1e-9:
+            raise AssertionError(f"solve ({name}): layer {key} averages {avg[key]} "
+                                 f"weight bits, over the budget {SOLVE_WBITS}")
+    if len(used) < 2:
+        raise AssertionError(f"solve ({name}): one scheme only: {used}")
+    return {"avg_wbits": avg, "schemes_used": sorted(used)}
+
+
+def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None) -> dict:
+    """The solve half of the co-design loop at full width, ``OFFLINE_LAYERS``
+    deep, on the offline phase's checkpoint: trace the gates (K11) -> the
+    calibration losses by RTN (and one scheme by GPTQ) -> the performance
+    table and the one-launch fit on the card -> the MILP under both runtime
+    models -> ``convert --qconfig`` of the solved mix -> ``generate
+    --artifact``. Gates as the steps say; returns each step's launch counts.
+    ``profile_kw`` overrides the profiler's shapes (a CPU rehearsal)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.models import convert, model as model_mod
+    from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.quant import calibrate, quantizer
+    from mxmoe_tpu_torch.quant.data import synthetic_tokens
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+    from mxmoe_tpu_torch.serving import generate
+    from mxmoe_tpu_torch.solver import bits_solver, onelaunch_fit
+    from mxmoe_tpu_torch.solver.perf_model import (AnalyticPerfModel, OneLaunchPerfModel,
+                                                   validate_analytic_against_measured)
+    from mxmoe_tpu_torch.trace import gate, profiler
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = _offline_cfg()
+    smi = smi_line() if on_card else "cpu"
+    build_dir = os.path.join(HERE, "mxmoe_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="solve-", dir=build_dir)
+    launches = {}
+
+    def step():
+        if on_card:
+            torch.cuda.synchronize()
+        _reset_counts()
+        return time.perf_counter()
+
+    def done(name, t0):
+        if on_card:
+            torch.cuda.synchronize()
+        launches[name] = _counts()
+        return time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    try:
+        params = params_from_safetensors(ckpt, cfg)
+        nsamp, seqlen = SOLVE_TOKENS
+        tokens = torch.from_numpy(synthetic_tokens(nsamp, seqlen, cfg.vocab_size))
+        batch = nsamp * seqlen
+
+        # 1. trace the gates through K11
+        t0 = step()
+        tr = gate.trace_gate_stats(params, tokens, cfg, backend="pallas", device=dev)
+        t_trace = done("trace", t0)
+        sums = tr.access_freq.sum(axis=1).tolist()
+        if sums != [batch * cfg.top_k] * cfg.num_layers:
+            raise AssertionError(f"solve trace: access counts {sums}, not "
+                                 f"{batch * cfg.top_k} a layer")
+        trace_path = os.path.join(root, "moe-gate.json")
+        gate.dump_gate_trace(tr, trace_path)
+        emit("solve_trace", card=smi, seconds=t_trace, tokens=batch,
+             access_freq_sums=sums, experts_hit=int((tr.access_freq > 0).sum()),
+             launches=launches["trace"])
+
+        # 2. calibrate by RTN over the schemes, one scheme by GPTQ
+        t0 = step()
+        schemes = {s: parse_scheme(s) for s in SOLVE_SCHEMES}
+        losses = calibrate.calibrate_model(params, tokens, cfg, schemes,
+                                           save_dir=os.path.join(root, "calib"),
+                                           model_id=OFFLINE_MODEL, backend="pallas",
+                                           device=dev, verbose=False)
+        t_rtn = time.perf_counter() - t0
+        gptq = calibrate.calibrate_model(
+            params, tokens, cfg, {SOLVE_GPTQ_SCHEME: parse_scheme(SOLVE_GPTQ_SCHEME)},
+            method="gptq", backend="pallas", device=dev, verbose=False)
+        t_cal = done("calibrate", t0)
+        # entries in (layer, expert, linear) order; an expert the trace gave no
+        # row has nothing to perturb: its loss must be exactly 0, every other
+        # entry finite and > 0 (the shared expert sees every row)
+        hit = np.concatenate([np.append(tr.access_freq[l] > 0, True)
+                              for l in range(cfg.num_layers)]).repeat(3)
+        arr = {s: np.array([v for l in sorted(d, key=int) for e in sorted(d[l], key=int)
+                            for v in d[l][e]]) for s, d in {**losses, "gptq": gptq[
+                                SOLVE_GPTQ_SCHEME]}.items()}
+        bad = {s: int((~np.isfinite(a[hit]) | (a[hit] <= 0)).sum() + (a[~hit] != 0).sum())
+               for s, a in arr.items()}
+        if any(bad.values()):
+            raise AssertionError(f"solve calibrate: losses not finite and > 0 where "
+                                 f"rows were routed, or not 0 where none were {bad}")
+        arr = {s: a[hit] for s, a in arr.items()}
+        order = float((arr["w4a4_g-1_sym"] >= arr["w8a8_g-1_sym"]).mean())
+        if order < SOLVE_ORDER_SHARE:
+            raise AssertionError(f"solve calibrate: w4a4 >= w8a8 on {order} of the "
+                                 f"entries, under {SOLVE_ORDER_SHARE}")
+        emit("solve_calibrate", card=smi, seconds=t_cal, rtn_seconds=t_rtn,
+             gptq_seconds=t_cal - t_rtn, entries=int(hit.size),
+             entries_reached=int(hit.sum()),
+             w4a4_ge_w8a8_share=order,
+             median_loss={s: float(np.median(a)) for s, a in arr.items()},
+             gptq_below_rtn_share=float((arr["gptq"] < arr[SOLVE_GPTQ_SCHEME]).mean()),
+             launches=launches["calibrate"])
+
+        # 3. the performance table and the one-launch fit on the card
+        t0 = step()
+        table, fits = profiler.build_performance_table(
+            SOLVE_PROFILED, save_path=os.path.join(root, "performance_table.json"),
+            device=dev, verbose=False, **(profile_kw or {}))
+        t_table = time.perf_counter() - t0
+        neg = {s: c.inc for s, t in table.table.items() for c in t.values() if not c.inc > 0}
+        if neg:
+            raise AssertionError(f"solve profile: inc <= 0 for {neg}")
+        k_hid = cfg.hidden_size
+        agreement = validate_analytic_against_measured(AnalyticPerfModel(k_hid), table)
+        if on_card:
+            fit = onelaunch_fit.run(os.path.join(root, "onelaunch_model.json"), dev,
+                                    verbose=False)
+            rates = {k: fit[k] for k in onelaunch_fit.RATE_KEYS}
+        else:
+            fit, rates = {"validation": []}, None
+        t_prof = done("profile", t0)
+        shares = {k: rates[k] / p for k, p in FIT_PEAKS.items()} if rates else {}
+        over = {k: v for k, v in shares.items() if not 0 <= v <= 1.0}
+        emit("solve_profile", card=smi, seconds=t_prof, table_seconds=t_table,
+             table={s: {n: dataclasses.asdict(c) for n, c in t.items()}
+                    for s, t in table.table.items()},
+             residual_ms={s: f["residual_ms"] for s, f in fits.items()},
+             onelaunch_rates=rates, peak_share=shares,
+             onelaunch_fit_residual_ms=[r["residual_ms"] for r in
+                                        fit.get("measurements", {}).get("unpack_fit", [])],
+             onelaunch_validation=fit["validation"],
+             analytic_vs_measured_agreement=agreement["agreement"],
+             analytic_pairs=agreement["pairs"], launches=launches["profile"])
+        if over:
+            raise AssertionError(f"solve profile: fitted rates past the card's peak {over}")
+
+        # 4. the MILP under the measured table and under the one-launch fit
+        t0 = step()
+        trace = gate.load_gate_trace(trace_path)
+        problems = bits_solver.build_layer_problems(losses, trace, batch, cfg.num_layers)
+        models = {"measured_table": table}
+        if rates is not None:
+            models["onelaunch"] = OneLaunchPerfModel(k_hid, **rates)
+        solved = {}
+        for name, perf in models.items():
+            ts = time.perf_counter()
+            qmc, tiles = bits_solver.solve_model(losses, trace, batch, cfg.num_layers,
+                                                 SOLVE_WBITS, SOLVE_R, perf)
+            rec = _solve_gates(qmc, problems, name)
+            path = os.path.join(root, f"qconfig-{name}.json")
+            bits_solver.export_qconfig(qmc, tiles, path)
+            solved[name] = (qmc, path)
+            emit("solve_milp", card=smi, runtime_model=name, seconds=time.perf_counter() - ts,
+                 wbits=SOLVE_WBITS, r=SOLVE_R, batch=batch, lt=qmc.lt, tiles=tiles,
+                 scheme_counts={s: sum(c.scheme_name == s for lay in qmc.layers.values()
+                                       for ex in lay.experts.values()
+                                       for c in ex.qmap().values())
+                                for s in rec["schemes_used"]}, **rec)
+        t_solve = done("solve", t0)
+
+        # 5. convert the solved mix (the CLI's default runtime model) and serve it
+        qmc, qpath = solved.get("onelaunch", solved["measured_table"])
+        a16 = any(c.a_bits >= 16 for lay in qmc.layers.values()
+                  for ex in lay.experts.values() for c in ex.qmap().values())
+        out = os.path.join(root, "artifact")
+        t0 = step()
+        convert.convert(ckpt, OFFLINE_MODEL, out, layers=OFFLINE_LAYERS, qconfig=qpath,
+                        method="rtn", pack_w4=not a16, device=device)
+        t_conv = done("convert", t0)
+        params_a, cfg_a, impl = generate.load_artifact(out, cfg, dev)
+        expect = served_kernels(params_a, impl)
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 48).tolist()
+        max_new = 16
+        t0 = step()
+        got = generate.main(["--model", OFFLINE_MODEL, "--slots", "2", "--max-new",
+                             str(max_new), "--prompt", " ".join(map(str, prompt)),
+                             "--device", device, "--artifact", out])
+        t_serve = done("serve", t0)
+        if len(got) != max_new or not all(0 <= t < cfg.vocab_size for t in got):
+            raise AssertionError("solve serve: a request came back short or out of vocab")
+        missing = [k for k in expect if not launches["serve"].get(k)]
+        if on_card and missing:
+            raise AssertionError(f"solve serve: kernels the mix selects never launched: "
+                                 f"{missing} ({launches['serve']})")
+        # the served artifact's first chunk against the fake-quantized forward of
+        # the same qconfig (printed, no gate)
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            lg_art = model_mod.forward_logits(params_a, toks, cfg_a, impl).float()
+            fake = quantizer.quantize_model_fake(params, cfg, qmc, "rtn", device=dev)
+            fake = _to(fake, dev)
+            lg_fake = model_mod.forward_logits(fake, toks, cfg,
+                                               MoEImpl(gmm_backend="pallas")).float()
+        del fake, params_a
+        if not bool(torch.isfinite(lg_art).all()):
+            raise AssertionError("solve serve: non-finite logits")
+        emit("solve_serve", card=smi, convert_s=t_conv, serve_s=t_serve,
+             runtime_model="onelaunch" if "onelaunch" in solved else "measured_table",
+             pack_w4=not a16, mixed_weight_only=impl.mixed_weight_only,
+             expected_kernels=expect, tokens=got, launches=launches["serve"],
+             fake_vs_served_max_abs_logit_diff=float((lg_art - lg_fake).abs().max()),
+             max_abs_logit=float(lg_art.abs().max()),
+             fake_vs_served_top1_agreement=float(
+                 (lg_art.argmax(-1) == lg_fake.argmax(-1)).float().mean()))
+        emit("solve_phase", card=smi, seconds=time.perf_counter() - t_phase,
+             step_seconds={"trace": t_trace, "calibrate": t_cal, "profile": t_prof,
+                           "solve": t_solve, "convert": t_conv, "serve": t_serve})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -2815,7 +3144,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     ws_launches = headline_bench()
     torch.cuda.empty_cache()
-    offline = offline_phase()
+    import shutil
+    import tempfile
+
+    build_dir = os.path.join(HERE, "mxmoe_tpu_torch", "_build")
+    ckpt_root = tempfile.mkdtemp(prefix="ckpt-", dir=build_dir)
+    try:
+        ckpt = offline_checkpoint(ckpt_root)
+        offline = offline_phase(ckpt)
+        torch.cuda.empty_cache()
+        solve = solve_phase(ckpt)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
     counts = {"ds2": (k3q, k1, "gmm_w8a8", "gmm_mixed_packed"), "mixed_fused": (k13,),
@@ -2846,6 +3186,7 @@ def main() -> int:
          "library_ms": rec[name].get("library_ms"),
          "library_device_ms": rec[name].get("library_device_ms"),
          "offline_launches": {art: n[name] for art, n in offline.items() if n.get(name)},
+         "solve_launches": {st: n[name] for st, n in solve.items() if n.get(name)},
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
          **({"prefill": rec[name]["prefill"]} if "prefill" in rec[name] else {})}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))

@@ -1,5 +1,6 @@
 """Canonical GroupGEMM workloads for benchmarking (the port's own copy of
-``mxmoe_tpu/bench/workloads.py``: the data and the headline pair).
+``mxmoe_tpu/bench/workloads.py``: the data, the headline pair and the
+profiler's seeded ``synthetic_workload``).
 
 The headline workload is qwen2_moe layer 10 at 8192 tokens, top-4: the
 routed token count of each of the 60 experts from a recorded WikiText-2 gate
@@ -10,6 +11,8 @@ down). Only the shapes are data; the operands are made from a seed.
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 # Routed tokens per expert (60 experts) for qwen2_moe layer 10 at 8192 tokens,
 # top-4 (the shared expert's 8192 rows are kept apart)
@@ -67,3 +70,14 @@ def qwen2_moe_l10_bs8192() -> tuple[GroupGemmWorkload, GroupGemmWorkload]:
         shared_m=8192, shared_k=5632, shared_n=2048,
     )
     return gate_up, down
+
+
+def synthetic_workload(num_experts: int, tokens: int, top_k: int, k: int, n: int,
+                       seed: int = 42, alpha: float = 8.0) -> GroupGemmWorkload:
+    """Dirichlet-distributed routed row counts (the profiler's sweeps),
+    drawn with numpy from ``seed``: the JAX package's group sizes."""
+    rng = np.random.default_rng(seed)
+    probs = rng.dirichlet(np.full(num_experts, alpha))
+    ms = np.maximum(1, np.round(probs * tokens * top_k).astype(int))
+    return GroupGemmWorkload(name=f"synthetic-e{num_experts}-t{tokens}-k{top_k}",
+                             group_sizes=tuple(int(m) for m in ms), k=k, n=n)

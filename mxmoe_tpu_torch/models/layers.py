@@ -42,10 +42,20 @@ The shared expert runs in float, fake-quantized (float weights beside
 what the quantizers emit for a layer-heterogeneous or grouped shared
 expert), or, real-quantized, through K2 with one group (per-channel
 symmetric), K8 with one group (grouped / asymmetric) or K6 with one group
-(all-a16). Not ported, and raising ``NotImplementedError`` with their
-ROADMAP item: the fake-quantized routed experts (``act_bits_*`` beside float
-expert weights) and the dense layer's ``act_bits_dense``, ``online_had`` and
-ring attention.
+(all-a16).
+
+Fake-quantized experts (``quant.quantizer.quantize_model_fake``: float
+expert weights beside ``act_bits_gateup`` / ``act_bits_down`` and, for a
+flex family, ``act_gsize_*``) take the float path with each expert's rows
+fake-quantized before each grouped matmul (``_act_fq_per_row``,
+``_act_fq_per_row_flex``: the same codes and scales as the real flex
+path); the dense layer's ``act_bits_dense`` does the same for ds2's dense
+MLP. ``MoEImpl.online_had`` rotates the down projection's input online
+(``quant.hadamard.matmul_hadU``; the down weights pre-rotated by
+``quant.rotation.rotate_down_weights``) on the float and the two-launch
+quantized paths; the whole-FFN kernels refuse it and fall through. Not
+ported, and raising ``NotImplementedError`` with its ROADMAP item: ring
+attention.
 
 ``attention``'s backends: ``"xla"`` is the einsum softmax; ``"flash"`` is the
 reference's library flash attention, here the stock
@@ -118,6 +128,9 @@ class MoEImpl:
       decides; either implies a 32-row aligned dispatch when
       ``dispatch_align`` is unset. Per-channel symmetric w x a only: other
       schemes fall through to the two-launch branches.
+    online_had: rotate the down projection's input by the normalized
+      Hadamard transform (QuaRot's online R4; the down weights must be
+      pre-rotated, ``quant.rotation.rotate_down_weights``).
     attn_backend: the full forward's attention, as ``attention`` takes it:
       ``"xla"`` (einsum softmax) or ``"flash"`` (the stock flash attention on
       a card).
@@ -141,6 +154,7 @@ class MoEImpl:
     mixed_weight_only: bool = False
     dispatch_align: int | None = None
     fused_ffn: object = False
+    online_had: bool = False
     attn_backend: str = "xla"
     decode_attn: str = "auto"
 
@@ -168,20 +182,48 @@ def moe_ffn_dense(x2d: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tensor:
     return torch.einsum("eth,te->th", out_all, w)
 
 
+def _online_had(h: torch.Tensor, impl: MoEImpl) -> torch.Tensor:
+    if not impl.online_had:
+        return h
+    from ..quant.hadamard import matmul_hadU
+
+    return matmul_hadU(h)
+
+
 def moe_ffn_ragged(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
                    impl: MoEImpl) -> torch.Tensor:
-    """The float path: sort tokens by expert, two grouped matmuls, combine."""
-    if "act_bits_gateup" in lp:
-        raise NotImplementedError(
-            "fake-quantized activations over float expert weights (mixed "
-            "fake-quant eval) are not ported (ROADMAP queue A: calibrate)")
+    """The float path: sort tokens by expert, two grouped matmuls, combine.
+    With ``act_bits_gateup`` / ``act_bits_down`` [E] in the layer (fake-
+    quantized experts) each expert's rows are fake-quantized to its
+    activation width before each product (per token, or per k-group where
+    the family carries ``act_gsize_*``)."""
+    if "expert_gate_up" not in lp:
+        raise ValueError("moe_ffn_ragged: the layer carries no float expert weights "
+                         "(expert_gate_up); quantized experts need MoEImpl.quant")
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
                          cfg.routed_scaling_factor)
     disp = make_dispatch(routing, cfg.num_experts, align=impl.dispatch_align)
     xs = gather_tokens(x2d, disp)                                   # [rows, H]
+    mixed_act = "act_bits_gateup" in lp
+    if mixed_act:
+        row_expert = expert_of_rows(disp.group_sizes, xs.shape[0])
+
+    def fq(acts, bits_key, ag_key):
+        row_bits = lp[bits_key][row_expert]
+        ag = lp.get(ag_key)                 # [E, G]: each expert's a_gsize
+        if ag is None:
+            return _act_fq_per_row(acts, row_bits)
+        return _act_fq_per_row_flex(acts, row_bits, ag[:, 0][row_expert],
+                                    acts.shape[-1] // ag.shape[-1])
+
+    if mixed_act:
+        xs = fq(xs, "act_bits_gateup", "act_gsize_gateup")
     h = silu_mul(gmm(xs, lp["expert_gate_up"], disp.group_sizes,
                      backend=impl.gmm_backend))                     # [rows, N]
+    h = _online_had(h, impl)
+    if mixed_act:
+        h = fq(h, "act_bits_down", "act_gsize_down")
     out = gmm(h, lp["expert_down"], disp.group_sizes,
               backend=impl.gmm_backend)                             # [rows, H]
     return combine_tokens(out, disp, x2d.shape[0])
@@ -248,6 +290,7 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     # the fused kernels take per-channel symmetric w x a only: a flex family
     # (either act_gsize key) or a16 experts go the two-launch way
     fused_ok = (fuse_req and align and not impl.mixed_weight_only
+                and not impl.online_had
                 and "act_gsize_gateup" not in lp and "act_gsize_down" not in lp
                 and (mixed or (qcfg.a_bits <= 8 and qcfg.w_sym
                                and qcfg.w_gsize == -1)))
@@ -341,10 +384,11 @@ def moe_ffn_ragged_quant(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
     if mixed:
         h = silu_mul(qgemm_mixed(xs, "expert_gate_up", "act_bits_gateup",
                                  "act_gsize_gateup"))               # [rows, N]
-        out = qgemm_mixed(h, "expert_down", "act_bits_down", "act_gsize_down")
+        out = qgemm_mixed(_online_had(h, impl), "expert_down", "act_bits_down",
+                          "act_gsize_down")
     else:
         h = silu_mul(qgemm_uniform(xs, "expert_gate_up"))
-        out = qgemm_uniform(h, "expert_down")                       # [rows, H]
+        out = qgemm_uniform(_online_had(h, impl), "expert_down")    # [rows, H]
     return combine_tokens(out, disp, x2d.shape[0])
 
 
@@ -357,6 +401,19 @@ def _act_fq_per_row(x: torch.Tensor, bits_per_row: torch.Tensor) -> torch.Tensor
     scale = torch.clamp(xf.abs().amax(-1), min=1e-10) / upper
     q = torch.round(xf / scale[:, None]) * scale[:, None]
     return torch.where((bits_per_row >= 16)[:, None], xf, q).to(x.dtype)
+
+
+def _act_fq_per_row_flex(x: torch.Tensor, bits_per_row: torch.Tensor,
+                         row_gsize: torch.Tensor, gsize: int) -> torch.Tensor:
+    """Flex fake-quant: a per-row bitwidth and grouping (rows of a grouped
+    expert per k-group of ``gsize``, the others per token), dequantizing the
+    very codes and scales of the real flex path
+    (``quant.qparams.quantize_act_rows_flex``); rows of 16 bits and more
+    pass through."""
+    q, scale = quantize_act_rows_flex(x, bits_per_row, row_gsize, gsize)
+    m, k = x.shape
+    deq = (q.float().reshape(m, k // gsize, gsize) * scale[..., None]).reshape(m, k)
+    return torch.where((bits_per_row >= 16)[:, None], x.float(), deq).to(x.dtype)
 
 
 def _shared_expert_quant(x2d: torch.Tensor, lp: dict) -> torch.Tensor:
@@ -575,12 +632,19 @@ def mla_attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos,
 
 
 def dense_mlp_block(x: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tensor:
-    """Plain SwiGLU MLP of ds2's first dense layer(s)."""
-    if "act_bits_dense" in lp:
-        raise NotImplementedError(
-            "fake-quantized activations of the dense layer (act_bits_dense) are "
-            "not ported (ROADMAP queue A: calibrate)")
-    return silu_mul(x @ lp["mlp_gate_up"]) @ lp["mlp_down"]
+    """Plain SwiGLU MLP of ds2's first dense layer(s). With
+    ``act_bits_dense`` [2] (the dense pseudo-expert's scheme, qconfig key
+    ``dense-<i>``) the inputs of gate_up and down are fake-quantized per
+    token to those widths."""
+    if "act_bits_dense" not in lp:
+        return silu_mul(x @ lp["mlp_gate_up"]) @ lp["mlp_down"]
+    b, s, h = x.shape
+    x2d = x.reshape(-1, h)
+    bits = lp["act_bits_dense"]
+    t = x2d.shape[0]
+    hmid = silu_mul(_act_fq_per_row(x2d, bits[0].expand(t)) @ lp["mlp_gate_up"])
+    y = _act_fq_per_row(hmid, bits[1].expand(t)) @ lp["mlp_down"]
+    return y.reshape(b, s, h)
 
 
 def make_rope_tables(cfg: MoEConfig, positions: torch.Tensor):

@@ -1,13 +1,20 @@
-"""Model quantization orchestrator (port of the parts of
-``mxmoe_tpu/quant/quantizer.py`` that produce servable params:
-``act_gsize_arrays``, ``_fq_weight_kn``, ``_shared_cfgs``,
-``make_moe_hessian_fn`` and ``quantize_model_experts_mixed_gptq``).
+"""Model quantization orchestrator (port of ``mxmoe_tpu/quant/quantizer.py``):
+the fake-quant evaluation path ``quantize_model_fake`` (methods rtn | gptq |
+rtn-had | gptq-had; per-(layer, expert, linear) schemes from a
+``QModelConfig``), and what produces servable params: ``act_gsize_arrays``,
+``_fq_weight_kn``, ``_shared_cfgs``, ``make_moe_hessian_fn`` and
+``quantize_model_experts_mixed_gptq``.
+
+``quantize_model_fake`` returns float params whose expert weights are
+fake-quantized, beside the per-layer ``act_bits_gateup`` / ``act_bits_down``
+[E] (``act_bits_shared`` [2], ``act_bits_dense`` [2], ``act_gsize_*``) that
+the float forward applies per row group (``models.layers._act_fq_per_row``),
+so accuracy runs through the standard forward.
 
 GPTQ runs layer by layer: the Hessians of a layer come from its float pass
 over the calibration rows, and the rows go on to the next layer through the
 layer with its experts quantized (the reference's ``llama_sequential``
-order). The fake-quant evaluation path (``quantize_model_fake``) comes with
-the calibration port.
+order).
 """
 
 from __future__ import annotations
@@ -315,3 +322,243 @@ def quantize_model_experts_mixed_gptq(
             new[name] = torch.stack(acc[f"{name}_fake"])
         new["act_bits_shared"] = sb.to(home)
     return {**params, "layers": new}
+
+
+# ---------------------------------------------------------------------------
+# fake quantization (the evaluation path)
+# ---------------------------------------------------------------------------
+
+def _scheme_buckets(layer_cfg, num_experts: int, linear: str) -> dict[str, list[int]]:
+    """Expert ids per distinct scheme of one linear family."""
+    buckets: dict[str, list[int]] = {}
+    for e in range(num_experts):
+        c = layer_cfg.experts[str(e)].qmap()[linear]
+        buckets.setdefault(c.scheme_name, []).append(e)
+    return buckets
+
+
+def _act_bits_arrays(layer_cfg, num_experts: int, device="cpu"):
+    """Per-expert activation widths (gate_up input, down input) [E] f32."""
+    gb = torch.full((num_experts,), 16.0)
+    db = torch.full((num_experts,), 16.0)
+    for e in range(num_experts):
+        qm = layer_cfg.experts[str(e)].qmap()
+        if qm["gate"].a_bits != qm["up"].a_bits:
+            raise ValueError(f"expert {e}: gate and up activation widths differ "
+                             "(the fused gate_up product takes one)")
+        gb[e] = float(qm["gate"].a_bits)
+        db[e] = float(qm["down"].a_bits)
+    return gb.to(device), db.to(device)
+
+
+def _apply_buckets_kn(w: torch.Tensor, buckets: dict[str, list[int]], layer_cfg,
+                      linear: str, hessian: torch.Tensor | None = None) -> torch.Tensor:
+    """w [E, K, N]: fake-quantize each scheme bucket (RTN, or GPTQ with the
+    experts' Hessians [E, K, K]) -> a new [E, K, N] in ``w``'s dtype."""
+    out = w.clone()
+    for eids in buckets.values():
+        c = layer_cfg.experts[str(eids[0])].qmap()[linear]
+        if c.w_bits >= 16:
+            continue
+        idx = torch.tensor(eids, device=w.device)
+        if hessian is None:
+            fq = _fq_weight_kn(w[idx], c)
+        else:
+            fq = gptq_quantize_kn(w[idx], hessian[idx], c).w_fq
+        out[idx] = fq.to(w.dtype)
+    return out
+
+
+def _gptq_one(w: torch.Tensor, h: torch.Tensor, c: QLinearConfig) -> torch.Tensor:
+    """GPTQ fake weights of one [K, N] matrix with its Hessian [K, K]."""
+    return gptq_quantize_kn(w[None], h[None], c).w_fq[0].to(w.dtype)
+
+
+def _quantize_layer_params(lp: dict, cfg: MoEConfig, layer_cfg,
+                           hessians: dict | None = None) -> dict:
+    """One MoE layer's params with its routed (and shared) experts
+    fake-quantized and its act-bits arrays; gate and up are tied (the fused
+    [E, H, 2N] gate_up weight takes the gate scheme), down takes its own."""
+    e = cfg.num_experts
+    out = dict(lp)
+    for name, lin in (("expert_gate_up", "gate"), ("expert_down", "down")):
+        h = None if hessians is None else hessians[name]
+        out[name] = _apply_buckets_kn(lp[name], _scheme_buckets(layer_cfg, e, lin),
+                                      layer_cfg, lin, h)
+    sh = _shared_cfgs(layer_cfg, e)
+    has_shared = sh is not None and "shared_gate_up" in lp
+    if has_shared:
+        for name, c in (("shared_gate_up", sh["gate"]), ("shared_down", sh["down"])):
+            if c.w_bits >= 16:
+                continue
+            if hessians is not None and name in hessians:
+                out[name] = _gptq_one(lp[name], hessians[name], c)
+            else:
+                out[name] = _fq_weight_kn(lp[name], c)
+    out["act_bits_gateup"], out["act_bits_down"] = _act_bits_arrays(
+        layer_cfg, e, lp["router"].device)
+    if has_shared:
+        out["act_bits_shared"] = torch.tensor(
+            [float(sh["gate"].a_bits), float(sh["down"].a_bits)],
+            device=lp["router"].device)
+    return out
+
+
+def _dense_cfgs(qmodel_cfg: QModelConfig, dl: int):
+    """The schemes of ds2's dense layer ``dl`` (qconfig key ``dense-<dl>``,
+    one pseudo-expert "0"), or None."""
+    lc = qmodel_cfg.layers.get(f"dense-{dl}")
+    if lc is None:
+        return None
+    return lc.experts["0"].qmap()
+
+
+def _quantize_dense_layer(dlp: dict, qm: dict, hessians: dict | None = None):
+    """One dense layer's MLP fake-quantized (gate / up tied through the fused
+    ``mlp_gate_up``) -> (params, act_bits_dense [2])."""
+    out = dict(dlp)
+    for name, c in (("mlp_gate_up", qm["gate"]), ("mlp_down", qm["down"])):
+        if c.w_bits >= 16:
+            continue
+        if hessians is not None:
+            out[name] = _gptq_one(dlp[name], hessians[name], c)
+        else:
+            out[name] = _fq_weight_kn(dlp[name], c)
+    act_bits = torch.tensor([float(qm["gate"].a_bits), float(qm["down"].a_bits)],
+                            device=dlp["mlp_down"].device)
+    return out, act_bits
+
+
+def _stack(rows: list, home) -> torch.Tensor:
+    return torch.stack([r.to(home) for r in rows])
+
+
+def _quantize_dense_stack_rtn(params: dict, qmodel_cfg: QModelConfig,
+                              device) -> dict:
+    """RTN over the ``dense_layers`` stack; emits ``act_bits_dense`` [Ld, 2]
+    where the qconfig holds a ``dense-<i>`` key."""
+    if "dense_layers" not in params:
+        return params
+    dls = params["dense_layers"]
+    n_dense = dls["input_norm"].shape[0]
+    if not any(f"dense-{dl}" in qmodel_cfg.layers for dl in range(n_dense)):
+        return params
+    home = dls["input_norm"].device
+    new: dict[str, list] = {k: [] for k in dls}
+    act = []
+    for dl in range(n_dense):
+        dlp = {k: v[dl].to(device) for k, v in dls.items()}
+        qm = _dense_cfgs(qmodel_cfg, dl)
+        if qm is not None:
+            dlp, ab = _quantize_dense_layer(dlp, qm)
+        else:
+            ab = torch.tensor([16.0, 16.0])
+        for k in new:
+            new[k].append(dlp[k])
+        act.append(ab)
+    dense = {k: _stack(v, home) for k, v in new.items()}
+    dense["act_bits_dense"] = _stack(act, home)
+    return {**params, "dense_layers": dense}
+
+
+def _finish_layers(params: dict, cfg: MoEConfig, qmodel_cfg: QModelConfig,
+                   per_layer: list) -> dict:
+    """Stack the per-layer results on the params' device, with the flex
+    markers."""
+    home = params["layers"]["router"].device
+    stacked = {k: _stack([lp[k] for lp in per_layer], home) for k in per_layer[0]}
+    stacked.update(act_gsize_arrays(qmodel_cfg, cfg, len(per_layer), home))
+    return {**params, "layers": stacked}
+
+
+def _quantize_rtn(params: dict, cfg: MoEConfig, qmodel_cfg: QModelConfig,
+                  device) -> dict:
+    params = _quantize_dense_stack_rtn(params, qmodel_cfg, device)
+    layers = params["layers"]
+    per_layer = []
+    for l in range(layers["router"].shape[0]):
+        lp = {k: v[l].to(device) for k, v in layers.items()}
+        qlp = _quantize_layer_params(lp, cfg, qmodel_cfg.layer(l))
+        per_layer.append({k: v.to(layers["router"].device) for k, v in qlp.items()})
+    return _finish_layers(params, cfg, qmodel_cfg, per_layer)
+
+
+def _quantize_gptq(params: dict, cfg: MoEConfig, qmodel_cfg: QModelConfig,
+                   tokens: torch.Tensor, backend: str, device) -> dict:
+    """Layer-streamed GPTQ: each layer's Hessians from its float pass over
+    the calibration rows, the rows propagated through the quantized layer."""
+    from .calibrate import dense_layer_forward_fp
+
+    toks = tokens.to(device=params["embed"].device, dtype=torch.long)
+    x = params["embed"][toks.clamp(0, params["embed"].shape[0] - 1)].to(device)
+    cos, sin = make_rope_tables(cfg, torch.arange(toks.shape[1], device=device))
+    out = dict(params)
+    if "dense_layers" in params:
+        dls = params["dense_layers"]
+        home = dls["input_norm"].device
+        new: dict[str, list] = {k: [] for k in dls}
+        act = []
+        any_cfg = False
+        for dl in range(dls["input_norm"].shape[0]):
+            dlp = {k: v[dl].to(device) for k, v in dls.items()}
+            _, dx2d = dense_layer_forward_fp(x, dlp, cfg, cos, sin)
+            qm = _dense_cfgs(qmodel_cfg, dl)
+            if qm is not None:
+                any_cfg = True
+                hs = {"mlp_gate_up": accumulate_hessian(dx2d),
+                      "mlp_down": accumulate_hessian(silu_mul(dx2d @ dlp["mlp_gate_up"]))}
+                dlp, ab = _quantize_dense_layer(dlp, qm, hessians=hs)
+            else:
+                ab = torch.tensor([16.0, 16.0])
+            for k in new:
+                new[k].append(dlp[k])
+            act.append(ab)
+            # on through the QUANTIZED dense layer
+            x, _ = dense_layer_forward_fp(x, dlp, cfg, cos, sin)
+        if any_cfg:
+            out["dense_layers"] = {k: _stack(v, home) for k, v in new.items()}
+            out["dense_layers"]["act_bits_dense"] = _stack(act, home)
+    hessians_for_layer = make_moe_hessian_fn(cfg, backend)
+    layers = params["layers"]
+    home = layers["router"].device
+    per_layer = []
+    for l in range(layers["router"].shape[0]):
+        lp = {k: v[l].to(device) for k, v in layers.items()}
+        _, x2d = layer_forward_fp(x, lp, cfg, cos, sin, backend)
+        qlp = _quantize_layer_params(lp, cfg, qmodel_cfg.layer(l),
+                                     hessians=hessians_for_layer(x2d, lp))
+        # on through the QUANTIZED layer (llama_sequential order)
+        x, _ = layer_forward_fp(x, {k: qlp[k] for k in lp}, cfg, cos, sin, backend)
+        per_layer.append({k: v.to(home) for k, v in qlp.items()})
+    return _finish_layers(out, cfg, qmodel_cfg, per_layer)
+
+
+def quantize_model_fake(params: dict, cfg: MoEConfig, qmodel_cfg: QModelConfig,
+                        method: str = "rtn", calib_tokens: torch.Tensor | None = None,
+                        rotation: torch.Tensor | None = None,
+                        backend: str = "ragged_dot", device="cuda") -> dict:
+    """Mixed-scheme fake quantization of the routed, shared and dense-layer
+    linears -> float params with fake-quantized weights and the act-bits
+    arrays, ready for the standard forward.
+
+    ``method``: 'rtn' | 'gptq' | 'rtn-had' | 'gptq-had'. GPTQ needs
+    ``calib_tokens`` [B, S]. '-had' first fuses the norms and rotates the
+    whole model (``rotation.rotate_model_hadamard``) by ``rotation`` (an
+    orthogonal [H, H]; default ``random_hadamard_matrix(H)`` from a generator
+    seeded 0). The work runs one layer at a time on ``device`` (the card
+    unless the caller asks for the CPU); the results stay on the params'
+    device. ``backend`` is ``ops.gmm``'s for GPTQ's float passes."""
+    device = torch.device(device)
+    if method.endswith("-had"):
+        from .rotation import rotate_model_hadamard
+
+        params = rotate_model_hadamard(params, cfg, torch.Generator().manual_seed(0),
+                                       rotation)
+        method = method[:-4]
+    if method == "gptq":
+        if calib_tokens is None:
+            raise ValueError("GPTQ needs calibration tokens")
+        return _quantize_gptq(params, cfg, qmodel_cfg, calib_tokens, backend, device)
+    if method != "rtn":
+        raise ValueError(f"method {method!r}: rtn | gptq | rtn-had | gptq-had")
+    return _quantize_rtn(params, cfg, qmodel_cfg, device)

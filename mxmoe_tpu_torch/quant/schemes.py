@@ -2,8 +2,8 @@
 part of ``mxmoe_tpu/quant/schemes.py`` the serving slices read):
 ``QLinearConfig`` and ``parse_scheme``, the ``QLinearConfig -> QExpertConfig
 -> QLayerConfig -> QModelConfig`` tree with the reference's JSON round trip,
-the uniform builders and ``flex_family_info``. The storage-bits table
-(``strategy_bits``) comes with the solver port (ROADMAP queue A)."""
+the uniform builders, ``flex_family_info`` and the solver's storage-bits
+table ``strategy_bits``."""
 
 from __future__ import annotations
 
@@ -42,6 +42,16 @@ class QLinearConfig:
             f"w{_fmt_bits(self.w_bits)}a{_fmt_bits(self.a_bits)}"
             f"_g{self.w_gsize}_{'sym' if self.w_sym else 'asym'}"
         )
+
+    def effective_wbits(self) -> float:
+        """Average stored bits per weight element, scale overhead included: a
+        grouped scheme adds a 16-bit scale and a 16-bit zero point a group
+        (0.25 bits at g128)."""
+        if self.w_bits >= 16:
+            return 16.0
+        if self.w_gsize == -1:
+            return float(self.w_bits)
+        return float(self.w_bits) + 32.0 / self.w_gsize
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -91,6 +101,32 @@ def parse_scheme(name: str) -> QLinearConfig:
         w_bits=_canon_bits(w), w_gsize=g, w_sym=sym, w_clip=w_clip,
         a_bits=_canon_bits(a), a_gsize=g, a_sym=sym,
     )
+
+
+# (storage wbits, abits) of the common schemes, the scale overhead of a
+# 128-group included; any other scheme falls back to its own widths
+_STRATEGY_BITS_TABLE: dict[str, tuple[float, float]] = {
+    "w8a16_g-1": (8, 16),
+    "w4a16_g-1": (4, 16),
+    "w4a16_g128": (4.25, 16),
+    "w3a16_g128": (3.25, 16),
+    "w2a16_g128": (2.25, 16),
+    "w1a16_g128": (1.25, 16),
+    "w4a4_g-1": (4, 4),
+    "w8a8_g-1": (8, 8),
+    "w4a4_g128": (4.25, 4.25),
+    "w8a8_g128": (8.25, 8.25),
+    "w16a16_g-1": (16, 16),
+}
+
+
+def strategy_bits(scheme: str) -> tuple[float, float]:
+    """(storage wbits, abits) for a scheme string, scale overhead included."""
+    for k, v in _STRATEGY_BITS_TABLE.items():
+        if scheme.startswith(k):
+            return v
+    cfg = parse_scheme(scheme)
+    return (cfg.effective_wbits(), float(cfg.a_bits))
 
 
 # --------------------------------------------------------------------------

@@ -263,9 +263,10 @@ def test_convert_cli(tiny):
 
 
 def test_offline_modules_import_no_jax_safetensors_orbax_or_transformers():
-    """The offline path's modules and chip_smoke.py import none of jax, the
-    JAX package, safetensors, orbax or transformers (the tokenizer lookup
-    imports transformers only when a checkpoint holds a tokenizer)."""
+    """The offline path's and the solve path's modules and chip_smoke.py
+    import none of jax, the JAX package, safetensors, orbax or transformers
+    (the tokenizer lookup imports transformers only when a checkpoint holds
+    a tokenizer)."""
     import subprocess
     import sys
 
@@ -274,7 +275,11 @@ def test_offline_modules_import_no_jax_safetensors_orbax_or_transformers():
             "mxmoe_tpu_torch.quant.data", "mxmoe_tpu_torch.quant.hadamard",
             "mxmoe_tpu_torch.quant.rotation", "mxmoe_tpu_torch.quant.gptq",
             "mxmoe_tpu_torch.quant.calibrate", "mxmoe_tpu_torch.quant.quantizer",
-            "mxmoe_tpu_torch.serving.generate", "chip_smoke"]
+            "mxmoe_tpu_torch.serving.generate", "mxmoe_tpu_torch.trace.gate",
+            "mxmoe_tpu_torch.trace.profiler", "mxmoe_tpu_torch.bench.kernels",
+            "mxmoe_tpu_torch.bench.workloads", "mxmoe_tpu_torch.solver.perf_model",
+            "mxmoe_tpu_torch.solver.bits_solver", "mxmoe_tpu_torch.solver.onelaunch_fit",
+            "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

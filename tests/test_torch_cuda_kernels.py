@@ -1580,3 +1580,99 @@ def test_grouped_hessians_on_the_card(dev):
     ref = gptq.accumulate_hessian(xs.cpu(), gs.cpu(), 4)
     assert h.dtype == torch.float32 and h.shape == (4, 256, 256)
     torch.testing.assert_close(h.cpu(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+# --- the solve half: calibration, gate trace and the scheme registry -------
+
+def _solve_inputs(tmp_path):
+    from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
+    from mxmoe_tpu_torch.quant.data import synthetic_tokens
+
+    cfg = _tiny_offline_ckpt(tmp_path)
+    params = params_from_safetensors(str(tmp_path / "hf"), cfg, dtype=torch.float32)
+    return cfg, params, torch.from_numpy(synthetic_tokens(4, 64, cfg.vocab_size))
+
+
+@pytest.mark.parametrize("method,rel", [("rtn", 1e-3), ("gptq", 1e-2)])
+def test_calibrate_model_on_the_card(dev, tmp_path, method, rel):
+    """calibrate_model with one layer at a time on the card (K11 for the
+    grouped products) against the CPU's on the same float32 checkpoint: each
+    loss within ``rel`` of its layer's largest (f32 sums in other orders; GPTQ's
+    codes on the card agree with the CPU's on >= 99.9 %, and one code on the
+    other side of a rounding boundary moves a loss further)."""
+    from mxmoe_tpu_torch.quant import calibrate
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+
+    cfg, params, toks = _solve_inputs(tmp_path)
+    schemes = {s: parse_scheme(s) for s in ("w4a4_g-1_sym", "w4a16_g128_asym")}
+    ref = calibrate.calibrate_model(params, toks, cfg, schemes, method=method,
+                                    backend="pallas", device="cpu", verbose=False)
+    before = kernels.launches["gmm_bf16"]
+    got = calibrate.calibrate_model(params, toks, cfg, schemes, method=method,
+                                    backend="pallas", device=dev, verbose=False)
+    assert kernels.launches["gmm_bf16"] > before
+    for s in schemes:
+        assert sorted(got[s]) == sorted(ref[s])
+        for layer in ref[s]:
+            r = torch.tensor([ref[s][layer][e] for e in sorted(ref[s][layer])])
+            g = torch.tensor([got[s][layer][e] for e in sorted(ref[s][layer])])
+            assert bool(torch.isfinite(g).all())
+            torch.testing.assert_close(g, r, rtol=0, atol=rel * float(r.abs().max()))
+
+
+def test_trace_gate_stats_on_the_card(dev, tmp_path):
+    """trace_gate_stats through K11 on the card against the CPU: equal access
+    counts but where a token's k-th and (k+1)-th router logits lie within 1e-5
+    (either expert may be picked), the weight sums then within 1e-4."""
+    import numpy as np
+
+    from mxmoe_tpu_torch.trace import gate
+
+    cfg, params, toks = _solve_inputs(tmp_path)
+    ref = gate.trace_gate_stats(params, toks, cfg, backend="pallas", device="cpu")
+    before = kernels.launches["gmm_bf16"]
+    got = gate.trace_gate_stats(params, toks, cfg, backend="pallas", device=dev)
+    assert kernels.launches["gmm_bf16"] > before
+    assert (got.access_freq.sum(1) == toks.numel() * cfg.top_k).all()
+    x, cos, sin = gate._embed_and_dense(params, toks, cfg, "cpu")
+    ties = []
+    for _, lp, x2d in gate._moe_layers(params, x, cos, sin, cfg, "pallas", "cpu"):
+        srt = torch.sort(x2d @ lp["router"], dim=-1, descending=True).values
+        ties.append(int((srt[:, cfg.top_k - 1] - srt[:, cfg.top_k] < 1e-5).sum()))
+    d = np.abs(got.access_freq - ref.access_freq).sum(1)
+    assert (d <= 2 * np.array(ties)).all(), (d, ties)
+    if not any(ties):
+        np.testing.assert_allclose(got.weights_sum, ref.weights_sum, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tokens", [8, 256], ids=["decode", "prefill"])
+@pytest.mark.parametrize("scheme", ["w16a16_g-1_sym", "w8a8_g-1_sym", "w8a8_g-1_asym",
+                                    "w4a4_g-1_sym_packed", "w4a16_g-1_sym",
+                                    "w4a16_g128_asym", "w4a16_g128_asym_packed",
+                                    "w4a4_g128_sym", "w4a4_g128_asym"])
+def test_registry_scheme_on_the_card(dev, scheme, tokens):
+    """bench.kernels: each scheme's launcher on the card launches its kernel
+    and agrees with its plain version on the same operands: the int8 kinds
+    (K2, K9, K5, K8) bitwise; K6 / K7 within ``gmm_weight_only.error_over_bound``
+    and K11 within ``gmm.error_over_bound`` of the float64 product."""
+    from mxmoe_tpu_torch.bench import kernels as registry
+    from mxmoe_tpu_torch.bench import workloads
+    from mxmoe_tpu_torch.quant.packing import unpack_int4_halves
+
+    wl = workloads.synthetic_workload(8, tokens, 2, 256, 256, seed=5)
+    ops = registry.build_operands(wl, scheme, device="cpu")
+    name = registry.kernel_of(scheme)
+    launch = registry.make_launcher(scheme)
+    want = launch(ops)
+    before = kernels.launches[name]
+    got = launch({k: v.to(dev) for k, v in ops.items()}).cpu()
+    assert kernels.launches[name] == before + 1
+    if name == "gmm_bf16":
+        assert gmm_float.error_over_bound(got, ops["lhs"], ops["rhs"], ops["gs"])[1] <= 1.0
+    elif name.startswith("gmm_weight_only"):
+        q = unpack_int4_halves(ops["rhs"]) if scheme.endswith("_packed") else ops["rhs"]
+        g = 256 if "g-1" in scheme else 128
+        assert gmm_weight_only.error_over_bound(got, ops["lhs"], q, ops["rhs_sc"],
+                                                ops["rhs_zp"], ops["gs"], g)[1] <= 1.0
+    else:
+        assert torch.equal(got, want)

@@ -183,10 +183,20 @@ def test_unported_branches_raise():
         layers.attention(q, k, k, backend="ring")
     with pytest.raises(ValueError, match="backend"):
         layers.attention(q, k, k, backend="splash")
-    lp = {"act_bits_dense": torch.tensor([8.0, 8.0]),
-          "mlp_gate_up": torch.zeros((64, 256)), "mlp_down": torch.zeros((128, 64))}
-    with pytest.raises(NotImplementedError, match="queue A"):
-        layers.dense_mlp_block(torch.zeros((1, 2, 64)), lp, configs.tiny_ds2())
+    # the dense layer's fake-quantized activations are ported: at 16 bits they
+    # pass the rows through, at 4 they move the output
+    gen = torch.Generator().manual_seed(0)
+    lp = {"act_bits_dense": torch.tensor([16.0, 16.0]),
+          "mlp_gate_up": torch.randn((64, 256), generator=gen),
+          "mlp_down": torch.randn((128, 64), generator=gen)}
+    x = torch.randn((1, 2, 64), generator=gen)
+    plain = {k: v for k, v in lp.items() if k != "act_bits_dense"}
+    ds2 = configs.tiny_ds2()
+    torch.testing.assert_close(layers.dense_mlp_block(x, lp, ds2),
+                               layers.dense_mlp_block(x, plain, ds2))
+    lp["act_bits_dense"] = torch.tensor([4.0, 4.0])
+    assert not torch.allclose(layers.dense_mlp_block(x, lp, ds2),
+                              layers.dense_mlp_block(x, plain, ds2))
     with pytest.raises(ValueError, match="decode_attn"):
         MoEImpl(decode_attn="splash").use_fused_decode()
 

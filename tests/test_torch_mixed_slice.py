@@ -221,14 +221,21 @@ def test_unported_branches_raise_with_their_roadmap_item(models):
     with pytest.raises(ValueError, match="needs mixed params"):
         moe_block(x, uniform, cfg_t, impl_t)
     # quant=None takes the float path, which serves float expert weights (the
-    # dense oracle agrees with it) and refuses fake-quantized activations
-    with pytest.raises(NotImplementedError, match="calibrate"):
+    # dense oracle agrees with it) and refuses a layer that holds none
+    with pytest.raises(ValueError, match="no float expert weights"):
         moe_block(x, lp, cfg_t, MoEImpl())
     float_t = models[6]
     flp = {k: v[0] for k, v in float_t["layers"].items()}
     torch.testing.assert_close(moe_block(xr, flp, cfg_t, MoEImpl()),
                                moe_block(xr, flp, cfg_t, MoEImpl(kind="dense")),
                                rtol=1e-5, atol=1e-6)
+    # fake-quantized activations over float expert weights are ported: at 16
+    # bits they pass the rows through
+    e = cfg_t.num_experts
+    fq16 = dict(flp, act_bits_gateup=torch.full((e,), 16.0),
+                act_bits_down=torch.full((e,), 16.0))
+    torch.testing.assert_close(moe_block(xr, fq16, cfg_t, MoEImpl()),
+                               moe_block(xr, flp, cfg_t, MoEImpl()))
     # the fake-quantized shared expert (float weights beside act_bits_shared)
     # is ported: at 16 bits its act quant passes the rows through
     fake_shared = {k: v for k, v in lp.items() if not k.startswith("shared_")}
