@@ -31,7 +31,9 @@ failure raises and the script exits non-zero without a result line:
               byte-tile pairs up to M 64, the 32-row tile above) on the same
               rows at g128 with zero points and per channel, K6 within its
               bound, K7 = K6 and K10's weight-only rows = K6 bitwise, its
-              w x a rows = K8 / K2 bitwise; K3 / K3q at
+              w x a rows = K8 / K2 bitwise; K11 on the same rows with bf16
+              weights within its bound (its wgmma body at every M); K3 / K3q
+              at
               lengths on the warp-chunk and S-block edges, G 1 / 4 / 7, the
               write bitwise, the read-only form bitwise K3 / K3q after it.
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
@@ -51,7 +53,11 @@ failure raises and the script exits non-zero without a result line:
               all 0, all 1): w x a experts bitwise K8 / K2 and the plain
               version, weight-only experts bitwise K6 and within K6's bound;
               K11 (gmm_bf16) within gmm.error_over_bound of a float64 product,
-              timed beside the stock torch._grouped_mm (its library_ms); the
+              timed beside the stock torch._grouped_mm (its library_ms), at
+              decode, the prefill chunk (M 1024), the profiler's three
+              scales (M 8192 / 32768 / 65536 over 60 experts) and the
+              headline's 32762 rows, gate_up and down, each line naming the
+              body that ran (ops.gmm.bf16_gmm_schedule); the
               int8 lm_head's product (K1, K2 with one group, N 151936) bitwise.
               Also the sorted combine's time beside the atomic index_add_'s.
               K12 (gmm_ffn_w8a8) over the aligned dispatch, decode and
@@ -168,7 +174,7 @@ failure raises and the script exits non-zero without a result line:
               of one it routed none to exactly 0; w4a4 >= w8a8 on >= 99 %
               of the routed entries), the performance table of those schemes and their
               _packed forms (K2, K5, K6, K7; every inc > 0) and the
-              one-launch fit (K1, K2, K4, K11; every rate within the card's
+              one-launch fit (K1, K2, K4, K6; every rate within the card's
               peak for its kind), each fit's residuals, the analytic
               roofline's agreement with the table; the MILP (r 0.5, 6
               bits, the trace's batch) under the table and under the fit
@@ -810,12 +816,14 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
     timed beside the bf16 head's matmul."""
     import torch
 
+    from mxmoe_tpu_torch.bench import workloads
     from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
     from mxmoe_tpu_torch.ops import act_quant, gmm as gfl, gmm_mixed_packed as gmp
     from mxmoe_tpu_torch.ops import gmm_mixed_wo_wxa as gmx, gmm_w8a8 as gmm
     from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
     from mxmoe_tpu_torch.ops import gmm_weight_only as gwo
     from mxmoe_tpu_torch.quant.packing import build_ragged_mixed
+    from mxmoe_tpu_torch.trace import profiler
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -947,13 +955,17 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
         t["library_ms"] = time_ms(lambda: gfl.gmm(x, w, gs, backend="ragged_dot"))
         t["library_device_ms"] = device_ms(lambda: gfl.gmm(x, w, gs,
                                                            backend="ragged_dot"))
-        emit("kernels", kernel="gmm_bf16", max_abs_err=err, err_over_bound=ratio,
+        body = gfl.bf16_gmm_schedule(x.dtype).body
+        emit("kernels", kernel="gmm_bf16", body=body, max_abs_err=err,
+             err_over_bound=ratio,
              bound="(K + 1) * 2^-24 * sum|lhs||rhs| + 1 bf16 ulp, vs float64",
              library="torch._grouped_mm" if gfl.has_grouped_mm() else "masked products",
              library_max_abs_err=lib_err, library_err_over_bound=lib_ratio,
              **shape, **t)
-        if keep:
-            rec["gmm_bf16"].update(max_abs_err=err, **t)
+        if keep is True:
+            rec["gmm_bf16"].update(max_abs_err=err, body=body, **t)
+        elif keep:
+            rec["gmm_bf16"][keep] = {"body": body, "max_abs_err": err, **shape, **t}
 
     all0, all1 = [0] * e, [1] * e
     for regime, tokens in (("decode", 4), ("prefill", 256)):
@@ -973,7 +985,26 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                 mixes += [("all w x a", all0), ("all weight-only", all1)]
             wo_wxa(gs, m, k, nn, shape, keep, GSIZE, True, mixes)
             wo_wxa(gs, m, k, nn, shape, keep, -1, False, mixes)
-            float_gmm(gs, m, k, nn, shape, keep)
+            float_gmm(gs, m, k, nn, shape,
+                      keep or ("prefill" if k == h and not decode else False))
+
+    # K11 at the profiler's three scales (its w16a16 row: gate_up, routed as
+    # the table routes them) and at the headline's 32762 unaligned rows,
+    # gate_up and down
+    large = [(f"profiler {t} tokens", workloads.synthetic_workload(e, t, cfg.top_k, h,
+                                                                  2 * n),
+              "large" if t == max(profiler.SCALES) else False)
+             for t in profiler.SCALES]
+    large += [("headline", wl, False) for wl in workloads.qwen2_moe_l10_bs8192()]
+    t0 = time.perf_counter()
+    for use, wl, keep in large:
+        gs = torch.tensor(wl.group_sizes, dtype=torch.int32, device=dev)
+        shape = dict(regime=use, M=wl.m_total, K=wl.k, N=wl.n,
+                     empty_groups=int((gs == 0).sum().item()))
+        float_gmm(gs, wl.m_total, wl.k, wl.n, shape, keep)
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="gmm_bf16", use="the large-M checks above",
+         seconds=time.perf_counter() - t0)
 
     # the int8 lm_head: K1 + K2 with one group over the whole vocabulary
     v = cfg.vocab_size
@@ -1702,12 +1733,15 @@ def schedule_edges() -> None:
     codes, at g128 with zero points and per channel: K6 within
     ``gmm_weight_only.error_over_bound`` of the float64 product, K7 bitwise
     K6, K10 (experts alternating) weight-only rows bitwise K6 and w x a rows
-    bitwise K8 (and K2 per channel). K3 / K3q at
+    bitwise K8 (and K2 per channel). K11 on the same rows with bf16
+    weights within ``gmm.error_over_bound`` (its wgmma body at every M).
+    K3 / K3q at
     lengths on the warp-chunk and S-block edges, G 1 / 4 / 7: the write
     bitwise, the output within K3_REL_BOUND per slot (+ 1 bf16 ulp), the
     read-only form bitwise K3 / K3q after their write."""
     import torch
 
+    from mxmoe_tpu_torch.ops import gmm as gfl
     from mxmoe_tpu_torch.ops import gmm_mixed_packed as gmp, gmm_w4a8_packed as g4p
     from mxmoe_tpu_torch.ops import gmm_w8a8 as gmm, gmm_w8a8_asym as gas
     from mxmoe_tpu_torch.ops import gmm_w8a8_grouped as ggrp
@@ -1718,7 +1752,7 @@ def schedule_edges() -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
-    cases, grouped_cases, wo_cases = [], [], []
+    cases, grouped_cases, wo_cases, k11_cases = [], [], [], []
     for m in (1, 4, 16, 17, 24, 64, 65, 256):
         for layout in ("routed", "one_group"):
             if layout == "routed":
@@ -1801,6 +1835,19 @@ def schedule_edges() -> None:
                 wo_cases.append({"M": m, "layout": layout, "K": k, "gsize": gsize,
                                  "err_over_bound": ratio,
                                  **_wo_schedule(m, k, n, e, gsize)})
+            # K11 on the same rows, bf16 weights (its wgmma body)
+            wbf = (torch.randn((e, k, n), generator=gen, device=dev) * 0.02).to(
+                torch.bfloat16)
+            k11 = gfl.gmm_bf16(x, wbf, gs)
+            torch.cuda.synchronize()
+            _, ratio = gfl.error_over_bound(k11, x, wbf, gs)
+            body = gfl.bf16_gmm_schedule().body
+            if not ratio <= 1.0:
+                raise AssertionError(f"K11 ({body} body) outside its bound at M {m} "
+                                     f"{layout}: {ratio} of it")
+            k11_cases.append({"M": m, "layout": layout, "K": k, "N": n, "body": body,
+                              "err_over_bound": ratio})
+            del wbf, k11
             torch.cuda.synchronize()
             for what, got, ref in checks:
                 _require_equal(got, ref, f"{what} at M {m} {layout}")
@@ -1819,6 +1866,7 @@ def schedule_edges() -> None:
     emit("schedule_edges", kernel="weight-only GEMM (K6, K7, K10)",
          k7_equals_k6=True, k10_weight_only_rows_equal_k6=True,
          k10_wxa_rows_equal_k8_or_k2=True, cases=wo_cases)
+    emit("schedule_edges", kernel="bf16 grouped GEMM (K11)", cases=k11_cases)
 
     n_kv, s_max, dv, layer = 2, 600, 128, 0
     lens = [0, 15, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 599, 600]
@@ -3188,7 +3236,8 @@ def main() -> int:
          "offline_launches": {art: n[name] for art, n in offline.items() if n.get(name)},
          "solve_launches": {st: n[name] for st, n in solve.items() if n.get(name)},
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
-         **({"prefill": rec[name]["prefill"]} if "prefill" in rec[name] else {})}
+         **{key: rec[name][key] for key in ("body", "prefill", "large")
+            if key in rec[name]}}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

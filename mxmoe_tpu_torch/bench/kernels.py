@@ -20,11 +20,12 @@ Tiles. The JAX package's ``TileSpec`` / ``DEFAULT_TILES`` are Pallas block
 sizes that its caller chooses; the port's kernels choose their own schedule
 from the shapes (``ops.gmm_w8a8.int8_gmm_schedule``,
 ``ops.gmm_w8a8_grouped.grouped_gmm_schedule`` / ``weight_only_gmm_schedule``,
-the wgmma body above M 64; K11 has one tile). So a scheme has ONE tile
-here at a given workload: ``scheme_tile`` names the schedule its kernel
-takes at those shapes, with ``bm`` / ``bn`` that schedule's output tile. The
-solver's assignment <-> tile fixed point then converges at once, and its
-``*_tile_cfg.json`` names these schedules.
+``ops.gmm.bf16_gmm_schedule``; K2 / K5's wgmma body above M 64, K11's at
+every M). So a scheme
+has ONE tile here at a given workload: ``scheme_tile`` names the schedule
+its kernel takes at those shapes, with ``bm`` / ``bn`` that schedule's
+output tile. The solver's assignment <-> tile fixed point then converges at
+once, and its ``*_tile_cfg.json`` names these schedules.
 """
 
 from __future__ import annotations
@@ -35,10 +36,6 @@ import torch
 
 from ..quant.schemes import QLinearConfig, parse_scheme
 from .workloads import GroupGemmWorkload
-
-# K11's tile (csrc/gmm_weight_only_tile.cuh WBM x WBN, one schedule)
-K11_BM, K11_BN = 32, 128
-
 
 @dataclasses.dataclass(frozen=True)
 class TileSpec:
@@ -93,13 +90,15 @@ def _gsize(cfg: QLinearConfig, k: int) -> int:
 def scheme_tile(scheme, m: int, k: int, n: int, e: int) -> TileSpec:
     """The tile of the schedule the scheme's kernel takes at [M, K] x
     [E, K, N] (aligned operands)."""
+    from ..ops.gmm import bf16_gmm_schedule
     from ..ops.gmm_w8a8 import int8_gmm_schedule
     from ..ops.gmm_w8a8_grouped import grouped_gmm_schedule, weight_only_gmm_schedule
 
     cfg, kind = _parse(scheme)
     name = kernel_of(scheme)
     if kind == "bf16":
-        return TileSpec(K11_BM, K11_BN, name)
+        sched = bf16_gmm_schedule()
+        return TileSpec(sched.bm, sched.bn, f"{name}.{sched.body}")
     if kind in ("weight_only", "weight_only_packed"):
         sched = weight_only_gmm_schedule(m, k, n, e, _gsize(cfg, k))
     elif kind == "int8_grouped":

@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Nine
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Ten
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -51,7 +51,17 @@ case sets, each against the csrc of the commit before its redesign:
   body and each n-tile block quantized its rows again): K14 at qwen2_moe's
   gate_up, decode (M 16), a prefill chunk (M 1024) and the headline's rows
   (32762), bf16 activations, bitwise old = new = K1 + K2, with K1 + K2 (the
-  package's kernels) timed beside.
+  package's kernels) timed beside;
+* ``bf16_large`` (before K11's bf16 operands took the persistent wgmma body
+  at every row count): K11 through its wrapper against the 32 x 128
+  mma.sync body at ``workloads.k11_shapes``: the prefill chunks of
+  qwen2_moe (M 1024 over 60 experts) and ds2 (M 1536 over 64), qwen2_moe's
+  routing at the decode rows and just above them (M 16 / 40 / 68 / 80 / 96
+  / 112 / 128, gate_up and down) and at M 512 / 4096,
+  the profiler's three scales (M 8192 / 32768 / 65536, gate_up) and the
+  headline's 32762 rows (gate_up and down); old and new sum K in other
+  orders, so each, and ``torch._grouped_mm`` timed beside them, is held
+  within ``gmm.error_over_bound`` of the float64 product.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -140,6 +150,9 @@ _OLD = {
     "fusedquant": (("gmm_w8a8_fusedquant.cu",), {
         "mxmoe_gmm_w8a8_fusedquant": [_P, _I, _P, _P, _P, _P, _I, _F] + [_I] * 4
                                      + [_P]}),
+    # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
+    "bf16_large": (("gmm_bf16.cu",), {
+        "mxmoe_gmm_bf16": [_P] * 4 + [_I] * 6 + [_P]}),
 }
 
 
@@ -931,6 +944,51 @@ def fusedquant_cases(lib, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+def bf16_large_cases(lib, reps: int) -> None:
+    """K11 with bf16 operands (``workloads.k11_shapes``): the 32 x 128
+    mma.sync body (old) against the wgmma body (the package's, at every row
+    count), the stock grouped product beside."""
+    from ..ops import gmm as gfl
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for use, sizes, k, nn in workloads.k11_shapes(lambda model, t: _routed_sizes(
+            model, t, gen)):
+        m, e = sum(sizes), len(sizes)
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, k, nn), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+
+        def old():
+            kernels.check(lib.mxmoe_gmm_bf16(
+                x.data_ptr(), w.data_ptr(), gs.data_ptr(), out_old.data_ptr(), 1, 1, m,
+                k, nn, e, _stream()), "old mxmoe_gmm_bf16")
+            return out_old
+
+        def new():
+            return gfl.gmm_bf16(x, w, gs)
+
+        def library():
+            return gfl.gmm(x, w, gs, backend="ragged_dot")
+
+        got = {"new": new(), "old": old().clone(), "library": library()}
+        torch.cuda.synchronize()
+        ratios = {name: gfl.error_over_bound(o, x, w, gs)[1] for name, o in got.items()}
+        if not (ratios["new"] <= 1.0 and ratios["old"] <= 1.0):
+            raise AssertionError(f"gmm_bf16 {use}: outside the bound {ratios}")
+        nbytes = m * k * 2 + live * k * nn * 2 + e * 4 + m * nn * 2
+        _emit("gmm_bf16", use=use, M=m, K=k, N=nn, E=e, live_groups=live,
+              schedule=vars(gfl.bf16_gmm_schedule()), err_over_bound=ratios,
+              library_device_ms=device_ms(library, reps),
+              library_event_ms=event_ms(library, reps),
+              **_ab(old, new, reps), **_bound(nbytes, 2 * m * k * nn, "bf16"))
+        del x, w, out_old, got
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -944,7 +1002,8 @@ def main(argv=None) -> None:
     runs = {"gmm": gmm_cases, "attention": attention_cases, "ffn": ffn_cases,
             "grouped": grouped_cases, "weight_only": weight_only_cases,
             "ws": ws_cases, "act_quant": act_quant_cases,
-            "int8_large": int8_large_cases, "fusedquant": fusedquant_cases}
+            "int8_large": int8_large_cases, "fusedquant": fusedquant_cases,
+            "bf16_large": bf16_large_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -8,8 +8,8 @@ timed. One JSON line per shape and kernel; whether each variant's output
 equals the package's bit for bit (a variant that drops work to time the
 rest does not).
 
-    python -m mxmoe_tpu_torch.bench.variant_ab [--kernel weight_only|ws|act_quant|wgmma] \\
-        --variant name=DIR [...]
+    python -m mxmoe_tpu_torch.bench.variant_ab \\
+        [--kernel weight_only|ws|act_quant|wgmma|bf16] --variant name=DIR [...]
 
 * ``weight_only`` (the default): the weight-only decode body
   (``csrc/gmm_weight_only_tile.cuh``; sources ``gmm_weight_only.cu``,
@@ -25,6 +25,11 @@ rest does not).
   chunk (gate_up, down) and the headline's 32762 unaligned rows (gate_up),
   K15 on the aligned layout, K14 at decode (M 16), the prefill chunk and
   the headline's rows.
+* ``bf16``: K11's bodies (``gmm_bf16.cu``) with bf16 operands through the
+  wrapper, at ``workloads.k11_shapes`` (the prefill chunks, qwen2_moe's
+  routing at M 16-4096, the profiler's three scales, the headline pair),
+  each variant's output held within ``gmm.error_over_bound`` (printed; a
+  variant that drops work fails it).
 * ``act_quant``: K1's bodies (``act_quant.cu``) at the headline's rows
   (36736 x 2048 / 1408, 8192 x 5632), prefill chunks (4096 and 1024 x 2048)
   and decode (16 x 2048), bf16, per-row bits 4 / 8 / 16.
@@ -69,6 +74,7 @@ KERNEL_SETS = {
                "gmm_w8a8_fusedquant.cu"),
               ("mxmoe_gmm_w8a8", "mxmoe_gmm_w4a8_packed", "mxmoe_gmm_ws",
                "mxmoe_gmm_w8a8_fusedquant")),
+    "bf16": (("gmm_bf16.cu",), ("mxmoe_gmm_bf16",)),
 }
 GSIZE = 128
 
@@ -252,6 +258,47 @@ def wgmma_variants(named: dict) -> None:
                           "device_ms_turns": times, "bitwise_package": same}), flush=True)
 
 
+def bf16_variants(named: dict) -> None:
+    from ..ops import gmm as gfl
+    from . import workloads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    libs = {"package": kernels.lib(),
+            **{k: build_variant(d, "bf16") for k, d in named.items()}}
+
+    def routed(model, tokens):
+        cfg = configs.config_for(model)
+        logits = torch.randn((tokens, cfg.num_experts), generator=gen, device=dev)
+        return make_dispatch(route_topk(logits, cfg.top_k, cfg.norm_topk_prob),
+                             cfg.num_experts).group_sizes.tolist()
+
+    for use, sizes, k, nn in workloads.k11_shapes(routed):
+        m, e = sum(sizes), len(sizes)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, k, nn), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+
+        def fn():
+            return gfl.gmm_bf16(x, w, gs)
+
+        times, same = _timed_in_turns(libs, fn)
+        ratio = {}
+        for v, lib in libs.items():
+            kernels._lib = lib
+            try:
+                ratio[v] = gfl.error_over_bound(fn(), x, w, gs)[1]
+            finally:
+                kernels._lib = libs["package"]
+        print(json.dumps({"use": use, "kernel": "gmm_bf16", "M": m, "K": k, "N": nn,
+                          "body": gfl.bf16_gmm_schedule().body,
+                          "device_ms": {v: sum(t) / len(t) for v, t in times.items()},
+                          "device_ms_turns": times, "bitwise_package": same,
+                          "err_over_bound": ratio}), flush=True)
+        del x, w
+        torch.cuda.empty_cache()
+
+
 def act_quant_variants(named: dict) -> None:
     from ..ops import act_quant
 
@@ -324,6 +371,8 @@ def main(argv=None) -> None:
             act_quant_variants(named)
         elif args.kernel == "wgmma":
             wgmma_variants(named)
+        elif args.kernel == "bf16":
+            bf16_variants(named)
         else:
             variants(named)
     smi = subprocess.run(

@@ -81,3 +81,40 @@ def synthetic_workload(num_experts: int, tokens: int, top_k: int, k: int, n: int
     ms = np.maximum(1, np.round(probs * tokens * top_k).astype(int))
     return GroupGemmWorkload(name=f"synthetic-e{num_experts}-t{tokens}-k{top_k}",
                              group_sizes=tuple(int(m) for m in ms), k=k, n=n)
+
+
+def k11_shapes(routed) -> list[tuple[str, list[int], int, int]]:
+    """K11's bf16 A/B shapes (``redesign_ab --cases bf16_large``,
+    ``variant_ab --kernel bf16``) -> (use, group sizes, K, N): the qwen2_moe
+    and ds2 prefill chunks (256 tokens), qwen2_moe gate_up and down at the
+    decode rows and just above them (M 16-128), gate_up at M 512 and 4096,
+    the profiler's three scales (gate_up) and the headline pair.
+    ``routed(model, tokens)`` gives the group sizes of ``tokens`` tokens
+    routed over ``model``'s experts."""
+    from ..models import configs
+    from ..trace import profiler
+
+    def projections(cfg):
+        h, n = cfg.hidden_size, cfg.moe_intermediate_size
+        return (("gate_up", h, 2 * n), ("down", n, h))
+
+    shapes = []
+    for model in ("qwen2_moe", "ds2"):
+        sizes = routed(model, 256)
+        shapes += [(f"{model} prefill chunk {proj}", sizes, k, n)
+                   for proj, k, n in projections(configs.config_for(model))]
+    qwen = configs.config_for("qwen2_moe")
+    (_, h, n2), down = projections(qwen)
+    for tokens in (4, 10, 17, 20, 24, 28, 32, 128, 1024):
+        sizes = routed("qwen2_moe", tokens)
+        shapes.append((f"qwen2_moe M {4 * tokens} gate_up", sizes, h, n2))
+        if tokens <= 32:
+            shapes.append((f"qwen2_moe M {4 * tokens} down", sizes, *down[1:]))
+    shapes += [(f"profiler {t} tokens gate_up",
+                list(synthetic_workload(qwen.num_experts, t, qwen.top_k, h,
+                                        n2).group_sizes), h, n2)
+               for t in profiler.SCALES]
+    shapes += [(f"headline {wl.name.rsplit('-', 1)[-1]}",
+                list(QWEN2_MOE_L10_BS8192_ROUTED_M), wl.k, wl.n)
+               for wl in qwen2_moe_l10_bs8192()]
+    return shapes

@@ -394,38 +394,40 @@ int sm_count() {
   return count[dev];
 }
 
+// one TMA map over `rank` dims (innermost first) with the byte strides of
+// dims 1.. and boxes of `box`: unit element strides, 256-byte L2 promotion,
+// boxes past the data read zeros
+cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
+                       const void* base, const cuuint64_t* dim, const cuuint64_t* stride,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t one[3] = {1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dim, stride, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // the TMA maps of the body: the activations' codes [M, K] (128 x 128 boxes,
 // 128-byte swizzle) and the weights [E, kw, N] (kw = K/2 packed; boxes of
 // 32 byte rows x 256 columns). Needs K % 16 == 0 (K % 64 packed), N % 16
 // == 0 and 16-byte aligned operands.
 cudaError_t ws_encode_maps(const void* lhs, const void* rhs, bool packed, int M, int K,
                            int N, int E, CUtensorMap* map_a, CUtensorMap* map_w) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const int kw = packed ? K / 2 : K;
-  {
-    const cuuint64_t dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
-    const cuuint64_t stride[1] = {(cuuint64_t)K};
-    const cuuint32_t box[2] = {WS_BK, WS_BM};
-    const cuuint32_t one[2] = {1, 1};
-    if (encode(map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(lhs), dim,
-               stride, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return cudaErrorInvalidValue;
-  }
-  {
-    const cuuint64_t dim[3] = {(cuuint64_t)N, (cuuint64_t)kw, (cuuint64_t)E};
-    const cuuint64_t stride[2] = {(cuuint64_t)N, (cuuint64_t)kw * N};
-    const cuuint32_t box[3] = {WS_BN, WS_QK, 1};
-    const cuuint32_t one[3] = {1, 1, 1};
-    if (encode(map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(rhs), dim,
-               stride, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return cudaErrorInvalidValue;
-  }
-  return cudaSuccess;
+  const cuuint64_t a_dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t a_stride[1] = {(cuuint64_t)K};
+  const cuuint32_t a_box[2] = {WS_BK, WS_BM};
+  const cuuint64_t w_dim[3] = {(cuuint64_t)N, (cuuint64_t)kw, (cuuint64_t)E};
+  const cuuint64_t w_stride[2] = {(cuuint64_t)N, (cuuint64_t)kw * N};
+  const cuuint32_t w_box[3] = {WS_BN, WS_QK, 1};
+  cudaError_t e = encode_map(map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, lhs, a_dim, a_stride,
+                             a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  return encode_map(map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, rhs, w_dim, w_stride, w_box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // the persistent grid: one CTA an SM, no more than `items` (a bound on the

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for kernels that feed wgmma from shared
 // memory: mbarriers, TMA tile loads, shared-memory matrix descriptors and
-// the warpgroup MMA itself. No kernel lives here; K15 (gmm_ws.cu) is the
-// first user, and a later wgmma body (K2's prefill tile, K14) can reuse it.
+// the warpgroup MMA itself. No kernel lives here; its users are the int8
+// body of gmm_ws_body.cuh (K15, K2 / K5 above the decode rows, K14) and
+// K11's bf16 body (gmm_bf16.cu).
 //
 // Conventions:
 // * Shared addresses are 32-bit (cvta to the shared window).
@@ -14,6 +15,15 @@
 // * For 8-bit operands wgmma reads both A and B K-major only (its transpose
 //   bits apply to 16-bit types), so a [K, N] N-contiguous operand must be
 //   transposed into that layout by the kernel.
+// * A 16-bit [K, N] N-contiguous operand is read as it lands, MN-major
+//   (wgmma's transpose bit for B): TMA boxes of [64 k rows x 64 columns]
+//   with the 128-byte swizzle hold each k row's 64 columns in one 128-byte
+//   row (chunk c of row r at c ^ (r % 8)), 8-row groups of K 1024 bytes
+//   apart; a tile wider than 64 columns is several such boxes, `mn_block`
+//   bytes apart. smem_desc_sw128_mn describes it (CuTe's canonical
+//   Major::MN SW128 layout, ((8,n),(8,k)) : ((1,LBO),(8,SBO)) in 16-byte
+//   units: LBO the box stride along N, SBO the 8-row stride along K); a step
+//   of 16 k rows is a start address 16 x 128 bytes on.
 
 #pragma once
 
@@ -112,6 +122,16 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
          | (uint64_t(1) << 62);             // layout: 128-byte swizzle
 }
 
+// descriptor of an MN-major, 128-byte-swizzled 16-bit operand tile at `p`
+// whose 64-column boxes lie `mn_block` bytes apart (see top)
+__device__ __forceinline__ uint64_t smem_desc_sw128_mn(const void* p, uint32_t mn_block) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)                  // start address, 16-byte units
+         | (uint64_t((mn_block >> 4) & 0x3FFF) << 16)  // leading: next 64 columns
+         | (uint64_t(1024 >> 4) << 32)            // stride: next 8 k rows
+         | (uint64_t(1) << 62);                   // layout: 128-byte swizzle
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -129,6 +149,22 @@ template <int N>
 __device__ __forceinline__ void reg_fence(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// the warpgroup's register budget: a producer gives registers back, the
+// consumers take them (every warp of the warpgroup executes it)
+template <int kRegs>
+__device__ __forceinline__ void warpgroup_reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void warpgroup_reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
 // D[64 x 256] (+)= A[64 x 32] * B[32 x 256], s8 x s8 -> s32, both operands
@@ -189,6 +225,68 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc
         "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
         "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256], bf16 x bf16 -> f32: A K-major
+// (smem_desc_sw128), B MN-major (smem_desc_sw128_mn, the transpose bit set).
+// The accumulator fragment is the s8 one's above, in f32. scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_tb(float (&d)[128], uint64_t desc_a,
+                                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

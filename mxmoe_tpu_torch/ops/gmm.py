@@ -17,20 +17,46 @@ Backends, under the reference's names:
                 plain version on the CPU. The name is kept so that a reader
                 finds the counterpart; nothing of Pallas is involved
 
-K11 (``gmm_bf16``): bf16 operands go through ``mma.sync`` with f32
-accumulation over all of K and one rounding to the output dtype. f32
-operands are multiplied and added in full f32 (an FMA loop outside the
-tensor cores), which is what the reference computes in interpret mode; the
-tensor cores' TF32 would drop 13 mantissa bits of each operand and is a
-different function. Rows past ``sum(group_sizes)`` are left unwritten by the
-kernel and zero in the plain version.
+K11 (``gmm_bf16``): f32 accumulation over all of K and one rounding to
+the output dtype. ``bf16_gmm_schedule`` names the body, which the operands'
+type picks: bf16 operands go through the persistent ``wgmma`` body at every
+row count (128 x 256 work items walked as ``gmm_ws.ws_device_work_items``
+walks them, the weights read MN-major as they are stored); f32 operands are
+multiplied and added in full f32 (an FMA loop outside the tensor cores),
+which is what the reference computes in interpret mode; the tensor cores'
+TF32 would drop 13 mantissa bits of each operand and is a different
+function. Rows past ``sum(group_sizes)`` are left unwritten by the kernel
+and zero in the plain version.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import kernels
+
+# the tiles of K11's bodies: the wgmma body's work item (rows and columns,
+# the walk of csrc/gmm_ws_body.cuh) and the f32 loop's block
+WGMMA_BM, WGMMA_BN = 128, 256
+F32_BM, F32_BN = 32, 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16GemmSchedule:
+    """The body one K11 launch takes: ``"wgmma"`` (bf16 operands) or
+    ``"f32"`` (the FMA loop), with its output tile ``bm`` x ``bn``."""
+    body: str
+    bm: int
+    bn: int
+
+
+def bf16_gmm_schedule(dtype=torch.bfloat16) -> Bf16GemmSchedule:
+    """K11's body for operands of ``dtype``, at any shape."""
+    if dtype == torch.float32:
+        return Bf16GemmSchedule("f32", F32_BM, F32_BN)
+    return Bf16GemmSchedule("wgmma", WGMMA_BM, WGMMA_BN)
 
 
 def gmm_dense_reference(lhs: torch.Tensor, rhs: torch.Tensor,

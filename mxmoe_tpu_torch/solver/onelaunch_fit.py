@@ -13,7 +13,11 @@ Rates, each from the device time of the kernels one call launched
                      int8 write an element
     hbm_gbps_eff     K2 (gmm_w8a8) at decode M: one row for each of 60
                      experts (K 2048, N 1408), every expert's weights read once
-    bf16_tflops_eff  K11 (gmm_bf16) over the headline layer's routed rows
+    bf16_tflops_eff  K6 (gmm_weight_only) over the same rows and codes,
+                     int8-stored, one scale group: the rate the weight-only
+                     (a16) rows ride, which is the rate's meaning in the
+                     reference (``tools/tpu_onelaunch_fit.py``); the model
+                     prices every weight-only scheme, and w16a16, at it
     unpack_gops      K4 at decode M with 0 / 30 / 60 experts packed against
                      the same codes int8-stored: the time the packed experts
                      take beyond what the model's halved weight bytes give,
@@ -140,9 +144,9 @@ def _decode_operands(gen, device, w4: np.ndarray | None = None):
 
 def fit_rates(device="cuda", reps: int = 10, verbose: bool = True) -> tuple[dict, dict]:
     """The five rates and the launch constant -> (rates, measurements)."""
-    from ..ops.gmm import gmm_bf16
     from ..ops.gmm_mixed_packed import gmm_mixed_packed
     from ..ops.gmm_w8a8 import gmm_w8a8
+    from ..ops.gmm_weight_only import gmm_weight_only
     from ..quant.packing import build_ragged_mixed
 
     device = torch.device(device)
@@ -169,18 +173,15 @@ def fit_rates(device="cuda", reps: int = 10, verbose: bool = True) -> tuple[dict
     say(f"K1 {q_ms:.4f} ms -> {rates['quant_gbps_eff']:.1f} GB/s; K4 {r_ms:.4f} ms "
         f"-> {rates['int8_tflops_eff']:.1f} TOP/s")
 
-    # K11 over the same rows in bf16
+    # K6 over the same rows and codes (bf16 activations, one scale group)
     b_ms = 0.0
     for lay in layers:
-        w = torch.empty((lay.q.shape[0], lay.q.shape[1], lay.q.shape[2]),
-                        dtype=torch.bfloat16, device=device)
-        for ei in range(w.shape[0]):
-            w[ei] = _uniform(gen, w.shape[1:], device).to(torch.bfloat16)
-        b_ms += timing.device_ms(lambda: gmm_bf16(lay.lhs, w, lay.gs), reps=reps)
-        del w
+        zp = torch.zeros_like(lay.sc)
+        b_ms += timing.device_ms(
+            lambda: gmm_weight_only(lay.lhs, lay.q, lay.sc, zp, lay.gs, -1), reps=reps)
     rates["bf16_tflops_eff"] = flops / (b_ms * 1e-3) / 1e12
-    meas["k11_headline_ms"] = b_ms
-    say(f"K11 {b_ms:.4f} ms -> {rates['bf16_tflops_eff']:.1f} TFLOP/s")
+    meas["k6_headline_ms"] = b_ms
+    say(f"K6 {b_ms:.4f} ms -> {rates['bf16_tflops_eff']:.1f} TFLOP/s")
     del layers
 
     # K2 at decode M: every expert's weights read once

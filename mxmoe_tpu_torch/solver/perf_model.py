@@ -36,9 +36,9 @@ H100_HBM_GBPS = 3350.0
 # OneLaunchPerfModel's effective rates, fitted on "NVIDIA H100 80GB HBM3,
 # 700.00 W" by ``python -m mxmoe_tpu_torch.solver.onelaunch_fit`` (the
 # committed perf/onelaunch_model.json holds the same fit and its card)
-H100_ONELAUNCH = {"int8_tflops_eff": 137.72, "bf16_tflops_eff": 129.04,
-                  "hbm_gbps_eff": 1893.51, "quant_gbps_eff": 2727.69,
-                  "unpack_gops": 18534.34, "launch_ms": 0.006699}
+H100_ONELAUNCH = {"int8_tflops_eff": 138.95, "bf16_tflops_eff": 77.37,
+                  "hbm_gbps_eff": 1892.42, "quant_gbps_eff": 2737.75,
+                  "unpack_gops": 24562.59, "launch_ms": 0.006901}
 
 
 def _cdiv(a: int, b: int) -> int:

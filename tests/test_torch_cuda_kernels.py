@@ -26,7 +26,10 @@ K4f (the flex form of K4) bitwise its plain version and bitwise K8 on the
 unpacked codes; K10's w x a experts bitwise K8 (K2 when per channel) and its
 weight-only experts bitwise K6 on the same operands and within K6's bound;
 K11 within ``gmm.error_over_bound`` (f32 accumulation over K terms, + 1 bf16
-ulp for a bf16 output) of the float64 product, for bf16 and f32 operands.
+ulp for a bf16 output) of the float64 product, for bf16 and f32 operands;
+its bf16 (wgmma) body at M 1-8192, groups at any row, empty groups, one
+group, K 1408-14336 with a K tail, N 1024-5120 with an N tail, and rows
+past the groups left as they were.
 K12 (the whole FFN) bitwise its plain version, K13 bitwise its plain version
 and K12 on the equivalent int8 codes (also at row counts on the edges of the
 cluster body's m16 / m32 fragments with tiles straddling experts, at
@@ -589,6 +592,81 @@ def test_gmm_bf16_kernel_within_bound(dev, sizes, k, n, dtype, out):
     _, ratio = gmm_float.error_over_bound(stock[:rows].contiguous(), x[:rows].contiguous(),
                                           w, gs)
     assert ratio <= 1.0 or dtype == torch.float32
+
+
+def _summing_to(sizes, m):
+    """``sizes`` with the first group grown or cut so that they sum to m."""
+    return [sizes[0] + m - sum(sizes), *sizes[1:]]
+
+
+# K11 with bf16 operands (its wgmma body): name -> (group sizes, K, N)
+_BF16_BODY_CASES = {
+    "m1": ([0, 1, 0], 2048, 2816),
+    "m16_decode": ([1, 0, 2, 1, 3, 0, 1, 1, 2, 1, 0, 4], 2048, 2816),
+    "m40_down": ([0, 5, 3, 1, 0, 7, 2, 9, 1, 0, 4, 8], 1408, 2048),
+    "m64": ([1, 0, 20, 3, 40], 2048, 2816),
+    "m65": ([1, 0, 20, 3, 41], 2048, 2816),
+    "m127": ([60, 0, 67], 1408, 2048),
+    "m129": ([1, 127, 0, 1], 2048, 2816),
+    "chunk1024": (_summing_to([(i * 37) % 31 for i in range(59)] + [0], 1024), 2048,
+                  2816),
+    "chunk1024_down": (_summing_to([(i * 29) % 33 for i in range(60)], 1024), 1408,
+                       2048),
+    "m8192": (_summing_to([120 + (i * 53) % 37 for i in range(60)], 8192), 2048, 2816),
+    "groups_at_any_row": ([37, 0, 200, 1, 0, 91, 130, 0], 1408, 2048),
+    "one_group": ([777], 2048, 2816),
+    "first_group_empty": ([0, 129, 127], 2048, 2816),
+    "k4096": ([300, 3, 0, 250], 4096, 1024),
+    "mixtral_down_k14336": ([130, 70, 2, 90], 14336, 4096),
+    "57b_gate_up_n5120": ([33, 0, 250, 101], 3584, 5120),
+    "k_tail_n_tail": ([50, 0, 170, 23], 1416, 1400),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BF16_BODY_CASES))
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["obf16", "of32"])
+def test_gmm_bf16_wgmma_within_bound(dev, case, out):
+    """K11's bf16 body from the decode rows to 8192 rows: the wrapper's
+    output within ``gmm.error_over_bound`` of the float64 product; a
+    reference with the last k row's weights dropped lies outside it."""
+    sizes, k, n = _BF16_BODY_CASES[case]
+    m, e = sum(sizes), len(sizes)
+    assert gmm_float.bf16_gmm_schedule().body == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, k, n), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = kernels.launches["gmm_bf16"]
+    got = gmm_float.gmm_bf16(x, w, gs, out_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_bf16"] == before + 1
+    assert gmm_float.error_over_bound(got, x, w, gs)[1] <= 1.0
+    w_m = w.clone()
+    w_m[:, k - 1] = 0
+    assert gmm_float.error_over_bound(got, x, w_m, gs)[1] > 1.0
+
+
+def test_gmm_bf16_wgmma_body_leaves_rows_past_the_groups(dev):
+    """The wgmma body (its C entry point): rows past sum(group_sizes),
+    inside the last tile and past it, keep what the output held; a group
+    past M is cut at M; every stored row is within the bound."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    m, k, n = 700, 256, 512
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, k, n), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    for sizes, rows in (([100, 0, 230], 330), ([400, 200, 300], 700)):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        out = torch.full((m, n), float("nan"), device=dev)
+        kernels.check(kernels.lib().mxmoe_gmm_bf16(
+            x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(), 1, 0, m, k, n, 3,
+            kernels.stream_ptr(dev)), "gmm_bf16")
+        torch.cuda.synchronize()
+        assert not bool(torch.isnan(out[:rows]).any())
+        assert bool(torch.isnan(out[rows:]).all())
+        cut = torch.tensor([min(s, max(rows - sum(sizes[:i]), 0))
+                            for i, s in enumerate(sizes)], dtype=torch.int32, device=dev)
+        assert gmm_float.error_over_bound(out[:rows].contiguous(), x[:rows].contiguous(),
+                                          w, cut)[1] <= 1.0
 
 
 def _aligned_sizes(counts, align=32):

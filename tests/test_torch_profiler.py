@@ -65,7 +65,7 @@ def test_launcher_equals_reference_output(scheme):
 def test_scheme_tiles_name_the_kernels_schedules():
     k, n, e = 2048, 2816, 60
     big = workloads.synthetic_workload(e, 2048, 4, k, n).m_total
-    want = {"w16a16_g-1_sym": "gmm_bf16-bm32-bn128",
+    want = {"w16a16_g-1_sym": "gmm_bf16.wgmma-bm128-bn256",
             "w8a8_g-1_sym": "gmm_w8a8.wgmma-bm128-bn256",
             "w4a4_g-1_sym_packed": "gmm_w4a8_packed.wgmma-bm128-bn256",
             "w8a8_g-1_asym": "gmm_w8a8_asym.prefill-bm64-bn128",
