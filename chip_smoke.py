@@ -39,7 +39,9 @@ failure raises and the script exits non-zero without a result line:
               K1, K2, K4, K5 bitwise (K4 and K5 also against K2 on the
               unpacked codes, K5 against K4 on an all-packed buffer); K3 and
               K3q caches (codes and scales) bitwise and their output per
-              slot within K3_REL_BOUND of the slot's scale (+1 ulp for bf16).
+              slot within K3_REL_BOUND of the slot's scale (+1 ulp for bf16),
+              also at the anchor's head dim 32 (G 2) on the same lengths
+              and at its decode step (8 slots of 128 positions, f32).
               K8 (without and with zero points) and K9 bitwise, K9 also
               against K8 with one group; K6 and K7 within their accumulation
               bound of a float64 product (gmm_weight_only.error_over_bound),
@@ -87,7 +89,10 @@ failure raises and the script exits non-zero without a result line:
               K3_REL_BOUND per slot of the plain versions, the stacked forms
               bitwise K3 / K3q after their write of the same step, the
               per-layer forms bitwise the stacked ones; the bf16 forms timed
-              beside scaled_dot_product_attention
+              beside scaled_dot_product_attention. Then 20 profiled runs
+              of K1 without device_ms's lead-in, the anchor's training (300
+              steps), and 20 runs without and 20 with the lead-in (at most
+              2 of 20 with it may lose a marker): the `timing` line
   4. parity   full-width qwen2_moe, 2 layers, the same params and tokens
               through forward_cached on the CPU (plain versions) and on
               CUDA (kernels): one 256-token prefill chunk + 4 decode steps;
@@ -175,7 +180,9 @@ failure raises and the script exits non-zero without a result line:
               of the routed entries), the performance table of those schemes and their
               _packed forms (K2, K5, K6, K7; every inc > 0) and the
               one-launch fit (K1, K2, K4, K6; every rate within the card's
-              peak for its kind), each fit's residuals, the analytic
+              peak for its kind, the unpack rate only when its slope stands
+              above the spread of its rounds, else 0.0 and printed as
+              unresolved), each fit's residuals, the analytic
               roofline's agreement with the table; the MILP (r 0.5, 6
               bits, the trace's batch) under the table and under the fit
               (each layer within the budget, gate = up, two schemes or
@@ -185,9 +192,34 @@ failure raises and the script exits non-zero without a result line:
               chunk's logits are printed beside quantize_model_fake's
               forward of the same qconfig. Each step's seconds
 
+ 11. eval     evaluation and the remaining benches on the same checkpoint
+              (eval_phase): eval.run fake-quant and --real-exec with the
+              solve phase's served qconfig by RTN, 4 x 512 synthetic tokens
+              (real ppl within 1 % of fake; the storage's kernels launch),
+              and per token layer 0's MoE output on the card against the
+              CPU's plain versions (mean within 0.4 %; a planted 10 % scale
+              fault on one expert must fail it); eval_ppl_decode on the
+              same real model, bf16 KV (K3, within 0.5 % of the forward
+              ppl) and int8 KV + int8 head (K3q, K1 + K2, within 2 %), each
+              token's logits within 0.2 of the forward's (a planted
+              one-position cache fault must fail it);
+              eval.anchor.run_anchor trained on the card,
+              300 steps and 16 eval windows (cut for time), RTN and
+              GPTQ-had (ppl_fp below the unigram floor, real w8a8 within
+              0.5 % of fake, the decode row within 2 % of the real forward
+              row, the root ACCURACY.md unchanged, K1 / K2 / K4 / K3q at
+              dk 32 launched); run_mxmoe --check and bench at 8192 tokens
+              on the canonical trace with the solved qconfig (its last
+              layer: the solve is 2 layers deep) and with w4a4_g-1_sym
+              (every bucket PASS, ms / TFLOPS / speedup_vs_bf16 printed);
+              bench.fused_ab at 512 / 2048 / 32768 rows (K10 bitwise K6 +
+              K2). Each step's seconds
+
 Then a {"kernels": [...]} line (each kernel's launches are those of one
 serve or run, named beside them, ``offline_launches`` those of each
-artifact's serve and ``solve_launches`` those of each solve step; K14 and
+artifact's serve, ``solve_launches`` those of each solve step and
+``eval_launches`` those of each eval step; K3 / K3q's ``anchor_decode`` the
+anchor's decode shape, dk 32; K14 and
 the read-only decode attention are reached by no serve in either package),
 the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -648,6 +680,12 @@ def headline_quant_rows() -> None:
         del x, q, qp
 
 
+def _chunk_gate_up(shape: dict, k: int, h: int, shared: bool) -> bool:
+    """Whether a kernels-phase case is the routed gate_up GEMM of a 256-token
+    prefill chunk: the shape the last line's ``prefill`` entries keep."""
+    return shape.get("regime") == "prefill" and k == h and not shared
+
+
 def scheme_kernels_vs_plain(rec: dict) -> None:
     """K6-K9 at the decode and prefill shapes of both expert GEMMs and, with
     one group of rows, at the shared expert's shapes. K8 and K9 bitwise
@@ -721,6 +759,9 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
             if keep and zp is None:
                 rec["gmm_w8a8_grouped"].update(t, schedule=_grouped_schedule(m, k, nn,
                                                                             ne))
+            if _chunk_gate_up(shape, k, h, shared) and zp is None:
+                rec["gmm_w8a8_grouped"]["prefill"] = {
+                    **shape, **t, "schedule": _grouped_schedule(m, k, nn, ne)}
 
     def weight_only_kernels(gs, m, k, nn, shape, keep, shared, gsize=GSIZE):
         """K6 and (routed shapes only) K7, 4-bit codes, scale and zp per group."""
@@ -745,6 +786,8 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
              bound="K * 2^-24 * sum|lhs||w| + 1 bf16 ulp, vs float64", **shape, **t)
         if keep:
             rec["gmm_weight_only"].update(max_abs_err=err, schedule=sched, **t)
+        if _chunk_gate_up(shape, k, h, shared) and gsize != -1:
+            rec["gmm_weight_only"]["prefill"] = {**shape, **t, "schedule": sched}
         if shared or gsize == -1:
             return
         packed = pack_int4_halves(w4)
@@ -760,6 +803,8 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
              schedule=sched, **shape, **t)
         if keep:
             rec["gmm_weight_only_packed"].update(max_abs_err=err, schedule=sched, **t)
+        if _chunk_gate_up(shape, k, h, shared):
+            rec["gmm_weight_only_packed"]["prefill"] = {**shape, **t, "schedule": sched}
 
     for regime, tokens in (("decode", 4), ("prefill", 256)):
         m = tokens * cfg.top_k
@@ -936,6 +981,9 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                  **shape, **t)
             if keep and body == "flex" and label == "alternating":
                 rec["gmm_mixed_wo_wxa"].update(max_abs_err=err, schedule=sched, **t)
+            if (_chunk_gate_up(shape, k, h, False) and body == "flex"
+                    and label == "alternating"):
+                rec["gmm_mixed_wo_wxa"]["prefill"] = {**shape, **t, "schedule": sched}
 
     def float_gmm(gs, m, k, nn, shape, keep):
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -1070,10 +1118,28 @@ def combine_vs_index_add() -> None:
              index_put_ms=time_ms(sorted_put), index_add_ms=time_ms(atomic))
 
 
+# K3 / K3q's cases: (label, n_h, n_kv, head dim, B, S, lengths, valid, operand
+# dtypes). The serving cache of qwen2_moe (dk 128, G 4); the anchor model's
+# head dim 32 (G 2) on the same lengths, write mask and cache length; and the
+# anchor's real-execution decode step (eval_ppl_decode: 8 windows of 128
+# positions, f32 activations) halfway through its windows
+def _k3_cases(cfg):
+    from mxmoe_tpu_torch.eval.anchor import anchor_config
+
+    acfg = anchor_config()
+    lengths, valid = [0, 700, 2048, 1500], [1, 1, 1, 0]
+    a = (acfg.num_heads, acfg.num_kv_heads, acfg.head_dim)
+    return (("serving", cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 4, 2048,
+             lengths, valid, ("float32", "bfloat16")),
+            ("dk32", *a, 4, 2048, lengths, valid, ("float32", "bfloat16")),
+            ("anchor_decode", *a, 8, 128, [64] * 8, [1] * 8, ("float32",)))
+
+
 def attention_kernels_vs_plain(rec: dict) -> None:
-    """K3 and K3q at the serving cache: B=4 slots, S=2048; lengths 0, mid,
-    full, and a slot with valid=0; bf16 operands (the serving path's) and
-    f32 ones."""
+    """K3 and K3q at the serving cache (B=4 slots, S=2048; lengths 0, mid,
+    full, and a slot with valid=0; bf16 operands, the serving path's, and f32
+    ones), at the anchor's head dim 32 on the same lengths, and at the
+    anchor's decode step (``_k3_cases``)."""
     import torch
 
     from mxmoe_tpu_torch.models.configs import QWEN2_MOE_A2_7B as cfg
@@ -1081,70 +1147,75 @@ def attention_kernels_vs_plain(rec: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, s_max, nl, layer = 4, 2048, 2, 1
-    n_h, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    scale = 1.0 / hd ** 0.5
-    lengths = torch.tensor([0, 700, s_max, 1500], dtype=torch.int32, device=dev)
-    valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    nl, layer = 2, 1
+    for case, n_h, n_kv, hd, b, s_max, lens, vals, dtypes in _k3_cases(cfg):
+        scale = 1.0 / hd ** 0.5
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = torch.tensor(vals, dtype=torch.int32, device=dev)
 
-    def bf16_cache():
-        return torch.randn((nl, b, n_kv, s_max, hd), generator=gen,
-                           device=dev).to(torch.bfloat16)
+        def bf16_cache():
+            return torch.randn((nl, b, n_kv, s_max, hd), generator=gen,
+                               device=dev).to(torch.bfloat16)
 
-    def int8_codes():
-        return torch.randint(-127, 128, (nl, b, n_kv, s_max, hd), generator=gen,
-                             device=dev, dtype=torch.int8)
+        def int8_codes():
+            return torch.randint(-127, 128, (nl, b, n_kv, s_max, hd), generator=gen,
+                                 device=dev, dtype=torch.int8)
 
-    def f32_scales():
-        return torch.rand((nl, b, n_kv, s_max), generator=gen, device=dev) * 0.03 + 1e-3
+        def f32_scales():
+            return (torch.rand((nl, b, n_kv, s_max), generator=gen, device=dev) * 0.03
+                    + 1e-3)
 
-    forms = (
-        ("decode_attention_update_stacked", "K3",
-         lambda: [bf16_cache(), None, bf16_cache(), None], 2 * hd * 2),
-        ("decode_attention_update_stacked_q8", "K3q",
-         lambda: [int8_codes(), f32_scales(), int8_codes(), f32_scales()],
-         2 * hd + 8),
-    )
-    for name, label, make_caches, pos_bytes in forms:
-        for dtype in (torch.float32, torch.bfloat16):
-            caches = make_caches()
-            caches2 = [c if c is None else c.clone() for c in caches]
-            q = torch.randn((b, n_h, hd), generator=gen, device=dev).to(dtype)
-            kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
-            vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
+        forms = (
+            ("decode_attention_update_stacked", "K3",
+             lambda: [bf16_cache(), None, bf16_cache(), None], 2 * hd * 2),
+            ("decode_attention_update_stacked_q8", "K3q",
+             lambda: [int8_codes(), f32_scales(), int8_codes(), f32_scales()],
+             2 * hd + 8),
+        )
+        for name, label, make_caches, pos_bytes in forms:
+            for dtype in (getattr(torch, d) for d in dtypes):
+                caches = make_caches()
+                caches2 = [c if c is None else c.clone() for c in caches]
+                q = torch.randn((b, n_h, hd), generator=gen, device=dev).to(dtype)
+                kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
+                vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(dtype)
 
-            def kernel():
-                return da.decode_attention_update_stacked(
-                    q, kn, vn, *caches, lengths, layer, valid=valid)[0]
+                def kernel():
+                    return da.decode_attention_update_stacked(
+                        q, kn, vn, *caches, lengths, layer, valid=valid)[0]
 
-            def plain():
-                if caches2[1] is None:
-                    return da.decode_attention_update_plain(
-                        q, kn, vn, caches2[0], caches2[2], lengths, layer, valid,
-                        scale)
-                return da.decode_attention_update_q8_plain(
-                    q, kn, vn, *caches2, lengths, layer, valid, scale)
+                def plain():
+                    if caches2[1] is None:
+                        return da.decode_attention_update_plain(
+                            q, kn, vn, caches2[0], caches2[2], lengths, layer, valid,
+                            scale)
+                    return da.decode_attention_update_q8_plain(
+                        q, kn, vn, *caches2, lengths, layer, valid, scale)
 
-            out, ref = kernel(), plain()
-            torch.cuda.synchronize()
-            for got, want in zip(caches, caches2):
-                if got is not None and not torch.equal(got, want):
-                    raise AssertionError(f"{label} cache write not bitwise ({dtype})")
-            rel = k3_slot_errors(out, ref)
-            err = (out.float() - ref.float()).abs().max().item()
-            t = {**kernel_times(kernel), "plain_ms": time_ms(plain),
-                 **decode_attn_work(lengths, valid, s_max, n_h, n_kv, hd, hd,
-                                    q.element_size(), pos_bytes)}
-            emit("kernels", kernel=name, regime="decode",
-                 dtype=str(dtype).removeprefix("torch."), B=b, S=s_max,
-                 lengths=lengths.tolist(), valid=valid.tolist(), cache_bitwise=True,
-                 max_abs_err=err, rel_err_per_slot=rel,
-                 slot_scale=ref.float().abs().flatten(1).amax(1).tolist(),
-                 bound=f"{K3_REL_BOUND} * max|ref[b]|"
-                       + (" + 1 bf16 ulp" if dtype == torch.bfloat16 else ""), **t)
-            if dtype == torch.bfloat16:
-                rec[name].update(max_abs_err=err, **t)
-            del caches, caches2
+                out, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                for got, want in zip(caches, caches2):
+                    if got is not None and not torch.equal(got, want):
+                        raise AssertionError(f"{label} cache write not bitwise "
+                                             f"({case}, {dtype})")
+                rel = k3_slot_errors(out, ref)
+                err = (out.float() - ref.float()).abs().max().item()
+                t = {**kernel_times(kernel), "plain_ms": time_ms(plain),
+                     **decode_attn_work(lengths, valid, s_max, n_h, n_kv, hd, hd,
+                                        q.element_size(), pos_bytes)}
+                emit("kernels", kernel=name, regime="decode", case=case,
+                     dtype=str(dtype).removeprefix("torch."), B=b, S=s_max,
+                     n_h=n_h, n_kv=n_kv, dk=hd, lengths=lengths.tolist(),
+                     valid=valid.tolist(), cache_bitwise=True,
+                     max_abs_err=err, rel_err_per_slot=rel,
+                     slot_scale=ref.float().abs().flatten(1).amax(1).tolist(),
+                     bound=f"{K3_REL_BOUND} * max|ref[b]|"
+                           + (" + 1 bf16 ulp" if dtype == torch.bfloat16 else ""), **t)
+                if case == "serving" and dtype == torch.bfloat16:
+                    rec[name].update(max_abs_err=err, **t)
+                elif case == "anchor_decode":
+                    rec[name]["anchor_decode"] = {"max_abs_err": err, **t}
+                del caches, caches2
 
 
 def read_attn_work(lengths, s_max, n_h, n_kv, dk, dv, elem_bytes,
@@ -2717,14 +2788,18 @@ def _solve_gates(qmc, problems, name: str) -> dict:
     return {"avg_wbits": avg, "schemes_used": sorted(used)}
 
 
-def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None) -> dict:
+def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None,
+                keep: dict | None = None) -> dict:
     """The solve half of the co-design loop at full width, ``OFFLINE_LAYERS``
     deep, on the offline phase's checkpoint: trace the gates (K11) -> the
     calibration losses by RTN (and one scheme by GPTQ) -> the performance
     table and the one-launch fit on the card -> the MILP under both runtime
     models -> ``convert --qconfig`` of the solved mix -> ``generate
     --artifact``. Gates as the steps say; returns each step's launch counts.
-    ``profile_kw`` overrides the profiler's shapes (a CPU rehearsal)."""
+    ``profile_kw`` overrides the profiler's shapes (a CPU rehearsal). With
+    ``keep`` (a dict holding ``"dir"``), the served qconfig is copied there
+    and ``keep`` gains its ``"qconfig"`` path and the kernels its storage
+    selects (``"expect"``), for the eval phase."""
     import shutil
     import tempfile
 
@@ -2838,18 +2913,26 @@ def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None)
             fit = onelaunch_fit.run(os.path.join(root, "onelaunch_model.json"), dev,
                                     verbose=False)
             rates = {k: fit[k] for k in onelaunch_fit.RATE_KEYS}
+            unpack = fit["measurements"]["unpack_fit"]
         else:
-            fit, rates = {"validation": []}, None
+            fit, rates, unpack = {"validation": []}, None, {}
         t_prof = done("profile", t0)
         shares = {k: rates[k] / p for k, p in FIT_PEAKS.items()} if rates else {}
-        over = {k: v for k, v in shares.items() if not 0 <= v <= 1.0}
+        # an unresolved unpack slope (inside the timing noise) writes 0.0, no
+        # rate: it is printed, not held to the peak
+        gated = {k: v for k, v in shares.items()
+                 if k != "unpack_gops" or unpack.get("resolved")}
+        over = {k: v for k, v in gated.items() if not 0 <= v <= 1.0}
         emit("solve_profile", card=smi, seconds=t_prof, table_seconds=t_table,
              table={s: {n: dataclasses.asdict(c) for n, c in t.items()}
                     for s, t in table.table.items()},
              residual_ms={s: f["residual_ms"] for s, f in fits.items()},
              onelaunch_rates=rates, peak_share=shares,
-             onelaunch_fit_residual_ms=[r["residual_ms"] for r in
-                                        fit.get("measurements", {}).get("unpack_fit", [])],
+             unpack_resolved=unpack.get("resolved"),
+             unpack_slopes_ms_per_elem=unpack.get("slopes_ms_per_elem"),
+             unpack_slope_median=unpack.get("slope_median"),
+             unpack_slope_spread=unpack.get("slope_spread"),
+             onelaunch_fit_residual_ms=[r["residual_ms"] for r in unpack.get("rows", [])],
              onelaunch_validation=fit["validation"],
              analytic_vs_measured_agreement=agreement["agreement"],
              analytic_pairs=agreement["pairs"], launches=launches["profile"])
@@ -2891,6 +2974,10 @@ def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None)
         t_conv = done("convert", t0)
         params_a, cfg_a, impl = generate.load_artifact(out, cfg, dev)
         expect = served_kernels(params_a, impl)
+        if keep is not None:
+            keep["qconfig"] = shutil.copy(qpath, os.path.join(keep["dir"],
+                                                              "qconfig-solved.json"))
+            keep["expect"] = expect
         prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 48).tolist()
         max_new = 16
         t0 = step()
@@ -2930,6 +3017,388 @@ def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+# the eval phase: eval.run's windows (samples x length) and its gates: the
+# real execution's ppl within EVAL_GAP of the fake-quant ppl (the reference's
+# tiny-width test holds 0.5 %), the decode ppl within DECODE_GAP_BF16 (bf16
+# KV) and DECODE_GAP_INT8 (int8 KV + int8 head) of the forward ppl; the
+# anchor cut to ANCHOR_STEPS training steps and ANCHOR_WINDOWS eval windows
+# of its 128 positions, its real w8a8 row within ANCHOR_REAL_GAP of the fake
+# one and its decode row within DECODE_GAP_INT8 of the real forward row
+EVAL_TOKENS = (4, 512)
+EVAL_GAP, DECODE_GAP_BF16, DECODE_GAP_INT8 = 0.01, 5e-3, 2e-2
+# the per-token gates on |out - reference| / |reference| (L2 over the row):
+# its mean over the tokens of layer 0's MoE output on the card against the
+# CPU's plain versions, its max over the decode logits against the forward
+# logits (bf16 and int8 KV); the planted faults that must fail them: the
+# down scales of layer 0's busiest expert off by EVAL_FAULT_SCALE, and K3 fed
+# lengths one position off
+EVAL_MOE_BOUND, DECODE_TOKEN_BOUND, EVAL_FAULT_SCALE = 4e-3, 0.2, 1.1
+ANCHOR_STEPS, ANCHOR_WINDOWS, ANCHOR_REAL_GAP = 300, 16, 5e-3
+# run_mxmoe's canonical workload and fused_ab's row counts
+HARNESS_BS, HARNESS_LAYER = 8192, 10
+FUSED_AB_MS = (512, 2048, 32768)
+
+
+def _token_logit_err(test, ref) -> dict:
+    """Per-token relative L2 error of rows [..., V] (logits, hidden states)
+    against ``ref``: its mean, 99th percentile and max over the tokens, and
+    the share of tokens whose top-1 agrees."""
+    t, r = test.float().flatten(0, -2), ref.float().flatten(0, -2)
+    err = (t - r).norm(dim=-1) / r.norm(dim=-1)
+    return {"mean": float(err.mean()), "p99": float(err.quantile(0.99)),
+            "max": float(err.max()),
+            "top1": float((t.argmax(-1) == r.argmax(-1)).float().mean())}
+
+
+def _expert_path_tokens(fake, real, tt, cfg, impl) -> dict:
+    """Errors of the real model ``real`` (on the card) on tokens ``tt``: its
+    ppl and per-token logits against the fake-quant ``fake``'s, and per token
+    layer 0's MoE output on the first window against the same block run on
+    the CPU (the kernels' plain versions, on the same input); each clean and
+    with the planted fault (layer 0's busiest expert's down scales x
+    EVAL_FAULT_SCALE on the card, restored after)."""
+    import torch
+
+    from mxmoe_tpu_torch.models import layers
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.models.model import forward_logits, layer_stacks
+
+    moe = layers.moe_block
+
+    def run(params, impl):
+        first = []
+
+        def keep(x, *a, **k):
+            first.append(x)
+            layers.moe_block = moe
+            return moe(x, *a, **k)
+
+        layers.moe_block = keep
+        try:
+            with torch.inference_mode():
+                return forward_logits(params, tt, cfg, impl).float(), first[0]
+        finally:
+            layers.moe_block = moe
+
+    def ppl(logits):
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        return float(torch.exp(-lp.gather(-1, tt[:, 1:].long()[..., None]).mean()))
+
+    ref_logits, _ = run(fake, MoEImpl(kind="ragged"))
+    logits, x0 = run(real, impl)
+    ref_ppl = ppl(ref_logits)
+    out = {"logits_vs_fake": _token_logit_err(logits, ref_logits),
+           "ppl_gap": abs(ppl(logits) - ref_ppl) / ref_ppl}
+    del logits
+    stack, _ = next(iter(layer_stacks(real)))
+    lp = {name: t[0] for name, t in stack.items()}
+    lp_cpu = {name: t.cpu() for name, t in lp.items()}
+    x = x0[:1]
+    picks = (x.reshape(-1, x.shape[-1]).float() @ lp["router"].float()).topk(cfg.top_k).indices
+    busiest = int(picks.flatten().bincount(minlength=cfg.num_experts).argmax())
+    with torch.inference_mode():
+        plain = moe(x.cpu(), lp_cpu, cfg, impl).float()
+        card = moe(x, lp, cfg, impl).float().cpu()
+        lp["expert_down_sc"][busiest] *= EVAL_FAULT_SCALE
+        try:
+            planted = moe(x, lp, cfg, impl).float().cpu()
+            planted_logits, _ = run(real, impl)
+        finally:
+            lp["expert_down_sc"][busiest] /= EVAL_FAULT_SCALE
+    out.update(
+        ppl_gap_planted=abs(ppl(planted_logits) - ref_ppl) / ref_ppl,
+        logits_planted_vs_fake=_token_logit_err(planted_logits, ref_logits),
+        moe0_vs_plain=_token_logit_err(card, plain),
+        moe0_planted_vs_plain=_token_logit_err(planted, plain), tokens=x.shape[1],
+        fault=f"layer 0 expert {busiest}'s down scales x {EVAL_FAULT_SCALE}")
+    return out
+
+
+@contextlib.contextmanager
+def _decode_logits(out: list, shift: bool = False):
+    """Keep every decode step's logits [B, V] (f32) in ``out`` while
+    ``eval_ppl_decode`` runs; ``shift`` plants a fault: K3 / K3q get lengths
+    + 1, so each step writes one position late and reads one stale slot."""
+    from mxmoe_tpu_torch.serving import decode
+
+    fc, da = decode.forward_cached, decode.decode_attention_update_stacked
+
+    def keep(*a, **k):
+        logits, cache = fc(*a, **k)
+        out.append(logits[:, 0].float())
+        return logits, cache
+
+    def off_by_one(q, k, v, ck, cks, cv, cvs, lengths, layer, **kw):
+        return da(q, k, v, ck, cks, cv, cvs, lengths + 1, layer, **kw)
+
+    decode.forward_cached = keep
+    if shift:
+        decode.decode_attention_update_stacked = off_by_one
+    try:
+        yield
+    finally:
+        decode.forward_cached, decode.decode_attention_update_stacked = fc, da
+
+
+def eval_phase(ckpt: str, qconfig: str, expect: list, device: str = "cuda") -> dict:
+    """Phase 11: evaluation and the remaining benches, each step's launch
+    counts set to 0 before it and read after it.
+
+    (a) ``eval.run`` on the offline checkpoint (qwen2_moe, full width,
+        ``OFFLINE_LAYERS`` deep) with the solve phase's served qconfig by
+        RTN, fake-quant and ``--real-exec``: ppl gap within EVAL_GAP, the
+        kernels the storage selects (``expect``, less K3) launched;
+    (b) ``eval_ppl_decode`` on the same real model: bf16 KV (K3) and int8 KV
+        + int8 head (K3q, K1 + K2) against the forward ppl;
+    (c) ``eval.anchor.run_anchor`` on the card (steps and windows cut), both
+        methods: ppl_fp below the unigram floor, the real rows against the
+        fake / forward ones, the root ACCURACY.md unchanged, K1 / K2 / K4 /
+        K3q (dk 32) launched;
+    (d) ``run_mxmoe --check`` and bench on the canonical trace, with the
+        solved qconfig and with w4a4, every bucket PASS and timed; then
+        ``bench.fused_ab`` with ``cross_check_max_abs`` 0.
+    (a) and (b) are also held per token, each against a planted fault that
+    must fail the gate; (d) times with ``device_ms`` after (c)'s training."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch import run_mxmoe
+    from mxmoe_tpu_torch.bench import fused_ab, timing
+    from mxmoe_tpu_torch.eval import anchor
+    from mxmoe_tpu_torch.eval import run as eval_run
+    from mxmoe_tpu_torch.eval.evaluator import eval_ppl_decode, eval_ppl_tokens
+    from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.models.model import forward_logits
+    from mxmoe_tpu_torch.quant.data import get_calibration_tokens
+    from mxmoe_tpu_torch.quant.qparams import quantize_lm_head, quantize_model_experts_mixed
+    from mxmoe_tpu_torch.quant.quantizer import quantize_model_fake
+    from mxmoe_tpu_torch.quant.schemes import QModelConfig
+
+    dev = torch.device(device)
+    cfg = _offline_cfg()
+    smi = smi_line()
+    launches, seconds = {}, {}
+    k3, k3q = "decode_attention_update_stacked", "decode_attention_update_stacked_q8"
+
+    def step():
+        torch.cuda.synchronize()
+        _reset_counts()
+        return time.perf_counter()
+
+    def done(name, t0):
+        torch.cuda.synchronize()
+        launches[name] = _counts()
+        seconds[name] = time.perf_counter() - t0
+        return seconds[name]
+
+    def rel(a, b):
+        return abs(a - b) / b
+
+    t_phase, lost0 = time.perf_counter(), timing.LOST_TRACES[0]
+    nsamp, seqlen = EVAL_TOKENS
+    # (a) the CLI, fake-quant then real execution
+    ppl = {}
+    for arm, extra in (("fake", []), ("real", ["--real-exec"])):
+        t0 = step()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = eval_run.main(["--model", OFFLINE_MODEL, "--layers", str(OFFLINE_LAYERS),
+                                 "--ckpt", ckpt, "--qconfig", qconfig, "--method", "rtn",
+                                 "--nsamples", str(nsamp), "--seqlen", str(seqlen),
+                                 "--device", device, *extra])
+        t = done(f"run_{arm}", t0)
+        ppl[arm] = res["synthetic_ppl"]
+        emit("eval_run", card=smi, arm=arm, ppl=ppl[arm], seconds=t,
+             tokens_per_s=nsamp * seqlen / t, launches=launches[f"run_{arm}"])
+    gap = rel(ppl["real"], ppl["fake"])
+    missing = [k for k in expect if k != k3 and not launches["run_real"].get(k)]
+    emit("eval_run", card=smi, fake_ppl=ppl["fake"], real_ppl=ppl["real"], rel_gap=gap,
+         bound=EVAL_GAP, expected_kernels=[k for k in expect if k != k3])
+    if not (np.isfinite(gap) and gap <= EVAL_GAP) or missing:
+        raise AssertionError(f"eval run: real {ppl['real']} vs fake {ppl['fake']} "
+                             f"(gap {gap} > {EVAL_GAP}?), kernels never launched "
+                             f"{missing}")
+
+    # (a) per token and (b): the CLI's models rebuilt as it builds them (the
+    # bf16 checkpoint, RTN). The ppl of a random-init model sits near its
+    # vocab and hardly depends on the experts, so the real expert path is
+    # also held per token: layer 0's MoE output on the card against the
+    # kernels' plain versions on the CPU, and a planted fault shows that this
+    # gate fails
+    qmc = QModelConfig.load(qconfig)
+    a16 = any(c.a_bits >= 16 for lay in qmc.layers.values()
+              for ekey, ex in lay.experts.items() if int(ekey) < cfg.num_experts
+              for c in ex.qmap().values())
+    base = params_from_safetensors(ckpt, cfg)
+    fake = _to(quantize_model_fake(base, cfg, qmc, method="rtn", device=dev), dev)
+    real = _to(quantize_model_experts_mixed(base, cfg, qmc, pack_w4=not a16,
+                                            device=dev), dev)
+    del base
+    impl = MoEImpl(quant="mixed", mixed_weight_only=a16)
+    toks = np.asarray(get_calibration_tokens(nsamp, seqlen, vocab_size=cfg.vocab_size))
+    tt = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    tok = _expert_path_tokens(fake, real, tt, cfg, impl)
+    del fake
+    emit("eval_run_tokens", card=smi, **tok, bound=EVAL_MOE_BOUND)
+    clean, planted = tok["moe0_vs_plain"]["mean"], tok["moe0_planted_vs_plain"]["mean"]
+    if not clean <= EVAL_MOE_BOUND < planted:
+        raise AssertionError(f"eval run per token: layer 0 MoE on the card vs plain "
+                             f"{clean}, planted {planted}, bound {EVAL_MOE_BOUND}")
+
+    # (b) the serving decode path on the same real model, per token against
+    # its forward logits
+    with torch.inference_mode():
+        fwd_logits = forward_logits(real, tt, cfg, impl).float()[:, :-1]
+    fwd = eval_ppl_tokens(real, toks, cfg, impl)
+    for arm, int8, fault in (("decode_bf16", False, False), ("decode_int8", True, False),
+                             ("decode_bf16_planted", False, True)):
+        params = quantize_lm_head(real) if int8 else real
+        steps = []
+        t0 = step()
+        with _decode_logits(steps, shift=fault):
+            got = eval_ppl_decode(params, toks, cfg, impl, int8_kv=int8, batch=nsamp)
+        t = done(arm, t0)
+        err = _token_logit_err(torch.stack(steps, 1), fwd_logits)
+        del steps
+        bound = DECODE_GAP_INT8 if int8 else DECODE_GAP_BF16
+        need = (k3q, "quantize_rows", "gmm_w8a8") if int8 else (k3,)
+        emit("eval_decode", card=smi, arm=arm, ppl=got, forward_ppl=fwd,
+             cli_real_ppl=ppl["real"], rel_gap=rel(got, fwd), bound=bound,
+             per_token=err, token_bound=DECODE_TOKEN_BOUND, seconds=t,
+             tokens_per_s=nsamp * (seqlen - 1) / t, launches=launches[arm],
+             **({"fault": "K3 called with lengths + 1: one cache position off"}
+                if fault else {}))
+        if fault:
+            launches.pop(arm)
+            if not err["max"] > DECODE_TOKEN_BOUND:
+                raise AssertionError(f"eval decode: the planted fault passes the per-token "
+                                     f"gate ({err['max']} <= {DECODE_TOKEN_BOUND})")
+        elif not (rel(got, fwd) <= bound and err["max"] <= DECODE_TOKEN_BOUND
+                  and all(launches[arm].get(k) for k in need)):
+            raise AssertionError(f"eval decode {arm}: ppl {got} vs forward {fwd} "
+                                 f"(bound {bound}), per token {err['max']} (bound "
+                                 f"{DECODE_TOKEN_BOUND}), or {need} never launched")
+        del params
+    del real, fwd_logits
+    torch.cuda.empty_cache()
+
+    build_dir = os.path.join(HERE, "mxmoe_tpu_torch", "_build")
+    root = tempfile.mkdtemp(prefix="eval-", dir=build_dir)
+    try:
+        # (c) the accuracy anchor, trained and scored on the card
+        with open(os.path.join(HERE, "ACCURACY.md"), "rb") as f:
+            accuracy_md = f.read()
+        t0 = step()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = anchor.run_anchor(steps=ANCHOR_STEPS, out_dir=os.path.join(root, "anchor"),
+                                    methods=("rtn", "gptq-had"),
+                                    eval_windows=ANCHOR_WINDOWS, seqlen=128,
+                                    backend="pallas", device=device)
+        t = done("anchor", t0)
+        with open(os.path.join(HERE, "ACCURACY.md"), "rb") as f:
+            md_same = f.read() == accuracy_md
+        real_gap = rel(res["ppl_realexec_w8a8"], res["ppl_w8a8_rtn"])
+        dec_gap = rel(res["ppl_realexec_decode_mixed_w5"], res["ppl_realexec_mixed_w5"])
+        emit("eval_anchor", card=smi, seconds=t, **res, realexec_w8a8_gap=real_gap,
+             decode_gap=dec_gap, accuracy_md_unchanged=md_same,
+             launches=launches["anchor"])
+        need = ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed", k3q)
+        if not (res["ppl_fp"] < res["ppl_unigram_floor"] and real_gap <= ANCHOR_REAL_GAP
+                and dec_gap <= DECODE_GAP_INT8 and md_same
+                and all(launches["anchor"].get(k) for k in need)):
+            raise AssertionError(f"eval anchor: a gate failed (fp {res['ppl_fp']} vs "
+                                 f"floor {res['ppl_unigram_floor']}, real gap {real_gap}, "
+                                 f"decode gap {dec_gap}, ACCURACY.md unchanged {md_same}, "
+                                 f"launches {launches['anchor']})")
+        # (d) the check / bench harness over the canonical trace, then fused_ab.
+        # The solved qconfig is OFFLINE_LAYERS deep: its run puts the canonical
+        # counts at its last layer
+        for arm, args in (("harness_qconfig", ["--qconfig", qconfig, "--layer",
+                                               str(OFFLINE_LAYERS - 1)]),
+                          ("harness_w4a4", ["--qstr", "w4a4_g-1_sym", "--layer",
+                                            str(HARNESS_LAYER)])):
+            t0 = step()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rows = run_mxmoe.main(["--model", OFFLINE_MODEL, "--bs", str(HARNESS_BS),
+                                       "--check", "--out_dir", os.path.join(root, arm),
+                                       *args])
+            t = done(arm, t0)
+            checks = [l for l in buf.getvalue().splitlines() if l.startswith("[CHECK]")]
+            rows = [r for layer_rows in rows.values() for r in layer_rows]
+            for r in rows:
+                emit("eval_harness", card=smi, arm=arm, **r)
+            emit("eval_harness", card=smi, arm=arm, seconds=t, checks=checks,
+                 launches=launches[arm])
+            if not (checks and all(l.endswith("PASS") for l in checks)
+                    and len(rows) == len(checks)
+                    and all(r["ms"] > 0 and r["tflops"] > 0 and r["speedup_vs_bf16"] > 0
+                            for r in rows)):
+                raise AssertionError(f"eval harness {arm}: checks {checks}, rows {rows}")
+        t0 = step()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lines = fused_ab.main(["--ms", *map(str, FUSED_AB_MS)])
+        t = done("fused_ab", t0)
+        for line in lines:
+            emit("eval_fused_ab", card=smi, **line)
+        cross = [l["cross_check_max_abs"] for l in lines if "cross_check_max_abs" in l]
+        if cross != [0.0] * len(FUSED_AB_MS):
+            raise AssertionError(f"fused_ab: cross checks {cross}")
+        emit("eval_fused_ab", card=smi, seconds=t, launches=launches["fused_ab"])
+
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("eval_phase", card=smi, seconds=time.perf_counter() - t_phase,
+         step_seconds=seconds, device_ms_lost_traces=timing.LOST_TRACES[0] - lost0)
+    return launches
+
+
+# profiled runs counted after a backward pass, without and with device_ms's
+# lead-in, and how many with it may lose a marker
+PROFILER_RUNS, PROFILER_LOST_MAX = 20, 2
+
+
+def profiler_after_backward() -> dict:
+    """PROFILER_RUNS profiled runs of one kernel without ``timing``'s
+    lead-in, then the anchor's training (torch autograd, ANCHOR_STEPS steps)
+    on the card, then the same runs without and with the lead-in: once a
+    backward pass has run after the profiler, a run's first kernel can be
+    missing from its trace, and the lead-in takes that place. Every later
+    device_ms call runs in this state."""
+    import torch
+
+    from mxmoe_tpu_torch.bench import timing
+    from mxmoe_tpu_torch.eval import anchor
+    from mxmoe_tpu_torch.ops import act_quant
+
+    dev = torch.device("cuda")
+    x = torch.randn((256, 2048), device=dev, dtype=torch.bfloat16)
+    bits = torch.full((256,), 8.0, device=dev)
+
+    def one():
+        return act_quant.quantize_rows(x, bits)
+
+    def lost(lead):
+        torch.cuda.synchronize()
+        return sum(timing._profiled_calls(one, timing.SESSION_REPS, lead=lead) is None
+                   for _ in range(PROFILER_RUNS))
+
+    before = lost(False)
+    anchor.train_anchor_model(anchor.anchor_config(), steps=ANCHOR_STEPS, log_every=0)
+    bare, led = lost(False), lost(True)
+    if led > PROFILER_LOST_MAX:
+        raise AssertionError(f"after a backward pass {led} of {PROFILER_RUNS} profiled "
+                             "runs with the lead-in lost a marker")
+    return {"profiled_runs": PROFILER_RUNS, "lost_before_training": before,
+            "lost_without_lead_in": bare, "lost_with_lead_in": led}
 
 
 def float_arms_agree() -> None:
@@ -3063,11 +3532,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import torch
 
+    t_smoke = time.perf_counter()
     smi = probe()
     build()
     rec = kernels_vs_plain()
     from mxmoe_tpu_torch.bench import timing
-    emit("timing", device_ms_lost_traces=timing.LOST_TRACES[0])
+    emit("timing", device_ms_lost_traces=timing.LOST_TRACES[0], **profiler_after_backward())
     fused, aligned = {"fused_ffn": True}, {"dispatch_align": 32}
     for quant, int8_kv, pack, impl_kw in (("w8a8_g-1_sym", False, False, None),
                                           ("mixed-packed", True, False, None),
@@ -3201,7 +3671,10 @@ def main() -> int:
         ckpt = offline_checkpoint(ckpt_root)
         offline = offline_phase(ckpt)
         torch.cuda.empty_cache()
-        solve = solve_phase(ckpt)
+        solved = {"dir": ckpt_root}
+        solve = solve_phase(ckpt, keep=solved)
+        torch.cuda.empty_cache()
+        evals = eval_phase(ckpt, solved["qconfig"], solved["expect"])
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # one path per number: a kernel's launches are those of the full-depth
@@ -3224,6 +3697,8 @@ def main() -> int:
         launches[name] = (0, "kernels phase only: no serve reaches it in either "
                              "package")
     launches["gmm_ws"] = (ws_launches, "headline bench, mixed one-launch arm")
+    emit("smoke", card=smi, seconds=time.perf_counter() - t_smoke,
+         device_ms_lost_traces=timing.LOST_TRACES[0])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name][0], "launches_of": launches[name][1],
@@ -3235,8 +3710,9 @@ def main() -> int:
          "library_device_ms": rec[name].get("library_device_ms"),
          "offline_launches": {art: n[name] for art, n in offline.items() if n.get(name)},
          "solve_launches": {st: n[name] for st, n in solve.items() if n.get(name)},
+         "eval_launches": {st: n[name] for st, n in evals.items() if n.get(name)},
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
-         **{key: rec[name][key] for key in ("body", "prefill", "large")
+         **{key: rec[name][key] for key in ("body", "prefill", "large", "anchor_decode")
             if key in rec[name]}}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)

@@ -50,6 +50,7 @@ def profile_arm(fn, reps: int = REPS) -> list[list[tuple[str, float]]]:
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timing.lead_in(flush)
             for _ in range(reps):
                 torch.cuda._sleep(100)
                 flush.zero_()

@@ -11,7 +11,14 @@ a kernel finds them in device memory, not in the cache a repeat left):
   profiled a few calls at a time. Each call's kernels are found between two
   marker kernels
   (``torch.cuda._sleep``, "spin_kernel"): one after the overwrite, one
-  before the next.
+  before the next. Where the profiler has run in a process and a backward
+  pass (any torch autograd loop) runs after it, the first kernel launched
+  in each later profiled run goes missing from its trace, so each run
+  starts with ``LEAD_IN`` small kernels of its own before the first marker
+  (``chip_smoke.py``'s ``timing`` line counts the runs that lose a marker
+  before the anchor's training, and after it without and with them). A
+  trace can also lose other records now and then (none at all, or some of
+  a call's kernels): such a run is taken again.
 
 Both need a card.
 """
@@ -52,15 +59,30 @@ def event_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _profiled_calls(fn, reps: int, overwrite: str = "write"):
-    """One profiled run of ``reps`` calls -> each call's summed kernel
-    durations (ms), or None when the trace lost marker kernels."""
+LEAD_IN = 2    # kernels a profiled run launches before its first marker
+
+
+def lead_in(flush) -> None:
+    """The first kernels of a profiled run, which its trace may drop: small
+    fills of ``flush``, before the first marker."""
+    for _ in range(LEAD_IN):
+        flush[:4096].zero_()
+
+
+def _profiled_calls(fn, reps: int, overwrite: str = "write", lead: bool = True):
+    """One profiled run of ``reps`` calls -> each call's (kernels in its
+    window, summed kernel durations in ms), or None when the trace lost
+    marker kernels or a call's kernels (the calls' kernel counts differ, or
+    a window holds none). ``lead`` False leaves out the lead-in (to show
+    what it guards against)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = _flush_buffer()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if lead:
+            lead_in(flush)
         for _ in range(reps):
             torch.cuda._sleep(100)
             if overwrite == "write":
@@ -77,26 +99,24 @@ def _profiled_calls(fn, reps: int, overwrite: str = "write"):
     marks = [i for i, e in enumerate(evs) if "spin_kernel" in e[2]]
     if len(marks) != 2 * reps + 1:
         return None
-    per_call = []
-    for r in range(reps):
-        kernels = evs[marks[2 * r + 1] + 1: marks[2 * r + 2]]
-        if not kernels:
-            raise RuntimeError("device_ms: a call launched no kernel")
-        per_call.append(sum(end - start for start, end, _ in kernels) / 1e3)
-    return per_call
+    windows = [evs[marks[2 * r + 1] + 1: marks[2 * r + 2]] for r in range(reps)]
+    if not windows[0] or any(len(w) != len(windows[0]) for w in windows):
+        return None
+    return [(len(w), sum(end - start for start, end, _ in w) / 1e3) for w in windows]
 
 
 SESSION_REPS = 5     # calls in one profiled run
-LOST_TRACES = [0]    # profiled runs taken again because they lost markers
+LOST_TRACES = [0]    # profiled runs taken again because they lost records
 
 
 def device_ms(fn, reps: int = 25, warmup: int = 3, attempts: int = 20,
               overwrite: str = "write") -> float:
     """Median over the repeats of the summed kernel durations of one call,
-    profiled ``SESSION_REPS`` calls at a time. A run whose trace lost marker
-    kernels (the profiler dropped activity records) cannot be cut into calls:
-    it is taken again, up to ``attempts`` times (counted in
-    ``LOST_TRACES``; on an H100 one call once lost 5 runs in a row).
+    profiled ``SESSION_REPS`` calls at a time. A run whose trace lost
+    records (marker kernels, or some of a call's kernels) is taken again
+    (counted in ``LOST_TRACES``), and a call is kept only at the most
+    kernels any call showed; ``attempts`` lost runs in a row raise (as
+    does a call that launches no kernel).
     ``overwrite``: "write" (``zero_``, the L2 left full of dirty lines that
     the call's traffic must write back) or "read" (a sum over the buffer:
     clean lines, nothing to write back)."""
@@ -105,16 +125,19 @@ def device_ms(fn, reps: int = 25, warmup: int = 3, attempts: int = 20,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    per_call = []
-    while len(per_call) < reps:
-        n = min(SESSION_REPS, reps - len(per_call))
-        for _ in range(attempts):
-            got = _profiled_calls(fn, n, overwrite)
-            if got is not None:
-                per_call += got
-                break
+    calls, misses = [], 0
+    while True:
+        most = max((k for k, _ in calls), default=0)
+        kept = [ms for k, ms in calls if k == most]
+        if len(kept) >= reps:
+            return statistics.median(kept[:reps])
+        got = _profiled_calls(fn, SESSION_REPS, overwrite)
+        if got is None:
             LOST_TRACES[0] += 1
-        else:
-            raise RuntimeError(f"device_ms: {attempts} traces in a row lost "
-                               "marker kernels")
-    return statistics.median(per_call)
+            misses += 1
+            if misses == attempts:
+                raise RuntimeError(f"device_ms: {attempts} traces in a row lost "
+                                   "marker kernels or a call's kernels")
+            continue
+        misses = 0
+        calls += got

@@ -8,7 +8,7 @@
 // mxmoe_tpu/serving/decode_attention.py:decode_attention_update_stacked in
 // both of its forms: the bf16 cache (K3) and the int8 cache with per-vector
 // f32 scales (K3q). One templated body serves both, compiled per head group
-// (kG >= G = n_h / n_kv: 1, 4 or 8) and key width (kDK: 64, 128, 256).
+// (kG >= G = n_h / n_kv: 1, 4 or 8) and key width (kDK: 32, 64, 128, 256).
 //
 //  1. Write this step's k_new/v_new at position lengths[b] of layer `layer`
 //     of the [L, B, n_kv, S, d] caches, IN PLACE, when valid[b] != 0 and
@@ -562,6 +562,7 @@ cudaError_t launch_g(const Args& a, cudaStream_t st) {
 template <typename T, bool kQ8, bool kWrite, int kG>
 cudaError_t launch_dk(const Args& a, cudaStream_t st) {
   switch (a.dk) {
+    case 32: return launch_g<T, kQ8, kWrite, kG, 32>(a, st);
     case 64: return launch_g<T, kQ8, kWrite, kG, 64>(a, st);
     case 128: return launch_g<T, kQ8, kWrite, kG, 128>(a, st);
     case 256: return launch_g<T, kQ8, kWrite, kG, 256>(a, st);

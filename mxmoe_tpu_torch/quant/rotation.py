@@ -63,9 +63,11 @@ def fuse_layer_norms(params: dict) -> dict:
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """einsum in the promoted dtype (a bf16 weight times the f32 rotation
-    comes out f32, as in the reference)."""
+    comes out f32, as in the reference), contiguous: torch may return a
+    permuted view, and the kernels (K11 on the rotated float experts) take
+    contiguous operands only."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return torch.einsum(eq, a.to(dt), b.to(dt)).contiguous()
 
 
 def _rotate_layer_stack(layers: dict, q: torch.Tensor) -> dict:

@@ -23,8 +23,8 @@
   these. ``block_s`` (the reference's S block) is accepted for parity and
   changes nothing: the kernels split S into chunks of their own.
 
-Every kernel takes the K3 domain: G = n_h / n_kv <= 8, dk in {64, 128, 256},
-dv <= 128 and a multiple of 8 (16 for an int8 cache); elsewhere a CUDA
+Every kernel takes the K3 domain: G = n_h / n_kv <= 8, dk in {32, 64, 128,
+256}, dv <= 128 and a multiple of 8 (16 for an int8 cache); elsewhere a CUDA
 tensor raises (a CPU tensor takes the plain version at any shape).
 
 The kernels split S into chunks of ``DA_CHUNK`` positions, one warp each,
@@ -45,6 +45,12 @@ from .kv_cache import _quant_vec
 DA_CHUNK = 64      # positions of one warp's chunk
 DA_WARPS = 4       # warps (chunks) of one block: an S-block of 4 chunks
 DA_TILE = 16       # positions of one staged tile inside a chunk
+
+
+def supports_fused_decode(dk: int, dv: int, quant: bool) -> bool:
+    """Whether K3 / K3q (and the read-only forms) take head dims ``dk`` /
+    ``dv`` over a bf16 (``quant`` False) or int8 cache."""
+    return dk in (32, 64, 128, 256) and dv <= 128 and dv % (16 if quant else 8) == 0
 
 
 def decode_attn_schedule(b: int, n_h: int, n_kv: int, s_max: int, dv: int) -> dict:
@@ -167,9 +173,8 @@ def _check_kernel_operands(name, q, cache_k, cache_ks, cache_v, cache_vs,
     req(lengths.dtype == torch.int32 and lengths.shape == (b,),
         f"{name}: lengths must be int32 [B]")
     req(0 <= layer < nl, f"{name}: layer {layer}")
-    req(n_h // n_kv <= 8 and dk in (64, 128, 256) and dv <= 128
-        and dv % (16 if quant else 8) == 0,
-        f"{name}: needs G<=8, dk in 64/128/256, dv<=128 and a multiple of "
+    req(n_h // n_kv <= 8 and supports_fused_decode(dk, dv, quant),
+        f"{name}: needs G<=8, dk in 32/64/128/256, dv<=128 and a multiple of "
         "8 (16 for the int8 cache)")
 
 

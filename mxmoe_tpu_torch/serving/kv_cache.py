@@ -34,7 +34,7 @@ class KVCache:
 def mla_cache_k_dim(cfg: MoEConfig) -> int:
     """MLA K-cache width: qk_head_dim padded up to a multiple of 128 (192 ->
     256). The tail lanes hold zeros, which add nothing to q.k, and the
-    padded width is one that the decode kernels take (dk in 64/128/256)."""
+    padded width is one that the decode kernels take (dk in 32/64/128/256)."""
     return -(-cfg.qk_head_dim // 128) * 128
 
 

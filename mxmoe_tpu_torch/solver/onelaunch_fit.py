@@ -19,10 +19,13 @@ Rates, each from the device time of the kernels one call launched
                      reference (``tools/tpu_onelaunch_fit.py``); the model
                      prices every weight-only scheme, and w16a16, at it
     unpack_gops      K4 at decode M with 0 / 30 / 60 experts packed against
-                     the same codes int8-stored: the time the packed experts
-                     take beyond what the model's halved weight bytes give,
-                     a least-squares slope over the packed elements (0: no
-                     term, when packing costs nothing beyond its bytes)
+                     the same codes int8-stored, timed in turns for
+                     UNPACK_ROUNDS rounds: the time the packed experts take
+                     beyond what the model's halved weight bytes give, a
+                     least-squares slope over the packed elements in each
+                     round (``fit_unpack``); 0.0 (no term) with
+                     ``unpack_resolved`` false when the median slope is not
+                     above the rounds' spread
     launch_ms        the same decode GEMM split into 1 / 2 / 4 / 8 column
                      launches: the slope over launches, less the activation
                      re-read each extra launch makes
@@ -31,11 +34,13 @@ The fitted model is then held against a measured mixed step (K1 + K4 over
 the routed rows, K1 + K2 with one group for the shared expert, both
 workloads) at w4 fractions 0 / 0.5 / 1.0, and the miss is printed. The JSON
 (``mxmoe_tpu_torch/perf/onelaunch_model.json`` by default) holds the rates,
-the card's ``nvidia-smi`` name and power limit, and each measurement.
+``unpack_resolved``, the card's ``nvidia-smi`` name and power limit, and
+each measurement.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
@@ -45,6 +50,10 @@ import torch
 from ..bench import timing, workloads
 from .perf_model import ONELAUNCH_JSON, OneLaunchPerfModel
 
+# the unpack fit: K4 at decode M with these shares of the experts packed,
+# timed in turns for this many rounds
+UNPACK_FRACS = (0.0, 0.5, 1.0)
+UNPACK_ROUNDS = 5
 RATE_KEYS = ("int8_tflops_eff", "quant_gbps_eff", "hbm_gbps_eff", "bf16_tflops_eff",
              "unpack_gops", "launch_ms")
 # the decode GEMM of the HBM, unpack and launch fits
@@ -142,6 +151,40 @@ def _decode_operands(gen, device, w4: np.ndarray | None = None):
     return aq, asc, q, sc, gs
 
 
+def fit_unpack(rounds: list) -> dict:
+    """The unpack rate from rounds of K4 decode timings. Each round holds one
+    row a w4 fraction (the first with nothing packed): ``packed_elems``,
+    ``measured_ms`` and ``bytes_model_ms`` (the model's time for the
+    weights' bytes). A round's slope is the least-squares slope of the time
+    beyond the bytes model, over the packed elements, through the first
+    row. The rate is resolved when the median slope stands above the
+    slopes' spread (max - min); then ``unpack_gops`` = 1e-6 / median
+    (Gelem/s), else 0.0: the slope lies inside the timing noise and the
+    model takes no unpack term (the JAX package's 0.0). Returns the rate,
+    ``resolved``, the slopes, their median and spread, and each fraction's
+    median row with its residual against the median slope."""
+    slopes = []
+    for rows in rounds:
+        r0 = rows[0]["measured_ms"] - rows[0]["bytes_model_ms"]
+        xs = np.array([r["packed_elems"] for r in rows])
+        ys = np.array([r["measured_ms"] - r["bytes_model_ms"] - r0 for r in rows])
+        slopes.append(float((xs * ys).sum() / (xs * xs).sum()))
+    med = float(np.median(slopes))
+    spread = float(max(slopes) - min(slopes))
+    resolved = med > spread
+    rows = []
+    for i, row in enumerate(rounds[0]):
+        ms = float(np.median([rnd[i]["measured_ms"] for rnd in rounds]))
+        rows.append({**row, "measured_ms": ms})
+    r0 = rows[0]["measured_ms"] - rows[0]["bytes_model_ms"]
+    for r in rows:
+        r["residual_ms"] = (r["measured_ms"] - r["bytes_model_ms"] - r0
+                            - med * r["packed_elems"])
+    return {"unpack_gops": 1e-6 / med if resolved else 0.0, "resolved": resolved,
+            "slopes_ms_per_elem": slopes, "slope_median": med, "slope_spread": spread,
+            "rows": rows}
+
+
 def fit_rates(device="cuda", reps: int = 10, verbose: bool = True) -> tuple[dict, dict]:
     """The five rates and the launch constant -> (rates, measurements)."""
     from ..ops.gmm_mixed_packed import gmm_mixed_packed
@@ -193,36 +236,35 @@ def fit_rates(device="cuda", reps: int = 10, verbose: bool = True) -> tuple[dict
     meas["k2_decode_ms"] = d_ms
     say(f"K2 decode {d_ms:.4f} ms -> {rates['hbm_gbps_eff']:.1f} GB/s")
 
-    # K4 at decode M: w4 fractions packed against int8-stored, same codes
+    # K4 at decode M: w4 fractions packed against int8-stored, same codes,
+    # timed in turns for UNPACK_ROUNDS rounds
     model = OneLaunchPerfModel(k, **{key: rates[key] for key in
                                      ("int8_tflops_eff", "bf16_tflops_eff",
                                       "hbm_gbps_eff", "quant_gbps_eff")},
                                packed_w4=True, unpack_gops=0.0)
-    rows = []
-    for frac in (0.0, 0.5, 1.0):
+    cases = []
+    for frac in UNPACK_FRACS:
         w4 = np.arange(DEC_E) < round(frac * DEC_E)
         aq, asc, q, sc, gs = _decode_operands(gen, device, w4)
         cat, blk = build_ragged_mixed(q, w4)
         blk = torch.tensor(blk, dtype=torch.int32, device=device)
         pf = torch.tensor(w4.astype(np.int32), device=device)
-        t = timing.device_ms(lambda: gmm_mixed_packed(aq, asc, cat, sc, gs, pf, blk),
-                             reps=reps)
         # the model's K4 share (K1 is not in this call)
         pred = sum(model.problem_ms("w4a4_g-1_sym" if f else "w8a8_g-1_sym", 1, n)
                    - 1 * k * 3.0 / model.qbw * 1e3 for f in w4)
-        rows.append({"w4_frac": frac, "packed_elems": float(w4.sum()) * k * n,
-                     "measured_ms": t, "bytes_model_ms": pred})
-    r0 = rows[0]["measured_ms"] - rows[0]["bytes_model_ms"]
-    xs = np.array([r["packed_elems"] for r in rows])
-    ys = np.array([r["measured_ms"] - r["bytes_model_ms"] - r0 for r in rows])
-    coef = max(float((xs * ys).sum() / (xs * xs).sum()), 0.0)
-    rates["unpack_gops"] = 1e-6 / coef if coef > 0 else 0.0
-    for r, x, y in zip(rows, xs, ys):
-        r["residual_ms"] = float(y - coef * x)
-    meas["unpack_fit"] = rows
-    say(f"K4 decode packed vs int8-stored {[round(r['measured_ms'], 4) for r in rows]} "
-        f"ms -> unpack {rates['unpack_gops']:.1f} Gelem/s, residuals "
-        f"{[round(r['residual_ms'], 5) for r in rows]} ms")
+        cases.append((frac, float(w4.sum()) * k * n, pred,
+                      functools.partial(gmm_mixed_packed, aq, asc, cat, sc, gs, pf, blk)))
+    rounds = [[{"w4_frac": frac, "packed_elems": elems, "bytes_model_ms": pred,
+                "measured_ms": timing.device_ms(fn, reps=reps)}
+               for frac, elems, pred, fn in cases] for _ in range(UNPACK_ROUNDS)]
+    del cases
+    fit = fit_unpack(rounds)
+    rates["unpack_gops"] = fit["unpack_gops"]
+    meas["unpack_fit"] = fit
+    say(f"K4 decode packed vs int8-stored, {UNPACK_ROUNDS} rounds: slope median "
+        f"{fit['slope_median']:.3e} ms/elem, spread {fit['slope_spread']:.3e} -> "
+        + (f"unpack {rates['unpack_gops']:.1f} Gelem/s" if fit["resolved"]
+           else "not resolved at these shapes: no unpack term"))
 
     rates["launch_ms"], meas["launch_fit"] = fit_launch(rates, gen, device, reps)
     say(f"launch {rates['launch_ms'] * 1e3:.2f} us")
@@ -301,7 +343,8 @@ def run(out_path: str | None = ONELAUNCH_JSON, device="cuda", reps: int = 10,
     from ..trace.profiler import card_line
 
     rates, meas = fit_rates(device, reps, verbose)
-    rec = {**rates, "card": card_line(), "time": "device_ms", "measurements": meas,
+    rec = {**rates, "unpack_resolved": meas["unpack_fit"]["resolved"],
+           "card": card_line(), "time": "device_ms", "measurements": meas,
            "validation": validate(rates, device, reps, verbose)}
     if out_path:
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
@@ -319,7 +362,7 @@ def _main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     rec = run(args.out, args.device, args.reps)
-    print(json.dumps({k: rec[k] for k in (*RATE_KEYS, "card")}))
+    print(json.dumps({k: rec[k] for k in (*RATE_KEYS, "unpack_resolved", "card")}))
     print(f"one-launch fit -> {args.out}")
 
 

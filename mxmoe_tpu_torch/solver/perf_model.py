@@ -35,7 +35,8 @@ H100_HBM_GBPS = 3350.0
 
 # OneLaunchPerfModel's effective rates, fitted on "NVIDIA H100 80GB HBM3,
 # 700.00 W" by ``python -m mxmoe_tpu_torch.solver.onelaunch_fit`` (the
-# committed perf/onelaunch_model.json holds the same fit and its card)
+# committed perf/onelaunch_model.json holds a later run of the same CLI on
+# the same card, each rate within 4 % of these, with its unpack rounds)
 H100_ONELAUNCH = {"int8_tflops_eff": 138.95, "bf16_tflops_eff": 77.37,
                   "hbm_gbps_eff": 1892.42, "quant_gbps_eff": 2737.75,
                   "unpack_gops": 24562.59, "launch_ms": 0.006901}

@@ -972,10 +972,10 @@ def test_decode_attention_stacked_bitwise_the_update_after_its_write(dev, quant)
 
 
 def test_read_only_wrappers_reject_bad_input(dev):
-    q = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device=dev)
-    c = torch.zeros((1, 2, 2, 64, 32), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 4, 16), dtype=torch.bfloat16, device=dev)
+    c = torch.zeros((1, 2, 2, 64, 16), dtype=torch.bfloat16, device=dev)
     lens = torch.zeros((2,), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="dk in 64/128/256"):      # dk 32
+    with pytest.raises(ValueError, match="dk in 32/64/128/256"):   # dk 16
         da.decode_attention_stacked(q, c, None, c, None, lens, 0)
     q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev)
     c = torch.zeros((1, 2, 2, 64, 64), dtype=torch.bfloat16, device=dev)
@@ -985,6 +985,25 @@ def test_read_only_wrappers_reject_bad_input(dev):
         da.decode_attention(q, c[0], c[0], lens.long())
     with pytest.raises(ValueError, match="per-layer"):
         da.decode_attention(q, c, c, lens)
+
+
+def test_decode_step_outside_the_kernel_domain_raises(dev):
+    """A cached decode step whose head dim (16) K3 cannot take raises on the
+    card: no model is served by the plain attention there."""
+    import dataclasses
+
+    from mxmoe_tpu_torch.models import configs, model
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.serving import decode, kv_cache
+
+    cfg = dataclasses.replace(configs.tiny_qwen2_moe(4, 2), head_dim=16)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+    cache = kv_cache.init_kv_cache(cfg, 2, 32, device=dev)
+    toks = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    _, cache = decode.forward_cached(params, toks, cache, cfg, MoEImpl())
+    with pytest.raises(ValueError, match="dk in 32/64/128/256"):
+        decode.forward_cached(params, toks[:, :1], cache, cfg, MoEImpl())
 
 
 def test_fused_ffn_refuses_a_width_whose_h_row_does_not_fit(dev):

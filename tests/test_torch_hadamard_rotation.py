@@ -131,6 +131,10 @@ def test_fuse_and_rotate_vs_jax_and_invariance(kind):
     rot = tr.rotate_model_hadamard(params_from_jax(params, "cpu"), cfg_t, q=q)
     ref = jr.rotate_model_hadamard(jax.tree_util.tree_map(jnp.asarray, params), cfg_j, key)
     _close_tree(rot, ref)
+    # contiguous, as the kernels take their operands (K11 on the rotated experts)
+    assert all(v.is_contiguous() for sub in ("layers", "dense_layers") if sub in rot
+               for v in rot[sub].values())
+    assert tr.rotate_down_weights(pt["layers"]["expert_down"]).is_contiguous()
     # the rotated (and the fused) model is the original one
     impl = MoEImpl(kind="dense")
     want = model.forward_logits(pt, torch.from_numpy(toks), cfg_t, impl)
