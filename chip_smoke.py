@@ -215,10 +215,32 @@ failure raises and the script exits non-zero without a result line:
               bench.fused_ab at 512 / 2048 / 32768 rows (K10 bitwise K6 +
               K2). Each step's seconds
 
+ 12. ep       expert parallelism (ep_phase; no new kernel: the ported ones
+              per rank). (a) One rank over NCCL: qwen2_moe at full width and
+              24 layers, mixed-packed + int8 KV, through Engine(mesh=...) on
+              a one-rank DeviceMesh against the one-device Engine on the same
+              params (K1, K2, K3q, K4 must launch under EP); then
+              parallel.scale_bench at ep 1 (its ep >= 2 rows wait for a
+              machine with more cards), and whether NCCL takes two ranks on
+              the one card (a 2-process all_reduce, recorded). (b) Two ranks
+              spawned on the one card, the exchange staged through host
+              buffers over gloo (the transport every line names), 4 layers:
+              uniform w8a8 (K1, K2), mixed-packed (K4), flex (K8) and
+              mixed-wo (K10), each with K3, at the capacity the float model's
+              gate trace gives (its drops printed: none can at 2 ranks and a
+              factor of 2 or more), each rank's peak memory; rank 0 serves
+              the same requests on one device first. Then one ring SP prefill
+              at 2 ranks against forward_logits (float32, within SP_REL of
+              max |logits|). (c) generate --mesh 2 --transport host against
+              generate on one device. Every EP serve's tokens equal the
+              one-device serve's, or part first where the one-device model's
+              top-2 margin is within PARITY_BOUND (_margin_rule)
+
 Then a {"kernels": [...]} line (each kernel's launches are those of one
 serve or run, named beside them, ``offline_launches`` those of each
-artifact's serve, ``solve_launches`` those of each solve step and
-``eval_launches`` those of each eval step; K3 / K3q's ``anchor_decode`` the
+artifact's serve, ``solve_launches`` those of each solve step,
+``eval_launches`` those of each eval step and ``ep_launches`` those of each
+EP serve of phase 12; K3 / K3q's ``anchor_decode`` the
 anchor's decode shape, dk 32; K14 and
 the read-only decode attention are reached by no serve in either package),
 the nvidia-smi line, and last
@@ -3524,6 +3546,370 @@ def headline_bench() -> int:
     return counts["mixed"]
 
 
+
+# phase 12 (ep): the 2-rank serves on one card, each over a 4-layer
+# qwen2_moe: name -> (bench_serving --quant, kernels that must launch)
+EP_SERVES = {
+    "uniform": ("w8a8_g-1_sym", ("quantize_rows", "gmm_w8a8",
+                                 "decode_attention_update_stacked")),
+    "mixed_packed": ("mixed-packed", ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed",
+                                      "decode_attention_update_stacked")),
+    "flex": ("flex", ("gmm_w8a8_grouped", "quantize_rows", "gmm_w8a8",
+                      "decode_attention_update_stacked")),
+    "mixed_wo": ("mixed-wo", ("quantize_rows", "gmm_mixed_wo_wxa", "gmm_w8a8",
+                              "decode_attention_update_stacked")),
+}
+# the one-rank NCCL serve: qwen2_moe at full depth, mixed-packed + int8 KV
+EP_ONE_RANK_EXPECT = ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed",
+                      "decode_attention_update_stacked_q8")
+EP_PROMPT_LENS = (40, 120, 200, 300)
+EP_MAX_NEW = 16
+# ring SP prefill against forward_logits, float32 model: max |d| over
+# max |logits| (the ring's online softmax sums in another order than the
+# plain softmax; float32 rounding stays far below)
+SP_REL = 1e-3
+
+
+def _ep_model(layers: int, quant: str, device, dtype=None):
+    """qwen2_moe at its published widths, ``layers`` deep, seed 0 (every
+    serve of the phase and every rank draws the same weights), each MoE
+    layer quantized as ``prepare`` takes ``quant`` -> (config, params,
+    MoEImpl); ``dtype`` float32 keeps the float model in float32."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import config_for
+    from mxmoe_tpu_torch.models.model import init_params
+    from mxmoe_tpu_torch.serving.bench_serving import init_for_serving
+
+    cfg = dataclasses.replace(config_for("qwen2_moe"), num_layers=layers)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if dtype is not None:
+        return cfg, init_params(cfg, gen, dtype=dtype, device=device), None
+    params, impl = init_for_serving(
+        cfg, gen, functools.partial(prepare, quant=quant), device)
+    return cfg, params, impl
+
+
+def _ep_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, vocab, n).tolist() for n in EP_PROMPT_LENS]
+
+
+def _engine_tokens(params, cfg, impl, prompts, int8_kv: bool, mesh=None, ep_cfg=None):
+    """4 requests through the Engine (one device, or the mesh) -> (tokens,
+    engine)."""
+    import torch
+
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+
+    eng = Engine(params, cfg, EngineConfig(batch_slots=4, max_len=1024,
+                                           prefill_chunk=256, int8_kv=int8_kv),
+                 impl, mesh=mesh, ep_cfg=ep_cfg)
+    with torch.inference_mode():
+        rids = [eng.submit(p, max_new_tokens=EP_MAX_NEW) for p in prompts]
+        res = eng.run_to_completion(chunk=16)
+    return [res[r] for r in rids], eng
+
+
+def _margin_rule(got: list, ref: list, prompts: list, params, cfg, impl) -> dict:
+    """The EP serve's tokens against the one-device serve's: equal, or
+    parting first at a position where the one-device model's top-2 logit
+    margin (a forward over the prompt and the tokens before it) is within
+    PARITY_BOUND, so a tie decided it. Raises otherwise."""
+    import torch
+
+    from mxmoe_tpu_torch.models.model import forward_logits
+
+    parted = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        j = next((j for j, (a, b) in enumerate(zip(g, r)) if a != b), None)
+        if j is None and len(g) == len(r):
+            continue
+        j = min(len(g), len(r)) if j is None else j
+        toks = torch.tensor([prompts[i] + r[:j]], device=params["embed"].device)
+        with torch.inference_mode():
+            margin = float(_top2_margin(forward_logits(params, toks, cfg, impl)[0, -1]))
+        parted.append({"request": i, "position": j, "top2_margin": margin})
+        if not margin <= PARITY_BOUND:
+            raise AssertionError(f"ep: request {i} parts from the one-device tokens at "
+                                 f"{j} where the top-2 margin is {margin} > "
+                                 f"{PARITY_BOUND}: {g} against {r}")
+    return {"equal": not parted, "parted": parted}
+
+
+def _ep_two_ranks(rank: int, out: str, device_type: str) -> None:
+    """One rank of the 2-rank phase: both ranks on the one card, the
+    exchange staged through host buffers over gloo (NCCL refuses two ranks
+    on one card). For each EP_SERVES mix: rank 0 serves the requests on one
+    device first, then both serve them over the mesh; then the ring SP
+    prefill. Writes its results to ``out``/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.models.model import forward_logits
+    from mxmoe_tpu_torch.ops import kernels
+    from mxmoe_tpu_torch.parallel.ep import EPConfig, capacity_factor_from_freq
+    from mxmoe_tpu_torch.parallel.sharded import make_sp_prefill_forward
+    from mxmoe_tpu_torch.trace.gate import trace_gate_stats
+
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        kernels.lib()
+    mesh = DeviceMesh("cpu", [0, 1], mesh_dim_names=("expert",))
+    res = {"rank": rank, "device": str(device), "transport": "host (gloo)"}
+    # the capacity the gate trace gives: the float model over the prompts
+    cap = [None]
+    if rank == 0:
+        cfg, floats, _ = _ep_model(4, None, device, torch.bfloat16)
+        prompts = _ep_prompts(cfg.vocab_size)
+        toks = torch.tensor([p[:EP_PROMPT_LENS[0]] for p in prompts], device=device)
+        trace = trace_gate_stats(floats, toks, cfg, device=device)
+        cap[0] = max(max(capacity_factor_from_freq(f, 2, margin=1.5)
+                         for f in trace.access_freq), 2.0)
+        del floats
+    dist.broadcast_object_list(cap)
+    res["capacity_factor"] = cap[0]
+    ep_cfg = EPConfig(capacity_factor=cap[0], return_stats=True, transport="host")
+    for name, (quant, expect) in EP_SERVES.items():
+        cfg, params, impl = _ep_model(4, quant, device)
+        prompts = _ep_prompts(cfg.vocab_size)
+        ref = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            ref, eng = _engine_tokens(params, cfg, impl, prompts, False)
+            one_device_s = time.perf_counter() - t0
+            del eng
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, eng = _engine_tokens(params, cfg, impl, prompts, False, mesh, ep_cfg)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        row = {"quant": quant, "tokens": got, "seconds": seconds,
+               "dropped_assignments": eng.dropped_assignments(),
+               "local_slots": int(eng.cache.lengths.shape[0]),
+               "launches": launches,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                        if device.type == "cuda" else None)}
+        if rank == 0:
+            row["vs_one_device"] = _margin_rule(got, ref, prompts, params, cfg, impl)
+            row["one_device_serve_s"] = one_device_s
+        missing = [k for k in expect if not launches.get(k)]
+        if device.type == "cuda" and missing:
+            raise AssertionError(f"ep {name}: kernels never launched under EP: {missing}")
+        res[name] = row
+        del eng, params
+    # one ring SP prefill at 2 ranks against forward_logits (float32 model)
+    cfg, floats, _ = _ep_model(2, None, device, torch.float32)
+    impl = MoEImpl(gmm_backend="pallas")
+    toks = torch.tensor([_ep_prompts(cfg.vocab_size)[3][:256]], device=device)
+    with torch.inference_mode():
+        ref = forward_logits(floats, toks, cfg, impl)
+        half = toks.shape[1] // 2
+        got = make_sp_prefill_forward(cfg, mesh, "expert", impl, transport="host")(
+            floats, toks[:, rank * half:(rank + 1) * half])
+    err = float((got - ref[:, rank * half:(rank + 1) * half]).abs().max())
+    res["sp_prefill"] = {"tokens": int(toks.shape[1]), "ranks": 2,
+                         "max_abs_err": err, "max_abs_logit": float(ref.abs().max()),
+                         "bound": SP_REL * float(ref.abs().max())}
+    if not err <= SP_REL * float(ref.abs().max()):
+        raise AssertionError(f"ep: ring SP prefill on rank {rank}: {err}")
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+_NCCL_PROBE = """
+import os, torch, torch.distributed as dist
+rank = int(os.environ["PROBE_RANK"])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="tcp://localhost:" + os.environ["PROBE_PORT"],
+                        world_size=2, rank=rank)
+t = torch.ones(4, device="cuda:0")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("NCCL-ALL-REDUCE-OK", rank, t.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def nccl_two_ranks_one_card() -> dict:
+    """Whether NCCL takes two ranks on the one card: an all_reduce between
+    two processes both on cuda:0, each with a time limit (killed at it). The
+    phase stages its 2-rank exchange through host buffers either way (the
+    transport is the caller's choice); this records NCCL's answer."""
+    from mxmoe_tpu_torch.parallel.multihost import free_port
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PROBE_PORT"] = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_PROBE],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env={**env, "PROBE_RANK": str(r)}) for r in (0, 1)]
+    outs, codes = [], []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=90)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out += "\n(timed out after 90 s, killed)"
+        outs.append(out)
+        codes.append(p.returncode)
+    lines = [l for o in outs for l in o.splitlines()
+             if "NCCL" in l or "rror" in l or "timed out" in l][:10]
+    return {"returncodes": codes, "lines": lines,
+            "accepted": all(c == 0 for c in codes)
+            and all("NCCL-ALL-REDUCE-OK" in o for o in outs)}
+
+
+def ep_phase(device: str = "cuda") -> dict:
+    """Phase 12: expert parallelism (module docstring). Returns each
+    kernel's launches under EP: {kernel: {serve: count}}."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from mxmoe_tpu_torch.parallel.ep import EPConfig
+    from mxmoe_tpu_torch.parallel.multihost import free_port, spawn
+    from mxmoe_tpu_torch.parallel import scale_bench
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    ep_launches: dict = {}
+
+    def record(serve: str, launches: dict):
+        for k, v in launches.items():
+            ep_launches.setdefault(k, {})[serve] = v
+
+    # (a) one rank over NCCL: qwen2_moe at full width and depth, mixed-packed
+    # + int8 KV, through Engine(mesh=...) against the one-device Engine
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        cfg, params, impl = _ep_model(24 if on_card else 2, "mixed-packed", dev)
+        prompts = _ep_prompts(cfg.vocab_size)
+        t1 = time.perf_counter()
+        ref, eng = _engine_tokens(params, cfg, impl, prompts, True)
+        one_device_s = time.perf_counter() - t1
+        del eng
+        mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("expert",))
+        _reset_counts()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        got, eng = _engine_tokens(params, cfg, impl, prompts, True, mesh,
+                                  EPConfig(capacity_factor=4.0, return_stats=True))
+        serve_s = time.perf_counter() - t1
+        launches = _counts()
+        rule = _margin_rule(got, ref, prompts, params, cfg, impl)
+        emit("ep", step="one_rank", model="qwen2_moe", layers=cfg.num_layers,
+             quant="mixed-packed", int8_kv=True, transport="nccl (direct)" if on_card
+             else "gloo (direct)", ranks=1, tokens=got, vs_one_device=rule,
+             dropped_assignments=eng.dropped_assignments(), serve_s=serve_s,
+             one_device_serve_s=one_device_s,
+             seconds=time.perf_counter() - t0, launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else None)
+        record("one_rank_nccl_qwen2_moe_24l_mixed_packed_int8kv", launches)
+        missing = [k for k in EP_ONE_RANK_EXPECT if not launches.get(k)]
+        if on_card and missing:
+            raise AssertionError(f"ep one rank: kernels never launched: {missing}")
+        del eng, params
+        # scale_bench at ep 1 (its ep >= 2 rows need more cards)
+        if on_card:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            layer_cfg = dataclasses.replace(cfg, num_layers=1)
+            rows = [scale_bench.bench_ep_scaling(layer_cfg, mesh, 2048, quantized=True,
+                                                 device=dev),
+                    scale_bench.bench_decode_scaling(
+                        dataclasses.replace(cfg, num_layers=2), mesh, 8, 256,
+                        quantized=True, steps=16, device=dev)]
+            emit("ep", step="scale_bench", rows=rows, card=smi_line(),
+                 seconds=time.perf_counter() - t0,
+                 waits_for_more_cards="the ep >= 2 rows need one card a rank: "
+                                      f"this machine has {torch.cuda.device_count()}")
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+        emit("ep", step="nccl_two_ranks_one_card", **nccl_two_ranks_one_card())
+
+    # (b) two ranks on the one card over the host-staged transport
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "mxmoe_tpu_torch", "_build")
+                                     if on_card else None) as out:
+        spawn(_ep_two_ranks, 2, (out, dev.type), backend="gloo")
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for name in EP_SERVES:
+        if ranks[0][name]["tokens"] != ranks[1][name]["tokens"]:
+            raise AssertionError(f"ep {name}: the two ranks disagree on the tokens")
+        emit("ep", step="two_ranks", serve=name, quant=EP_SERVES[name][0], layers=4,
+             transport=ranks[0]["transport"], ranks=2,
+             capacity_factor=ranks[0]["capacity_factor"],
+             tokens=ranks[0][name]["tokens"],
+             vs_one_device=ranks[0][name]["vs_one_device"],
+             one_device_serve_s=ranks[0][name]["one_device_serve_s"],
+             dropped_assignments=ranks[0][name]["dropped_assignments"],
+             serve_s=[x[name]["seconds"] for x in ranks],
+             max_memory_allocated=[x[name]["max_memory_allocated"] for x in ranks],
+             launches=[x[name]["launches"] for x in ranks])
+        for r, x in enumerate(ranks):
+            record(f"two_ranks_host_{name}_rank{r}", x[name]["launches"])
+    emit("ep", step="sp_prefill", transport=ranks[0]["transport"],
+         per_rank=[x["sp_prefill"] for x in ranks],
+         seconds_two_rank_job=time.perf_counter() - t0)
+
+    # (c) generate --mesh 2 as a user calls it, against generate on one device
+    t0 = time.perf_counter()
+    gen_prompt = _ep_prompts(151936)[0][:40]
+    gen_args = ["--model", "qwen2_moe", "--layers", "4", "--quant", "mixed-packed",
+                "--slots", "2", "--max-new", "16", "--prompt",
+                " ".join(str(t) for t in gen_prompt)]
+    if not on_card:
+        gen_args += ["--device", "cpu"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join([HERE, *filter(None, [env.get("PYTHONPATH")])])
+    p = subprocess.run([sys.executable, "-m", "mxmoe_tpu_torch.serving.generate",
+                        *gen_args, "--mesh", "2", "--transport", "host"],
+                       capture_output=True, text=True, timeout=400, cwd=HERE, env=env)
+    if p.returncode != 0:
+        raise AssertionError(f"generate --mesh 2 failed ({p.returncode}):\n"
+                             f"{p.stderr[-3000:]}")
+    line = next(l for l in p.stdout.splitlines() if l.startswith("output tokens"))
+    mesh_toks = json.loads(line.split(":", 1)[1])
+    from mxmoe_tpu_torch.serving import generate
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = generate.main(gen_args)
+    rule = {"equal": True, "parted": []}
+    if mesh_toks != one:
+        cfg, params, impl = _ep_model(4, "mixed-packed", dev)
+        rule = _margin_rule([mesh_toks], [one], [gen_prompt], params, cfg, impl)
+    emit("ep", step="generate_mesh", args=gen_args + ["--mesh", "2", "--transport", "host"],
+         tokens=mesh_toks, one_device=one, vs_one_device=rule,
+         summary=[l for l in p.stdout.splitlines() if "ranks" in l],
+         seconds=time.perf_counter() - t0)
+    emit("ep", step="phase", seconds=time.perf_counter() - t_phase)
+    return ep_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mxmoe_tpu_torch")):
         print("chip_smoke.py: mxmoe_tpu_torch/ not found beside this script",
@@ -3677,6 +4063,8 @@ def main() -> int:
         evals = eval_phase(ckpt, solved["qconfig"], solved["expect"])
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ep = ep_phase()
     # one path per number: a kernel's launches are those of the full-depth
     # serve that runs it, else of the 4-layer serve that does
     counts = {"ds2": (k3q, k1, "gmm_w8a8", "gmm_mixed_packed"), "mixed_fused": (k13,),
@@ -3711,6 +4099,7 @@ def main() -> int:
          "offline_launches": {art: n[name] for art, n in offline.items() if n.get(name)},
          "solve_launches": {st: n[name] for st, n in solve.items() if n.get(name)},
          "eval_launches": {st: n[name] for st, n in evals.items() if n.get(name)},
+         "ep_launches": ep.get(name, {}),
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
          **{key: rec[name][key] for key in ("body", "prefill", "large", "anchor_decode")
             if key in rec[name]}}

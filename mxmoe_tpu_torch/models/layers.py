@@ -53,14 +53,17 @@ path); the dense layer's ``act_bits_dense`` does the same for ds2's dense
 MLP. ``MoEImpl.online_had`` rotates the down projection's input online
 (``quant.hadamard.matmul_hadU``; the down weights pre-rotated by
 ``quant.rotation.rotate_down_weights``) on the float and the two-launch
-quantized paths; the whole-FFN kernels refuse it and fall through. Not
-ported, and raising ``NotImplementedError`` with its ROADMAP item: ring
-attention.
+quantized paths; the whole-FFN kernels refuse it and fall through.
 
 ``attention``'s backends: ``"xla"`` is the einsum softmax; ``"flash"`` is the
 reference's library flash attention, here the stock
 ``scaled_dot_product_attention`` (causal) on a card and the einsum on the
-CPU, as the reference takes its library kernel only on its accelerator.
+CPU, as the reference takes its library kernel only on its accelerator;
+``"ring"`` is sequence-parallel ring attention over a process group
+(``parallel.ring_attention``: ``MoEImpl.ring_attn``, built by
+``parallel.sharded.make_sp_prefill_forward``, else the default group).
+``MoEImpl.ep_moe`` replaces the cached forward's MoE block by the
+expert-parallel one (``parallel.ep.make_ep_moe_block``).
 """
 
 from __future__ import annotations
@@ -144,6 +147,11 @@ class MoEImpl:
       won at no measured point (``bench/decode_attn_crossover.py``), and
       the two are folded together or ``"auto"`` learns a crossover once
       one is measured.
+    ep_moe: the cached forward's routed MoE block under expert parallelism
+      (``parallel.ep.make_ep_moe_block``, set by the mesh ``Engine``):
+      ``block(x, lp, cfg) -> y`` in place of ``moe_block``.
+    ring_attn: the callable ``attention(backend="ring")`` runs
+      (``parallel.ring_attention.make_ring_attention_fn``).
     The JAX serving default holds for act quant: the single-pass kernel
     (``pallas_quant=True``, here K1).
     """
@@ -157,6 +165,8 @@ class MoEImpl:
     online_had: bool = False
     attn_backend: str = "xla"
     decode_attn: str = "auto"
+    ep_moe: object = None
+    ring_attn: object = None
 
     def use_fused_decode(self) -> bool:
         """Whether a decode step takes the fused cache-write + attention."""
@@ -549,17 +559,22 @@ def _causal_mask(s: int, t: int, device) -> torch.Tensor:
 def attention(q: torch.Tensor,    # [B, S, nH, hd]
               k: torch.Tensor,    # [B, T, nKV, hd]
               v: torch.Tensor,    # [B, T, nKV, hd]
-              causal: bool = True, backend: str = "xla") -> torch.Tensor:
+              causal: bool = True, backend: str = "xla",
+              ring_fn=None) -> torch.Tensor:
     """GQA attention; keys / values broadcast over the query groups ->
     [B, S, nH, hd]. ``backend`` as the module docstring says; ``"ring"``
-    (sequence-parallel ring attention) waits for expert parallelism."""
+    runs ``ring_fn(q, k, v)`` over this rank's sequence block, or, without
+    one, ring attention over the default process group (raising where none
+    is initialized)."""
     b, s, n_h, hd = q.shape
     n_kv = k.shape[2]
     groups = n_h // n_kv
     if backend == "ring":
-        raise NotImplementedError(
-            "attn_backend='ring' (sequence-parallel ring attention) is not "
-            "ported (ROADMAP queue A: EP and multi-host)")
+        if not causal:
+            raise ValueError("ring attention is causal-only")
+        if ring_fn is None:
+            from ..parallel.ring_attention import ring_attention as ring_fn
+        return ring_fn(q, k, v)
     if backend not in ("xla", "flash"):
         raise ValueError(f"attention backend {backend!r}: 'xla' | 'flash' | 'ring'")
     if backend == "flash" and causal and q.is_cuda:
@@ -579,7 +594,7 @@ def attention(q: torch.Tensor,    # [B, S, nH, hd]
 
 
 def attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
-                    attn_backend: str = "xla") -> torch.Tensor:
+                    attn_backend: str = "xla", ring_fn=None) -> torch.Tensor:
     """GQA self-attention of one layer over a whole sequence [B, S, H]."""
     b, s, _ = x.shape
     q = x @ lp["wq"]
@@ -592,7 +607,7 @@ def attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
     q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), cos, sin)
     k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    out = attention(q, k, v, causal=True, backend=attn_backend)
+    out = attention(q, k, v, causal=True, backend=attn_backend, ring_fn=ring_fn)
     return out.reshape(b, s, -1) @ lp["wo"]
 
 
@@ -655,11 +670,13 @@ def make_rope_tables(cfg: MoEConfig, positions: torch.Tensor):
     return rope_frequencies(cfg.head_dim, cfg.rope_theta, positions)
 
 
-def attention_dispatch(x, lp, cfg: MoEConfig, cos, sin, attn_backend: str = "xla"):
+def attention_dispatch(x, lp, cfg: MoEConfig, cos, sin, attn_backend: str = "xla",
+                       ring_fn=None):
     """GQA or MLA attention, as the config says."""
     if cfg.attention_type == "mla":
         return mla_attention_block(x, lp, cfg, cos, sin)
-    return attention_block(x, lp, cfg, cos, sin, attn_backend=attn_backend)
+    return attention_block(x, lp, cfg, cos, sin, attn_backend=attn_backend,
+                           ring_fn=ring_fn)
 
 
 def decoder_layer(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
@@ -667,7 +684,7 @@ def decoder_layer(x: torch.Tensor, lp: dict, cfg: MoEConfig, cos, sin,
     """One pre-norm decoder layer: attention, then the MoE block (or, for
     a dense first layer, the SwiGLU MLP)."""
     h = x + attention_dispatch(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps),
-                               lp, cfg, cos, sin, impl.attn_backend)
+                               lp, cfg, cos, sin, impl.attn_backend, impl.ring_attn)
     norm_h = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
     if dense_mlp:
         return h + dense_mlp_block(norm_h, lp, cfg)

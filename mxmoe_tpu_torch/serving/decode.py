@@ -12,7 +12,9 @@ the JAX package's plain path, ``scatter_layer_cache*`` +
 width and scales by 1/sqrt(qk_head_dim), not by the padded width. The dense
 first layers (ds2) run first; the cache's layer index counts them. The layer
 loop is a Python loop over ``w[layer]`` views; the cache is written in
-place.
+place. ``MoEImpl.ep_moe`` (the expert-parallel block) takes the MoE blocks'
+place; a rank with no rows in another rank's forward runs its share of the
+blocks' collectives through :func:`forward_cached_follow`.
 """
 
 from __future__ import annotations
@@ -124,14 +126,31 @@ def forward_cached(params: dict, tokens: torch.Tensor,
             h = x + attn(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), lp, cfg,
                          cos, sin, cache, l, write_ok, fused)
             norm_h = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
-            x = h + (dense_mlp_block(norm_h, lp, cfg) if dense
-                     else moe_block(norm_h, lp, cfg, impl))
+            if dense:
+                x = h + dense_mlp_block(norm_h, lp, cfg)
+            elif impl.ep_moe is not None:
+                x = h + impl.ep_moe(norm_h, lp, cfg)
+            else:
+                x = h + moe_block(norm_h, lp, cfg, impl)
             l += 1
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = head_logits(params, x, cfg)
     new_len = torch.clamp(cache.lengths + valid_lengths.to(torch.int32),
                           max=cache.max_len).to(torch.int32)
     return logits, dataclasses.replace(cache, lengths=new_len)
+
+
+def forward_cached_follow(params: dict, cfg: MoEConfig, impl: MoEImpl) -> None:
+    """This rank's part of a forward that another rank runs under expert
+    parallelism (one slot's prefill on the rank that owns the slot): every
+    MoE layer's ``impl.ep_moe`` block, in order, with no rows of its own, so
+    each of the block's collectives has this rank too. The caller sets the
+    ranks' row counts (``EPMoEBlock.rows``)."""
+    embed = params["embed"]
+    x = torch.empty((1, 0, embed.shape[1]), dtype=embed.dtype, device=embed.device)
+    stack = params["layers"]
+    for i in range(stack["input_norm"].shape[0]):
+        impl.ep_moe(x, {name: t[i] for name, t in stack.items()}, cfg)
 
 
 def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None = None,

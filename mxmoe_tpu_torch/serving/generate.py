@@ -8,6 +8,7 @@
       --quant mixed-packed --decode-attn xla
   python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe --ckpt <hf_dir>
   python -m mxmoe_tpu_torch.serving.generate --model qwen2_moe --artifact <dir>
+  python -m mxmoe_tpu_torch.serving.generate --model tiny --mesh 2 --device cpu
 
 The weights: seeded random (default), an HF checkpoint (``--ckpt``: float
 params, quantized with ``--quant`` when it is given) or a converted artifact
@@ -16,6 +17,18 @@ the artifact: a per-expert mix when it carries ``act_bits_gateup`` beside
 quantized experts, else ``mxmoe_meta.json``'s uniform ``quant``, else
 float). ``--prompt-text`` / ``--tokenizer`` need a tokenizer and are not
 ported.
+
+``--mesh N`` serves over N ranks (the mesh ``Engine``: experts sharded, the
+KV cache sharded over slots, the EP all-to-all in every cached step), one
+process a rank: launched under ``torchrun`` the ranks join from the
+environment, else the command spawns N processes on this host. Rank r uses
+``cuda:r`` over NCCL (``--transport direct``, the default), the CPU over gloo
+with ``--device cpu``, or ``cuda:(r mod #cards)`` with every exchange staged
+through host buffers over gloo (``--transport host``: two ranks on one card,
+which NCCL refuses). Every rank draws the same seeded weights and keeps its
+slices; rank 0 prints. ``--capacity-factor`` sets the EP capacity headroom,
+``--gate-trace`` derives it from a gate trace (the worst layer's
+``capacity_factor_from_freq``, at least 2).
 """
 
 from __future__ import annotations
@@ -23,6 +36,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
+import os
 import time
 
 from .bench_serving import DECODE_ATTN
@@ -97,8 +112,56 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu | cuda | cuda:N (default: cuda; cpu must be asked "
                          "for and runs the kernels' plain versions)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="serve over N ranks (expert parallelism; module docstring)")
+    ap.add_argument("--transport", default="direct", choices=("direct", "host"),
+                    help="the EP exchange: the group's backend on the tensors "
+                         "(NCCL on cards, gloo on the CPU) or staged through host "
+                         "buffers over gloo")
+    ap.add_argument("--gate-trace", default=None,
+                    help="moe-gate.json: derive the EP capacity factor from the "
+                         "traced routing skew instead of --capacity-factor")
+    ap.add_argument("--capacity-factor", type=float, default=8.0,
+                    help="EP dispatch capacity headroom: assignments beyond it are "
+                         "DROPPED (outputs then part from one device's)")
     args = ap.parse_args(argv)
+    if args.mesh > 1 and "WORLD_SIZE" not in os.environ:
+        import torch.distributed as dist
 
+        if not dist.is_initialized():
+            from ..parallel.multihost import spawn
+
+            spawn(_serve_rank, args.mesh, (args,), backend=_backend(args))
+            return None
+    return _serve(args)
+
+
+def _backend(args) -> str:
+    return "nccl" if args.transport == "direct" and args.device != "cpu" else "gloo"
+
+
+def _serve_rank(rank: int, args):
+    _serve(args)
+
+
+def _capacity_factor(args) -> float:
+    if not args.gate_trace:
+        return args.capacity_factor
+    from ..parallel.ep import capacity_factor_from_freq
+
+    with open(args.gate_trace) as f:
+        trace = json.load(f)
+    caps = [capacity_factor_from_freq(v["access_freq"], args.mesh)
+            for k, v in trace.items() if k.startswith("layer-")]
+    if not caps:
+        raise SystemExit(f"no layer-* entries in {args.gate_trace}: pass "
+                         "--capacity-factor instead")
+    cap = max(max(caps), 2.0)
+    print(f"capacity factor <- gate trace: {cap:.2f} (worst layer of {len(caps)})")
+    return cap
+
+
+def _serve(args):
     import torch
 
     from ..models import configs
@@ -112,6 +175,37 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = torch.device(args.device or "cuda")
+    mesh = ep_cfg = None
+    rank = 0
+    own_group = False
+    if args.mesh:
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..parallel.ep import EPConfig
+        from ..parallel.multihost import free_port
+
+        if not dist.is_initialized():
+            own_group = True
+            if "WORLD_SIZE" in os.environ:
+                # a launcher's job (torchrun), one rank or more: its store
+                dist.init_process_group(_backend(args), init_method="env://")
+            else:
+                # a job of one rank: its own group on localhost
+                dist.init_process_group(_backend(args), world_size=1, rank=0,
+                                        init_method=f"tcp://localhost:{free_port()}")
+        if dist.get_world_size() != args.mesh:
+            raise SystemExit(f"--mesh {args.mesh} in a job of "
+                             f"{dist.get_world_size()} ranks")
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            n = torch.cuda.device_count()
+            device = torch.device("cuda", rank if args.transport == "direct" else rank % n)
+            torch.cuda.set_device(device)
+        mesh = DeviceMesh("cpu" if _backend(args) == "gloo" else "cuda",
+                          list(range(args.mesh)), mesh_dim_names=("expert",))
+        ep_cfg = EPConfig(capacity_factor=_capacity_factor(args),
+                          transport=args.transport)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.artifact:
         params, cfg, impl = load_artifact(args.artifact, cfg, device,
@@ -132,7 +226,8 @@ def main(argv=None):
     eng = Engine(params, cfg, EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
         prefill_chunk=min(256, args.max_len // 2),
-        temperature=args.temperature, seed=args.seed), impl)
+        temperature=args.temperature, seed=args.seed), impl,
+        mesh=mesh, ep_cfg=ep_cfg)
     prompt = [int(t) % cfg.vocab_size for t in args.prompt.split()]
 
     def _sync():
@@ -147,10 +242,18 @@ def main(argv=None):
     out = eng.run_to_completion(chunk=args.chunk)[rid]
     _sync()
     t_decode = time.perf_counter() - t0
-    print(f"prompt tokens : {prompt}")
-    print(f"output tokens : {out}")
-    print(f"device {device}: prefill {t_prefill * 1e3:.1f} ms; decode {len(out)} "
-          f"tok in {t_decode * 1e3:.1f} ms = {len(out) / max(t_decode, 1e-9):.1f} tok/s")
+    if rank == 0:
+        where = (f"{args.mesh} ranks ({args.transport}), rank 0 on {device}"
+                 if args.mesh else f"device {device}")
+        print(f"prompt tokens : {prompt}")
+        print(f"output tokens : {out}")
+        print(f"{where}: prefill {t_prefill * 1e3:.1f} ms; decode {len(out)} tok in "
+              f"{t_decode * 1e3:.1f} ms = {len(out) / max(t_decode, 1e-9):.1f} tok/s",
+              flush=True)
+    if own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return out
 
 

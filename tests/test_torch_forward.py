@@ -179,7 +179,9 @@ def test_unported_branches_raise():
     cfg = configs.tiny_qwen2_moe()
     q = torch.zeros((1, 4, cfg.num_heads, cfg.head_dim))
     k = torch.zeros((1, 4, cfg.num_kv_heads, cfg.head_dim))
-    with pytest.raises(NotImplementedError, match="queue A"):
+    # ring attention is ported (parallel.ring_attention): outside a process
+    # group it raises, naming the missing group
+    with pytest.raises(RuntimeError, match="process group"):
         layers.attention(q, k, k, backend="ring")
     with pytest.raises(ValueError, match="backend"):
         layers.attention(q, k, k, backend="splash")
