@@ -499,11 +499,12 @@ def _routing_group_sizes(tokens: int, cfg, gen, device):
                          cfg.num_experts).group_sizes
 
 
-def _grouped_schedule(m: int, k: int, n: int, e: int) -> dict:
-    """The grouped-scale GEMM's schedule (K8, K4f) at g128, for the log."""
+def _grouped_schedule(m: int, k: int, n: int, e: int, wgmma: bool = True) -> dict:
+    """The grouped-scale GEMM's schedule at g128, for the log: K8's (its
+    wgmma body above the threshold), or K4f's (``wgmma=False``)."""
     from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
 
-    s = grouped_gmm_schedule(m, k, n, e, GSIZE)
+    s = grouped_gmm_schedule(m, k, n, e, GSIZE, wgmma=wgmma)
     return {"bm": s.bm, "grid_m": s.grid_m, "splits": s.splits,
             "k_tiles_per_split": s.k_tiles_per_split}
 
@@ -942,13 +943,13 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                      bitwise=True, equals_gmm_w8a8_grouped=True, gsize=GSIZE,
                      straddling_group=(k // 2) % GSIZE != 0, rhs_zp=zp is not None,
                      packed_experts=sum(pflags),
-                     schedule=_grouped_schedule(m, k, nn, e),
+                     schedule=_grouped_schedule(m, k, nn, e, wgmma=False),
                      gmm_w8a8_grouped_same_codes_ms=time_ms(
                          lambda: ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)),
                      **shape, **t)
                 if keep and label == "alternating" and zp is not None:
                     rec["gmm_mixed_packed_flex"].update(
-                        t, schedule=_grouped_schedule(m, k, nn, e))
+                        t, schedule=_grouped_schedule(m, k, nn, e, wgmma=False))
             del cat, wq
 
     def wo_wxa(gs, m, k, nn, shape, keep, gsize, with_zp, mixes):
@@ -1950,6 +1951,8 @@ def schedule_edges() -> None:
                           "splits": sched.splits, "blocks": sched.blocks})
             gsched = ggrp.grouped_gmm_schedule(m, k, n, e, GSIZE)
             grouped_cases.append({"M": m, "layout": layout, "K": k, "bm": gsched.bm,
+                                  "k8_bm": ggrp.grouped_gmm_schedule(
+                                      m, k, n, e, GSIZE, wgmma=True).bm,
                                   "grid_m": gsched.grid_m, "splits": gsched.splits,
                                   "blocks": gsched.blocks})
     emit("schedule_edges", kernel="int8 grouped GEMM (K2, K4, K5, K9)",

@@ -102,7 +102,7 @@ def scheme_tile(scheme, m: int, k: int, n: int, e: int) -> TileSpec:
     if kind in ("weight_only", "weight_only_packed"):
         sched = weight_only_gmm_schedule(m, k, n, e, _gsize(cfg, k))
     elif kind == "int8_grouped":
-        sched = grouped_gmm_schedule(m, k, n, e, _gsize(cfg, k))
+        sched = grouped_gmm_schedule(m, k, n, e, _gsize(cfg, k), wgmma=True)
     else:
         # K2 and K5 take the wgmma body above the decode rows; K9 does not
         sched = int8_gmm_schedule(m, k, n, e, packed=kind == "int8_packed",

@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Ten
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Twelve
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -61,7 +61,19 @@ case sets, each against the csrc of the commit before its redesign:
   the profiler's three scales (M 8192 / 32768 / 65536, gate_up) and the
   headline's 32762 rows (gate_up and down); old and new sum K in other
   orders, so each, and ``torch._grouped_mm`` timed beside them, is held
-  within ``gmm.error_over_bound`` of the float64 product.
+  within ``gmm.error_over_bound`` of the float64 product;
+* ``wo_prefill`` (before K6 / K7 / K10 above the decode rows took the
+  persistent wgmma bodies of ``gmm_wq_body.cuh``): K6, K7 (the same 4-bit
+  codes packed) and K10 (flex body, experts alternating, g128 with zero
+  points) through their wrappers (the body ``weight_only_gmm_schedule``
+  picks, printed) against the 32 x 128 mma.sync bodies, at qwen2_moe's
+  routing at M 68 / 128 / 256 / 512 (gate_up), its prefill chunk (M 1024,
+  gate_up and down) and M 8192 / 65536 (gate_up): each held within
+  ``gmm_weight_only.error_over_bound``, the new K7 and K10's weight-only
+  rows bitwise the new K6, K10's w x a rows old and new bitwise;
+* ``grouped_prefill`` (the same commit, K8): K8 through its wrapper
+  against the 32 x 128 body at the same rows, g128 without and with zero
+  points and one group, bitwise old = new.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -153,6 +165,15 @@ _OLD = {
     # lhs, rhs, group_sizes, out, in_is_bf16, out_is_bf16, M, K, N, E, stream
     "bf16_large": (("gmm_bf16.cu",), {
         "mxmoe_gmm_bf16": [_P] * 4 + [_I] * 6 + [_P]}),
+    # ..., out, out_is_bf16, M, K, N, E, gsize, schedule (bm, grid_m, splits,
+    # k_tiles_per_split, workspace, tickets), stream
+    "wo_prefill": (("gmm_weight_only.cu", "gmm_weight_only_packed.cu",
+                    "gmm_mixed_wo_wxa.cu"), {
+        "mxmoe_gmm_weight_only": [_P] * 6 + [_I] * 6 + [_I] * 4 + [_P] * 3,
+        "mxmoe_gmm_weight_only_packed": [_P] * 6 + [_I] * 6 + [_I] * 4 + [_P] * 3,
+        "mxmoe_gmm_mixed_wo_wxa": [_P] * 9 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
+    "grouped_prefill": (("gmm_w8a8_grouped.cu",), {
+        "mxmoe_gmm_w8a8_grouped": [_P] * 7 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
 }
 
 
@@ -989,6 +1010,152 @@ def bf16_large_cases(lib, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+def _wq_prefill_shapes(gen) -> list:
+    """qwen2_moe's routing above the decode rows: (use, sizes, K, N)."""
+    qwen = configs.config_for("qwen2_moe")
+    h, n = qwen.hidden_size, qwen.moe_intermediate_size
+    shapes = [(f"qwen2_moe M {4 * t} gate_up", _routed_sizes("qwen2_moe", t, gen), h,
+               2 * n) for t in (17, 32, 64, 128)]
+    chunk = _routed_sizes("qwen2_moe", 256, gen)
+    shapes += [(f"qwen2_moe prefill chunk {proj}", chunk, k, nn)
+               for proj, k, nn in (("gate_up", h, 2 * n), ("down", n, h))]
+    return shapes + [(f"qwen2_moe M {4 * t} gate_up", _routed_sizes("qwen2_moe", t, gen),
+                      h, 2 * n) for t in (2048, 16384)]
+
+
+def _old_32(lib, fn: str, out, head, m: int, k: int, nn: int, e: int, gsize: int):
+    """A call of the earlier 32 x 128 body through its C entry point."""
+    def call():
+        kernels.check(getattr(lib, fn)(
+            *head, out.data_ptr(), 1, m, k, nn, e, gsize, 32, (m + 31) // 32 + e - 1, 1,
+            (k + 63) // 64, None, None, _stream()), "old " + fn)
+        return out
+    return call
+
+
+def wo_prefill_cases(lib, reps: int) -> None:
+    """K6, K7 and K10 above the decode rows, g128 with zero points: the
+    32 x 128 bodies against the package's schedule (the wgmma body A, and
+    body B for K10's w x a experts, from its threshold on)."""
+    from ..ops import gmm_mixed_wo_wxa as gmx, gmm_w8a8_grouped as ggrp
+    from ..ops import gmm_weight_only as gwo, gmm_weight_only_packed as gwop
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    gsize = 128
+    for use, sizes, k, nn in _wq_prefill_shapes(gen):
+        m, e, groups = sum(sizes), len(sizes), k // gsize
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        asc = torch.rand((m, groups), generator=gen, device=dev) * 0.05 + 1e-3
+        w4 = torch.randint(-8, 8, (e, k, nn), generator=gen, device=dev, dtype=torch.int8)
+        packed = pack_int4_halves(w4)
+        sc = torch.rand((e, groups, nn), generator=gen, device=dev) * 0.02 + 1e-3
+        zp = torch.randn((e, groups, nn), generator=gen, device=dev) * 0.05
+        fl = torch.tensor([int(i % 2 == 0) for i in range(e)], dtype=torch.int32,
+                          device=dev)
+        wo_rows = torch.repeat_interleave(fl, gs.long()).bool()
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+        sched = ggrp.weight_only_gmm_schedule(m, k, nn, e, gsize)
+        meta = m * nn * 2 + e * 4 + live * groups * nn * 8
+        ops = 2 * m * k * nn
+        rows_wo = int(gs[fl.bool()].sum())
+        t_mix = max((meta + rows_wo * 2 * k + (m - rows_wo) * (k + 4 * groups)
+                     + live * k * nn) / HBM * 1e3,
+                    (2 * rows_wo * k * nn / PEAK["bf16"]
+                     + 2 * (m - rows_wo) * k * nn / PEAK["int8"]) * 1e3)
+        runs = [("gmm_weight_only", lambda: gwo.gmm_weight_only(x, w4, sc, zp, gs, gsize),
+                 _old_32(lib, "mxmoe_gmm_weight_only", out_old,
+                         (x.data_ptr(), w4.data_ptr(), sc.data_ptr(), zp.data_ptr(),
+                          gs.data_ptr()), m, k, nn, e, gsize),
+                 _bound(meta + m * 2 * k + live * k * nn, ops, "bf16")),
+                ("gmm_weight_only_packed",
+                 lambda: gwop.gmm_weight_only_packed(x, packed, sc, zp, gs, gsize),
+                 _old_32(lib, "mxmoe_gmm_weight_only_packed", out_old,
+                         (x.data_ptr(), packed.data_ptr(), sc.data_ptr(), zp.data_ptr(),
+                          gs.data_ptr()), m, k, nn, e, gsize),
+                 _bound(meta + m * 2 * k + live * k * nn // 2, ops, "bf16")),
+                ("gmm_mixed_wo_wxa",
+                 lambda: gmx.gmm_mixed_wo_wxa(x, aq, asc, w4, sc, fl, gs, rhs_zp=zp),
+                 _old_32(lib, "mxmoe_gmm_mixed_wo_wxa", out_old,
+                         (x.data_ptr(), aq.data_ptr(), asc.data_ptr(), w4.data_ptr(),
+                          sc.data_ptr(), zp.data_ptr(), fl.data_ptr(), gs.data_ptr()),
+                         m, k, nn, e, gsize),
+                 {"bound_ms": t_mix, "bound_by": "bytes or operations by flag"})]
+        k6 = runs[0][1]()
+        k8 = ggrp.gmm_w8a8_grouped(aq, asc, w4, sc, gs, gsize, zp)
+        for name, new, old, bound in runs:
+            a, b = new(), old().clone()
+            torch.cuda.synchronize()
+            rows_of = wo_rows if name == "gmm_mixed_wo_wxa" else torch.ones_like(wo_rows)
+            gs_wo = (torch.where(fl.bool(), gs, torch.zeros_like(gs))
+                     if name == "gmm_mixed_wo_wxa" else gs)
+            r = torch.nonzero(rows_of)[:, 0]
+            ratios = [gwo.error_over_bound(got[r].contiguous(), x[r].contiguous(), w4, sc,
+                                           zp, gs_wo, gsize)[1] for got in (a, b)]
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"{name} {use}: outside the bound {ratios}")
+            if not torch.equal(a[rows_of], k6[rows_of]):
+                raise AssertionError(f"{name} {use}: weight-only rows differ from K6")
+            if name == "gmm_mixed_wo_wxa" and not (
+                    torch.equal(a[~wo_rows], b[~wo_rows])
+                    and torch.equal(a[~wo_rows], k8[~wo_rows])):
+                raise AssertionError(f"{name} {use}: w x a rows differ old / new / K8")
+            _emit(name, use=use, M=m, K=k, N=nn, E=e, gsize=gsize, rhs_zp=True,
+                  live_groups=live, schedule=vars(sched), new_err_over_bound=ratios[0],
+                  old_err_over_bound=ratios[1], equals_new_k6=True,
+                  **_ab(old, new, reps), **bound)
+        del x, aq, w4, packed, out_old, k6, k8
+        torch.cuda.empty_cache()
+
+
+def grouped_prefill_cases(lib, reps: int) -> None:
+    """K8 above the decode rows, g128 without and with zero points and one
+    group: the 32 x 128 body against the package's schedule (the wgmma body B
+    from its threshold on), bitwise."""
+    from ..ops import gmm_w8a8_grouped as ggrp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    for use, sizes, k, nn in _wq_prefill_shapes(gen):
+        m, e = sum(sizes), len(sizes)
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+        for gsize, with_zp in ((128, False), (128, True), (k, False)):
+            groups = k // gsize
+            asc = torch.rand((m, groups), generator=gen, device=dev) * 0.05 + 1e-3
+            wsc = torch.rand((e, groups, nn), generator=gen, device=dev) * 0.01 + 1e-4
+            zp = (torch.randn((e, groups, nn), generator=gen, device=dev) * 0.02
+                  if with_zp else None)
+
+            def new(asc=asc, wsc=wsc, zp=zp, gsize=gsize):
+                return ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, gsize, zp)
+            old = _old_32(lib, "mxmoe_gmm_w8a8_grouped", out_old,
+                          (aq.data_ptr(), asc.data_ptr(), wq.data_ptr(), wsc.data_ptr(),
+                           None if zp is None else zp.data_ptr(), gs.data_ptr()),
+                          m, k, nn, e, gsize)
+            a, b = new(), old().clone()
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"gmm_w8a8_grouped {use} gsize {gsize}: old / new")
+            sched = ggrp.grouped_gmm_schedule(m, k, nn, e, gsize, wgmma=True)
+            nbytes = (m * (k + 4 * groups) + live * (k * nn + groups * nn * 4
+                                                      * (2 if with_zp else 1))
+                      + e * 4 + m * nn * 2)
+            _emit("gmm_w8a8_grouped", use=use, M=m, K=k, N=nn, E=e, gsize=gsize,
+                  rhs_zp=with_zp, live_groups=live, schedule=vars(sched),
+                  bitwise_old=True, **_ab(old, new, reps),
+                  **_bound(nbytes, 2 * m * k * nn, "int8"))
+        del aq, wq, out_old
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -1003,7 +1170,8 @@ def main(argv=None) -> None:
             "grouped": grouped_cases, "weight_only": weight_only_cases,
             "ws": ws_cases, "act_quant": act_quant_cases,
             "int8_large": int8_large_cases, "fusedquant": fusedquant_cases,
-            "bf16_large": bf16_large_cases}
+            "bf16_large": bf16_large_cases, "wo_prefill": wo_prefill_cases,
+            "grouped_prefill": grouped_prefill_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -1,11 +1,13 @@
 // Device code shared by the grouped-scale int8 grouped GEMMs over
 // expert-sorted rows: K8 gmm_w8a8_grouped (gmm_w8a8_grouped.cu), the flex
 // form K4f of gmm_mixed_packed (gmm_mixed_packed.cu) and the w x a experts of
-// K10 gmm_mixed_wo_wxa (gmm_mixed_wo_wxa.cu). Two schedules, chosen by the
-// wrapper from M (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule, no sync):
-// the prefill body grouped_tile_body (a block's 32 x 128 output tile of one
-// expert; K10 takes only this one) and, for M <= DECODE_M, the decode kernel
-// gmm_grouped_decode_kernel below.
+// K10 gmm_mixed_wo_wxa (gmm_mixed_wo_wxa.cu). Two schedules here, chosen by
+// the wrapper from M (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule, no
+// sync): the 32 x 128 body grouped_tile_body (a block's output tile of one
+// expert) and, for M <= DECODE_M, the decode kernel gmm_grouped_decode_kernel
+// below. Above the decode rows K8 and K10 take the persistent wgmma body B
+// of gmm_wq_body.cuh inside its domain (the same exact group sums folded in
+// the same order, so the same bits); K4f keeps grouped_tile_body there.
 //
 // Scales come per k-group of gsize codes: lhs_scale [M, G], rhs_scale and
 // rhs_zp [E, G, N], G = K / gsize. For every row r of expert e, groups in
@@ -22,7 +24,7 @@
 // and so do the callers among themselves on the same codes. With G = 1 this
 // is a per-channel product, `(acc * s_a) * s_b` added to zero.
 //
-// The prefill body walks K in logical k order, 64 codes a tile, whatever
+// The 32 x 128 body walks K in logical k order, 64 codes a tile, whatever
 // the storage, and so does the decode kernel unless its one-pass walk of a
 // packed expert applies (below). An int8-stored expert is a [K, N] block (in
 // the ragged buffer of gmm_mixed_packed its two K/2-row units are adjacent,
@@ -36,7 +38,7 @@
 // one int32 group sum) and nothing else changes; a packed expert's byte rows
 // are read once a half.
 //
-// Prefill body: the shared A / B layouts and the MMA step of
+// The 32 x 128 body: the shared A / B layouts and the MMA step of
 // gmm_int8_tile.cuh with a 32-row block tile (16 x 64 per warp): a thread
 // carries 32 int32 group accumulators beside 32 f32 ones and nothing spills.
 // Every gsize / 64 k-tiles the int32 accumulators are folded into the f32

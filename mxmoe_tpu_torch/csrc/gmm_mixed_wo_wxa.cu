@@ -14,13 +14,18 @@
 // be null (no asymmetric scheme: the weight-only experts add no zero point and
 // the row-sum term of the others is compiled out).
 //
-// Two schedules, one for both bodies (ops/gmm_w8a8_grouped.py::
-// weight_only_gmm_schedule, also K6's and K7's). A block finds its (expert,
-// m-tile) pair, reads the expert's flag (uniform over the block) and runs
-// one of two device functions on one grid:
+// Three schedules, one for both bodies (ops/gmm_w8a8_grouped.py::
+// weight_only_gmm_schedule, also K6's and K7's):
 //
-// * Prefill (bm 32): K6's wo_tile_body (gmm_weight_only_tile.cuh) or K8's
-//   grouped_tile_body (gmm_grouped_tile.cuh), both 32 x 128 tiles.
+// * Above the decode rows, inside the wgmma domain (bm 128): ONE persistent
+//   launch of gmm_wq_body.cuh's walk, whose work items are body A's (128 x
+//   256, K6's wgmma body) for the flag-1 groups and body B's (128 x 128,
+//   K8's wgmma body) for the flag-0 groups; both share one ring, whose
+//   stages hold the same bytes in either body.
+// * Otherwise above the decode rows (bm 32): a block finds its (expert,
+//   m-tile) pair, reads the expert's flag (uniform over the block) and runs
+//   K6's wo_tile_body (gmm_weight_only_tile.cuh) or K8's grouped_tile_body
+//   (gmm_grouped_tile.cuh), both 32 x 128 tiles, on one grid.
 // * Decode (bm 16, M <= DECODE_M): K6's wo_decode_body or K8's
 //   grouped_decode_body, both m16 x 64 tiles over the same m-tiles and the
 //   same split count (gridDim.z); what a split covers is each body's own
@@ -32,15 +37,16 @@
 // bit for bit on the same operands and schedule.
 //
 // Bound on the H100: weight bytes (one byte a code for every routed expert,
-// whatever its flag, plus scales). Shared memory is the union of the two
-// bodies' (the weight-only body's is the larger at both schedules: 44,032
-// bytes of tiles at prefill, three 13,824-byte ring stages at decode),
-// registers the larger of theirs. The split workspace is the w x a body's
-// (int32 group parts, the larger per split), read as f32 by the weight-only
-// body.
+// whatever its flag, plus scales). In the mma.sync kernels shared memory is
+// the union of the two bodies' (the weight-only body's is the larger at both
+// schedules: 44,032 bytes of tiles at the 32 x 128 tiles, three 13,824-byte
+// ring stages at decode), registers the larger of theirs. The split
+// workspace is the w x a body's (int32 group parts, the larger per split),
+// read as f32 by the weight-only body.
 
 #include "gmm_grouped_tile.cuh"
 #include "gmm_weight_only_tile.cuh"
+#include "gmm_wq_body.cuh"
 
 namespace {
 
@@ -127,8 +133,8 @@ gmm_mixed_wo_wxa_decode_kernel(const __nv_bfloat16* __restrict__ lhs,
   }
 }
 
-// sc: bm GBM (prefill) or DBM (decode: grid_m x splits, ws / tickets when
-// splits > 1)
+// sc: bm GBM (the 32 x 128 tiles) or DBM (decode: grid_m x splits, ws /
+// tickets when splits > 1)
 template <typename OutT, bool kZp>
 cudaError_t launch_mixed_typed(const __nv_bfloat16* lhs, const int8_t* lhs_q,
                                const float* s_a, const int8_t* rhs, const float* s_b,
@@ -179,6 +185,10 @@ extern "C" int mxmoe_gmm_mixed_wo_wxa(const void* lhs, const void* lhs_q,
                                       int gsize, int bm, int grid_m, int splits,
                                       int kt_per_split, void* ws, void* tickets,
                                       void* stream) {
+  if (bm == WQ_BM)
+    return gmm_wq_launch<kWqMixed, false>(lhs, lhs_q, s_a, rhs, s_b, zp, scheme_flags,
+                                          group_sizes, out, out_is_bf16, M, K, N, E,
+                                          gsize, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(lhs);
   const int8_t* aq = static_cast<const int8_t*>(lhs_q);

@@ -5,20 +5,25 @@
 // (_grouped_accum and its four bodies, with and without rhs_zp, k-blocked or
 // not).
 //
-// The arithmetic, the walk and both bodies are gmm_grouped_tile.cuh's: the
-// 32 x 128 prefill body grouped_tile_body (shared with the flex form of
-// gmm_mixed_packed and the w x a experts of gmm_mixed_wo_wxa) and, at decode
-// M, gmm_grouped_decode_kernel (m16 x 64 tiles, a cp.async ring of raw
-// weight tiles and fold operands, split-K at whole groups), as the wrapper's
-// schedule says (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule). This file
-// feeds them int8-stored experts, rhs [E, K, N]. With E = 1 it is the dense
-// product of a grouped / asymmetric shared expert; with G = 1 a per-channel
-// product.
+// The arithmetic and the walk over K are gmm_grouped_tile.cuh's. Three
+// bodies, as the wrapper's schedule says (ops/gmm_w8a8_grouped.py::
+// grouped_gmm_schedule with wgmma): at decode M gmm_grouped_decode_kernel
+// (m16 x 64 tiles, a cp.async ring of raw weight tiles and fold operands,
+// split-K at whole groups); above the decode rows the persistent wgmma body
+// B of gmm_wq_body.cuh (bm 128, 128 x 128 items, inside its domain: gsize a
+// multiple of 128 or all of K); the 32 x 128 prefill body grouped_tile_body
+// elsewhere (shared with the flex form of gmm_mixed_packed). The int32
+// group sums are exact and every body folds them in ascending group order,
+// so all three give the same bits. This file feeds them int8-stored
+// experts, rhs [E, K, N]. With E = 1 it is the dense product of a grouped /
+// asymmetric shared expert; with G = 1 a per-channel product.
 //
 // Bound on the H100: weight bytes (codes; the f32 scales and zero points add
-// 4 or 8 bytes per 128 codes and column).
+// 4 or 8 bytes per 128 codes and column), operations from a few thousand
+// rows an expert on.
 
 #include "gmm_grouped_tile.cuh"
+#include "gmm_wq_body.cuh"
 
 namespace {
 
@@ -43,8 +48,8 @@ gmm_grouped_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a
       tile_info[3], blockIdx.x * BN, As, Bs);
 }
 
-// sc: bm GBM (prefill body over grid_m logical m-tiles) or DBM (the decode
-// kernel, grid_m x splits; ws / tickets when splits > 1)
+// sc: bm GBM (the 32 x 128 body over grid_m logical m-tiles) or DBM (the
+// decode kernel, grid_m x splits; ws / tickets when splits > 1)
 template <typename OutT, bool kZp>
 cudaError_t launch_grouped_typed(const int8_t* lhs, const float* s_a,
                                  const int8_t* rhs, const float* s_b,
@@ -93,6 +98,10 @@ extern "C" int mxmoe_gmm_w8a8_grouped(const void* lhs, const void* s_a,
                                       int N, int E, int gsize, int bm, int grid_m,
                                       int splits, int kt_per_split, void* ws,
                                       void* tickets, void* stream) {
+  if (bm == WQ_BM)
+    return gmm_wq_launch<kWqGrouped, false>(nullptr, lhs, s_a, rhs, s_b, zp, nullptr,
+                                            group_sizes, out, out_is_bf16, M, K, N, E,
+                                            gsize, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const int8_t* b = static_cast<const int8_t*>(rhs);

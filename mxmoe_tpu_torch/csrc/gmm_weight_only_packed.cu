@@ -12,12 +12,15 @@
 // for both storages).
 //
 // Bound on the H100: weight bytes, half of K6's codes plus the same scale and
-// zp bytes. The kernel is gmm_weight_only_tile.cuh with packed storage (the
-// schedule as K6's): the prefill body splits one byte tile in registers
-// into the two code tiles of a step; the decode body reads one byte tile a
-// pair and dequantizes its low and high nibbles for the two halves.
+// zp bytes. The bodies are K6's with packed storage (the schedule as K6's):
+// the wgmma body A (gmm_wq_body.cuh) takes each logical k-tile's codes from
+// the low or the high nibbles of its byte rows; the 32 x 128 prefill body
+// splits one byte tile in registers into the two code tiles of a step; the
+// decode body reads one byte tile a pair and dequantizes its low and high
+// nibbles for the two halves.
 
 #include "gmm_weight_only_tile.cuh"
+#include "gmm_wq_body.cuh"
 
 extern "C" int mxmoe_gmm_weight_only_packed(const void* lhs,
                                             const void* rhs_packed,
@@ -27,6 +30,10 @@ extern "C" int mxmoe_gmm_weight_only_packed(const void* lhs,
                                             int E, int gsize, int bm, int grid_m,
                                             int splits, int kt_per_split, void* ws,
                                             void* tickets, void* stream) {
+  if (bm == WQ_BM)
+    return gmm_wq_launch<kWqWeightOnly, true>(lhs, nullptr, nullptr, rhs_packed, scale,
+                                              zp, nullptr, group_sizes, out, out_is_bf16,
+                                              M, K, N, E, gsize, stream);
   return gmm_wo_launch<true>(lhs, rhs_packed, scale, zp, group_sizes, out,
                              out_is_bf16, M, K, N, E, gsize, bm, grid_m, splits,
                              kt_per_split, ws, tickets, stream);

@@ -4,10 +4,11 @@
 // 4-bit codes nibble-packed [E, K/2, N] in the halves layout: byte row r
 // holds code k = r in the low nibble and k = r + K/2 in the high nibble).
 // The weight-only experts of K10 gmm_mixed_wo_wxa (gmm_mixed_wo_wxa.cu) run
-// the same bodies. Two schedules, chosen by the wrapper from the shapes
-// (ops/gmm_w8a8_grouped.py::weight_only_gmm_schedule, shared by K6, K7 and
-// K10): the prefill body wo_tile_body (a block's 32 x 128 output tile) and,
-// for M <= DECODE_M, the decode body wo_decode_body.
+// the same bodies. The wrapper's schedule (ops/gmm_w8a8_grouped.py::
+// weight_only_gmm_schedule, shared by K6, K7 and K10) takes the decode body
+// wo_decode_body for M <= DECODE_M, the persistent wgmma body A of
+// gmm_wq_body.cuh above it inside that body's domain, and wo_tile_body (a
+// block's 32 x 128 output tile) above the decode rows outside it.
 //
 //   w[e,k,n]  = bf16( (float)q[e,k,n] * scale[e, k/gsize, n] + zp[e, k/gsize, n] )
 //   out[r, n] = OutT( sum_k lhs[r,k] * w[e,k,n] )        (f32 accumulation)
@@ -23,7 +24,7 @@
 // For the packed storage that pair is one byte tile; the int8 storage loads
 // the two row blocks.
 //
-// Prefill body: 4 warps, a 32 x 128 block tile (16 x 64 per warp), K in
+// The 32 x 128 body: 4 warps, a 32 x 128 block tile (16 x 64 per warp), K in
 // steps of 64; mma.sync m16n8k16 bf16 with f32 accumulators. The lhs tile is
 // staged as it is. A code tile is dequantized in registers and staged as
 // bf16 pairs (k, k + 1) per column, [k/2][n] words: the B fragment reads are
@@ -572,7 +573,7 @@ gmm_wo_decode_kernel(const __nv_bfloat16* __restrict__ lhs,
 }
 
 // the C entry points' common body. The schedule (weight_only_gmm_schedule,
-// the arguments of mxmoe_gmm_w8a8_grouped's): bm WBM (prefill body over
+// the arguments of mxmoe_gmm_w8a8_grouped's): bm WBM (the 32 x 128 body over
 // grid_m logical m-tiles) or DBM (the decode body, grid_m x splits; ws /
 // tickets when splits > 1). k_tiles_per_split is the w x a body's unit
 // (logical k-tiles at whole groups): the weight-only body splits byte-tile

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for kernels that feed wgmma from shared
 // memory: mbarriers, TMA tile loads, shared-memory matrix descriptors and
 // the warpgroup MMA itself. No kernel lives here; its users are the int8
-// body of gmm_ws_body.cuh (K15, K2 / K5 above the decode rows, K14) and
-// K11's bf16 body (gmm_bf16.cu).
+// body of gmm_ws_body.cuh (K15, K2 / K5 above the decode rows, K14), K11's
+// bf16 body (gmm_bf16.cu) and the weight-quantized bodies of
+// gmm_wq_body.cuh (K6 / K7 / K8 / K10 above the decode rows).
 //
 // Conventions:
 // * Shared addresses are 32-bit (cvta to the shared window).
@@ -228,6 +229,42 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], s8 x s8 -> s32, both operands
+// K-major in shared memory (B: 128 rows of K, 128-byte swizzled). The
+// fragment is the n256 one's for j = 0..15. scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // D[64 x 256] (+)= A[64 x 16] * B[16 x 256], bf16 x bf16 -> f32: A K-major
 // (smem_desc_sw128), B MN-major (smem_desc_sw128_mn, the transpose bit set).

@@ -18,9 +18,12 @@ and a flag-0 row's float values are never read (the reference computes and
 ignores them too). On a card flag-0 rows agree bitwise with K8 (K2 when per
 channel) and flag-1 rows bitwise with K6 on the same operands: the kernel
 runs those kernels' bodies, both on the grid and split count of
-``gmm_w8a8_grouped.weight_only_gmm_schedule`` (K6's and K7's too): the
-32 x 128 tiles at prefill, m16 x 64 tiles at decode M. Against the plain version flag-1 rows agree
-within K6's accumulation bound (``gmm_weight_only.accumulation_bound``).
+``gmm_w8a8_grouped.weight_only_gmm_schedule`` (K6's and K7's too): above
+the decode rows, inside the wgmma domain, one persistent launch whose items
+are K6's wgmma body A (flag 1) or K8's body B (flag 0); elsewhere the
+32 x 128 tiles above the decode rows, m16 x 64 tiles at decode M. Against
+the plain version flag-1 rows agree within K6's accumulation bound
+(``gmm_weight_only.accumulation_bound``).
 
 The TPU grid's ``bm`` / ``bn`` / ``static_sizes`` / ``group_base`` have no
 counterpart.

@@ -20,26 +20,114 @@ per-block partial sums for K above 4096) is not carried over: the kernel
 walks K in group order, in one block or, where the grid is short, split at
 whole groups with the groups' int32 sums added by the tile's last block
 (``grouped_gmm_schedule``, shared with the flex form of
-``gmm_mixed_packed``).
+``gmm_mixed_packed``); above the decode rows K8 takes the persistent wgmma
+body B (``csrc/gmm_wq_body.cuh``), whose walk ``wq_device_work_items``
+writes out.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from . import kernels
-from .gmm_w8a8 import (DECODE_M, K_TILE, SPLIT_BLOCKS, _PART_INTS, Int8GemmSchedule,
-                       _cdiv, check_int8_gmm_operands, exact_int8_matmul,
-                       schedule_args)
+from .gmm_w8a8 import (DECODE_M, K_TILE, SPLIT_BLOCKS, WGMMA_MAX_K, _PART_INTS,
+                       Int8GemmSchedule, _cdiv, check_int8_gmm_operands,
+                       exact_int8_matmul, schedule_args)
 
-GROUPED_BM = 32    # rows of the prefill body's tile (gmm_grouped_tile.cuh GBM)
+GROUPED_BM = 32    # rows of the 32 x 128 body's tile (gmm_grouped_tile.cuh GBM)
 MAX_SPLITS = 16
+# the persistent wgmma bodies (csrc/gmm_wq_body.cuh): rows of a work item;
+# body A's (weight-only) columns and codes of a k-tile; body B's (grouped)
+WQ_BM = 128
+WO_WGMMA_BN, WO_WGMMA_BK = 256, 64
+GROUPED_WGMMA_BN, GROUPED_WGMMA_BK = 128, 128
+# rows from which the schedules take them (measured against the 32 x 128
+# bodies at the main path's shapes: PERF.md)
+WO_WGMMA_MIN_M = DECODE_M + 1
+GROUPED_WGMMA_MIN_M = DECODE_M + 1
+
+
+def _wq_shapes(k: int, n: int, gsize: int, aligned: bool) -> bool:
+    """The shapes both wgmma bodies take: N a multiple of 16 and 16-byte
+    aligned operands (TMA), K a multiple of 16 within the int32 bound, and
+    groups of whole 128-code k-tiles or one group (a fold per body B k-tile
+    at most)."""
+    return (n % 16 == 0 and aligned and 0 < k <= WGMMA_MAX_K and k % 16 == 0
+            and (gsize == k or gsize % GROUPED_WGMMA_BK == 0))
+
+
+def grouped_wgmma_domain(m: int, k: int, n: int, gsize: int, aligned: bool) -> bool:
+    """Whether body B (K8's wgmma body, and K10's w x a items) takes these
+    shapes: M from ``GROUPED_WGMMA_MIN_M``, inside ``_wq_shapes``."""
+    return m >= GROUPED_WGMMA_MIN_M and _wq_shapes(k, n, gsize, aligned)
+
+
+def wo_wgmma_domain(m: int, k: int, n: int, gsize: int, aligned: bool) -> bool:
+    """Whether body A (K6 / K7's wgmma body) takes these shapes, and with it
+    K10's one launch of both bodies: M from ``WO_WGMMA_MIN_M``, inside
+    ``_wq_shapes``, and K a multiple of 128 (no 64-code k-tile of packed
+    codes straddles K/2)."""
+    return (m >= WO_WGMMA_MIN_M and _wq_shapes(k, n, gsize, aligned)
+            and k % (2 * WO_WGMMA_BK) == 0)
+
+
+def wq_device_work_items(sizes, n: int, m: int, flags=None):
+    """The work items of the wgmma bodies A and B over group sizes read on the
+    device, in (group, n-tile, m-tile) order: (group, n-tile, m-tile, first
+    row, row end, columns). ``flags`` [E] (K10): 1 = the group's items are
+    body A's, 256 columns wide; 0 = body B's, 128 wide; None = every group
+    body A's (K6 / K7). Group g's m-tiles start at its own first row start_g
+    and store rows [start_g, min(start_g + size_g, M)). ``wq_cta_items``
+    deals them to the CTAs."""
+    flags = [1] * len(sizes) if flags is None else flags
+    items = []
+    for g, (s0, s) in enumerate(zip(itertools.accumulate(sizes, initial=0), sizes)):
+        bn = WO_WGMMA_BN if flags[g] else GROUPED_WGMMA_BN
+        mt = -(-max(min(s, m - s0), 0) // WQ_BM)
+        items += [(g, j, i, s0 + i * WQ_BM, min(s0 + s, m), bn)
+                  for j in range(-(-n // bn)) for i in range(mt)]
+    return items
+
+
+def wq_cta_items(items, grid: int) -> list:
+    """``wq_device_work_items``' items dealt to a grid of P CTAs so that each
+    gets the same k-tiles, as the kernel's ``WqWalk`` deals them: body A's
+    item i (numbered over body A's items) to CTA i % P; a body A item holds
+    twice a body B item's k-tiles, so the P - rA CTAs with one body A item
+    fewer (rA = nA % P) first take two body B items each (body B's item j <
+    J1 = 2 (P - rA) to CTA rA + j % (P - rA)), then body B's item j goes to
+    CTA (j - J1) % P. Each CTA's items in walk order."""
+    out = [[] for _ in range(grid)]
+    n_a = sum(1 for item in items if item[5] == WO_WGMMA_BN)
+    r_a = n_a % grid
+    j1 = 2 * (grid - r_a) if r_a else 0
+    seen = {WO_WGMMA_BN: 0, GROUPED_WGMMA_BN: 0}
+    for item in items:
+        i = seen[item[5]]
+        seen[item[5]] += 1
+        if item[5] == WO_WGMMA_BN:
+            out[i % grid].append(item)
+        else:
+            out[r_a + i % (grid - r_a) if i < j1 else (i - j1) % grid].append(item)
+    return out
+
+
+def _wq_schedule(m: int, k: int, n: int, e: int, bn: int, bk: int) -> Int8GemmSchedule:
+    """A wgmma body's schedule: bm 128; ``grid_m`` bounds the m-tiles of its
+    walk, cdiv(M, 128) + E; ``k_tiles_per_split`` counts its k-tiles."""
+    return Int8GemmSchedule(WQ_BM, bn, _cdiv(n, bn), _cdiv(m, WQ_BM) + e, 1,
+                            _cdiv(k, bk), 0, 0)
 
 
 def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
-                         aligned: bool = True) -> Int8GemmSchedule:
+                         aligned: bool = True, wgmma: bool = False) -> Int8GemmSchedule:
     """The schedule of the grouped-scale GEMMs (K8, and K4f over any mix of
     int8-stored and nibble-packed experts), from the shapes the host knows.
+
+    ``wgmma`` (K8, stacked storage) inside ``grouped_wgmma_domain``: the
+    persistent wgmma body B, 128 x 128 work items (``wq_device_work_items``).
 
     Decode (``int8_gmm_schedule``'s thresholds: ``m <= DECODE_M``, N a
     multiple of 16, 16-byte aligned weights): one m16 row block x 64 columns
@@ -49,8 +137,10 @@ def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
     groups a split as it takes to reach that many blocks, at most 16 splits;
     each split holds ``gmax`` = k_tiles_per_split / (gsize / 64) groups and
     the workspace one m16 x 64 int32 sum (+ 16 row sums) per tile, split and
-    group held. Otherwise the 32 x 128 prefill body over cdiv(M, 32) + E - 1
+    group held. Otherwise the 32 x 128 body over cdiv(M, 32) + E - 1
     logical m-tiles."""
+    if wgmma and grouped_wgmma_domain(m, k, n, gsize, aligned):
+        return _wq_schedule(m, k, n, e, GROUPED_WGMMA_BN, GROUPED_WGMMA_BK)
     kt = max(_cdiv(k, K_TILE), 1)
     if m <= DECODE_M and n % 16 == 0 and aligned:
         grid_n, grid_m = _cdiv(n, 64), min(_cdiv(m, 16) + e - 1, m)
@@ -97,17 +187,23 @@ def weight_only_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
     weight-only body writes split z's f32 partial at slot (tile, z, 0), so in
     K10 every tile keeps to its own region whatever its body.
 
-    Otherwise the 32 x 128 prefill bodies over cdiv(M, 32) + E - 1 logical
-    m-tiles, unsplit."""
+    Above the decode rows, inside ``wo_wgmma_domain``: the persistent wgmma
+    body A (K6 / K7; 128 x 256 items) and in K10 body B's 128 x 128 items
+    for the w x a groups, one walk (``wq_device_work_items``); grid_n counts
+    body A's n-tiles. Otherwise the 32 x 128 bodies over cdiv(M, 32) + E - 1
+    logical m-tiles, unsplit."""
+    if wo_wgmma_domain(m, k, n, gsize, aligned):
+        return _wq_schedule(m, k, n, e, WO_WGMMA_BN, WO_WGMMA_BK)
     whole_tiles = gsize == k or (gsize % K_TILE == 0 and (k // 2) % K_TILE == 0)
     return grouped_gmm_schedule(m, k, n, e, gsize, aligned=aligned and whole_tiles)
 
 
-def grouped_launch_schedule(lhs_q, rhs, n: int, e: int, gsize: int):
+def grouped_launch_schedule(lhs_q, rhs, n: int, e: int, gsize: int,
+                            wgmma: bool = False):
     """``grouped_gmm_schedule`` for these operands -> ``schedule_args``."""
     m, k = lhs_q.shape
     sched = grouped_gmm_schedule(m, k, n, e, gsize,
-                                 aligned=rhs.data_ptr() % 16 == 0)
+                                 aligned=rhs.data_ptr() % 16 == 0, wgmma=wgmma)
     return schedule_args(sched, lhs_q.device)
 
 
@@ -199,7 +295,7 @@ def gmm_w8a8_grouped(
                            and rhs_zp.dtype == torch.float32),
         "gmm_w8a8_grouped: rhs_zp must be float32 of rhs_scale's shape")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
-    sched, _ws = grouped_launch_schedule(lhs_q, rhs_q, n, e, gsize)
+    sched, _ws = grouped_launch_schedule(lhs_q, rhs_q, n, e, gsize, wgmma=True)
     err = kernels.lib().mxmoe_gmm_w8a8_grouped(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),

@@ -35,11 +35,11 @@ H100_HBM_GBPS = 3350.0
 
 # OneLaunchPerfModel's effective rates, fitted on "NVIDIA H100 80GB HBM3,
 # 700.00 W" by ``python -m mxmoe_tpu_torch.solver.onelaunch_fit`` (the
-# committed perf/onelaunch_model.json holds a later run of the same CLI on
-# the same card, each rate within 4 % of these, with its unpack rounds)
-H100_ONELAUNCH = {"int8_tflops_eff": 138.95, "bf16_tflops_eff": 77.37,
-                  "hbm_gbps_eff": 1892.42, "quant_gbps_eff": 2737.75,
-                  "unpack_gops": 24562.59, "launch_ms": 0.006901}
+# committed perf/onelaunch_model.json is that run, with its unpack rounds;
+# the a16 rate is K6's on its wgmma body, 77.4 TFLOP/s on the 32 x 128 one)
+H100_ONELAUNCH = {"int8_tflops_eff": 139.30, "bf16_tflops_eff": 314.56,
+                  "hbm_gbps_eff": 1887.62, "quant_gbps_eff": 2745.02,
+                  "unpack_gops": 23586.49, "launch_ms": 0.006704}
 
 
 def _cdiv(a: int, b: int) -> int:

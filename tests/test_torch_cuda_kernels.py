@@ -46,7 +46,10 @@ weight-only GEMM's two (``weight_only_gmm_schedule``, one for K6, K7 and K10:
 the m16 ring body with split-K over byte-tile pairs, the 32-row tile above
 M 64) with K7 and K10's weight-only rows bitwise K6 and K10's w x a rows
 bitwise K8, and K3 / K3q at lengths on the edges of their warp chunks and
-S-blocks. The offline path on the card: an RTN convert bitwise the CPU's;
+S-blocks. The weight-quantized wgmma bodies above their thresholds (K6 / K7
+/ K10's body A, K8 / K10's body B) at M 65-65536 and the four models'
+expert widths with the same gates, K4f bitwise K8 on them, and shapes
+outside their domains on the 32 x 128 bodies. The offline path on the card: an RTN convert bitwise the CPU's;
 the GPTQ sweep (Cholesky, triangular inverse, blocked sweep) on the same W
 and H with codes >= 99.9 % equal to the CPU's and its floats within 1e-5 of
 the largest; the MoE Hessians within rtol 1e-5 of the CPU's; a whole GPTQ
@@ -1248,6 +1251,123 @@ def test_weight_only_schedules_k6_k7_k10(dev, m, layout):
             if zp10 is None:
                 k2 = gmm_w8a8.gmm_w8a8(aq, asc, w4, sc, gs, out_dtype=out)
                 assert torch.equal(k10[~wo_rows], k2[~wo_rows])
+
+
+# (model, projection, routed rows) of the wgmma bodies' cases: qwen2_moe's
+# gate_up from just above the decode rows to the profiler's largest scale,
+# and the chunk of every model's two expert products
+_WQ_CASES = ([("qwen2_moe", "gate_up", m) for m in (65, 1024, 8192, 65536)]
+             + [(model, proj, 1024) for model in ("qwen2_moe", "mixtral", "qwen2_moe_57b")
+                for proj in ("gate_up", "down") if (model, proj) != ("qwen2_moe", "gate_up")])
+
+
+@pytest.mark.parametrize("model,proj,m", _WQ_CASES)
+def test_wgmma_bodies_k6_k7_k8_k10_k4f(dev, model, proj, m):
+    """The weight-quantized wgmma bodies (``gmm_wq_body.cuh``) at the models'
+    expert widths, routed rows over the model's experts: K6 at g128 with
+    zero points within ``error_over_bound`` of the float64 product, K7
+    bitwise K6, K10 (experts alternating) weight-only rows bitwise K6 and
+    w x a rows bitwise K8; K8 without and with zero points and with one
+    group bitwise its plain version (with one group and no zp bitwise K2,
+    and K10's w x a rows too); K4f (every other expert packed, the 32 x 128
+    body) bitwise K8. Each wrapper's schedule is the one its threshold
+    says."""
+    from mxmoe_tpu_torch.models import configs
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import (
+        GROUPED_WGMMA_MIN_M, WO_WGMMA_MIN_M, grouped_gmm_schedule,
+        weight_only_gmm_schedule)
+
+    cfg = configs.config_for(model)
+    h, nn, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    k, n = (h, 2 * nn) if proj == "gate_up" else (nn, h)
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    sizes = torch.bincount(torch.randint(0, e, (m,), generator=g, device=dev),
+                           minlength=e)
+    gs = sizes.to(torch.int32)
+    gsize, groups = 128, k // 128
+    assert (weight_only_gmm_schedule(m, k, n, e, gsize).bm == 128) == (m >= WO_WGMMA_MIN_M)
+    assert (grouped_gmm_schedule(m, k, n, e, gsize, wgmma=True).bm == 128) == (
+        m >= GROUPED_WGMMA_MIN_M)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, groups), generator=g, device=dev) * 0.05 + 1e-3
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((e, groups, n), generator=g, device=dev) * 0.02 + 1e-3
+    zp = torch.randn((e, groups, n), generator=g, device=dev) * 0.05
+    fl = torch.tensor([i % 2 for i in range(e)], dtype=torch.int32, device=dev)
+    wo_rows = torch.repeat_interleave(fl, gs.long()).bool()
+    k6 = gmm_weight_only.gmm_weight_only(x, w4, sc, zp, gs, gsize)
+    k7 = gmm_weight_only_packed.gmm_weight_only_packed(x, pack_int4_halves(w4), sc, zp,
+                                                       gs, gsize)
+    k10 = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa(x, aq, asc, w4, sc, fl, gs, rhs_zp=zp)
+    k8_w4 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w4, sc, gs, gsize, zp)
+    torch.cuda.synchronize()
+    _, ratio = gmm_weight_only.error_over_bound(k6, x, w4, sc, zp, gs, gsize)
+    assert ratio <= 1.0
+    assert torch.equal(k7, k6)
+    assert torch.equal(k10[wo_rows], k6[wo_rows])
+    assert torch.equal(k10[~wo_rows], k8_w4[~wo_rows])
+    del k6, k7, k10, k8_w4
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    for z in (None, zp):
+        k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w8, sc, gs, gsize, z)
+        torch.cuda.synchronize()
+        assert torch.equal(k8, gmm_w8a8_grouped.gmm_w8a8_grouped_plain(
+            aq, asc, w8, sc, gs, gsize, z))
+    asc1, sc1 = asc[:, :1].contiguous(), sc[:, :1].contiguous()
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc1, w8, sc1, gs, -1)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc1, w8, sc1, gs)
+    k10 = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa(x, aq, asc1, w8, sc1, fl, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(k8, k2) and torch.equal(k10[~wo_rows], k2[~wo_rows])
+    pflags = [i % 2 for i in range(e)]
+    mixed = torch.where(torch.tensor(pflags, dtype=torch.bool, device=dev)[:, None, None],
+                        w4, w8)
+    cat, blk = build_ragged_mixed(mixed, pflags)
+    k4f = gmm_mixed_packed.gmm_mixed_packed(
+        aq, asc, cat, sc, gs, torch.tensor(pflags, dtype=torch.int32, device=dev),
+        torch.tensor(blk, dtype=torch.int32, device=dev), rhs_zp=zp)
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, mixed, sc, gs, gsize, zp)
+    torch.cuda.synchronize()
+    assert torch.equal(k4f, k8)
+
+
+@pytest.mark.parametrize("k,n,gsize", [(2048, 2040, 128), (2048, 2816, 64),
+                                       (1472, 2048, 1472)])
+def test_wgmma_bodies_out_of_domain_take_the_32_row_bodies(dev, k, n, gsize):
+    """N % 16 != 0, groups of 64 codes and K % 128 != 0 (body A) keep K6 / K7
+    / K10 on the 32 x 128 bodies (and K8 where body B's domain ends), with
+    the same checks: K6 within its bound, K7 and K10's weight-only rows
+    bitwise K6, K8 and K10's w x a rows bitwise K8's plain version."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import (
+        grouped_gmm_schedule, grouped_wgmma_domain, weight_only_gmm_schedule)
+
+    m, e = 1024, 8
+    assert weight_only_gmm_schedule(m, k, n, e, gsize).bm == 32
+    assert (grouped_gmm_schedule(m, k, n, e, gsize, wgmma=True).bm == 128) == \
+        grouped_wgmma_domain(m, k, n, gsize, True)
+    g = torch.Generator(device=dev).manual_seed(k + n + gsize)
+    gs = torch.tensor(_spread(m, e, 5), dtype=torch.int32, device=dev)
+    groups = k // gsize
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, groups), generator=g, device=dev) * 0.05 + 1e-3
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((e, groups, n), generator=g, device=dev) * 0.02 + 1e-3
+    zp = torch.randn((e, groups, n), generator=g, device=dev) * 0.05
+    fl = torch.tensor([i % 2 for i in range(e)], dtype=torch.int32, device=dev)
+    wo_rows = torch.repeat_interleave(fl, gs.long()).bool()
+    k6 = gmm_weight_only.gmm_weight_only(x, w4, sc, zp, gs, gsize)
+    k7 = gmm_weight_only_packed.gmm_weight_only_packed(x, pack_int4_halves(w4), sc, zp,
+                                                       gs, gsize)
+    k10 = gmm_mixed_wo_wxa.gmm_mixed_wo_wxa(x, aq, asc, w4, sc, fl, gs, rhs_zp=zp)
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w4, sc, gs, gsize, zp)
+    torch.cuda.synchronize()
+    assert gmm_weight_only.error_over_bound(k6, x, w4, sc, zp, gs, gsize)[1] <= 1.0
+    assert torch.equal(k7, k6) and torch.equal(k10[wo_rows], k6[wo_rows])
+    assert torch.equal(k8, gmm_w8a8_grouped.gmm_w8a8_grouped_plain(
+        aq, asc, w4, sc, gs, gsize, zp))
+    assert torch.equal(k10[~wo_rows], k8[~wo_rows])
 
 
 def test_grouped_gemm_split_k_tickets_reset_between_launches(dev):

@@ -69,9 +69,9 @@ def test_scheme_tiles_name_the_kernels_schedules():
             "w8a8_g-1_sym": "gmm_w8a8.wgmma-bm128-bn256",
             "w4a4_g-1_sym_packed": "gmm_w4a8_packed.wgmma-bm128-bn256",
             "w8a8_g-1_asym": "gmm_w8a8_asym.prefill-bm64-bn128",
-            "w4a16_g128_asym": "gmm_weight_only.prefill-bm32-bn128",
-            "w4a16_g128_asym_packed": "gmm_weight_only_packed.prefill-bm32-bn128",
-            "w4a4_g128_sym": "gmm_w8a8_grouped.prefill-bm32-bn128"}
+            "w4a16_g128_asym": "gmm_weight_only.wgmma-bm128-bn256",
+            "w4a16_g128_asym_packed": "gmm_weight_only_packed.wgmma-bm128-bn256",
+            "w4a4_g128_sym": "gmm_w8a8_grouped.wgmma-bm128-bn128"}
     for s, name in want.items():
         assert repr(kernels.scheme_tile(s, big, k, n, e)) == name, s
     assert repr(kernels.scheme_tile("w8a8_g-1_sym", 16, k, n, e)) == \

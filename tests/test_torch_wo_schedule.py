@@ -31,7 +31,7 @@ from mxmoe_tpu.quant import packing as jp
 from mxmoe_tpu_torch.ops import gmm_mixed_wo_wxa, gmm_weight_only_packed, kernels
 from mxmoe_tpu_torch.ops import gmm_weight_only as wo
 from mxmoe_tpu_torch.ops.gmm_w8a8 import DECODE_M, SMS
-from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import (grouped_gmm_schedule,
+from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import (WO_WGMMA_MIN_M, grouped_gmm_schedule,
                                                   weight_only_gmm_schedule)
 from mxmoe_tpu_torch.quant.packing import pack_int4_halves, unpack_int4_halves
 
@@ -79,12 +79,17 @@ def test_decode_schedule_splits_the_shared_expert(k, n, gsize):
 
 @pytest.mark.parametrize("m", [1, 2, 4, 15, 16, 17, 24, 32, 48, 63, 64, 65, 128, 256])
 def test_decode_body_up_to_decode_m(m):
+    """The decode body up to DECODE_M; above it the 32 x 128 bodies below
+    the wgmma bodies' threshold, the wgmma walk from it on."""
     s = weight_only_gmm_schedule(m, 1408, 2048, 60, 128)
     if m <= DECODE_M:
         assert (s.bm, s.bn, s.grid_m) == (16, 64, min(_cdiv(m, 16) + 59, m))
-    else:
+    elif m < WO_WGMMA_MIN_M:
         assert (s.bm, s.bn, s.grid_n, s.grid_m, s.splits) == (
             32, 128, 16, _cdiv(m, 32) + 59, 1)
+    else:
+        assert (s.bm, s.bn, s.grid_n, s.grid_m, s.splits) == (
+            128, 256, 8, _cdiv(m, 128) + 60, 1)
 
 
 @pytest.mark.parametrize("k,n,gsize,decode", [
