@@ -21,9 +21,12 @@ failure raises and the script exits non-zero without a result line:
               First the redesigned bodies at the edges of their schedules:
               K2, K4, K5 and K9 at M 1, 4, 16, 17, 24, 64, 65, 256, routed
               (two empty groups) and as one group (split-K), bitwise their
-              plain versions and K4 = K5 = K2 on the same codes; K8 and K4f
-              (the grouped-scale GEMM's two schedules: the m16 ring kernel
-              with split-K at whole groups up to M 64, the 32-row tile above)
+              plain versions and K4 = K5 = K2 on the same codes (from M 65
+              K2 / K4 / K5 on the wgmma body, K9 on K8's body B: the
+              schedules' bm printed as k2_k5_bm / k4_bm / k9_bm); K8 and K4f
+              (the grouped-scale GEMM's schedules: the m16 ring kernel
+              with split-K at whole groups up to M 64, body B above, printed
+              as k8_bm / k4f_bm)
               on the same rows at g128 with zero points, bitwise their plain
               versions and K4f = K8 (K 1408: a group spans the packed
               halves); K6, K7 and K10 (the weight-only GEMM's two schedules,
@@ -43,7 +46,9 @@ failure raises and the script exits non-zero without a result line:
               also at the anchor's head dim 32 (G 2) on the same lengths
               and at its decode step (8 slots of 128 positions, f32).
               K8 (without and with zero points) and K9 bitwise, K9 also
-              against K8 with one group; K6 and K7 within their accumulation
+              against K8 with one group (K4, K4f and K9 at the chunk's
+              gate_up go into the kernels line as `prefill`, with the
+              schedule); K6 and K7 within their accumulation
               bound of a float64 product (gmm_weight_only.error_over_bound),
               K7 bitwise K6 on the unpacked codes; K8 and K6 also with one
               group of rows at the shared expert's shapes; each K6 / K7 /
@@ -499,14 +504,32 @@ def _routing_group_sizes(tokens: int, cfg, gen, device):
                          cfg.num_experts).group_sizes
 
 
-def _grouped_schedule(m: int, k: int, n: int, e: int, wgmma: bool = True) -> dict:
-    """The grouped-scale GEMM's schedule at g128, for the log: K8's (its
-    wgmma body above the threshold), or K4f's (``wgmma=False``)."""
+def _sched_dict(s) -> dict:
+    return {"bm": s.bm, "bn": s.bn, "grid_m": s.grid_m, "splits": s.splits,
+            "k_tiles_per_split": s.k_tiles_per_split}
+
+
+def _grouped_schedule(m: int, k: int, n: int, e: int, mixed: bool = False) -> dict:
+    """The grouped-scale GEMM's schedule at g128, for the log: K8's, or K4f's
+    over its ragged storage (``mixed``); each on its wgmma body above the
+    threshold."""
     from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
 
-    s = grouped_gmm_schedule(m, k, n, e, GSIZE, wgmma=wgmma)
-    return {"bm": s.bm, "grid_m": s.grid_m, "splits": s.splits,
-            "k_tiles_per_split": s.k_tiles_per_split}
+    return _sched_dict(grouped_gmm_schedule(m, k, n, e, GSIZE, wgmma=True, mixed=mixed))
+
+
+def _k4_schedule(m: int, k: int, n: int, e: int) -> dict:
+    """K4's schedule (K2's, over the ragged storage), for the log."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8 import int8_gmm_schedule
+
+    return _sched_dict(int8_gmm_schedule(m, k, n, e, wgmma=True, ragged=True))
+
+
+def _k9_schedule(m: int, k: int, n: int, e: int) -> dict:
+    """K9's schedule (body B with one group above the threshold), for the log."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8_asym import asym_gmm_schedule
+
+    return _sched_dict(asym_gmm_schedule(m, k, n, e))
 
 
 def _wo_schedule(m: int, k: int, n: int, e: int, gsize: int = GSIZE) -> dict:
@@ -607,12 +630,15 @@ def gmm_kernels_vs_plain(rec: dict) -> None:
                  "plain_ms": time_ms(lambda: gmp.gmm_mixed_packed_plain(
                      aq, asc, cat, wsc, gs, pf, blk)),
                  **gmm_work(gs, k, nn, per_expert, meta_bytes=8 * e)}
+            sched = _k4_schedule(m, k, nn, e)
             emit("kernels", kernel="gmm_mixed_packed", bitwise=True,
-                 equals_gmm_w8a8=True, packed_experts=sum(pflags),
+                 equals_gmm_w8a8=True, packed_experts=sum(pflags), schedule=sched,
                  gmm_w8a8_same_codes_ms=time_ms(
                      lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)), **shape, **t)
             if keep and k == h:
-                rec["gmm_mixed_packed"].update(t)
+                rec["gmm_mixed_packed"].update(t, schedule=sched)
+            if _chunk_gate_up(shape, k, h, False):
+                rec["gmm_mixed_packed"]["prefill"] = {**shape, **t, "schedule": sched}
             del cat, wq
             # K5: every expert packed; K4 on the same bytes and K2 on the
             # unpacked codes are the other references
@@ -758,12 +784,15 @@ def scheme_kernels_vs_plain(rec: dict) -> None:
             t = timed(lambda: gasym.gmm_w8a8_asym(aq, asc, wq, wsc, wzp, gs),
                       lambda: gasym.gmm_w8a8_asym_plain(aq, asc, wq, wsc, wzp, gs),
                       gmm_work(gs, k, nn, k * nn, scale_rows=2))
+            sched = _k9_schedule(m, k, nn, ne)
             emit("kernels", kernel="gmm_w8a8_asym", bitwise=True,
-                 equals_gmm_w8a8_grouped_one_group=True,
+                 equals_gmm_w8a8_grouped_one_group=True, schedule=sched,
                  gmm_w8a8_same_codes_ms=time_ms(
                      lambda: gmm.gmm_w8a8(aq, asc, wq, wsc, gs)), **shape, **t)
             if keep:
-                rec["gmm_w8a8_asym"].update(t)
+                rec["gmm_w8a8_asym"].update(t, schedule=sched)
+            if _chunk_gate_up(shape, k, h, shared):
+                rec["gmm_w8a8_asym"]["prefill"] = {**shape, **t, "schedule": sched}
         asc, wsc = rand((m, g), 0.05, 1e-3), rand((ne, g, nn), 0.01, 1e-4)
         wzp = torch.randn((ne, g, nn), generator=gen, device=dev) * 0.02
         for zp in (None, wzp):
@@ -939,17 +968,20 @@ def two_launch_kernels_vs_plain(rec: dict) -> None:
                           gmm_work(gs, k, nn, per_expert, meta_bytes=8 * e,
                                    lhs_row_bytes=k + 4 * g,
                                    scale_rows=g * (1 if zp is None else 2)))
+                sched = _grouped_schedule(m, k, nn, e, mixed=True)
                 emit("kernels", kernel="gmm_mixed_packed_flex", storage=label,
                      bitwise=True, equals_gmm_w8a8_grouped=True, gsize=GSIZE,
                      straddling_group=(k // 2) % GSIZE != 0, rhs_zp=zp is not None,
-                     packed_experts=sum(pflags),
-                     schedule=_grouped_schedule(m, k, nn, e, wgmma=False),
+                     packed_experts=sum(pflags), schedule=sched,
                      gmm_w8a8_grouped_same_codes_ms=time_ms(
                          lambda: ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, GSIZE, zp)),
                      **shape, **t)
                 if keep and label == "alternating" and zp is not None:
-                    rec["gmm_mixed_packed_flex"].update(
-                        t, schedule=_grouped_schedule(m, k, nn, e, wgmma=False))
+                    rec["gmm_mixed_packed_flex"].update(t, schedule=sched)
+                if (_chunk_gate_up(shape, k, h, False) and label == "alternating"
+                        and zp is not None):
+                    rec["gmm_mixed_packed_flex"]["prefill"] = {**shape, **t,
+                                                               "schedule": sched}
             del cat, wq
 
     def wo_wxa(gs, m, k, nn, shape, keep, gsize, with_zp, mixes):
@@ -1948,11 +1980,14 @@ def schedule_edges() -> None:
             cases.append({"M": m, "layout": layout, "bm": sched.bm,
                           "k2_k5_bm": gmm.int8_gmm_schedule(m, k, n, e,
                                                             wgmma=True).bm,
+                          "k4_bm": _k4_schedule(m, k, n, e)["bm"],
+                          "k9_bm": _k9_schedule(m, k, n, e)["bm"],
                           "splits": sched.splits, "blocks": sched.blocks})
             gsched = ggrp.grouped_gmm_schedule(m, k, n, e, GSIZE)
             grouped_cases.append({"M": m, "layout": layout, "K": k, "bm": gsched.bm,
                                   "k8_bm": ggrp.grouped_gmm_schedule(
                                       m, k, n, e, GSIZE, wgmma=True).bm,
+                                  "k4f_bm": _grouped_schedule(m, k, n, e, True)["bm"],
                                   "grid_m": gsched.grid_m, "splits": gsched.splits,
                                   "blocks": gsched.blocks})
     emit("schedule_edges", kernel="int8 grouped GEMM (K2, K4, K5, K9)",

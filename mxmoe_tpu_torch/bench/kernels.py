@@ -92,6 +92,7 @@ def scheme_tile(scheme, m: int, k: int, n: int, e: int) -> TileSpec:
     [E, K, N] (aligned operands)."""
     from ..ops.gmm import bf16_gmm_schedule
     from ..ops.gmm_w8a8 import int8_gmm_schedule
+    from ..ops.gmm_w8a8_asym import asym_gmm_schedule
     from ..ops.gmm_w8a8_grouped import grouped_gmm_schedule, weight_only_gmm_schedule
 
     cfg, kind = _parse(scheme)
@@ -103,10 +104,12 @@ def scheme_tile(scheme, m: int, k: int, n: int, e: int) -> TileSpec:
         sched = weight_only_gmm_schedule(m, k, n, e, _gsize(cfg, k))
     elif kind == "int8_grouped":
         sched = grouped_gmm_schedule(m, k, n, e, _gsize(cfg, k), wgmma=True)
+    elif name == "gmm_w8a8_asym":
+        # K9 takes K8's wgmma body B with one group above the decode rows
+        sched = asym_gmm_schedule(m, k, n, e)
     else:
-        # K2 and K5 take the wgmma body above the decode rows; K9 does not
-        sched = int8_gmm_schedule(m, k, n, e, packed=kind == "int8_packed",
-                                  wgmma=name != "gmm_w8a8_asym")
+        # K2 and K5 take the wgmma body above the decode rows
+        sched = int8_gmm_schedule(m, k, n, e, packed=kind == "int8_packed", wgmma=True)
     body = ("decode" if sched.bm == 16 else "wgmma" if sched.bm == 128 else "prefill")
     return TileSpec(sched.bm, sched.bn, f"{name}.{body}")
 

@@ -1,6 +1,6 @@
 """The redesigned kernel bodies against the bodies they replaced, in one
 process on one card, at the shapes of the main path, by device time
-(``bench.timing.device_ms``) and event time, old and new in ABBA order. Twelve
+(``bench.timing.device_ms``) and event time, old and new in ABBA order. Fourteen
 case sets, each against the csrc of the commit before its redesign:
 
 * ``gmm`` (against a csrc before the m16 decode schedule of
@@ -73,7 +73,20 @@ case sets, each against the csrc of the commit before its redesign:
   rows bitwise the new K6, K10's w x a rows old and new bitwise;
 * ``grouped_prefill`` (the same commit, K8): K8 through its wrapper
   against the 32 x 128 body at the same rows, g128 without and with zero
-  points and one group, bitwise old = new.
+  points and one group, bitwise old = new;
+* ``mixed_prefill`` (before K4 / K4f above the decode rows took the wgmma
+  bodies over their ragged storage): K4 (every other expert packed) against
+  the 64 x 128 mma.sync tile and K4f (g128 with zero points, every other
+  expert packed, then all) against the 32 x 128 body, through their
+  wrappers (the body the schedule picks, printed), at qwen2_moe's routing
+  at M 68 / 512, its prefill chunk (M 1024, gate_up and down), M 8192, the
+  headline's 32762 rows and M 65536 (gate_up), bitwise old = new = K2 / K8
+  on the same codes, whose device times are printed beside (K5 / K8 on the
+  same codes for the all-packed K4f: whether L2 keeps a packed expert's
+  second read off HBM);
+* ``asym_prefill`` (the same commit, K9): K9 against the 64 x 128 tile at
+  the same rows, bitwise old = new = K8 with one group and zero points,
+  whose device time is printed beside.
 
     python -m mxmoe_tpu_torch.bench.redesign_ab --old-csrc DIR [--cases ffn]
 
@@ -174,6 +187,15 @@ _OLD = {
         "mxmoe_gmm_mixed_wo_wxa": [_P] * 9 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
     "grouped_prefill": (("gmm_w8a8_grouped.cu",), {
         "mxmoe_gmm_w8a8_grouped": [_P] * 7 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
+    # lhs, s_a, rhs_cat, s_b, (zp,) group_sizes, pflags, blk_offsets, out,
+    # out_is_bf16, M, K, N, E, (gsize,) schedule, stream: no rows of rhs_cat
+    "mixed_prefill": (("gmm_mixed_packed.cu",), {
+        "mxmoe_gmm_mixed_packed": [_P] * 8 + [_I] * 5 + [_I] * 4 + [_P] * 3,
+        "mxmoe_gmm_mixed_packed_flex": [_P] * 9 + [_I] * 6 + [_I] * 4 + [_P] * 3}),
+    # lhs, s_a, rhs, s_b, zp, group_sizes, out, out_is_bf16, M, K, N, E,
+    # schedule, stream
+    "asym_prefill": (("gmm_w8a8_asym.cu",), {
+        "mxmoe_gmm_w8a8_asym": [_P] * 7 + [_I] * 5 + [_I] * 4 + [_P] * 3}),
 }
 
 
@@ -1156,6 +1178,166 @@ def grouped_prefill_cases(lib, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+def _ragged_prefill_shapes(gen) -> list:
+    """qwen2_moe's routing above the decode rows for K4 / K4f / K9: (use,
+    sizes, K, N) at M 68 / 512, the chunk's gate_up and down, M 8192, the
+    headline's 32762 rows and M 65536."""
+    from . import workloads
+
+    qwen = configs.config_for("qwen2_moe")
+    h, n = qwen.hidden_size, qwen.moe_intermediate_size
+    shapes = [(f"qwen2_moe M {4 * t} gate_up", _routed_sizes("qwen2_moe", t, gen), h,
+               2 * n) for t in (17, 128)]
+    chunk = _routed_sizes("qwen2_moe", 256, gen)
+    shapes += [(f"qwen2_moe prefill chunk {proj}", chunk, k, nn)
+               for proj, k, nn in (("gate_up", h, 2 * n), ("down", n, h))]
+    shapes.append(("qwen2_moe M 8192 gate_up", _routed_sizes("qwen2_moe", 2048, gen), h,
+                   2 * n))
+    shapes.append(("headline gate_up", list(workloads.QWEN2_MOE_L10_BS8192_ROUTED_M), h,
+                   2 * n))
+    shapes.append(("qwen2_moe M 65536 gate_up", _routed_sizes("qwen2_moe", 16384, gen),
+                   h, 2 * n))
+    return shapes
+
+
+def _old_tile(lib, fn: str, out, head, tail, m: int, k: int, nn: int, e: int, bm: int):
+    """A call of an earlier mma.sync tile (bm 64: K4 / K9's 64 x 128 tile;
+    32: K4f's 32 x 128 body) through its C entry point; ``tail`` the ints
+    after E (K4f's gsize)."""
+    def call():
+        kernels.check(getattr(lib, fn)(
+            *head, out.data_ptr(), 1, m, k, nn, e, *tail, bm, (m + bm - 1) // bm + e - 1,
+            1, (k + 63) // 64, None, None, _stream()), "old " + fn)
+        return out
+    return call
+
+
+def mixed_prefill_cases(lib, reps: int) -> None:
+    """K4 and K4f above the decode rows: the earlier mma.sync bodies against
+    the wgmma bodies over the ragged storage, bitwise, with K2 / K8 (and
+    K5 for the all-packed K4f) on the same codes beside."""
+    from ..ops import gmm_w8a8_grouped as ggrp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(47)
+    gsize = 128
+    for use, sizes, k, nn in _ragged_prefill_shapes(gen):
+        m, e, groups = sum(sizes), len(sizes), k // gsize
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w4 = torch.randint(-8, 8, (e, k, nn), generator=gen, device=dev, dtype=torch.int8)
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+        alternating = [int(i % 2 == 0) for i in range(e)]
+        lv = [s > 0 for s in sizes]
+        for form, pflags in (("per_channel", alternating), ("flex", alternating),
+                             ("flex", [1] * e)):
+            pfb = torch.tensor(pflags, dtype=torch.bool, device=dev)
+            codes = torch.where(pfb[:, None, None], w4, w8)
+            cat, blk = build_ragged_mixed(codes, pflags)
+            pf = pfb.to(torch.int32)
+            blk = torch.tensor(blk, dtype=torch.int32, device=dev)
+            wbytes = sum((k * nn // 2 if f else k * nn) for f, ok in zip(pflags, lv) if ok)
+            storage = "all packed" if all(pflags) else "alternating"
+            if form == "per_channel":
+                asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+                wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01
+
+                def new(asc=asc, wsc=wsc, cat=cat, pf=pf, blk=blk):
+                    return gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk)
+
+                def sibling(asc=asc, wsc=wsc, codes=codes):
+                    return gmm.gmm_w8a8(aq, asc, codes, wsc, gs)
+                old = _old_tile(lib, "mxmoe_gmm_mixed_packed", out_old,
+                                (aq.data_ptr(), asc.data_ptr(), cat.data_ptr(),
+                                 wsc.data_ptr(), gs.data_ptr(), pf.data_ptr(),
+                                 blk.data_ptr()), (), m, k, nn, e, 64)
+                sched = gmm.int8_gmm_schedule(m, k, nn, e, wgmma=True, ragged=True)
+                name, sib = "gmm_mixed_packed", "gmm_w8a8"
+                nbytes = m * (k + 4) + wbytes + live * nn * 4 + 8 * e + m * nn * 2
+            else:
+                asc = torch.rand((m, groups), generator=gen, device=dev) * 0.05 + 1e-3
+                wsc = torch.rand((e, groups, nn), generator=gen, device=dev) * 0.01 + 1e-4
+                zp = torch.randn((e, groups, nn), generator=gen, device=dev) * 0.02
+
+                def new(asc=asc, wsc=wsc, zp=zp, cat=cat, pf=pf, blk=blk):
+                    return gmp.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp)
+
+                def sibling(asc=asc, wsc=wsc, zp=zp, codes=codes):
+                    return ggrp.gmm_w8a8_grouped(aq, asc, codes, wsc, gs, gsize, zp)
+                old = _old_tile(lib, "mxmoe_gmm_mixed_packed_flex", out_old,
+                                (aq.data_ptr(), asc.data_ptr(), cat.data_ptr(),
+                                 wsc.data_ptr(), zp.data_ptr(), gs.data_ptr(),
+                                 pf.data_ptr(), blk.data_ptr()), (gsize,), m, k, nn, e,
+                                32)
+                sched = ggrp.grouped_gmm_schedule(m, k, nn, e, gsize, wgmma=True,
+                                                  mixed=True)
+                name, sib = "gmm_mixed_packed_flex", "gmm_w8a8_grouped"
+                nbytes = (m * (k + 4 * groups) + wbytes + live * groups * nn * 8 + 8 * e
+                          + m * nn * 2)
+            a, b, c = new(), old().clone(), sibling()
+            torch.cuda.synchronize()
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"{name} {use} {storage}: new, old and {sib} differ")
+            beside = {f"{sib}_same_codes_device_ms": device_ms(sibling, reps)}
+            if storage == "all packed":
+                beside["gmm_w4a8_packed_same_codes_device_ms"] = device_ms(
+                    lambda p=pack_int4_halves(w4), s1=asc[:, :1].contiguous(),
+                    s2=wsc[:, :1].contiguous(): g4p.gmm_w4a8_packed(aq, s1, p, s2, gs),
+                    reps)
+            _emit(name, use=use, storage=storage, M=m, K=k, N=nn, E=e,
+                  gsize=None if form == "per_channel" else gsize,
+                  rhs_zp=form == "flex", live_groups=live, schedule=vars(sched),
+                  bitwise_old=True, **{f"equals_{sib}": True}, **beside,
+                  **_ab(old, new, reps), **_bound(nbytes, 2 * m * k * nn, "int8"))
+            del cat, codes
+        del aq, w8, w4, out_old
+        torch.cuda.empty_cache()
+
+
+def asym_prefill_cases(lib, reps: int) -> None:
+    """K9 above the decode rows: the 64 x 128 mma.sync tile against K8's
+    wgmma body B with one group and zero points, bitwise, K8 beside."""
+    from ..ops import gmm_w8a8_grouped as ggrp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(53)
+    for use, sizes, k, nn in _ragged_prefill_shapes(gen):
+        m, e = sum(sizes), len(sizes)
+        live = sum(1 for s in sizes if s > 0)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (e, k, nn), generator=gen, device=dev,
+                           dtype=torch.int8)
+        asc = torch.rand((m, 1), generator=gen, device=dev) * 0.05 + 1e-3
+        wsc = torch.rand((e, 1, nn), generator=gen, device=dev) * 0.01 + 1e-4
+        zp = torch.randn((e, 1, nn), generator=gen, device=dev) * 0.02
+        out_old = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+
+        def new():
+            return gas.gmm_w8a8_asym(aq, asc, wq, wsc, zp, gs)
+
+        def k8():
+            return ggrp.gmm_w8a8_grouped(aq, asc, wq, wsc, gs, -1, zp)
+        old = _old_tile(lib, "mxmoe_gmm_w8a8_asym", out_old,
+                        (aq.data_ptr(), asc.data_ptr(), wq.data_ptr(), wsc.data_ptr(),
+                         zp.data_ptr(), gs.data_ptr()), (), m, k, nn, e, 64)
+        a, b, c = new(), old().clone(), k8()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"gmm_w8a8_asym {use}: new, old and K8 differ")
+        nbytes = m * (k + 4) + live * (k * nn + 8 * nn) + e * 4 + m * nn * 2
+        _emit("gmm_w8a8_asym", use=use, M=m, K=k, N=nn, E=e, rhs_zp=True,
+              live_groups=live, schedule=vars(gas.asym_gmm_schedule(m, k, nn, e)),
+              bitwise_old=True, equals_gmm_w8a8_grouped_one_group=True,
+              gmm_w8a8_grouped_same_codes_device_ms=device_ms(k8, reps),
+              **_ab(old, new, reps), **_bound(nbytes, 2 * m * k * nn, "int8"))
+        del aq, wq, out_old
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", required=True,
@@ -1171,7 +1353,8 @@ def main(argv=None) -> None:
             "ws": ws_cases, "act_quant": act_quant_cases,
             "int8_large": int8_large_cases, "fusedquant": fusedquant_cases,
             "bf16_large": bf16_large_cases, "wo_prefill": wo_prefill_cases,
-            "grouped_prefill": grouped_prefill_cases}
+            "grouped_prefill": grouped_prefill_cases,
+            "mixed_prefill": mixed_prefill_cases, "asym_prefill": asym_prefill_cases}
     with torch.no_grad():
         for case in args.cases:
             runs[case](old, REPS)

@@ -16,9 +16,15 @@
 //
 // Bound on the H100: weight bytes, and a packed expert streams half of
 // K2's. The TPU kernel's host-built tile table is not carried over: each
-// block walks group_sizes itself (gmm_int8_tile.cuh, storage kRaggedMixed),
-// and a packed byte tile feeds two MMA k-steps (low nibbles against lhs
-// columns [r0, r0+64), high nibbles against [K/2+r0, K/2+r0+64)).
+// block walks group_sizes itself. Three bodies, by the wrapper's schedule
+// (ops/gmm_w8a8.py::int8_gmm_schedule, ragged): at decode M the m16 tile
+// of gmm_int8_tile.cuh (storage kRaggedMixed: a packed byte tile feeds two
+// MMA k-steps, low nibbles against lhs columns [r0, r0+64), high nibbles
+// against [K/2+r0, K/2+r0+64)); above the decode rows, inside the wgmma
+// domain (K % 64 == 0, N % 16 == 0, 16-byte aligned operands), the
+// persistent wgmma body of gmm_ws_body.cuh (K2's) over one 2D map of
+// rhs_cat, its producer reading each group's flag and first byte row;
+// elsewhere the 64 x 128 mma.sync tile.
 
 //
 // K4f: scales [M, G] / [E, G, N] and optional zero points, K8's arithmetic in
@@ -27,17 +33,80 @@
 // steps and needs a second int32 scratch when K/2 is no multiple of the group
 // size; here a block walks logical k, an int8 expert's two units are one
 // [K, N] block, and a packed expert's code row k is byte row k or k - K/2, so
-// a group that spans the halves needs nothing of its own. Two bodies by the
-// wrapper's schedule (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule): the
-// 32 x 128 prefill body and, at decode M, the m16 x 64 ring kernel with
-// split-K at whole groups (gmm_grouped_tile.cuh), which walks a packed
-// expert's byte rows once, its high half's group sums held in shared memory
-// until the low half is folded (the straddling group's low part is added
-// to its held high part), or logical k where the hold does not fit.
+// a group that spans the halves needs nothing of its own. Three bodies by
+// the wrapper's schedule (ops/gmm_w8a8_grouped.py::grouped_gmm_schedule,
+// mixed): at decode M the m16 x 64 ring kernel with split-K at whole groups
+// (gmm_grouped_tile.cuh), which walks a packed expert's byte rows once, its
+// high half's group sums held in shared memory until the low half is folded
+// (the straddling group's low part is added to its held high part), or
+// logical k where the hold does not fit; above the decode rows, inside the
+// wgmma domain (also K % 128 == 0), K8's persistent wgmma body B
+// (gmm_wq_body.cuh) over rhs_cat in half boxes; elsewhere the 32 x 128 body.
+//
+// rhs_rows (R): the rows of rhs_cat, which bound its TMA map.
 
 #include "gmm_grouped_tile.cuh"
+#include "gmm_wq_body.cuh"
 
 namespace {
+
+// K4 above the decode rows: the body over K4's ragged storage
+template <typename OutT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+gmm_wsr_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_w, const float* __restrict__ s_a,
+               const float* __restrict__ s_b, const int* __restrict__ group_sizes,
+               const int* __restrict__ pflags, const int* __restrict__ blk,
+               OutT* __restrict__ out, int M, int K, int N, int E) {
+  extern __shared__ uint8_t wsr_smem_raw[];
+  ws_body<OutT, false, WsDeviceSizes, true>(wsr_smem_raw, &map_a, &map_w, s_a, s_b, out, M,
+                                            K, N, E, WsDeviceSizes{group_sizes},
+                                            WsRagged{pflags, blk});
+}
+
+// K4's C entry point at bm == WS_BM: rhs_cat [R, N] in one 2D map of
+// [32 byte rows x 256 columns] boxes (R = its rows). Needs K % 64 == 0, N %
+// 16 == 0 and 16-byte aligned lhs / rhs_cat (TMA); pflags / blk_offsets
+// int32 [E].
+int gmm_wsr_launch(const void* lhs, const void* s_a, const void* rhs_cat, const void* s_b,
+                   const void* group_sizes, const void* pflags, const void* blk_offsets,
+                   void* out, int out_is_bf16, int M, int K, int N, int E, int R,
+                   void* stream) {
+  if (E <= 0 || E > kMaxExperts || K % 64 != 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaGetLastError();
+  CUtensorMap map_a, map_w;
+  cudaError_t e = ws_encode_maps(lhs, rhs_cat, false, M, K, N, 1, &map_a, &map_w);
+  if (e != cudaSuccess) return (int)e;
+  const cuuint64_t w_dim[2] = {(cuuint64_t)N, (cuuint64_t)R};
+  const cuuint64_t w_stride[1] = {(cuuint64_t)N};
+  const cuuint32_t w_box[2] = {WS_BN, WS_QK};
+  e = encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, rhs_cat, w_dim, w_stride, w_box,
+                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return (int)e;
+  const long long nt = (N + WS_BN - 1) / WS_BN;
+  const int grid = ws_grid(((long long)(M + WS_BM - 1) / WS_BM + E) * nt);
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sa = static_cast<const float*>(s_a);
+  const float* sb = static_cast<const float*>(s_b);
+  const int* gs = static_cast<const int*>(group_sizes);
+  const int* pf = static_cast<const int*>(pflags);
+  const int* blk = static_cast<const int*>(blk_offsets);
+  if (out_is_bf16) {
+    e = cudaFuncSetAttribute(gmm_wsr_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    gmm_wsr_kernel<__nv_bfloat16><<<grid, kWsThreads, kWsSmemBytes, st>>>(
+        map_a, map_w, sa, sb, gs, pf, blk, static_cast<__nv_bfloat16*>(out), M, K, N, E);
+  } else {
+    e = cudaFuncSetAttribute(gmm_wsr_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    gmm_wsr_kernel<float><<<grid, kWsThreads, kWsSmemBytes, st>>>(
+        map_a, map_w, sa, sb, gs, pf, blk, static_cast<float*>(out), M, K, N, E);
+  }
+  return (int)cudaGetLastError();
+}
 
 template <typename OutT, bool kZp>
 __global__ void __launch_bounds__(kThreads)
@@ -112,9 +181,12 @@ extern "C" int mxmoe_gmm_mixed_packed(const void* lhs, const void* s_a,
                                       const void* pflags,
                                       const void* blk_offsets, void* out,
                                       int out_is_bf16, int M, int K, int N,
-                                      int E, int bm, int grid_m, int splits,
-                                      int kt_per_split, void* ws, void* tickets,
-                                      void* stream) {
+                                      int E, int rhs_rows, int bm, int grid_m,
+                                      int splits, int kt_per_split, void* ws,
+                                      void* tickets, void* stream) {
+  if (bm == WS_BM)
+    return gmm_wsr_launch(lhs, s_a, rhs_cat, s_b, group_sizes, pflags, blk_offsets, out,
+                          out_is_bf16, M, K, N, E, rhs_rows, stream);
   return gmm_int8_launch<kRaggedMixed>(lhs, s_a, rhs_cat, s_b, nullptr,
                                        group_sizes, pflags, blk_offsets, out,
                                        out_is_bf16, M, K, N, E, bm, grid_m,
@@ -130,9 +202,14 @@ extern "C" int mxmoe_gmm_mixed_packed_flex(const void* lhs, const void* s_a,
                                            const void* pflags,
                                            const void* blk_offsets, void* out,
                                            int out_is_bf16, int M, int K, int N,
-                                           int E, int gsize, int bm, int grid_m,
-                                           int splits, int kt_per_split, void* ws,
-                                           void* tickets, void* stream) {
+                                           int E, int rhs_rows, int gsize, int bm,
+                                           int grid_m, int splits, int kt_per_split,
+                                           void* ws, void* tickets, void* stream) {
+  if (bm == WQ_BM)
+    return gmm_wq_launch<kWqGroupedRagged, false>(nullptr, lhs, s_a, rhs_cat, s_b, zp,
+                                                  nullptr, group_sizes, out, out_is_bf16,
+                                                  M, K, N, E, gsize, stream, pflags,
+                                                  blk_offsets, rhs_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const int8_t* b = static_cast<const int8_t*>(rhs_cat);

@@ -13,12 +13,19 @@
 // final sum separately (no FMA), so the output equals the plain torch
 // version bitwise.
 //
-// Bound on the H100: weight bytes, as K2. The kernel is gmm_int8_tile.cuh
-// (storage kInt8Stacked) with kAsym set: the row sums are taken from the A
-// fragments each MMA step already holds in registers, so the zero-point
-// term costs no pass over the activations and no second kernel.
+// Bound on the H100: weight bytes, as K2, operations from a few thousand
+// rows an expert on. Three bodies, by the wrapper's schedule
+// (ops/gmm_w8a8_asym.py::asym_gmm_schedule): at decode M and outside the
+// wgmma domain gmm_int8_tile.cuh (storage kInt8Stacked) with kAsym set,
+// the row sums taken from the A fragments each MMA step already holds in
+// registers (the m16 tile with split-K, or the 64 x 128 tile); above the
+// decode rows, inside the domain (N % 16 == 0, 16-byte aligned operands),
+// K8's persistent wgmma body B of gmm_wq_body.cuh with one group (gsize =
+// K) and the zero points, whose fold is this function in this order, so
+// K9 is bitwise K8 with one group and zp.
 
 #include "gmm_int8_tile.cuh"
+#include "gmm_wq_body.cuh"
 
 extern "C" int mxmoe_gmm_w8a8_asym(const void* lhs, const void* s_a,
                                    const void* rhs, const void* s_b,
@@ -27,6 +34,10 @@ extern "C" int mxmoe_gmm_w8a8_asym(const void* lhs, const void* s_a,
                                    int N, int E, int bm, int grid_m, int splits,
                                    int kt_per_split, void* ws, void* tickets,
                                    void* stream) {
+  if (bm == WQ_BM)
+    return gmm_wq_launch<kWqGrouped, false>(nullptr, lhs, s_a, rhs, s_b, zp, nullptr,
+                                            group_sizes, out, out_is_bf16, M, K, N, E, K,
+                                            stream);
   return gmm_int8_launch<kInt8Stacked, true>(lhs, s_a, rhs, s_b, zp,
                                              group_sizes, nullptr, nullptr, out,
                                              out_is_bf16, M, K, N, E, bm, grid_m,

@@ -7,13 +7,15 @@
 //   halves layout) and the weight-only experts of K10 gmm_mixed_wo_wxa;
 //     w[e,k,n]  = bf16( (float)q[e,k,n] * scale[e, k/gsize, n] + zp[e, k/gsize, n] )
 //     out[r, n] = OutT( sum_k lhs[r,k] * w[e,k,n] )      (f32 accumulation)
-// * body B, the grouped-scale int8 product: K8 gmm_w8a8_grouped and the
-//   w x a experts of K10; per k-group g in ascending order, each step
-//   rounded on its own,
+// * body B, the grouped-scale int8 product: K8 gmm_w8a8_grouped, the
+//   w x a experts of K10, K4f (the flex form of gmm_mixed_packed, over its
+//   ragged storage) and K9 gmm_w8a8_asym (one group, zp); per k-group g in
+//   ascending order, each step rounded on its own,
 //     acc += ((float)(sum_{k in g} a[r,k] q[e,k,n]) * s_a[r,g]) * s_b[e,g,n]
 //     acc += ((float)(sum_{k in g} a[r,k]) * s_a[r,g]) * zp[e,g,n]   (with zp)
 //   which is the plain grouped_rows_plain's order; with one group and no
-//   zp, K2's (acc * s_a) * s_b added to zero.
+//   zp, K2's (acc * s_a) * s_b added to zero; with one group and zp, K9's
+//   (acc * s_a) * s_b + (rsum * s_a) * zp, its first term added to zero.
 //
 // Bound on the H100: weight bytes at a 256-token prefill chunk (17-25 rows
 // an expert: one byte a code, 0.11 ms for qwen2_moe's gate_up), operations
@@ -69,6 +71,19 @@
 //   producer warpgroup alone, with its scale loads in its way, body A ran
 //   at about a third of the chunk's bound; eight warps, two a scheduler,
 //   and the rows by TMA hide the latencies one warp a scheduler could not.
+//   - body B over K4f's ragged storage (rhs_cat [R, N]: expert e from byte
+//     row blk_offsets[e] * K/2, K/2 rows nibble-packed when pflags[e], K
+//     int8 rows else) reads a k-tile as two half boxes of [64 rows x 128
+//     columns] through one 2D map: half h holds codes c = 128 t + 64 h, byte
+//     rows c of an int8 expert; of a packed one byte rows c (low nibbles)
+//     below K/2 and c - K/2 (high nibbles) above (K % 128 == 0, so no half
+//     straddles K/2 and no box leaves the expert's block). Warp cw's codes
+//     lie in half cw / 4: it sign-extends the nibble the group's flag and
+//     the half say, by selects, before the transpose; both walks read the
+//     flag and the first byte row of a group as they reach it. A packed
+//     expert's bytes are read twice, in the low and the high k-tiles: the
+//     second read comes from L2 (timed against K8 on the same codes), so
+//     the walk, the MMAs and the folds stay K8's and K4f is bitwise K8.
 //   Body B: wgmma m64n128k32 .s32.s8.s8, four a 128-deep k-tile (64 int32
 //   and 64 f32 accumulators a thread: an n256 item would need 256
 //   registers), a group's k-tiles (gsize a multiple of 128, or all of K) in
@@ -107,7 +122,13 @@ constexpr int WQ_RAW_BYTES = 16384;          // [64 rows][256] or [128 rows][128
 constexpr int WQ_B_BYTES = 32768;            // body A: four bf16 boxes; body B: half
 constexpr int WQ_BOX_BYTES = 8192;           // body A: one [64 k x 64 columns] bf16 box
 
-enum WqMode { kWqWeightOnly = 0, kWqGrouped = 1, kWqMixed = 2 };
+// body A alone (K6 / K7), body B alone (K8, K9), both by the group's flag
+// (K10), body B over ragged mixed storage (K4f)
+enum WqMode { kWqWeightOnly = 0, kWqGrouped = 1, kWqMixed = 2, kWqGroupedRagged = 3 };
+
+// whether a mode runs body A / body B
+__host__ __device__ constexpr bool wq_has_a(int mode) { return mode == kWqWeightOnly || mode == kWqMixed; }
+__host__ __device__ constexpr bool wq_has_b(int mode) { return mode != kWqWeightOnly; }
 
 struct WqSmem {
   uint8_t a[WQ_A_STAGES][WQ_A_BYTES];
@@ -128,6 +149,8 @@ struct WqArgs {
   const float* zp;           // [E, G, N], or null (zero points 0)
   const int* flags;          // [E]: 1 body A, 0 body B (K10)
   const int* group_sizes;    // [E]
+  const int* pflags;         // [E]: 1 nibble-packed (K4f)
+  const int* blk;            // [E]: first K/2-row unit in rhs_cat (K4f)
   void* out;                 // [M, N]
   int M, K, N, E, gsize;
 };
@@ -154,6 +177,8 @@ struct WqWalk {
   int step1 = 0, j1 = 0;                // body B's first deal (CTAs rA ..)
   int m0 = 0, n0 = 0, row_end = 0;
   bool wo_ = kMode == kWqWeightOnly;  // the current group's body (K10)
+  bool pk = false;                      // the current group nibble-packed (K4f)
+  int cat_row0 = 0;                     // its first byte row in rhs_cat (K4f)
 
   // whether the current group takes body A (a constant but in K10)
   __device__ __forceinline__ bool wo() const {
@@ -163,6 +188,10 @@ struct WqWalk {
     size = __ldg(p.group_sizes + g);
     mt = (max(min(size, p.M - row0), 0) + WQ_BM - 1) / WQ_BM;
     if constexpr (kMode == kWqMixed) wo_ = __ldg(p.flags + g) != 0;
+    if constexpr (kMode == kWqGroupedRagged) {
+      pk = __ldg(p.pflags + g) != 0;
+      cat_row0 = __ldg(p.blk + g) * (p.K / 2);
+    }
     const int bn = wo() ? WQ_BN_WO : WQ_BN_GQ;
     nt = (p.N + bn - 1) / bn;
   }
@@ -260,13 +289,24 @@ __device__ __forceinline__ void wq_dequant_rows(const uint8_t* raw, uint8_t* b,
 // raw k-tile ([128 k][128 n] bytes) into the K-major swizzled B stage
 // ([128 n][128 k]): lane l the columns 4 l .. 4 l + 3, one four-byte load
 // of each code row (a warp reads a whole 128-byte row), 4 x 4 byte
-// transposes, one 16-byte store a column, to chunk cw ^ (n % 8) of row n
+// transposes, one 16-byte store a column, to chunk cw ^ (n % 8) of row n.
+// kNib (K4f): with pk the bytes are nibble-packed and their low (high with
+// hi) nibbles, sign-extended, are the codes; chosen by selects, no branch
+template <bool kNib>
 __device__ __forceinline__ void wq_transpose_rows(const uint8_t* raw, uint8_t* b, int cw,
-                                                  int lane) {
+                                                  int lane, bool pk, bool hi) {
   const uint8_t* src = raw + 16 * cw * WQ_BN_GQ + 4 * lane;
   uint32_t r[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) r[j] = *reinterpret_cast<const uint32_t*>(src + j * WQ_BN_GQ);
+  if constexpr (kNib) {
+    const int shift = hi ? 4 : 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t v = sext4((r[j] >> shift) & 0x0F0F0F0Fu);
+      r[j] = pk ? v : r[j];
+    }
+  }
   uint32_t col[4][4];                                    // [column][code group]
 #pragma unroll
   for (int kg = 0; kg < 4; ++kg) {
@@ -309,9 +349,12 @@ __device__ __forceinline__ void wq_wait_full(WqSmem& sm, int k) {
 }
 
 // the warp's share of k-tile k (the item's kt-th) into its B stage, once
-// the stage's last readers are done; then the raw stage is free
+// the stage's last readers are done; then the raw stage is free. kPacked:
+// body A's codes nibble-packed; in body B the ragged storage, whose group is
+// packed when pk
 template <bool kWo, bool kPacked, bool kZp>
-__device__ __forceinline__ void wq_turn(WqSmem& sm, const WqArgs& p, int k, int kt) {
+__device__ __forceinline__ void wq_turn(WqSmem& sm, const WqArgs& p, int k, int kt,
+                                        bool pk = false) {
   const int tid = threadIdx.x, cw = tid >> 5, lane = tid & 31;
   const int r = k % WQ_RAW, sb = k % WQ_B_STAGES;
   mbar_wait(&sm.raw_full[r], (k / WQ_RAW) & 1);
@@ -321,7 +364,9 @@ __device__ __forceinline__ void wq_turn(WqSmem& sm, const WqArgs& p, int k, int 
                              p.zp != nullptr, kPacked && kt * WQ_BK_WO >= p.K / 2, cw,
                              lane);
   } else {
-    wq_transpose_rows(sm.raw[r], sm.b[sb], cw, lane);
+    // warp cw's codes lie in half cw / 4 of the k-tile
+    wq_transpose_rows<kPacked>(sm.raw[r], sm.b[sb], cw, lane, pk,
+                               kt * WQ_BK_GQ + 64 * (cw >> 2) >= p.K / 2);
     // the group's s_b (threads 0-127) and zp (128-255) over the item's
     // columns, kept with the B stage for the fold
     const int which = tid >> 7, c = tid & 127;
@@ -393,16 +438,17 @@ __device__ __forceinline__ int wq_item_wo(WqSmem& sm, const WqArgs& p, int q, in
 }
 
 // body B: the int32 sums of a group over its k-tiles, then the fold into the
-// f32 sums, groups in ascending order
-template <typename OutT, bool kZp>
+// f32 sums, groups in ascending order. kRagged: K4f's storage, the item's
+// group packed when pk
+template <typename OutT, bool kZp, bool kRagged>
 __device__ __forceinline__ int wq_item_gq(WqSmem& sm, const WqArgs& p, int q, int m0,
-                                          int n0, int row_end, bool live) {
+                                          int n0, int row_end, bool live, bool pk) {
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int K = p.K, N = p.N, G = K / p.gsize;
   const int kt_n = (K + WQ_BK_GQ - 1) / WQ_BK_GQ;
   if (!live) {
     for (int kt = 0; kt < kt_n; ++kt, ++q) {
-      wq_turn<false, false, kZp>(sm, p, q, kt);
+      wq_turn<false, kRagged, kZp>(sm, p, q, kt, pk);
       wq_release(sm, q, lane);
     }
     return q;
@@ -419,7 +465,7 @@ __device__ __forceinline__ int wq_item_gq(WqSmem& sm, const WqArgs& p, int q, in
   }
   const int kpg = p.gsize >= K ? kt_n : p.gsize / WQ_BK_GQ;   // k-tiles a group
   // k-tile q + 1 is turned while the MMAs of q run, ahead of q's fold
-  wq_turn<false, false, kZp>(sm, p, q, 0);
+  wq_turn<false, kRagged, kZp>(sm, p, q, 0, pk);
   for (int g0 = 0, grp = 0; g0 < kt_n; g0 += kpg, ++grp) {
     const int gn = min(kpg, kt_n - g0);
     int rs0 = 0, rs1 = 0;              // the zp term's row sums (32 codes a lane)
@@ -458,7 +504,7 @@ __device__ __forceinline__ int wq_item_gq(WqSmem& sm, const WqArgs& p, int q, in
         reg_fence(acc);
         wq_release(sm, q - 1, lane);
       }
-      if (g0 + j + 1 < kt_n) wq_turn<false, false, kZp>(sm, p, q + 1, g0 + j + 1);
+      if (g0 + j + 1 < kt_n) wq_turn<false, kRagged, kZp>(sm, p, q + 1, g0 + j + 1, pk);
     }
     const float sa0 = ok0 ? __ldg(p.s_a + (size_t)row0 * G + grp) : 0.0f;
     const float sa1 = ok1 ? __ldg(p.s_a + (size_t)row1 * G + grp) : 0.0f;
@@ -511,11 +557,12 @@ __device__ __forceinline__ int wq_item_gq(WqSmem& sm, const WqArgs& p, int q, in
   return q;
 }
 
-// The kernel. kMode: every group body A (K6 / K7), every group body B (K8),
-// or by the group's flag (K10). Maps: map_a the bf16 lhs [M, K] in
-// [128 x 64] boxes and map_wa the codes [E, kw, N] in [64 x 256] boxes
-// (body A); map_aq the int8 lhs_q [M, K] in [128 x 128] boxes and map_wb
-// the codes [E, K, N] in [128 x 128] boxes (body B); map_s / map_z the scale
+// The kernel. kMode: every group body A (K6 / K7), every group body B (K8,
+// K9; K4f over its ragged storage), or by the group's flag (K10). Maps:
+// map_a the bf16 lhs [M, K] in [128 x 64] boxes and map_wa the codes [E,
+// kw, N] in [64 x 256] boxes (body A); map_aq the int8 lhs_q [M, K] in
+// [128 x 128] boxes and map_wb the codes [E, K, N] in [128 x 128] boxes
+// (body B; K4f: rhs_cat [R, N] in [64 x 128] boxes); map_s / map_z the scale
 // / zp [E, G, N] in [256 x 1 x 1] boxes (both). kZp: body B adds the
 // zero-point term (body A reads zp whenever it is not null).
 template <typename OutT, int kMode, bool kPacked, bool kZp>
@@ -557,11 +604,11 @@ gmm_wq_kernel(const __grid_constant__ CUtensorMap map_a,
     // the rings let it ----
     warpgroup_reg_dealloc<40>();
     if (tid != 256) return;
-    if constexpr (kMode != kWqGrouped) {
+    if constexpr (wq_has_a(kMode)) {
       tma_prefetch_desc(&map_a);
       tma_prefetch_desc(&map_wa);
     }
-    if constexpr (kMode != kWqWeightOnly) {
+    if constexpr (wq_has_b(kMode)) {
       tma_prefetch_desc(&map_aq);
       tma_prefetch_desc(&map_wb);
     }
@@ -589,7 +636,16 @@ gmm_wq_kernel(const __grid_constant__ CUtensorMap map_a,
         } else {
           k0 = kt * WQ_BK_GQ;
           tma_load_2d(sm.a[sa], &map_aq, &sm.a_full[sa], k0, ld.m0);
-          tma_load_3d(sm.raw[r], &map_wb, &sm.raw_full[r], ld.n0, k0, ld.g);
+          if constexpr (kMode == kWqGroupedRagged) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = k0 + h * (WQ_BK_GQ / 2);
+              tma_load_2d(sm.raw[r] + h * (WQ_RAW_BYTES / 2), &map_wb, &sm.raw_full[r],
+                          ld.n0, ld.cat_row0 + ((ld.pk && c >= half) ? c - half : c));
+            }
+          } else {
+            tma_load_3d(sm.raw[r], &map_wb, &sm.raw_full[r], ld.n0, k0, ld.g);
+          }
         }
         const int grp = k0 / p.gsize;
         tma_load_3d(sm.rs[r][0], &map_s, &sm.raw_full[r], ld.n0, grp, ld.g);
@@ -607,7 +663,8 @@ gmm_wq_kernel(const __grid_constant__ CUtensorMap map_a,
     while (it.next(p)) {
       const bool live = __shfl_sync(0xffffffffu, it.m0 + wg * 64 < it.row_end, 0);
       q = it.wo() ? wq_item_wo<OutT, kPacked>(sm, p, q, it.m0, it.n0, it.row_end, live)
-                  : wq_item_gq<OutT, kZp>(sm, p, q, it.m0, it.n0, it.row_end, live);
+                  : wq_item_gq<OutT, kZp, kMode == kWqGroupedRagged>(
+                        sm, p, q, it.m0, it.n0, it.row_end, live, it.pk);
     }
   }
 }
@@ -652,6 +709,16 @@ cudaError_t wq_encode_gq(const void* lhs_q, const void* rhs, int M, int K, int N
                     CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
+// body B's codes over K4f's ragged storage: rhs_cat [R, N] in [64 rows x
+// 128 columns] half boxes
+cudaError_t wq_encode_ragged(const void* rhs_cat, int N, int R, CUtensorMap* map_w) {
+  const cuuint64_t dim[2] = {(cuuint64_t)N, (cuuint64_t)R};
+  const cuuint64_t stride[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {WQ_BN_GQ, WQ_BK_GQ / 2};
+  return encode_map(map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, rhs_cat, dim, stride, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // a [E, G, N] f32 row of scales or zero points in [256 x 1 x 1] boxes
 cudaError_t wq_encode_rows(const void* rows, int N, int G, int E, CUtensorMap* map) {
   const cuuint64_t dim[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)E};
@@ -685,17 +752,21 @@ cudaError_t wq_launch_zp(const CUtensorMap* maps, const WqArgs& args, int grid,
 // The C entry points' body at bm == WQ_BM (the schedule of
 // ops/gmm_w8a8_grouped.py picks it inside the bodies' domain: N % 16 == 0,
 // 16-byte aligned operands, gsize % 128 == 0 or gsize == K, and K % 128 ==
-// 0 for body A). lhs (bf16) feeds body A, lhs_q / s_a body B; flags [E]
-// (kWqMixed) say which body each group takes. Every group's rows are
-// covered by at most cdiv(M, 128) + E m-tiles, which bounds the grid.
+// 0 for body A and K4f). lhs (bf16) feeds body A, lhs_q / s_a body B;
+// flags [E] (kWqMixed) say which body each group takes; pflags / blk and R,
+// the rows of rhs_cat, K4f's storage. Every group's rows are covered by at
+// most cdiv(M, 128) + E m-tiles, which bounds the grid.
 template <int kMode, bool kPacked>
 int gmm_wq_launch(const void* lhs, const void* lhs_q, const void* s_a, const void* rhs,
                   const void* scale, const void* zp, const void* flags,
                   const void* group_sizes, void* out, int out_is_bf16, int M, int K,
-                  int N, int E, int gsize, void* stream) {
+                  int N, int E, int gsize, void* stream, const void* pflags = nullptr,
+                  const void* blk = nullptr, int R = 0) {
   if (E <= 0 || E > kMaxExperts || gsize <= 0 || K % gsize != 0 || N % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (kMode != kWqGrouped && K % (2 * WQ_BK_WO) != 0) return (int)cudaErrorInvalidValue;
+  if ((wq_has_a(kMode) || kMode == kWqGroupedRagged) && K % (2 * WQ_BK_WO) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (kMode == kWqGroupedRagged && R <= 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaGetLastError();
   // a, wa (body A); s, z (both); aq, wb (body B); a map no body of this
   // launch reads is a copy of one it does
@@ -705,22 +776,25 @@ int gmm_wq_launch(const void* lhs, const void* lhs_q, const void* s_a, const voi
   if (e == cudaSuccess && zp != nullptr) e = wq_encode_rows(zp, N, K / gsize, E, &maps[3]);
   if (e != cudaSuccess) return (int)e;
   if (zp == nullptr) maps[3] = maps[2];
-  if (kMode != kWqGrouped) {
+  if (wq_has_a(kMode)) {
     e = wq_encode_wo(lhs, rhs, kPacked, M, K, N, E, &maps[0], &maps[1]);
     if (e != cudaSuccess) return (int)e;
   }
-  if (kMode != kWqWeightOnly) {
-    e = wq_encode_gq(lhs_q, rhs, M, K, N, E, &maps[4], &maps[5]);
+  if (wq_has_b(kMode)) {
+    e = wq_encode_gq(lhs_q, rhs, M, K, N, kMode == kWqGroupedRagged ? 1 : E, &maps[4],
+                     &maps[5]);
+    if (e == cudaSuccess && kMode == kWqGroupedRagged) e = wq_encode_ragged(rhs, N, R, &maps[5]);
     if (e != cudaSuccess) return (int)e;
   }
-  if (kMode == kWqGrouped) maps[0] = maps[1] = maps[4];
+  if (!wq_has_a(kMode)) maps[0] = maps[1] = maps[4];
   if (kMode == kWqWeightOnly) maps[4] = maps[5] = maps[0];
   const long long bn = kMode == kWqWeightOnly ? WQ_BN_WO : WQ_BN_GQ;
   const int grid = ws_grid(((long long)(M + WQ_BM - 1) / WQ_BM + E) * ((N + bn - 1) / bn));
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   const WqArgs args{static_cast<const float*>(s_a), static_cast<const float*>(scale),
                     static_cast<const float*>(zp), static_cast<const int*>(flags),
-                    static_cast<const int*>(group_sizes), out, M, K, N, E, gsize};
+                    static_cast<const int*>(group_sizes), static_cast<const int*>(pflags),
+                    static_cast<const int*>(blk), out, M, K, N, E, gsize};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   e = out_is_bf16 ? wq_launch_zp<__nv_bfloat16, kMode, kPacked>(maps, args, grid, st)
                   : wq_launch_zp<float, kMode, kPacked>(maps, args, grid, st);

@@ -1,8 +1,9 @@
 // The persistent wgmma body of the int8 grouped GEMM at large M, shared by
 // K15 (gmm_ws.cu: group sizes by value, every group a multiple of 128 rows),
-// K2 / K5 above the decode rows (gmm_w8a8.cu, gmm_w4a8_packed.cu) and K14's
-// second phase (gmm_w8a8_fusedquant.cu), which read the group sizes from an
-// int32 tensor on the device and take groups that start at any row.
+// K2 / K5 / K4 above the decode rows (gmm_w8a8.cu, gmm_w4a8_packed.cu,
+// gmm_mixed_packed.cu) and K14's second phase (gmm_w8a8_fusedquant.cu),
+// which read the group sizes from an int32 tensor on the device and take
+// groups that start at any row.
 //
 //   out[r, n] = OutT( ((float)(sum_k lhs[r,k] * w[e,k,n]) * s_a[r]) * s_b[e,n] )
 //
@@ -54,6 +55,18 @@
 //   both halves and no tail tile is needed. Every K a multiple of 64 has
 //   K/2 a multiple of 32, a quarter's depth. Boxes past the data (codes or
 //   byte rows past their end) read as zeros.
+// * Ragged storage (K4: rhs_cat [R, N], expert e's block from byte row
+//   blk_offsets[e] * K/2, K/2 rows nibble-packed when pflags[e], else K
+//   int8 rows): one 2D map over [R, N]; the producer reads the group's flag
+//   and first byte row as its cursors reach the group, loads the quarters
+//   of an int8 expert from rows 128 t + 32 q and those of a packed one as
+//   above, and turns each k-tile with the group's transform. The choice is
+//   the producer's alone: the consumers issue the same MMAs whatever the
+//   storage, so K4 is bitwise K2 on the same codes. A box past the
+//   expert's block reads the next expert's bytes (TMA fills zeros only past
+//   R); those codes meet only activation columns past K, which the A map
+//   fills with zeros, and add nothing (K % 64 == 0: no quarter of codes
+//   below K reaches past its half).
 // Rings: four A stages (16 KB), three raw stages (32 KB), two B stages
 // (32 KB), 224 KB in all. Thread 0 loads k-tile q + 2 while the warpgroup
 // transforms q, so two k-tiles of loads are in flight an SM. mbarriers:
@@ -93,6 +106,13 @@ struct WsSizes {
 struct WsDeviceSizes {
   const int* n;
   __device__ __forceinline__ int operator[](int g) const { return __ldg(n + g); }
+};
+
+// the ragged storage of K4: per group its packed flag and its first K/2-row
+// unit (both int32 [E] in device memory); null for stacked storage
+struct WsRagged {
+  const int* pflags = nullptr;
+  const int* blk = nullptr;
 };
 
 struct WsSmem {
@@ -189,14 +209,16 @@ __device__ __forceinline__ void transform_b(const int8_t* raw, int8_t* b, int k0
 
 // the whole body, called by every thread of a 384-thread CTA whose dynamic
 // shared memory (kWsSmemBytes) starts at `smem_raw`. s_a is read through L2
-// (K14 writes it earlier in the same launch).
-template <typename OutT, bool kPacked, class Sizes>
+// (K14 writes it earlier in the same launch). kRagged: map_w is the 2D map
+// over K4's rhs_cat, `rg` its flags and units (kPacked unused).
+template <typename OutT, bool kPacked, class Sizes, bool kRagged = false>
 __device__ __forceinline__ void ws_body(uint8_t* smem_raw, const CUtensorMap* map_a,
                                         const CUtensorMap* map_w,
                                         const float* __restrict__ s_a,
                                         const float* __restrict__ s_b,
                                         OutT* __restrict__ out, int M, int K, int N,
-                                        int E, const Sizes& sizes) {
+                                        int E, const Sizes& sizes,
+                                        const WsRagged rg = WsRagged{}) {
   WsSmem& sm = *reinterpret_cast<WsSmem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int tid = threadIdx.x;
@@ -227,6 +249,8 @@ __device__ __forceinline__ void ws_body(uint8_t* smem_raw, const CUtensorMap* ma
     int ld_w = blockIdx.x, ld_kt = 0;
     bool ld_ok = ld.seek(sizes, E, nt, M, ld_w);
     int ld_q = 0;
+    bool ld_pk = kPacked;                // the load cursor's group: packed,
+    int ld_base = 0;                     // its first byte row (ragged)
     // issue the loads of the cursor's k-tile (k-tile ld_q of the CTA), then
     // step the cursor. Its raw stage was freed by the transform WS_RAW
     // k-tiles back (closed by the named barrier); its A stage waits for the
@@ -238,15 +262,25 @@ __device__ __forceinline__ void ws_body(uint8_t* smem_raw, const CUtensorMap* ma
         if (ld_q >= WS_A_STAGES)
           mbar_wait(&sm.a_empty[sa], ((ld_q / WS_A_STAGES) - 1) & 1);
         const int k0 = ld_kt * WS_BK;
+        if constexpr (kRagged) {
+          if (ld_kt == 0) {
+            ld_pk = __ldg(rg.pflags + ld.g) != 0;
+            ld_base = __ldg(rg.blk + ld.g) * half;
+          }
+        }
         mbar_arrive_expect_tx(&sm.a_full[sa], WS_A_BYTES);
         tma_load_2d(sm.a[sa], map_a, &sm.a_full[sa], k0, ld.m0);
         mbar_arrive_expect_tx(&sm.raw_full[r], WS_RAW_BYTES);
 #pragma unroll
         for (int qd = 0; qd < WS_BK / WS_QK; ++qd) {
           const int c = k0 + qd * WS_QK;
-          const int row = (kPacked && c >= half) ? c - half : c;
-          tma_load_3d(sm.raw[r] + qd * WS_QK * WS_BN, map_w, &sm.raw_full[r], ld.n0,
-                      row, ld.g);
+          const int row = (ld_pk && c >= half) ? c - half : c;
+          if constexpr (kRagged)
+            tma_load_2d(sm.raw[r] + qd * WS_QK * WS_BN, map_w, &sm.raw_full[r], ld.n0,
+                        ld_base + row);
+          else
+            tma_load_3d(sm.raw[r] + qd * WS_QK * WS_BN, map_w, &sm.raw_full[r], ld.n0,
+                        row, ld.g);
         }
       }
       ++ld_q;
@@ -263,12 +297,16 @@ __device__ __forceinline__ void ws_body(uint8_t* smem_raw, const CUtensorMap* ma
     for (int i = 0; i < WS_AHEAD; ++i) issue();
     int q = 0;
     for (int w = blockIdx.x; tf.seek(sizes, E, nt, M, w); w += gridDim.x) {
+      const bool pk = kRagged ? __ldg(rg.pflags + tf.g) != 0 : kPacked;
       for (int kt = 0; kt < kt_n; ++kt, ++q) {
         issue();                                         // k-tile q + WS_AHEAD
         const int r = q % WS_RAW, sb = q % WS_B_STAGES;
         mbar_wait(&sm.raw_full[r], (q / WS_RAW) & 1);
         if (q >= WS_B_STAGES) mbar_wait(&sm.b_empty[sb], ((q / WS_B_STAGES) - 1) & 1);
-        transform_b<kPacked>(sm.raw[r], sm.b[sb], kt * WS_BK, half, pw, lane);
+        if (pk)
+          transform_b<true>(sm.raw[r], sm.b[sb], kt * WS_BK, half, pw, lane);
+        else
+          transform_b<false>(sm.raw[r], sm.b[sb], kt * WS_BK, half, pw, lane);
         fence_proxy_async_smem();
         mbar_arrive(&sm.b_full[sb]);
         // every producer thread is done with raw[r] before it is loaded again

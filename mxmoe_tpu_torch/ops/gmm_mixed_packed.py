@@ -11,12 +11,16 @@ Per-channel form (``lhs_scale`` [M, 1], ``rhs_scale`` [E, 1, N], no
 ``rhs_zp``): everything else is ``gmm_w8a8``'s contract, and the output is
 bitwise that of ``gmm_w8a8`` on the int8-stored codes: the int32 sum is
 exact and the epilogue is the same ``(acc * s_a) * s_b``, rounded once.
+Its schedule is K2's (``int8_gmm_schedule`` with ``ragged``): above the
+decode rows K2's wgmma body, whose producer reads each expert's flag and
+first byte row, for K a multiple of 64.
 
 Flex form (``lhs_scale`` [M, G], ``rhs_scale`` and the optional ``rhs_zp``
 [E, G, N] with G > 1, or ``rhs_zp`` given): ``gmm_w8a8_grouped``'s contract,
 arithmetic and schedule (``grouped_gmm_schedule``), groups of K / G codes in
 ascending order, so the output is bitwise that of ``gmm_w8a8_grouped`` on
-the int8-stored codes. A group is a
+the int8-stored codes; above the decode rows, for K a multiple of 128,
+K8's wgmma body B over the ragged storage. A group is a
 range of k, wherever its codes lie: with K/2 no multiple of the group size
 (K 1408, g 128) the middle group takes the end of the low nibbles and the
 start of the high nibbles of a packed expert, or the end of the first and
@@ -107,20 +111,22 @@ def gmm_mixed_packed(
         req(rhs_zp is None or (rhs_zp.shape == rhs_scale.shape
                                and rhs_zp.dtype == torch.float32),
             f"{name}: rhs_zp must be float32 of rhs_scale's shape")
-        sched, _ws = grouped_launch_schedule(lhs_q, rhs_cat, n, e, gsize)
+        sched, _ws = grouped_launch_schedule(lhs_q, rhs_cat, n, e, gsize, wgmma=True,
+                                             mixed=True)
         err = kernels.lib().mxmoe_gmm_mixed_packed_flex(
             lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
             rhs_scale.data_ptr(), None if rhs_zp is None else rhs_zp.data_ptr(),
             group_sizes.data_ptr(), pflags.data_ptr(), blk_offsets.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e, gsize,
-            *sched, kernels.stream_ptr(lhs_q.device))
+            out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, e,
+            rhs_cat.shape[0], gsize, *sched, kernels.stream_ptr(lhs_q.device))
     else:
-        sched, _ws = int8_launch_schedule(lhs_q, rhs_cat, n, e)
+        sched, _ws = int8_launch_schedule(lhs_q, rhs_cat, n, e, wgmma=True,
+                                          ragged=True)
         err = kernels.lib().mxmoe_gmm_mixed_packed(
             lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_cat.data_ptr(),
             rhs_scale.data_ptr(), group_sizes.data_ptr(), pflags.data_ptr(),
             blk_offsets.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), m, k, n, e, *sched,
+            int(out_dtype == torch.bfloat16), m, k, n, e, rhs_cat.shape[0], *sched,
             kernels.stream_ptr(lhs_q.device))
     kernels.check(err, name)
     kernels.launches[name] += 1

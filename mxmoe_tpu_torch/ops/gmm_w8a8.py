@@ -15,8 +15,9 @@ The layer-stacked weight metadata of the TPU kernel (``group_base``,
 ``num_total_groups``) is not ported: a layer's weights are the view
 ``w[layer]``. The TPU tile knobs (bm/bn/bk) have no counterpart: the card's
 schedule is ``int8_gmm_schedule``'s, shared by K2, K4, K5 and K9; above the
-decode rows K2 and K5 take the persistent wgmma body
-(``csrc/gmm_ws_body.cuh``), which reads ``group_sizes`` on the device.
+decode rows K2, K5 and K4 (over its ragged storage) take the persistent
+wgmma body (``csrc/gmm_ws_body.cuh``), which reads ``group_sizes`` on the
+device, and K9 the grouped-scale body B (``gmm_w8a8_asym.asym_gmm_schedule``).
 """
 
 from __future__ import annotations
@@ -31,11 +32,11 @@ SMS = 132          # streaming multiprocessors of the H100
 SPLIT_BLOCKS = 2 * SMS    # K is split when a decode grid has fewer blocks
 DECODE_M = 64      # rows up to which the decode schedule (m16 tiles) is taken
 K_TILE = 64        # storage rows of one k-tile, both mma.sync schedules
-# rows from which K2 / K5 take the wgmma body (the 64 x 128 mma.sync tile
-# was the slower at every M measured above the decode rows, M 68-36736:
-# PERF.md), its tiles (rows and columns of a work item, codes of a
-# k-tile) and its K bound: K x 127 x 128 stays below 2^31, so the int32 sum
-# is exact
+# rows from which K2 / K5 / K4 take the wgmma body (the 64 x 128 mma.sync
+# tile was the slower at every M measured above the decode rows, M 68-36736
+# for K2 / K5, 68-65536 for K4: PERF.md), its tiles (rows and columns of a
+# work item, codes of a k-tile) and its K bound: K x 127 x 128 stays below
+# 2^31, so the int32 sum is exact
 WGMMA_MIN_M = DECODE_M + 1
 WGMMA_BM, WGMMA_BN, WGMMA_BK = 128, 256, 128
 WGMMA_MAX_K = 1 << 16
@@ -77,7 +78,8 @@ def wgmma_domain(m: int, k: int, n: int, packed: bool, aligned: bool) -> bool:
 
 
 def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
-                      aligned: bool = True, wgmma: bool = False) -> Int8GemmSchedule:
+                      aligned: bool = True, wgmma: bool = False,
+                      ragged: bool = False) -> Int8GemmSchedule:
     """The one place the int8 grouped GEMM's schedule is chosen, from the
     shapes the host knows (no sync on the routing).
 
@@ -85,8 +87,10 @@ def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
     one m16 row block x 64 columns a block; the m-tiles are bounded by M
     itself, since every live tile holds a row. When fewer than two blocks an
     SM would run (``SPLIT_BLOCKS``), K is split into whole k-tiles so the
-    grid fills the card (at most 16 splits). ``wgmma`` (K2 and K5, stacked
-    storage) and ``wgmma_domain``: the persistent wgmma body, bm 128 (its
+    grid fills the card (at most 16 splits). ``wgmma`` (K2 and K5 over
+    stacked storage; K4 over its ragged storage with ``ragged``, whose
+    experts may be packed, so the domain is packed's) and ``wgmma_domain``:
+    the persistent wgmma body, bm 128 (its
     grid is the SM count; ``grid_m`` bounds the m-tiles of its walk,
     cdiv(M, 128) + E, and ``k_tiles_per_split`` counts its 128-code
     k-tiles). Otherwise the prefill tile, 64 x 128, over cdiv(M, 64) + E - 1
@@ -94,7 +98,7 @@ def int8_gmm_schedule(m: int, k: int, n: int, e: int, packed: bool = False,
     ragged buffer's int8 experts hold K, and the split is taken over K)."""
     kw = k // 2 if packed else k
     kt = max(_cdiv(kw, K_TILE), 1)
-    if wgmma and wgmma_domain(m, k, n, packed, aligned):
+    if wgmma and wgmma_domain(m, k, n, packed or ragged, aligned):
         return Int8GemmSchedule(WGMMA_BM, WGMMA_BN, _cdiv(n, WGMMA_BN),
                                 _cdiv(m, WGMMA_BM) + e, 1, _cdiv(k, WGMMA_BK), 0, 0)
     if m <= DECODE_M and n % 16 == 0 and aligned:
@@ -126,11 +130,11 @@ def schedule_args(sched: Int8GemmSchedule, device):
 
 
 def int8_launch_schedule(lhs_q, rhs, n: int, e: int, packed: bool = False,
-                         wgmma: bool = False):
+                         wgmma: bool = False, ragged: bool = False):
     """``int8_gmm_schedule`` for these operands -> ``schedule_args``."""
     m, k = lhs_q.shape
     sched = int8_gmm_schedule(m, k, n, e, packed, aligned=rhs.data_ptr() % 16 == 0,
-                              wgmma=wgmma)
+                              wgmma=wgmma, ragged=ragged)
     return schedule_args(sched, lhs_q.device)
 
 

@@ -10,7 +10,9 @@ zp`` with signed ``q``), so per row r of expert e
 
 Both integer sums are exact and every f32 product and the sum round on
 their own in kernel and plain version alike, so the two agree bitwise.
-Everything else is ``gmm_w8a8``'s contract.
+Everything else is ``gmm_w8a8``'s contract. The schedule is
+``asym_gmm_schedule``'s: above the decode rows K8's wgmma body B with one
+group and the zero points, whose fold is this one.
 """
 
 from __future__ import annotations
@@ -18,8 +20,19 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gmm_w8a8 import (check_int8_gmm_operands, exact_int8_matmul,
-                       int8_launch_schedule)
+from .gmm_w8a8 import (check_int8_gmm_operands, exact_int8_matmul, int8_gmm_schedule,
+                       schedule_args)
+from .gmm_w8a8_grouped import grouped_gmm_schedule, grouped_wgmma_domain
+
+
+def asym_gmm_schedule(m: int, k: int, n: int, e: int, aligned: bool = True):
+    """K9's schedule: K8's wgmma body B with one group (``gsize = K``)
+    inside ``grouped_wgmma_domain``, from ``GROUPED_WGMMA_MIN_M`` rows on;
+    ``int8_gmm_schedule``'s m16 decode tile (row sums in registers) and
+    64 x 128 tile elsewhere."""
+    if grouped_wgmma_domain(m, k, n, k, aligned):
+        return grouped_gmm_schedule(m, k, n, e, k, aligned, wgmma=True)
+    return int8_gmm_schedule(m, k, n, e, aligned=aligned)
 
 
 def gmm_w8a8_asym_plain(lhs_q, lhs_scale, rhs_q, rhs_scale, rhs_zp, group_sizes,
@@ -65,7 +78,8 @@ def gmm_w8a8_asym(
                     f"gmm_w8a8_asym: rhs_zp {tuple(rhs_zp.shape)} {rhs_zp.dtype} "
                     f"must be float32 [E, 1, N]")
     out = torch.empty((m, n), dtype=out_dtype, device=lhs_q.device)
-    sched, _ws = int8_launch_schedule(lhs_q, rhs_q, n, e)
+    sched, _ws = schedule_args(
+        asym_gmm_schedule(m, k, n, e, aligned=rhs_q.data_ptr() % 16 == 0), lhs_q.device)
     err = kernels.lib().mxmoe_gmm_w8a8_asym(
         lhs_q.data_ptr(), lhs_scale.data_ptr(), rhs_q.data_ptr(),
         rhs_scale.data_ptr(), rhs_zp.data_ptr(), group_sizes.data_ptr(),

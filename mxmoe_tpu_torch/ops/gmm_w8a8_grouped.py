@@ -20,9 +20,10 @@ per-block partial sums for K above 4096) is not carried over: the kernel
 walks K in group order, in one block or, where the grid is short, split at
 whole groups with the groups' int32 sums added by the tile's last block
 (``grouped_gmm_schedule``, shared with the flex form of
-``gmm_mixed_packed``); above the decode rows K8 takes the persistent wgmma
-body B (``csrc/gmm_wq_body.cuh``), whose walk ``wq_device_work_items``
-writes out.
+``gmm_mixed_packed``); above the decode rows K8, K4f (``mixed``) and K9 (one
+group, ``gmm_w8a8_asym.asym_gmm_schedule``) take the persistent wgmma body
+B (``csrc/gmm_wq_body.cuh``), whose walk ``wq_device_work_items`` writes
+out.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ WQ_BM = 128
 WO_WGMMA_BN, WO_WGMMA_BK = 256, 64
 GROUPED_WGMMA_BN, GROUPED_WGMMA_BK = 128, 128
 # rows from which the schedules take them (measured against the 32 x 128
-# bodies at the main path's shapes: PERF.md)
+# bodies, and for K9 the 64 x 128 tile, at the main path's shapes: PERF.md)
 WO_WGMMA_MIN_M = DECODE_M + 1
 GROUPED_WGMMA_MIN_M = DECODE_M + 1
 
@@ -58,10 +59,14 @@ def _wq_shapes(k: int, n: int, gsize: int, aligned: bool) -> bool:
             and (gsize == k or gsize % GROUPED_WGMMA_BK == 0))
 
 
-def grouped_wgmma_domain(m: int, k: int, n: int, gsize: int, aligned: bool) -> bool:
-    """Whether body B (K8's wgmma body, and K10's w x a items) takes these
-    shapes: M from ``GROUPED_WGMMA_MIN_M``, inside ``_wq_shapes``."""
-    return m >= GROUPED_WGMMA_MIN_M and _wq_shapes(k, n, gsize, aligned)
+def grouped_wgmma_domain(m: int, k: int, n: int, gsize: int, aligned: bool,
+                         packed: bool = False) -> bool:
+    """Whether body B (K8's wgmma body, and K10's w x a items, K4f's and
+    K9's) takes these shapes: M from ``GROUPED_WGMMA_MIN_M``, inside
+    ``_wq_shapes``; ``packed`` (K4f, whose experts may be nibble-packed): K
+    a multiple of 128, so no 64-code half box straddles K/2."""
+    return (m >= GROUPED_WGMMA_MIN_M and _wq_shapes(k, n, gsize, aligned)
+            and (not packed or k % GROUPED_WGMMA_BK == 0))
 
 
 def wo_wgmma_domain(m: int, k: int, n: int, gsize: int, aligned: bool) -> bool:
@@ -122,12 +127,15 @@ def _wq_schedule(m: int, k: int, n: int, e: int, bn: int, bk: int) -> Int8GemmSc
 
 
 def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
-                         aligned: bool = True, wgmma: bool = False) -> Int8GemmSchedule:
+                         aligned: bool = True, wgmma: bool = False,
+                         mixed: bool = False) -> Int8GemmSchedule:
     """The schedule of the grouped-scale GEMMs (K8, and K4f over any mix of
     int8-stored and nibble-packed experts), from the shapes the host knows.
 
-    ``wgmma`` (K8, stacked storage) inside ``grouped_wgmma_domain``: the
-    persistent wgmma body B, 128 x 128 work items (``wq_device_work_items``).
+    ``wgmma`` (K8 over stacked storage; K4f over its ragged storage with
+    ``mixed``, whose domain is the packed one) inside
+    ``grouped_wgmma_domain``: the persistent wgmma body B, 128 x 128 work
+    items (``wq_device_work_items``).
 
     Decode (``int8_gmm_schedule``'s thresholds: ``m <= DECODE_M``, N a
     multiple of 16, 16-byte aligned weights): one m16 row block x 64 columns
@@ -139,7 +147,7 @@ def grouped_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
     the workspace one m16 x 64 int32 sum (+ 16 row sums) per tile, split and
     group held. Otherwise the 32 x 128 body over cdiv(M, 32) + E - 1
     logical m-tiles."""
-    if wgmma and grouped_wgmma_domain(m, k, n, gsize, aligned):
+    if wgmma and grouped_wgmma_domain(m, k, n, gsize, aligned, packed=mixed):
         return _wq_schedule(m, k, n, e, GROUPED_WGMMA_BN, GROUPED_WGMMA_BK)
     kt = max(_cdiv(k, K_TILE), 1)
     if m <= DECODE_M and n % 16 == 0 and aligned:
@@ -199,11 +207,11 @@ def weight_only_gmm_schedule(m: int, k: int, n: int, e: int, gsize: int,
 
 
 def grouped_launch_schedule(lhs_q, rhs, n: int, e: int, gsize: int,
-                            wgmma: bool = False):
+                            wgmma: bool = False, mixed: bool = False):
     """``grouped_gmm_schedule`` for these operands -> ``schedule_args``."""
     m, k = lhs_q.shape
-    sched = grouped_gmm_schedule(m, k, n, e, gsize,
-                                 aligned=rhs.data_ptr() % 16 == 0, wgmma=wgmma)
+    sched = grouped_gmm_schedule(m, k, n, e, gsize, aligned=rhs.data_ptr() % 16 == 0,
+                                 wgmma=wgmma, mixed=mixed)
     return schedule_args(sched, lhs_q.device)
 
 

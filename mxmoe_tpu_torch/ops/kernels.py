@@ -76,9 +76,9 @@ _SIGNATURES = {
     "mxmoe_decode_attention_q8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # lhs, s_a, rhs_cat, s_b, group_sizes, pflags, blk_offsets, out,
-    # out_is_bf16, M, K, N, E, schedule, stream
+    # out_is_bf16, M, K, N, E, rows of rhs_cat, schedule, stream
     "mxmoe_gmm_mixed_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, *_SCHED, _P],
+                               _I, _I, *_SCHED, _P],
     # lhs, s_a, rhs_packed, s_b, group_sizes, out, out_is_bf16, M, K, N, E,
     # schedule, stream
     "mxmoe_gmm_w4a8_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_SCHED,
@@ -96,9 +96,10 @@ _SIGNATURES = {
     "mxmoe_gmm_w8a8_asym": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             *_SCHED, _P],
     # lhs, s_a, rhs_cat, s_b, zp (may be null), group_sizes, pflags,
-    # blk_offsets, out, out_is_bf16, M, K, N, E, gsize, schedule, stream
+    # blk_offsets, out, out_is_bf16, M, K, N, E, rows of rhs_cat, gsize,
+    # schedule, stream
     "mxmoe_gmm_mixed_packed_flex": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, *_SCHED, _P],
+                                    _I, _I, _I, _I, _I, *_SCHED, _P],
     # lhs (bf16), lhs_q, s_a, rhs, s_b, zp (may be null), scheme_flags,
     # group_sizes, out, out_is_bf16, M, K, N, E, gsize, schedule (the same
     # weight_only_gmm_schedule for both bodies), stream

@@ -36,10 +36,12 @@ H100_HBM_GBPS = 3350.0
 # OneLaunchPerfModel's effective rates, fitted on "NVIDIA H100 80GB HBM3,
 # 700.00 W" by ``python -m mxmoe_tpu_torch.solver.onelaunch_fit`` (the
 # committed perf/onelaunch_model.json is that run, with its unpack rounds;
-# the a16 rate is K6's on its wgmma body, 77.4 TFLOP/s on the 32 x 128 one)
-H100_ONELAUNCH = {"int8_tflops_eff": 139.30, "bf16_tflops_eff": 314.56,
-                  "hbm_gbps_eff": 1887.62, "quant_gbps_eff": 2745.02,
-                  "unpack_gops": 23586.49, "launch_ms": 0.006704}
+# the int8 rate is K4's on K2's wgmma body, 139.3 TOP/s on the 64 x 128
+# mma.sync tile; the a16 rate is K6's on its wgmma body, 77.4 TFLOP/s on
+# the 32 x 128 one)
+H100_ONELAUNCH = {"int8_tflops_eff": 537.67, "bf16_tflops_eff": 313.78,
+                  "hbm_gbps_eff": 1899.47, "quant_gbps_eff": 2735.26,
+                  "unpack_gops": 29015.11, "launch_ms": 0.006850}
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -49,7 +49,10 @@ bitwise K8, and K3 / K3q at lengths on the edges of their warp chunks and
 S-blocks. The weight-quantized wgmma bodies above their thresholds (K6 / K7
 / K10's body A, K8 / K10's body B) at M 65-65536 and the four models'
 expert widths with the same gates, K4f bitwise K8 on them, and shapes
-outside their domains on the 32 x 128 bodies. The offline path on the card: an RTN convert bitwise the CPU's;
+outside their domains on the 32 x 128 bodies. K4 on K2's wgmma body and
+K4f / K9 on body B over the ragged (K4, K4f) and stacked (K9) storage at M
+65-65536 and the four models' widths, bitwise their plain versions and K2
+/ K8 on the same codes, and outside their domains on the old tiles. The offline path on the card: an RTN convert bitwise the CPU's;
 the GPTQ sweep (Cholesky, triangular inverse, blocked sweep) on the same W
 and H with codes >= 99.9 % equal to the CPU's and its floats within 1e-5 of
 the largest; the MoE Hessians within rtol 1e-5 of the CPU's; a whole GPTQ
@@ -1141,9 +1144,9 @@ def test_int8_gemm_schedules_bitwise_k2_k4_k5_k9(dev, m, layout):
 @pytest.mark.parametrize("m", _SCHED_M)
 @pytest.mark.parametrize("layout", ["routed", "one_group"])
 def test_grouped_gemm_schedules_bitwise_k8_k4f(dev, m, layout):
-    """The grouped-scale GEMM's two schedules (``grouped_gmm_schedule``: the
-    m16 ring kernel with split-K at whole groups up to M 64, the 32-row tile
-    above) through K8 and K4f at g128 (K 1408: group 5 spans the packed
+    """The grouped-scale GEMM's schedules (``grouped_gmm_schedule``: the
+    m16 ring kernel with split-K at whole groups up to M 64, the wgmma body
+    B above, through the wrappers) through K8 and K4f at g128 (K 1408: group 5 spans the packed
     halves) and with one group, without and with zero points: each bitwise
     its plain version, K4f (every other expert packed) bitwise K8 on the
     same codes."""
@@ -1269,9 +1272,9 @@ def test_wgmma_bodies_k6_k7_k8_k10_k4f(dev, model, proj, m):
     bitwise K6, K10 (experts alternating) weight-only rows bitwise K6 and
     w x a rows bitwise K8; K8 without and with zero points and with one
     group bitwise its plain version (with one group and no zp bitwise K2,
-    and K10's w x a rows too); K4f (every other expert packed, the 32 x 128
-    body) bitwise K8. Each wrapper's schedule is the one its threshold
-    says."""
+    and K10's w x a rows too); K4f (every other expert packed, on body B
+    since its storage took it) bitwise K8. Each wrapper's schedule is the
+    one its threshold says."""
     from mxmoe_tpu_torch.models import configs
     from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import (
         GROUPED_WGMMA_MIN_M, WO_WGMMA_MIN_M, grouped_gmm_schedule,
@@ -1368,6 +1371,131 @@ def test_wgmma_bodies_out_of_domain_take_the_32_row_bodies(dev, k, n, gsize):
     assert torch.equal(k8, gmm_w8a8_grouped.gmm_w8a8_grouped_plain(
         aq, asc, w4, sc, gs, gsize, zp))
     assert torch.equal(k10[~wo_rows], k8[~wo_rows])
+
+
+# (model, projection, routed rows) of K4 / K4f / K9 on the wgmma bodies:
+# qwen2_moe's gate_up from just above the decode rows to the profiler's
+# largest scale, and the chunk of every model's two expert products
+_RAGGED_CASES = ([("qwen2_moe", "gate_up", m) for m in (65, 1024, 8192, 65536)]
+                 + [(model, proj, 1024)
+                    for model in ("qwen2_moe", "ds2", "mixtral", "qwen2_moe_57b")
+                    for proj in ("gate_up", "down") if (model, proj) != ("qwen2_moe",
+                                                                        "gate_up")])
+
+
+def _ragged(w4, w8, pflags, dev):
+    """The mixed storage of ``pflags`` over the same codes -> (codes,
+    rhs_cat, pflags, blk_offsets)."""
+    pfb = torch.tensor(pflags, dtype=torch.bool, device=dev)
+    codes = torch.where(pfb[:, None, None], w4, w8)
+    cat, blk = build_ragged_mixed(codes, pflags)
+    return (codes, cat, pfb.to(torch.int32),
+            torch.tensor(blk, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("model,proj,m", _RAGGED_CASES)
+def test_wgmma_bodies_k4_k4f_k9(dev, model, proj, m):
+    """K4, K4f and K9 above the decode rows on the wgmma bodies, at the
+    models' expert widths, routed rows over the model's experts: K4 (every
+    other expert packed) bitwise its plain version and K2 on the same codes;
+    K4f at g128 with zero points (every other expert packed, and all) and
+    with one group bitwise its plain version and K8 on the same codes; K9
+    bitwise its plain version and K8 with one group and zero points. Each
+    wrapper's schedule is the wgmma body's from M 65 on."""
+    from mxmoe_tpu_torch.models import configs
+    from mxmoe_tpu_torch.ops.gmm_w8a8 import int8_gmm_schedule
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
+
+    cfg = configs.config_for(model)
+    h, nn, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    k, n = (h, 2 * nn) if proj == "gate_up" else (nn, h)
+    assert int8_gmm_schedule(m, k, n, e, wgmma=True, ragged=True).bm == 128
+    assert grouped_gmm_schedule(m, k, n, e, 128, wgmma=True, mixed=True).bm == 128
+    assert gmm_w8a8_asym.asym_gmm_schedule(m, k, n, e).bm == 128
+    g = torch.Generator(device=dev).manual_seed(m + k + n + 3)
+    gs = torch.bincount(torch.randint(0, e, (m,), generator=g, device=dev),
+                        minlength=e).to(torch.int32)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05 + 1e-3
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01 + 1e-4
+    zp1 = torch.randn((e, 1, n), generator=g, device=dev) * 0.02
+    alternating = [i % 2 for i in range(e)]
+    codes, cat, pf, blk = _ragged(w4, w8, alternating, dev)
+    k4 = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk)
+    k2 = gmm_w8a8.gmm_w8a8(aq, asc, codes, wsc, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, gmm_mixed_packed.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs,
+                                                                   pf, blk))
+    assert torch.equal(k4, k2)
+    k9 = gmm_w8a8_asym.gmm_w8a8_asym(aq, asc, w8, wsc, zp1, gs)
+    k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, w8, wsc, gs, -1, zp1)
+    torch.cuda.synchronize()
+    assert torch.equal(k9, gmm_w8a8_asym.gmm_w8a8_asym_plain(aq, asc, w8, wsc, zp1, gs))
+    assert torch.equal(k9, k8)
+    del k4, k2, k9, k8
+    groups = k // 128
+    gsc = torch.rand((m, groups), generator=g, device=dev) * 0.05 + 1e-3
+    gwsc = torch.rand((e, groups, n), generator=g, device=dev) * 0.01 + 1e-4
+    gzp = torch.randn((e, groups, n), generator=g, device=dev) * 0.02
+    for pflags in (alternating, [1] * e):
+        codes, cat, pf, blk = _ragged(w4, w8, pflags, dev)
+        for sa, sc, z, gsize in ((gsc, gwsc, gzp, 128), (asc, wsc, zp1, -1)):
+            k4f = gmm_mixed_packed.gmm_mixed_packed(aq, sa, cat, sc, gs, pf, blk,
+                                                    rhs_zp=z)
+            k8 = gmm_w8a8_grouped.gmm_w8a8_grouped(aq, sa, codes, sc, gs, gsize, z)
+            torch.cuda.synchronize()
+            assert torch.equal(k4f, gmm_mixed_packed.gmm_mixed_packed_plain(
+                aq, sa, cat, sc, gs, pf, blk, rhs_zp=z))
+            assert torch.equal(k4f, k8)
+
+
+@pytest.mark.parametrize("k,n,offset", [(1056, 2048, 0), (1344, 2048, 0),
+                                        (2048, 2040, 0), (2048, 2816, 4)],
+                         ids=["k_mod_64", "k_mod_128", "n_mod_16", "unaligned"])
+def test_ragged_bodies_out_of_domain_take_the_old_tiles(dev, k, n, offset):
+    """Outside the wgmma domains K4 and K9 keep the 64 x 128 tile and K4f
+    the 32 x 128 body: K % 64 != 0 (K4, K4f), K % 128 != 0 (K4f only), N %
+    16 != 0 and weights 4 bytes off 16-byte alignment (all three); each
+    bitwise its plain version and its sibling (K2, K8) on the same codes."""
+    from mxmoe_tpu_torch.ops.gmm_w8a8 import int8_gmm_schedule
+    from mxmoe_tpu_torch.ops.gmm_w8a8_grouped import grouped_gmm_schedule
+
+    m, e = 1024, 8
+    aligned = offset == 0
+    k4_bm = int8_gmm_schedule(m, k, n, e, aligned=aligned, wgmma=True, ragged=True).bm
+    k4f_bm = grouped_gmm_schedule(m, k, n, e, k, aligned=aligned, wgmma=True,
+                                  mixed=True).bm
+    k9_bm = gmm_w8a8_asym.asym_gmm_schedule(m, k, n, e, aligned=aligned).bm
+    assert k4_bm == (128 if k % 64 == 0 and aligned and n % 16 == 0 else 64)
+    assert k4f_bm == 32 and k9_bm == (128 if aligned and n % 16 == 0 else 64)
+    g = torch.Generator(device=dev).manual_seed(k + n + offset)
+    gs = torch.tensor(_spread(m, e, 7), dtype=torch.int32, device=dev)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.05 + 1e-3
+    wsc = torch.rand((e, 1, n), generator=g, device=dev) * 0.01 + 1e-4
+    zp = torch.randn((e, 1, n), generator=g, device=dev) * 0.02
+    codes, cat, pf, blk = _ragged(w4, w8, [i % 2 for i in range(e)], dev)
+    if offset:
+        buf = torch.empty((cat.numel() + offset,), dtype=torch.int8, device=dev)
+        cat = buf[offset:].view(cat.shape).copy_(cat)
+        w8 = buf.new_empty((w8.numel() + offset,))[offset:].view(w8.shape).copy_(w8)
+        assert cat.data_ptr() % 16 == offset and w8.data_ptr() % 16 == offset
+    k4 = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk)
+    k4f = gmm_mixed_packed.gmm_mixed_packed(aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp)
+    k9 = gmm_w8a8_asym.gmm_w8a8_asym(aq, asc, w8, wsc, zp, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, gmm_mixed_packed.gmm_mixed_packed_plain(aq, asc, cat, wsc, gs,
+                                                                   pf, blk))
+    assert torch.equal(k4, gmm_w8a8.gmm_w8a8(aq, asc, codes, wsc, gs))
+    assert torch.equal(k4f, gmm_mixed_packed.gmm_mixed_packed_plain(
+        aq, asc, cat, wsc, gs, pf, blk, rhs_zp=zp))
+    assert torch.equal(k4f, gmm_w8a8_grouped.gmm_w8a8_grouped(aq, asc, codes, wsc, gs, -1,
+                                                              zp))
+    assert torch.equal(k9, gmm_w8a8_asym.gmm_w8a8_asym_plain(aq, asc, w8, wsc, zp, gs))
 
 
 def test_grouped_gemm_split_k_tickets_reset_between_launches(dev):

@@ -68,7 +68,7 @@ def test_scheme_tiles_name_the_kernels_schedules():
     want = {"w16a16_g-1_sym": "gmm_bf16.wgmma-bm128-bn256",
             "w8a8_g-1_sym": "gmm_w8a8.wgmma-bm128-bn256",
             "w4a4_g-1_sym_packed": "gmm_w4a8_packed.wgmma-bm128-bn256",
-            "w8a8_g-1_asym": "gmm_w8a8_asym.prefill-bm64-bn128",
+            "w8a8_g-1_asym": "gmm_w8a8_asym.wgmma-bm128-bn128",
             "w4a16_g128_asym": "gmm_weight_only.wgmma-bm128-bn256",
             "w4a16_g128_asym_packed": "gmm_weight_only_packed.wgmma-bm128-bn256",
             "w4a4_g128_sym": "gmm_w8a8_grouped.wgmma-bm128-bn128"}

@@ -6,7 +6,8 @@ what surrounds them and their arithmetic written out:
 
 - the schedules (``weight_only_gmm_schedule``, ``grouped_gmm_schedule``)
   pick the wgmma bodies from their thresholds on and inside their domains,
-  the 32 x 128 bodies elsewhere above the decode rows, and K4f never;
+  the 32 x 128 bodies elsewhere above the decode rows (K4f's choice over
+  its ragged storage is test_torch_mixed_wgmma_schedule.py's);
 - the walk (``wq_device_work_items`` / ``wq_cta_items``, and the kernel's
   cursor ``WqWalk`` written out here) covers every row and column of every
   group once, at each body's width, stores only the group's own rows, and
@@ -104,8 +105,9 @@ def test_weight_only_schedule_by_rows(m, k, n):
 @pytest.mark.parametrize("gsize", [128, -1], ids=["g128", "one_group"])
 def test_grouped_schedule_by_rows(m, gsize):
     """K8 (``wgmma=True``): the wgmma walk (128 x 128 items, 128-code
-    k-tiles) from GROUPED_WGMMA_MIN_M on; K4f (the ragged buffer, no
-    ``wgmma``) keeps the mma.sync bodies at every row count."""
+    k-tiles) from GROUPED_WGMMA_MIN_M on; without ``wgmma`` the schedule
+    keeps the mma.sync bodies at every row count (K4f's outside its domain;
+    K4f's own schedule, ``mixed``, is test_torch_mixed_wgmma_schedule.py's)."""
     k, n = 2048, 2816
     g = k if gsize == -1 else gsize
     s = grouped_gmm_schedule(m, k, n, 60, g, wgmma=True)
