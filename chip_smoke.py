@@ -147,8 +147,25 @@ failure raises and the script exits non-zero without a result line:
               and qwen2_moe_57b (28 layers) at full width and depth, uniform
               w8a8 (K1, K2, K3 at G 4 / 7). Each serve prints its peak memory beside the
               bytes reckoned from the config. The launch counts are
-              set to 0 before each serve and read after it; every kernel
-              named must have launched
+              set to 0 before each serve and read after it (a captured
+              step's launches counted at every replay); every kernel
+              named must have launched. Every serve decodes through the
+              Engine's captured step (serving/graph.py: one CUDA graph of
+              the cached forward and the sampler a step); a serve that did
+              not capture it fails
+ 6b. graph    on the serves uniform, mixed_fused (24 layers), ds2 (27),
+              flex_packed, uniform_xla and int8_head (graph_checks): an
+              eager forward_cached greedy loop from a clone of the
+              post-prefill cache gives every request's 31 decoded tokens
+              and, at the last step, the captured step's logits bitwise;
+              its first step on uniform and uniform_xla runs under
+              torch.cuda.set_sync_debug_mode("error"); uniform's params
+              served twice with temperature 0.8, top_k 50 and one seed give
+              the same tokens; on mixed_fused the eager and the captured
+              step in turns (eager, captured, captured, eager): wall ms,
+              device ms, busy share, kernels and host launch calls a step.
+              Each line: warm-up, capture and instantiate seconds, launches
+              a replay, peak memory
   7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
               (K1, K2, K3q, K4 must be non-zero in its own launch counts),
               --quant w4a16_g128_asym (K6, K3), --quant none (K3),
@@ -2442,17 +2459,21 @@ def _reckoned_bytes(cfg, quant: str, pack: bool, int8_kv: bool, slots: int,
 def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
           pack: bool = False, int8_head: bool = False,
           impl_kw: dict | None = None, absent: tuple = (),
-          model: str = "qwen2_moe") -> dict:
+          model: str = "qwen2_moe", name: str = "", graph: tuple = ()) -> dict:
     """The Engine over ``model`` at its published widths, ``layers`` deep
     (set up one MoE layer at a time: ``_served_model``), answering 4
     requests; returns the kernels' launch counts of this serve.
     ``quant``, ``pack``, ``int8_head`` and ``impl_kw`` as ``prepare`` takes
-    them; the kernels in ``expect`` must launch, those in ``absent`` not."""
+    them; the kernels in ``expect`` must launch, those in ``absent`` not.
+    The Engine decodes through its captured step (``serving/graph.py``);
+    ``graph`` names the ``graph`` phase's checks run on this serve
+    (``graph_checks``)."""
     import numpy as np
     import torch
 
     from mxmoe_tpu_torch.ops import kernels
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2497,11 +2518,17 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    # the post-prefill cache on the host, so that the serve's peak does not
+    # count it
+    snap = (clone_cache(eng.cache, "cpu"), eng._last_tokens.copy()) if graph else None
     t0 = time.perf_counter()
     results = eng.run_to_completion(chunk=16)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    if eng._graph is None or eng._graph.graph is None:
+        raise AssertionError(f"serve ({quant}): the Engine decoded without its "
+                             "captured step")
 
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
@@ -2529,8 +2556,138 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     if stray:
         raise AssertionError(f"serve ({quant}, {impl_kw}): kernels launched that "
                              f"this path must not take: {stray}")
+    if graph:
+        graph_checks(name, graph, eng, snap, [results[r] for r in rids], prompts,
+                     max_new, t_decode)
     del eng, params
     return launches
+
+
+def graph_checks(name: str, checks: tuple, eng, snap, toks: list, prompts: list,
+                 max_new: int, t_decode: float) -> None:
+    """The ``graph`` phase on one serve (``serve``'s Engine after it answered
+    its 4 requests through the captured step; ``snap``: a clone of its cache
+    and its last tokens after the prefill). ``checks``:
+
+    - ``eager``: an eager ``forward_cached`` greedy loop from the clone gives
+      every request's 31 decoded tokens, and its last step's logits equal
+      the captured step's last replay's bitwise;
+    - ``sync_debug``: that loop's first step runs under
+      ``torch.cuda.set_sync_debug_mode("error")`` (no host read);
+    - ``sampled``: the same params served twice with ``temperature=0.8``,
+      ``top_k=50`` and one seed give the same tokens, other than the greedy
+      serve's; and the first serve's decoded tokens are those of an eager
+      ``forward_cached`` + ``sample_tokens`` loop from a clone of its
+      post-prefill cache and its generator's state then (the generator is
+      registered with the graph: every replay draws fresh noise, as an
+      eager step would);
+    - ``abba``: the eager and the captured step timed in turns (eager,
+      captured, captured, eager; ``profile_decode.abba``): wall ms, device
+      ms, busy share, kernels and host launch calls a step.
+
+    Prints one ``graph`` line with the captured step's warm-up, capture and
+    instantiate seconds, its launches a replay and the serve's peak memory;
+    raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.serving.decode import forward_cached, sample_tokens
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
+
+    g = eng._graph
+    dev = eng.device
+    res = {"name": name, "checks": list(checks), "warmup_s": g.warmup_s,
+           "capture_s": g.capture_s, "instantiate_s": g.instantiate_s,
+           "launches_per_replay": sum(g.counts.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "captured_decode_s": t_decode}
+    cache, last = clone_cache(snap[0], dev), snap[1]
+    slots = len(prompts)
+    valid = torch.ones((slots,), dtype=torch.int32, device=dev)
+    if "eager" in checks:
+        tok = torch.as_tensor(last[:slots], device=dev)[:, None]
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(max_new - 1):
+            if i == 0 and "sync_debug" in checks:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = forward_cached(eng.params, tok, cache, eng.cfg,
+                                               eng.impl, valid_lengths=valid)
+                nxt = sample_tokens(logits[:, -1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out.append(nxt)
+            tok = nxt[:, None]
+        eager = torch.stack(out, dim=1).cpu().tolist()
+        res["eager_decode_s"] = time.perf_counter() - t0
+        res["tokens_equal"] = all(toks[r][1:] == eager[r] for r in range(slots))
+        res["logits_bitwise"] = bool(torch.equal(g.logits, logits))
+        res["logits_max_abs_diff"] = float((g.logits.float() - logits.float()).abs().max())
+        if "sync_debug" in checks:
+            res["sync_debug_clean"] = True      # the step raised nothing
+    if "sampled" in checks:
+        runs = []
+        for _ in range(2):
+            e2 = Engine(eng.params, eng.cfg, EngineConfig(
+                batch_slots=slots, max_len=eng.ecfg.max_len, prefill_chunk=256,
+                int8_kv=eng.ecfg.int8_kv, temperature=0.8, top_k=50, seed=11), eng.impl)
+            rids = [e2.submit(p, max_new_tokens=max_new) for p in prompts]
+            if not runs:
+                s_cache = clone_cache(e2.cache, "cpu")
+                s_last, s_state = e2._last_tokens.copy(), e2.gen.get_state()
+            got = e2.run_to_completion(chunk=16)
+            runs.append([got[r] for r in rids])
+            del e2
+        res["sampled_reproducible"] = runs[0] == runs[1]
+        res["sampled_differs_from_greedy"] = runs[0] != toks
+        s_cache = clone_cache(s_cache, dev)
+        s_gen = torch.Generator(device=dev)
+        s_gen.set_state(s_state)
+        s_tok = torch.as_tensor(s_last[:slots], device=dev)[:, None]
+        out = []
+        for _ in range(max_new - 1):
+            lg, s_cache = forward_cached(eng.params, s_tok, s_cache, eng.cfg, eng.impl,
+                                         valid_lengths=valid)
+            nxt = sample_tokens(lg[:, -1], s_gen, 0.8, 50)
+            out.append(nxt)
+            s_tok = nxt[:, None]
+        eager = torch.stack(out, dim=1).cpu().tolist()
+        res["sampled_equals_eager"] = all(runs[0][r][1:] == eager[r]
+                                          for r in range(slots))
+        del s_cache
+    if "abba" in checks:
+        from mxmoe_tpu_torch.serving import profile_decode
+
+        state = {"cache": cache, "tok": tok}
+
+        def eager_steps(n):
+            for _ in range(n):
+                lg, state["cache"] = forward_cached(eng.params, state["tok"],
+                                                    state["cache"], eng.cfg, eng.impl,
+                                                    valid_lengths=valid)
+                state["tok"] = lg[:, -1:].argmax(-1).to(torch.int32)
+
+        g.load(torch.as_tensor(np.asarray([t[-1] for t in toks], np.int32),
+                               device=dev), valid)
+
+        def captured_steps(n):
+            g.run(n)
+
+        turns = profile_decode.abba({"eager": eager_steps, "captured": captured_steps},
+                                    order=("eager", "captured", "captured", "eager"),
+                                    steps=8)
+        for arm in turns.values():
+            arm.pop("by_name")
+        res["abba"] = turns
+    emit("graph", **res)
+    failed = [k for k in ("tokens_equal", "logits_bitwise", "sampled_reproducible",
+                          "sampled_differs_from_greedy", "sampled_equals_eager")
+              if k in res and not res[k]]
+    if failed:
+        raise AssertionError(f"graph ({name}): {failed}")
 
 
 def _reset_counts():
@@ -2781,6 +2938,10 @@ SOLVE_GPTQ_SCHEME = "w4a4_g-1_sym"
 SOLVE_PROFILED = SOLVE_SCHEMES + ("w4a4_g-1_sym_packed", "w4a16_g128_asym_packed")
 SOLVE_TOKENS = (8, 512)
 SOLVE_WBITS, SOLVE_R = 6.0, 0.5
+# seconds of HiGHS a runtime model's solve may take before each MILP keeps
+# its best mix so far (the measured table's solve took 31-157 s in most
+# runs and 513 s in one, past the smoke's time limit)
+SOLVE_MILP_BUDGET_S = 90.0
 # the share of (layer, expert, linear) entries whose w4a4 loss must reach the
 # w8a8 loss
 SOLVE_ORDER_SHARE = 0.99
@@ -3010,13 +3171,14 @@ def solve_phase(ckpt: str, device: str = "cuda", profile_kw: dict | None = None,
         for name, perf in models.items():
             ts = time.perf_counter()
             qmc, tiles = bits_solver.solve_model(losses, trace, batch, cfg.num_layers,
-                                                 SOLVE_WBITS, SOLVE_R, perf)
+                                                 SOLVE_WBITS, SOLVE_R, perf,
+                                                 time_budget_s=SOLVE_MILP_BUDGET_S)
             rec = _solve_gates(qmc, problems, name)
             path = os.path.join(root, f"qconfig-{name}.json")
             bits_solver.export_qconfig(qmc, tiles, path)
             solved[name] = (qmc, path)
             emit("solve_milp", card=smi, runtime_model=name, seconds=time.perf_counter() - ts,
-                 wbits=SOLVE_WBITS, r=SOLVE_R, batch=batch, lt=qmc.lt, tiles=tiles,
+                 budget_s=SOLVE_MILP_BUDGET_S, wbits=SOLVE_WBITS, r=SOLVE_R, batch=batch, lt=qmc.lt, tiles=tiles,
                  scheme_counts={s: sum(c.scheme_name == s for lay in qmc.layers.values()
                                        for ex in lay.experts.values()
                                        for c in ex.qmap().values())
@@ -4048,12 +4210,17 @@ def main() -> int:
         "qwen2_57b": (28, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
                       None, (), "qwen2_moe_57b"),
     }
+    # the graph phase's checks, on the serves that run them (graph_checks)
+    graph = {"uniform": ("eager", "sync_debug", "sampled"),
+             "mixed_fused": ("eager", "abba"), "ds2": ("eager",),
+             "flex_packed": ("eager",), "uniform_xla": ("eager", "sync_debug"),
+             "int8_head": ("eager",)}
     ran = {}
     for name, (layers, quant, int8_kv, pack, head, expect, *extra) in serves.items():
         torch.cuda.empty_cache()
         impl_kw, absent, model = (*extra, *SERVE_DEFAULTS[len(extra):])
         ran[name] = serve(layers, quant, int8_kv, expect, pack, head, impl_kw, absent,
-                          model)
+                          model, name, graph.get(name, ()))
     # the flex serves go through K8 only: no K1, K2 or K9 for the routed
     # experts, and the grouped shared expert adds two K8 launches a layer
     if ran["flex"]["gmm_w8a8_grouped"] != 2 * ran["grouped"]["gmm_w8a8_grouped"]:

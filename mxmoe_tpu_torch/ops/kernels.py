@@ -13,10 +13,15 @@ Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code. ``launches`` counts kernel launches
 per wrapper (only where the kernel is launched, never for the plain
 versions), so a run can show that its main path went through the kernels.
+A wrapper counts in Python when it is called, so a CUDA graph's launches
+are counted at replay instead: ``recording_launches`` takes a capture's
+counts out of ``launches`` and keeps them, and every replay adds them back
+(``add_launches``; ``serving/graph.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -137,6 +142,30 @@ def reset_launch_counts() -> None:
         launches[name] = 0
 
 
+@contextlib.contextmanager
+def recording_launches():
+    """Count the launches made inside the block apart: yields a dict that,
+    after the block, holds each kernel's launches made in it, and leaves
+    ``launches`` as it was before the block. For a graph capture, whose
+    launches run only when the graph is replayed (``add_launches``)."""
+    before = dict(launches)
+    rec: dict = {}
+    try:
+        yield rec
+    finally:
+        for name, n in before.items():
+            if launches[name] != n:
+                rec[name] = launches[name] - n
+            launches[name] = n
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches, as ``recording_launches`` gives
+    them) to ``launches``: one replay of a captured graph."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
 def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
@@ -203,18 +232,35 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def _device_key(device) -> tuple:
+    """(type, index) of ``device``, ``cuda`` naming the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return "cuda", torch.cuda.current_device()
+    return device.type, device.index
+
+
 _tickets: dict = {}
+_retired_tickets: list = []
 
 
 def tickets(device: torch.device, n: int) -> torch.Tensor:
     """``n`` int32 tickets on ``device``, all 0: the counters by which the
     last block of a tile or head finds itself (decode attention, split-K).
     Kept across calls: the last block resets its ticket to 0, so they are
-    zeroed once, when first made or grown."""
-    key = (device.type, device.index)
+    zeroed once, when first made or grown. A captured graph holds their
+    address, so they are grown before a capture (by a warm-up run of the
+    same step) and never during one, and a buffer that growth replaces is
+    kept for the life of the process (``_retired_tickets``): a graph
+    captured against it replays on it, all zero, after any later growth."""
+    key = _device_key(device)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
-        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _refuse_under_capture(f"growing the tickets to {n}")
+        if t is not None:
+            _retired_tickets.append(t)
+        size = max(n, 1024, 2 * t.numel() if t is not None else 0)
+        t = torch.zeros((size,), dtype=torch.int32, device=device)
         _tickets[key] = t
     return t
 
@@ -228,10 +274,19 @@ def grid_barrier(device: torch.device) -> torch.Tensor:
     generation, so one pair serves the device's launches one after another
     (two launches running at once on two streams would need two). Kept apart
     from ``tickets``, whose counters must stay zero."""
-    key = (device.type, device.index)
+    key = _device_key(device)
     if key not in _barriers:
+        _refuse_under_capture("making the grid barrier")
         _barriers[key] = torch.zeros((2,), dtype=torch.int32, device=device)
     return _barriers[key]
+
+
+def _refuse_under_capture(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: the counters
+    a graph's kernels share must exist, zeroed, before the capture."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} inside a CUDA graph capture: warm the step "
+                           "up before capturing it")
 
 
 def check(err: int, name: str) -> None:

@@ -94,14 +94,16 @@ def quantize_act_grouped(x: torch.Tensor, bits: int, gsize: int):
     The scale is ``amax * f32(1 / upper)``, not ``amax / upper`` (one ulp
     apart on about half the scales): the reference reaches this function
     compiled, in the serving forward, where the division by a constant
-    becomes that multiply. The codes divide by the scale."""
+    becomes that multiply (a Python float multiplies a float32 tensor as
+    its float32 rounding, with no constant copied to the device, which a
+    captured decode step cannot hold). The codes divide by the scale."""
     m, k = x.shape
     if k % gsize != 0:
         raise ValueError(f"quantize_act_grouped: K={k} % gsize={gsize}")
     upper = float((1 << (bits - 1)) - 1)
     xg = x.float().reshape(m, k // gsize, gsize)
     amax = torch.clamp(xg.abs().amax(-1), min=1e-8)
-    scale = amax * torch.tensor(1.0 / upper, dtype=torch.float32, device=x.device)
+    scale = amax * (1.0 / upper)
     q = torch.round(xg / scale[..., None]).reshape(m, k)
     return q.to(torch.int8), scale
 

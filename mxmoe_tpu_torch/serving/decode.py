@@ -156,7 +156,12 @@ def forward_cached_follow(params: dict, cfg: MoEConfig, impl: MoEImpl) -> None:
 def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None = None,
                   temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
     """[B, V] last-position logits -> [B] int32 tokens (greedy at
-    temperature 0; else top-k filtered sampling drawn from ``gen``)."""
+    temperature 0; else top-k filtered sampling drawn from ``gen``).
+
+    The draw is ``torch.multinomial``'s own one-sample path written out,
+    ``argmax(probs / q)`` with q ~ Exp(1) from ``gen`` (the same tokens from
+    the same generator state): multinomial first checks the probabilities
+    on the host, a read that a CUDA graph cannot hold."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = logits.float() / temperature
@@ -164,25 +169,16 @@ def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None = None,
         cutoff = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
         scaled = scaled.masked_fill(scaled < cutoff, float("-inf"))
     probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
-def decode_scan(params: dict, last_tokens: torch.Tensor, cache,
-                n_steps: int, cfg: MoEConfig, impl: MoEImpl = MoEImpl(),
-                valid: torch.Tensor | None = None, temperature: float = 0.0,
-                top_k: int = 0, gen: torch.Generator | None = None):
-    """Generate ``n_steps`` tokens; the tokens stay on the device between
-    steps (the host reads them once per chunk). Returns
-    ``(tokens [B, n_steps] int32, cache)``."""
-    b = last_tokens.shape[0]
-    if valid is None:
-        valid = torch.ones((b,), dtype=torch.int32, device=last_tokens.device)
-    toks = last_tokens.to(torch.int32)[:, None]
-    out = []
-    for _ in range(n_steps):
-        logits, cache = forward_cached(params, toks, cache, cfg, impl,
-                                       valid_lengths=valid)
-        nxt = sample_tokens(logits[:, -1], gen, temperature, top_k)
-        out.append(nxt)
-        toks = nxt[:, None]
-    return torch.stack(out, dim=1), cache
+def decode_scan(step, last_tokens: torch.Tensor, n_steps: int,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Generate ``n_steps`` tokens of a slot batch from its last tokens [B]
+    and active mask [B] through ``step``, the batch's captured decode step
+    over its cache (``graph.DecodeGraph``, one replay a step; on the CPU its
+    body runs eagerly) -> tokens [B, n_steps] int32, left on the device, so
+    the host reads them once a chunk. The cache is written in place."""
+    step.load(last_tokens.to(torch.int32), valid)
+    return step.run(n_steps)

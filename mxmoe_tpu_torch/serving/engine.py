@@ -7,6 +7,15 @@ into a free slot in batch-1 chunks (or several at once, full width:
 ``submit_batch``), then all active slots decode together.
 ``EngineConfig.int8_kv`` serves from the int8 ``QuantKVCache``.
 
+On one device every decode step (``step``, ``step_chunk``) replays one
+CUDA graph of the cached forward and the sampler (``graph.DecodeGraph``,
+the counterpart of the reference's jitted decode fn), captured at the first
+decode step and reused for the Engine's life: the host's last tokens and
+active mask are copied into its static inputs, and the cache (``self.cache``,
+the same buffers for the Engine's life, ``lengths`` included) is written in
+place. Arrivals never recapture: the active mask is data. On the CPU the
+same step body runs eagerly.
+
 Mesh mode (``Engine(..., mesh=...)``, a 1-D DeviceMesh over the expert
 axis, every rank a process running the same calls): the experts are sharded
 over the ranks, the KV cache over the slots (rank r holds slots
@@ -16,7 +25,9 @@ keeps the same host bookkeeping (requests, ``_host_len``, each slot's next
 token gathered to all), so every decision is taken alike everywhere. A
 slot's prefill runs on the rank that owns it; the other ranks take part in
 its MoE blocks' collectives (``decode.forward_cached_follow``), the chunk's
-rows spread over the ranks as the JAX package's row blocks are.
+rows spread over the ranks as the JAX package's row blocks are. The mesh
+Engine decodes eagerly (``forward_cached`` a step): its steps hold the EP
+block's collectives, which a graph does not capture here.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl
 from .decode import decode_scan, forward_cached, forward_cached_follow, sample_tokens
+from .graph import DecodeGraph
 from .kv_cache import init_kv_cache, init_quant_kv_cache
 
 
@@ -184,6 +196,7 @@ class Engine:
                                        torch.bfloat16, self.device)
         self.slots = [_Slot() for _ in range(ecfg.batch_slots)]
         self.gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
+        self._graph = None           # the captured decode step (one device)
         self._next_req = 0
         self._last_tokens = np.zeros((ecfg.batch_slots,), np.int32)
         self._results: dict[int, list[int]] = {}
@@ -301,9 +314,10 @@ class Engine:
                 piece = pr[off: off + p]
                 chunk[slot, : len(piece)] = piece
                 valid[slot] = len(piece)
-            logits, self.cache = forward_cached(
+            logits, c = forward_cached(
                 self.params, self._dev(self._local(chunk)), self.cache, self.cfg,
                 self.impl, valid_lengths=self._dev(self._local(valid)))
+            self.cache.lengths.copy_(c.lengths)
             for i, n_new in enumerate(self._local(valid)):
                 if n_new > 0:
                     last[i] = logits[i, n_new - 1].float()
@@ -328,16 +342,33 @@ class Engine:
         st.active = False
 
     # -- decode loop -------------------------------------------------------
+    def _decode(self, n: int) -> np.ndarray:
+        """``n`` decode steps of every slot from the host's last tokens and
+        active mask -> all slots' tokens [B, n] on the host (one read)."""
+        last = self._dev(self._local(self._last_tokens))
+        valid = self._active_mask()
+        if self._mesh is not None:
+            toks = []
+            for _ in range(n):
+                logits, c = forward_cached(self.params, last[:, None], self.cache,
+                                           self.cfg, self.impl, valid_lengths=valid)
+                self.cache.lengths.copy_(c.lengths)
+                last = sample_tokens(logits[:, -1], self.gen, self.ecfg.temperature,
+                                     self.ecfg.top_k)
+                toks.append(last)
+            return self._gather(torch.stack(toks, dim=1))
+        if self._graph is None:
+            self._graph = DecodeGraph(self.params, self.cfg, self.impl, self.cache,
+                                      self.ecfg.temperature, self.ecfg.top_k,
+                                      self.gen)
+        return self._gather(decode_scan(self._graph, last, n, valid))
+
     def step(self) -> int:
         """One decode step for all active slots; returns #active."""
         active = [i for i, s in enumerate(self.slots) if s.active]
         if not active:
             return 0
-        logits, self.cache = forward_cached(
-            self.params, self._dev(self._local(self._last_tokens)[:, None]),
-            self.cache, self.cfg, self.impl, valid_lengths=self._active_mask())
-        nxt = self._gather(sample_tokens(logits[:, -1], self.gen,
-                                         self.ecfg.temperature, self.ecfg.top_k))
+        nxt = self._decode(1)[:, 0]
         for i in active:
             self._host_len[i] = min(self._host_len[i] + 1, self.ecfg.max_len)
             tok = int(nxt[i])
@@ -359,12 +390,7 @@ class Engine:
             return 0
         n = min(n, max(1, min(s.max_new - len(s.generated)
                               for s in self.slots if s.active)))
-        toks, self.cache = decode_scan(
-            self.params, self._dev(self._local(self._last_tokens)), self.cache, n,
-            self.cfg, self.impl, valid=self._active_mask(),
-            temperature=self.ecfg.temperature, top_k=self.ecfg.top_k,
-            gen=self.gen)
-        toks = self._gather(toks)                                   # [B, n]
+        toks = self._decode(n)                                      # [B, n]
         for i in active:
             self._host_len[i] = min(self._host_len[i] + n, self.ecfg.max_len)
             st = self.slots[i]

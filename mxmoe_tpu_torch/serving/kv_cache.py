@@ -58,11 +58,19 @@ def init_kv_cache(cfg: MoEConfig, batch: int, max_len: int,
     )
 
 
+def clone_cache(cache, device=None):
+    """A copy of ``cache`` (a ``KVCache`` or ``QuantKVCache``, ``lengths``
+    included) on ``device``, or where it is."""
+    return type(cache)(**{f.name: getattr(cache, f.name).to(device, copy=True)
+                          for f in dataclasses.fields(cache)})
+
+
 def _kept_writes(s_new: int, s_max: int, lengths, valid):
     """(slot, chunk index, cache position) of the chunk writes that land:
     those at or past S_max, or of slots with ``valid`` False, are dropped,
     never clamped onto a neighbour's history. (The boolean selection reads
-    the mask on the host: prefill syncs once per chunk anyway.)"""
+    the mask on the host: prefill syncs once per chunk anyway; a decode
+    step takes ``_decode_writes``, which reads nothing.)"""
     pos = lengths.long()[:, None] + torch.arange(s_new, device=lengths.device)
     keep = pos < s_max
     if valid is not None:
@@ -71,10 +79,36 @@ def _kept_writes(s_new: int, s_max: int, lengths, valid):
     return bi, si, pos[bi, si]
 
 
+def _decode_writes(s_max: int, lengths, valid):
+    """A decode step's writes (S_new = 1) without a host read: (slots, each
+    slot's position, keep [B] bool). A dropped write (position at or past
+    S_max, or ``valid`` False) is given its own slot's last position and
+    writes back what is there, so it lands nowhere, and never on another
+    slot's history; shapes stay static, so a CUDA graph can hold the step."""
+    keep = lengths < s_max
+    if valid is not None:
+        keep &= valid.bool()
+    bi = torch.arange(lengths.shape[0], device=lengths.device)
+    return bi, lengths.long().clamp(max=s_max - 1), keep
+
+
+def _write_step(full, layer: int, bi, pi, keep, new) -> None:
+    """``full[layer, b, :, p] = new[b]`` where ``keep[b]``, else unchanged
+    (``_decode_writes``)."""
+    shape = (-1,) + (1,) * (new.dim() - 1)
+    old = full[layer, bi, :, pi]
+    full[layer, bi, :, pi] = torch.where(keep.view(shape), new.to(full.dtype), old)
+
+
 def scatter_layer_cache(full_k, full_v, layer: int, new_k, new_v, lengths,
                         valid=None):
     """Write a chunk into ONE layer of the stacked cache, in place.
     ``new_k``/``new_v`` token-major [B, S_new, n_kv, hd]."""
+    if new_k.shape[1] == 1:
+        bi, pi, keep = _decode_writes(full_k.shape[3], lengths, valid)
+        _write_step(full_k, layer, bi, pi, keep, new_k[:, 0])
+        _write_step(full_v, layer, bi, pi, keep, new_v[:, 0])
+        return full_k, full_v
     bi, si, pi = _kept_writes(new_k.shape[1], full_k.shape[3], lengths, valid)
     full_k[layer, bi, :, pi, :] = new_k[bi, si].to(full_k.dtype)
     full_v[layer, bi, :, pi, :] = new_v[bi, si].to(full_v.dtype)
@@ -149,10 +183,11 @@ def _quant_vec(x: torch.Tensor):
     The reference writes ``max(amax, 1e-8) / 127``; compiled (every serving
     entry point jits its step) XLA turns that division by a constant into a
     multiply by the float32 reciprocal, so the scale is computed that way
-    here and stays bitwise equal to the jitted reference's."""
+    here and stays bitwise equal to the jitted reference's. (A Python float
+    multiplies a float32 tensor as its float32 rounding: no constant tensor
+    is copied to the device, which a captured decode step cannot hold.)"""
     xf = x.float()
-    sc = torch.clamp(xf.abs().amax(-1), min=1e-8) * torch.tensor(
-        _INV_127, dtype=torch.float32, device=x.device)
+    sc = torch.clamp(xf.abs().amax(-1), min=1e-8) * _INV_127
     return torch.round(xf / sc[..., None]).to(torch.int8), sc
 
 
@@ -163,6 +198,11 @@ def scatter_layer_cache_quant(ckq, cks, cvq, cvs, layer: int, new_k, new_v,
     and scales."""
     kq, ks = _quant_vec(new_k)            # [B, S_new, n, hd], [B, S_new, n]
     vq, vs = _quant_vec(new_v)
+    if new_k.shape[1] == 1:
+        bi, pi, keep = _decode_writes(ckq.shape[3], lengths, valid)
+        for full, new in ((ckq, kq), (cks, ks), (cvq, vq), (cvs, vs)):
+            _write_step(full, layer, bi, pi, keep, new[:, 0])
+        return ckq, cks, cvq, cvs
     bi, si, pi = _kept_writes(new_k.shape[1], ckq.shape[3], lengths, valid)
     ckq[layer, bi, :, pi, :] = kq[bi, si]
     cks[layer, bi, :, pi] = ks[bi, si]

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import time
 
 import numpy as np
 from scipy import sparse
@@ -97,14 +98,20 @@ def _cost_vectors(problem: LayerProblem, schemes: list[str], perf: PerfModel,
     return loss, time, bits, size
 
 
-def _solve_milp(c, constraints, n):
+def _solve_milp(c, constraints, n, deadline=None):
+    """One 0/1 MILP -> its assignment, or None. With ``deadline`` (a
+    ``time.perf_counter()`` time) HiGHS stops there, or after half a second
+    once it has passed, and the best assignment found by then is taken."""
     res = milp(
         c=c,
         constraints=constraints,
         integrality=np.ones(n),
         bounds=(0, 1),
+        options=({} if deadline is None
+                 else {"time_limit": max(0.5, deadline - time.perf_counter())}),
     )
-    if res.status != 0 or res.x is None:
+    # status 1: the time limit, reached only with a deadline
+    if res.status not in (0, 1) or res.x is None:
         return None
     return np.round(res.x).astype(int)
 
@@ -117,12 +124,14 @@ def solve_layer(
     perf: PerfModel | None = None,
     n_sweep: int = 12,
     max_tile_iters: int = 4,
+    deadline: float | None = None,
 ) -> SolveResult:
     """Solve one layer's scheme assignment. The tile is chosen with it:
     with a scheme's problems in one launch the tile is per bucket, so the
     two are solved as a fixed point (cost each problem under its bucket's
     tile, solve, take each bucket's argmin tile over its actual (M, N)
-    list, repeat until stable)."""
+    list, repeat until stable). ``deadline``: as ``_solve_milp`` takes it,
+    for every MILP of the layer."""
     e_tot = problem.ms.shape[0]
     s_tot = len(schemes)
     n = e_tot * 3 * s_tot
@@ -197,20 +206,20 @@ def solve_layer(
             return entry
 
         if r >= 1.0:
-            x = _solve_milp(loss_v, [base], n)
+            x = _solve_milp(loss_v, [base], n, deadline)
         elif r <= 0.0:
-            x = _solve_milp(time_v, [base], n)
+            x = _solve_milp(time_v, [base], n, deadline)
         else:
             # ε-constraint sweep on T
-            x_t = _solve_milp(time_v, [base], n)
-            x_l = _solve_milp(loss_v, [base], n)
+            x_t = _solve_milp(time_v, [base], n, deadline)
+            x_l = _solve_milp(loss_v, [base], n, deadline)
             if x_t is None or x_l is None:
                 raise RuntimeError("layer MILP infeasible (budget too tight?)")
             t_min = float(time_v @ x_t)
             t_max = max(float(time_v @ x_l), t_min * 1.0001)
             best, best_obj = None, np.inf
             for tau in np.geomspace(t_min, t_max, n_sweep):
-                x = _solve_milp(loss_v, with_time_cap(tau * 1.0000001), n)
+                x = _solve_milp(loss_v, with_time_cap(tau * 1.0000001), n, deadline)
                 if x is None:
                     continue
                 obj = pooled(x)[0]
@@ -318,17 +327,23 @@ def solve_model(
     r: float = 1.0,
     perf: PerfModel | None = None,
     pool_out: dict | None = None,   # filled with per-layer solution pools
+    time_budget_s: float | None = None,
 ) -> tuple[QModelConfig, dict[str, dict[str, str]]]:
     """Layer-level solve over all layers -> (QModelConfig, per-layer tiles).
     ``pool_out`` receives each layer's objective-ranked solution pool (the
-    sweep's Pareto candidates)."""
+    sweep's Pareto candidates). With ``time_budget_s`` every MILP stops at
+    the budget's end, or after half a second once it is spent, and keeps
+    the best assignment found (a feasible mix, not always the optimum):
+    HiGHS's branch and bound takes seconds on most tables and minutes on
+    a few."""
+    deadline = None if time_budget_s is None else time.perf_counter() + time_budget_s
     problems = build_layer_problems(losses, gate_trace, batch, num_layers)
     schemes = list(losses.keys())
     layers = {}
     lt = {}
     tiles = {}
     for key, prob in problems:
-        res = solve_layer(prob, schemes, wbits_target, r, perf)
+        res = solve_layer(prob, schemes, wbits_target, r, perf, deadline=deadline)
         experts = {
             str(e): QExpertConfig(
                 gate=parse_scheme(res.assignment[e]["gate"]),

@@ -2021,3 +2021,91 @@ def test_registry_scheme_on_the_card(dev, scheme, tokens):
                                                 ops["rhs_zp"], ops["gs"], g)[1] <= 1.0
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant,int8_kv,fused,temperature",
+                         [("w8a8_g-1_sym", False, False, 0.0),
+                          ("mixed-packed", True, False, 0.0),
+                          ("mixed-packed", True, True, 0.0),
+                          ("w8a8_g-1_sym", False, False, 0.8)],
+                         ids=["uniform", "mixed-packed-int8kv", "fused-ffn", "sampled"])
+def test_captured_step_is_its_eager_twin_bitwise(dev, quant, int8_kv, fused, temperature):
+    """A captured decode step (``serving/graph.py``) and its eager twin, a
+    ``forward_cached`` + ``sample_tokens`` loop, from the same cache state
+    (qwen2_moe at full width, 2 layers, 4 slots at 5-200 positions, one
+    inactive) and, when sampled (temperature 0.8, top-k 50), the same
+    generator state: bitwise equal logits and tokens over 8 steps, the
+    inactive slot's cache and length untouched. Between the 4th and the 5th
+    replay the shared tickets are grown past their size by an eager call and
+    the freed memory is written over: the graph keeps replaying on the
+    tickets it was captured against. After the replays every ticket and the
+    grid barrier's arrival count are back to 0, and the launches counted are
+    the warm-up run's and the replays' (the capture's own are not)."""
+    import dataclasses
+    import functools
+
+    from mxmoe_tpu_torch.models import configs
+    from mxmoe_tpu_torch.serving import bench_serving, decode, graph, kv_cache
+
+    cfg = dataclasses.replace(configs.config_for("qwen2_moe"), num_layers=2)
+    params, impl = bench_serving.init_for_serving(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        functools.partial(bench_serving.quantize_for_serving, quant=quant,
+                          fused_ffn=fused), dev)
+    init = kv_cache.init_quant_kv_cache if int8_kv else kv_cache.init_kv_cache
+    cache = init(cfg, 4, 256, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 200), generator=g, device=dev,
+                           dtype=torch.int32)
+    _, c = decode.forward_cached(params, prompt, cache, cfg, impl,
+                                 valid_lengths=torch.tensor([5, 200, 0, 77],
+                                                            dtype=torch.int32, device=dev))
+    cache.lengths.copy_(c.lengths)
+    twin = kv_cache.clone_cache(cache)
+    tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    top_k = 50 if temperature else 0
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gen_twin = torch.Generator(device=dev)
+    gen_twin.set_state(gen.get_state())
+    step = graph.DecodeGraph(params, cfg, impl, cache, temperature, top_k, gen)
+    step.load(tok, valid)
+    kernels.reset_launch_counts()
+    got_logits, got_toks = [], []
+    for i in range(8):
+        if i == 4:
+            held = kernels.tickets(cache.lengths.device, 0)
+            size = held.numel()
+            grown = kernels.tickets(cache.lengths.device, size + 1)
+            assert grown.data_ptr() != held.data_ptr()
+            del held
+            litter = [torch.full((size,), 7, dtype=torch.int32, device=dev)
+                      for _ in range(16)]
+        got_toks.append(step.run()[:, 0].clone())
+        got_logits.append(step.logits.clone())
+    counts = dict(kernels.launches)
+    assert step.graph is not None and sum(step.counts.values()) > 0
+    assert all(counts[k] == 9 * n for k, n in step.counts.items()), (counts, step.counts)
+    last = tok[:, None]
+    for i in range(8):
+        logits, twin = decode.forward_cached(params, last, twin, cfg, impl,
+                                             valid_lengths=valid)
+        nxt = decode.sample_tokens(logits[:, -1], gen_twin, temperature, top_k)
+        assert torch.equal(got_logits[i], logits), i
+        assert torch.equal(got_toks[i], nxt), i
+        last = nxt[:, None]
+    if temperature:
+        # the step sampled: its tokens are not all the greedy ones
+        assert any(not torch.equal(t, lg[:, -1].argmax(-1).to(torch.int32))
+                   for t, lg in zip(got_toks, got_logits))
+        assert torch.equal(gen.get_state(), gen_twin.get_state())
+    assert torch.equal(cache.lengths, twin.lengths)
+    assert cache.lengths.tolist() == [13, 208, 0, 85]
+    for f in dataclasses.fields(cache):
+        assert torch.equal(getattr(cache, f.name), getattr(twin, f.name)), f.name
+    torch.cuda.synchronize()
+    for t in [*kernels._tickets.values(), *kernels._retired_tickets]:
+        assert int(t.abs().sum()) == 0
+    for b in kernels._barriers.values():
+        assert int(b[0]) == 0

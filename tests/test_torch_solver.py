@@ -183,3 +183,31 @@ def test_perf_models_cost_like_the_reference(tmp_path):
     a = pm.AnalyticPerfModel(K)
     assert a.peak_int8 == pm.H100_INT8_TOPS * 1e12 * 0.6
     assert a.bw == pm.H100_HBM_GBPS * 1e9 * 0.6
+
+
+def test_solve_model_under_a_spent_time_budget_keeps_a_feasible_mix(tmp_path, monkeypatch):
+    """With its time budget spent before it starts, every MILP gets half a
+    second and keeps the best assignment found: the mix still holds each
+    layer to the bits budget with gate == up, and on this small problem
+    HiGHS reaches the unbudgeted solve's mix within that time."""
+    losses, trace = _problem(0)
+    _, pt = _models("table", tmp_path)
+    want, want_tiles = bs.solve_model(losses, trace, 4096, LAYERS, 6.0, 0.5, pt)
+    limits, milp = [], bs.milp
+
+    def timed_milp(*args, options, **kw):
+        limits.append(options.get("time_limit"))
+        return milp(*args, options=options, **kw)
+
+    monkeypatch.setattr(bs, "milp", timed_milp)
+    got, tiles = bs.solve_model(losses, trace, 4096, LAYERS, 6.0, 0.5, pt,
+                                time_budget_s=0.0)
+    assert limits and set(limits) == {0.5}
+    for key, prob in bs.build_layer_problems(losses, trace, 4096, LAYERS):
+        tot = 0.0
+        for e, size in enumerate(prob.sizes):
+            qm = got.layers[key].experts[str(e)].qmap()
+            assert qm["gate"].scheme_name == qm["up"].scheme_name
+            tot += size * sum(schemes.strategy_bits(c.scheme_name)[0] for c in qm.values())
+        assert tot / (3.0 * float(sum(prob.sizes))) <= 6.0 + 1e-9
+    assert got.to_dict() == want.to_dict() and tiles == want_tiles
