@@ -73,6 +73,11 @@ failure raises and the script exits non-zero without a result line:
               reference test's set-up, within 2e-4 of the f32 oracle; K13
               (gmm_ffn_mixed_packed) bitwise its plain version and K12 on the
               equivalent codes (no expert, every other, every expert packed);
+              K12 and K13 also at qwen2_moe_57b's widths (N 2560, H 3584: the
+              16-CTA cluster) at decode and a 256-token chunk, bitwise their
+              plain versions and each other, timed (the kernels line's
+              `wide`), and each model's cluster size (8 at qwen2_moe's and
+              ds2's N 1408, 16 at 2560, mixtral's 14336 refused);
               K14 (gmm_w8a8_fusedquant) bitwise its plain version and K1 + K2;
               K15 (gmm_ws, the wgmma body) at the headline workload's shapes
               bitwise K2 / K5, and at mixtral's K 4096 / 14336 (full width,
@@ -145,7 +150,11 @@ failure raises and the script exits non-zero without a result line:
               on uniform w8a8 (no K3). ds2 at the full 27 layers, mixed-packed
               + int8 KV + int8 head (K3q, K1, K4, K2), mixtral (32 layers)
               and qwen2_moe_57b (28 layers) at full width and depth, uniform
-              w8a8 (K1, K2, K3 at G 4 / 7). Each serve prints its peak memory beside the
+              w8a8 (K1, K2, K3 at G 4 / 7); qwen2_moe_57b at 4 layers with the
+              fused FFN (K12 on the 16-CTA cluster, no K2). Every prompt's
+              256-token chunks replay the Engine's captured chunk
+              (serving/graph.py PrefillGraph over a one-slot staging cache);
+              a serve that did not capture it fails. Each serve prints its peak memory beside the
               bytes reckoned from the config. The launch counts are
               set to 0 before each serve and read after it (a captured
               step's launches counted at every replay); every kernel
@@ -165,7 +174,14 @@ failure raises and the script exits non-zero without a result line:
               step in turns (eager, captured, captured, eager): wall ms,
               device ms, busy share, kernels and host launch calls a step.
               Each line: warm-up, capture and instantiate seconds, launches
-              a replay, peak memory
+              a replay, peak memory. On mixed_fused, ds2 and a16_packed
+              (w4a16, bf16 cache) the `prefill_graph` line: one [4, 256]
+              chunk (valid 256 / 256 / 0 / 97) eager and captured from two
+              clones of the post-prefill cache, logits and every cache byte
+              bitwise; both timed in turns (wall and device ms, busy share,
+              host launch calls a chunk), capture seconds, peak memory; on
+              mixed_fused also the 512-token time to the first token through
+              Engine.submit, eager and captured
   7. bench    the bench_serving entry point, 4 layers: mixed-packed + int8 KV
               (K1, K2, K3q, K4 must be non-zero in its own launch counts),
               --quant w4a16_g128_asym (K6, K3), --quant none (K3),
@@ -221,10 +237,13 @@ failure raises and the script exits non-zero without a result line:
               and per token layer 0's MoE output on the card against the
               CPU's plain versions (mean within 0.4 %; a planted 10 % scale
               fault on one expert must fail it); eval_ppl_decode on the
-              same real model, bf16 KV (K3, within 0.5 % of the forward
-              ppl) and int8 KV + int8 head (K3q, K1 + K2, within 2 %), each
-              token's logits within 0.2 of the forward's (a planted
-              one-position cache fault must fail it);
+              same real model through its captured step (serving/graph.py
+              TeacherForcedGraph; its launches counted and gated), bf16 KV
+              (K3, within 0.5 % of the forward ppl) and int8 KV + int8 head
+              (K3q, K1 + K2, within 2 %), its nll bitwise the eager twin's
+              (the step's body run a token), whose logits are held token
+              by token within 0.2 of the forward's (a planted one-position
+              cache fault must fail it);
               eval.anchor.run_anchor trained on the card,
               300 steps and 16 eval windows (cut for time), RTN and
               GPTQ-had (ppl_fp below the unigram floor, real w8a8 within
@@ -1689,6 +1708,8 @@ def fused_kernels_vs_plain(rec: dict) -> None:
         if decode:
             rec["gmm_w8a8_fusedquant"].update(t)
 
+    ffn_wide_vs_plain(rec, quant_w, gen)
+
     # K15 at the headline workload's shapes, every expert's rows padded to 128
     for wl in workloads.qwen2_moe_l10_bs8192():
         sizes = [(s + 127) // 128 * 128 for s in wl.group_sizes]
@@ -1760,6 +1781,86 @@ def fused_kernels_vs_plain(rec: dict) -> None:
                  "full-K slice body refused)", M=m, K=k, N=nn, bitwise=True)
             del w, out, ref
         del aq
+
+
+# the fused FFN's cluster at each model's expert width N: 8 CTAs where a
+# CTA's share fits (qwen2_moe, ds2: the instance of PR 8), 16 at
+# qwen2_moe_57b's 2560, mixtral's 14336 refused (as the reference refuses it)
+FFN_CLUSTERS = {"qwen2_moe": 8, "ds2": 8, "qwen2_moe_57b": 16, "mixtral": 0}
+
+
+def ffn_wide_vs_plain(rec: dict, quant_w, gen) -> None:
+    """K12 and K13 at qwen2_moe_57b's widths (K 3584, N 2560, H 3584, 64
+    experts, top-8) on the 16-CTA cluster, decode (4 tokens) and a
+    256-token chunk (2048 routed rows) over the aligned dispatch: bitwise
+    their plain versions and each other (K13 with every other expert
+    packed), timed beside their bound (the kernels line's ``wide``); each
+    model's cluster size as the built library computes it."""
+    import torch
+
+    from mxmoe_tpu_torch.models.configs import config_for
+    from mxmoe_tpu_torch.ops import act_quant, gmm_ffn
+    from mxmoe_tpu_torch.ops.dispatch import make_dispatch, route_topk
+    from mxmoe_tpu_torch.quant.packing import build_ragged_mixed
+
+    dev = torch.device("cuda")
+    clusters = {m: gmm_ffn.ffn_cluster_size(config_for(m).moe_intermediate_size)
+                for m in FFN_CLUSTERS}
+    if clusters != FFN_CLUSTERS:
+        raise AssertionError(f"the fused FFN's cluster sizes: {clusters}")
+    cfg = config_for("qwen2_moe_57b")
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    wgu, sgu = quant_w((e, h, 2 * n))
+    wd, sd = quant_w((e, n, h))
+    bits = torch.tensor([(4, 6, 8)[i % 3] for i in range(e)], dtype=torch.int32,
+                        device=dev)
+    pf = [int(i % 2 == 0) for i in range(e)]
+    pfb = torch.tensor(pf, dtype=torch.bool, device=dev)[:, None, None]
+    wgu4 = torch.where(pfb, wgu.clamp(-8, 7), wgu)
+    wd4 = torch.where(pfb, wd.clamp(-8, 7), wd)
+    gu_cat, gu_blk = build_ragged_mixed(wgu4, pf)
+    d_cat, d_blk = build_ragged_mixed(wd4, pf)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    meta = (i32(pf), i32(gu_blk), i32(pf), i32(d_blk))
+    wide = {}
+    for regime, tokens in (("decode", 4), ("prefill", 256)):
+        routing = route_topk(torch.randn((tokens, e), generator=gen, device=dev),
+                             cfg.top_k, cfg.norm_topk_prob)
+        disp = make_dispatch(routing, e, align=32)
+        gs, m = disp.group_sizes, disp.token_ids.numel()
+        rows = int(gs.sum())
+        x = torch.randn((m, h), generator=gen, device=dev).to(torch.bfloat16)
+        aq, asc = act_quant.quantize_rows_uniform(x, 8)
+        shape = dict(width="qwen2_moe_57b", cluster=clusters["qwen2_moe_57b"],
+                     regime=regime, M=m, routed_rows=tokens * cfg.top_k, rows=rows,
+                     live_experts=int((gs > 0).sum()), K=h, N=n, H=h)
+        k12 = lambda: gmm_ffn.gmm_ffn_w8a8(aq, asc, wgu4, sgu, wd4, sd, gs, bits)
+        p12 = lambda: gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu4, sgu, wd4, sd, gs, bits)
+        args = (aq, asc, gu_cat, sgu, *meta[:2], d_cat, sd, *meta[2:], gs, bits)
+        k13 = lambda: gmm_ffn.gmm_ffn_mixed_packed(*args)
+        p13 = lambda: gmm_ffn.gmm_ffn_mixed_packed_plain(*args)
+        out12, ref12, out13, ref13 = k12(), p12(), k13(), p13()
+        torch.cuda.synchronize()
+        _require_equal(out12[:rows], ref12[:rows], f"K12 vs plain at 57b {regime}")
+        _require_equal(out13[:rows], ref13[:rows], f"K13 vs plain at 57b {regime}")
+        _require_equal(out13[:rows], out12[:rows], f"K13 vs K12 at 57b {regime}")
+        per_expert = [(h * 2 * n + n * h) // (2 if f else 1) for f in pf]
+        t12 = {**kernel_times(k12), "plain_ms": time_ms(p12, reps=3, warmup=1),
+               **ffn_work(gs, h, n, h, h * 2 * n + n * h)}
+        t13 = {**kernel_times(k13), "plain_ms": time_ms(p13, reps=3, warmup=1),
+               **ffn_work(gs, h, n, h, per_expert)}
+        emit("kernels", kernel="gmm_ffn_w8a8", bitwise=True,
+             resident_clusters=gmm_ffn.resident_clusters(n, h), **shape, **t12)
+        emit("kernels", kernel="gmm_ffn_mixed_packed", storage="alternating",
+             bitwise=True, equals_gmm_ffn_w8a8=True,
+             resident_clusters=gmm_ffn.resident_clusters(n, h, ragged=True),
+             **shape, **t13)
+        wide[regime] = (t12, t13)
+        del aq, asc, x
+    emit("kernels", use="fused FFN cluster sizes", clusters=clusters)
+    for i, name in enumerate(("gmm_ffn_w8a8", "gmm_ffn_mixed_packed")):
+        rec[name]["wide"] = {"width": "qwen2_moe_57b", "cluster": 16,
+                             **{regime: t[i] for regime, t in wide.items()}}
 
 
 def wgmma_body_vs_plain(rec: dict) -> None:
@@ -2462,7 +2563,11 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
           model: str = "qwen2_moe", name: str = "", graph: tuple = ()) -> dict:
     """The Engine over ``model`` at its published widths, ``layers`` deep
     (set up one MoE layer at a time: ``_served_model``), answering 4
-    requests; returns the kernels' launch counts of this serve.
+    requests, each prompt's 256-token chunks through the captured chunk
+    (``prefill_ms``: the four submits less the first's one-off warm-up,
+    capture and instantiate, ``prefill_graph_s``; ``first_submit_ms`` and
+    ``prefill_total_ms`` with them); returns the kernels' launch counts of
+    this serve.
     ``quant``, ``pack``, ``int8_head`` and ``impl_kw`` as ``prepare`` takes
     them; the kernels in ``expect`` must launch, those in ``absent`` not.
     The Engine decodes through its captured step (``serving/graph.py``);
@@ -2515,7 +2620,10 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    rids = [eng.submit(prompts[0], max_new_tokens=max_new)]
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    rids += [eng.submit(p, max_new_tokens=max_new) for p in prompts[1:]]
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     # the post-prefill cache on the host, so that the serve's peak does not
@@ -2529,7 +2637,12 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
     if eng._graph is None or eng._graph.graph is None:
         raise AssertionError(f"serve ({quant}): the Engine decoded without its "
                              "captured step")
+    pg = eng._slot_prefill
+    if pg is None or pg.graph is None:
+        raise AssertionError(f"serve ({quant}): the Engine prefilled without its "
+                             "captured chunk")
 
+    setup_s = pg.warmup_s + pg.capture_s + pg.instantiate_s
     toks = [results[r] for r in rids]
     decoded = sum(len(t) - 1 for t in toks)     # the first token comes from prefill
     nbytes["total"] = sum(nbytes.values())
@@ -2538,10 +2651,14 @@ def serve(layers: int, quant: str, int8_kv: bool, expect: tuple,
          int8_head=int8_head, mixed_weight_only=impl.mixed_weight_only,
          fused_ffn=impl.fused_ffn, dispatch_align=impl.dispatch_align,
          gmm_backend=impl.gmm_backend, requests=len(prompts), prompt_lens=[len(p) for p in prompts],
-         max_new=max_new, tokens=toks, init_s=t_init, prefill_ms=t_prefill * 1e3,
+         max_new=max_new, tokens=toks, init_s=t_init,
+         prefill_ms=(t_prefill - setup_s) * 1e3, first_submit_ms=t_first * 1e3,
+         prefill_total_ms=t_prefill * 1e3,
          decode_s=t_decode, decode_tok_s=decoded / t_decode,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          init_max_memory_allocated=init_peak, measured_bytes=nbytes,
+         prefill_graph_s={"warmup": pg.warmup_s, "capture": pg.capture_s,
+                          "instantiate": pg.instantiate_s},
          reckoned_bytes=_reckoned_bytes(cfg, quant, pack, int8_kv, slots, max_len,
                                         int8_head),
          launches=launches)
@@ -2583,7 +2700,18 @@ def graph_checks(name: str, checks: tuple, eng, snap, toks: list, prompts: list,
       eager step would);
     - ``abba``: the eager and the captured step timed in turns (eager,
       captured, captured, eager; ``profile_decode.abba``): wall ms, device
-      ms, busy share, kernels and host launch calls a step.
+      ms, busy share, kernels and host launch calls a step;
+    - ``prefill``: one 256-token chunk of all 4 slots (valid 256 / 256 / 0
+      / 97) from two clones of the post-prefill cache, eager
+      (``forward_cached``) and captured (``graph.PrefillGraph``): logits and
+      every cache byte equal; then both timed in turns as above, a chunk a
+      step, with the captured chunk's warm-up, capture and instantiate
+      seconds, each arm's peak memory above what was allocated before it
+      and the memory the graph keeps. Printed as a ``prefill_graph`` line;
+    - ``ttft`` (with ``prefill``): the time to the first token of a
+      512-token prompt through ``Engine.submit`` (256-token chunks, one
+      slot), eager and captured Engines in turns (``profile_decode.ttft``,
+      one submit a turn): the same first token.
 
     Prints one ``graph`` line with the captured step's warm-up, capture and
     instantiate seconds, its launches a replay and the serve's peak memory;
@@ -2688,6 +2816,73 @@ def graph_checks(name: str, checks: tuple, eng, snap, toks: list, prompts: list,
               if k in res and not res[k]]
     if failed:
         raise AssertionError(f"graph ({name}): {failed}")
+    if "prefill" in checks:
+        del cache
+        torch.cuda.empty_cache()
+        prefill_graph_check(name, eng, snap[0], "ttft" in checks)
+
+
+def prefill_graph_check(name: str, eng, snap_cache, ttft: bool) -> None:
+    """``graph_checks``' ``prefill`` check on a serve's Engine (its params,
+    config and MoEImpl) from its post-prefill cache ``snap_cache`` (on the
+    host); prints one ``prefill_graph`` line, raises on a failed check."""
+    import dataclasses
+
+    import torch
+
+    from mxmoe_tpu_torch.serving import profile_decode
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
+
+    t0 = time.perf_counter()
+    dev, cfg = eng.device, eng.cfg
+    g = torch.Generator(device=dev).manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=g, device=dev,
+                         dtype=torch.int32)
+    valid = torch.tensor([256, 256, 0, 97], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        arms, graph, caches = profile_decode.prefill_arms(
+            eng.params, cfg, eng.impl, clone_cache(snap_cache, dev), toks, valid,
+            eng._pool)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eager = arms["eager"](1).clone()
+        peak_eager = torch.cuda.max_memory_allocated() - base
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        captured = arms["captured"](1)
+        torch.cuda.synchronize()
+        peak_captured = torch.cuda.max_memory_allocated() - base
+        kept = torch.cuda.memory_allocated() - base
+        res = {"name": name, "layers": cfg.num_layers, "chunk": [4, 256], "valid": valid.tolist(),
+               "int8_kv": eng.ecfg.int8_kv,
+               "logits_bitwise": bool(torch.equal(eager, captured)),
+               "cache_bitwise": all(torch.equal(getattr(caches[0], f.name),
+                                                getattr(caches[1], f.name))
+                                    for f in dataclasses.fields(caches[0])),
+               "warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+               "instantiate_s": graph.instantiate_s,
+               "launches_per_replay": sum(graph.counts.values()),
+               "peak_bytes_eager": peak_eager, "peak_bytes_captured": peak_captured,
+               "graph_kept_bytes": kept}
+        del eager, captured
+        turns = profile_decode.abba(arms, order=("eager", "captured", "captured", "eager"),
+                                    steps=2)
+        for arm in turns.values():
+            arm.pop("by_name")
+        res["abba"] = turns
+        del arms, graph, caches
+        torch.cuda.empty_cache()
+        if ttft:
+            res["ttft_512"] = profile_decode.ttft(eng.params, cfg, eng.impl,
+                                                  eng.ecfg.int8_kv, eng.ecfg.max_len,
+                                                  turns=1)
+    res["seconds"] = time.perf_counter() - t0
+    emit("prefill_graph", **res)
+    failed = [k for k in ("logits_bitwise", "cache_bitwise") if not res[k]]
+    if ttft and not res["ttft_512"]["tokens_equal"]:
+        failed.append("ttft tokens_equal")
+    if failed:
+        raise AssertionError(f"prefill_graph ({name}): {failed}")
 
 
 def _reset_counts():
@@ -3341,11 +3536,13 @@ def _expert_path_tokens(fake, real, tt, cfg, impl) -> dict:
 @contextlib.contextmanager
 def _decode_logits(out: list, shift: bool = False):
     """Keep every decode step's logits [B, V] (f32) in ``out`` while
-    ``eval_ppl_decode`` runs; ``shift`` plants a fault: K3 / K3q get lengths
-    + 1, so each step writes one position late and reads one stale slot."""
-    from mxmoe_tpu_torch.serving import decode
+    ``decode_nll(captured=False)`` runs (the teacher-forced step's body run
+    eagerly a token: a captured step's body runs only at its capture);
+    ``shift`` plants a fault: K3 / K3q get lengths + 1, so each step writes
+    one position late and reads one stale slot."""
+    from mxmoe_tpu_torch.serving import decode, graph
 
-    fc, da = decode.forward_cached, decode.decode_attention_update_stacked
+    fc, da = graph.forward_cached, decode.decode_attention_update_stacked
 
     def keep(*a, **k):
         logits, cache = fc(*a, **k)
@@ -3355,13 +3552,13 @@ def _decode_logits(out: list, shift: bool = False):
     def off_by_one(q, k, v, ck, cks, cv, cvs, lengths, layer, **kw):
         return da(q, k, v, ck, cks, cv, cvs, lengths + 1, layer, **kw)
 
-    decode.forward_cached = keep
+    graph.forward_cached = keep
     if shift:
         decode.decode_attention_update_stacked = off_by_one
     try:
         yield
     finally:
-        decode.forward_cached, decode.decode_attention_update_stacked = fc, da
+        graph.forward_cached, decode.decode_attention_update_stacked = fc, da
 
 
 def eval_phase(ckpt: str, qconfig: str, expect: list, device: str = "cuda") -> dict:
@@ -3372,8 +3569,10 @@ def eval_phase(ckpt: str, qconfig: str, expect: list, device: str = "cuda") -> d
         ``OFFLINE_LAYERS`` deep) with the solve phase's served qconfig by
         RTN, fake-quant and ``--real-exec``: ppl gap within EVAL_GAP, the
         kernels the storage selects (``expect``, less K3) launched;
-    (b) ``eval_ppl_decode`` on the same real model: bf16 KV (K3) and int8 KV
-        + int8 head (K3q, K1 + K2) against the forward ppl;
+    (b) ``eval_ppl_decode``'s captured step on the same real model: bf16 KV
+        (K3) and int8 KV + int8 head (K3q, K1 + K2) against the forward ppl,
+        its kernels counted and gated, its nll bitwise the eager twin's
+        (the step's body run a token), which is gated token by token;
     (c) ``eval.anchor.run_anchor`` on the card (steps and windows cut), both
         methods: ppl_fp below the unigram floor, the real rows against the
         fake / forward ones, the root ACCURACY.md unchanged, K1 / K2 / K4 /
@@ -3393,7 +3592,7 @@ def eval_phase(ckpt: str, qconfig: str, expect: list, device: str = "cuda") -> d
     from mxmoe_tpu_torch.bench import fused_ab, timing
     from mxmoe_tpu_torch.eval import anchor
     from mxmoe_tpu_torch.eval import run as eval_run
-    from mxmoe_tpu_torch.eval.evaluator import eval_ppl_decode, eval_ppl_tokens
+    from mxmoe_tpu_torch.eval.evaluator import decode_nll, eval_ppl_tokens
     from mxmoe_tpu_torch.models.hf_loader import params_from_safetensors
     from mxmoe_tpu_torch.models.layers import MoEImpl
     from mxmoe_tpu_torch.models.model import forward_logits
@@ -3481,31 +3680,48 @@ def eval_phase(ckpt: str, qconfig: str, expect: list, device: str = "cuda") -> d
     for arm, int8, fault in (("decode_bf16", False, False), ("decode_int8", True, False),
                              ("decode_bf16_planted", False, True)):
         params = quantize_lm_head(real) if int8 else real
+        bound = DECODE_GAP_INT8 if int8 else DECODE_GAP_BF16
+        need = (k3q, "quantize_rows", "gmm_w8a8") if int8 else (k3,)
+        main = {}
+        if not fault:
+            # eval_ppl_decode's path, the captured step: its counts are the arm's
+            t0 = step()
+            nll_c, ntok = decode_nll(params, toks, cfg, impl, int8_kv=int8, batch=nsamp)
+            t = done(arm, t0)
+            got = float(np.exp(nll_c / ntok))
+            main = {"ppl": got, "rel_gap": rel(got, fwd), "bound": bound,
+                    "seconds": t, "tokens_per_s": nsamp * (seqlen - 1) / t,
+                    "launches": launches[arm], "captured_nll": nll_c}
+        # the eager twin (the step's body run a token), whose logits the
+        # per-token gate reads; its counts are kept apart from the arm's
         steps = []
         t0 = step()
         with _decode_logits(steps, shift=fault):
-            got = eval_ppl_decode(params, toks, cfg, impl, int8_kv=int8, batch=nsamp)
-        t = done(arm, t0)
+            nll, ntok = decode_nll(params, toks, cfg, impl, int8_kv=int8, batch=nsamp,
+                                   captured=False)
+        t_e = done(f"{arm}_eager", t0)
+        eager_launches = launches.pop(f"{arm}_eager")
         err = _token_logit_err(torch.stack(steps, 1), fwd_logits)
         del steps
-        bound = DECODE_GAP_INT8 if int8 else DECODE_GAP_BF16
-        need = (k3q, "quantize_rows", "gmm_w8a8") if int8 else (k3,)
-        emit("eval_decode", card=smi, arm=arm, ppl=got, forward_ppl=fwd,
-             cli_real_ppl=ppl["real"], rel_gap=rel(got, fwd), bound=bound,
-             per_token=err, token_bound=DECODE_TOKEN_BOUND, seconds=t,
-             tokens_per_s=nsamp * (seqlen - 1) / t, launches=launches[arm],
+        emit("eval_decode", card=smi, arm=arm, forward_ppl=fwd, cli_real_ppl=ppl["real"],
+             **main, eager_nll=nll, eager_ppl=float(np.exp(nll / ntok)),
+             per_token=err, token_bound=DECODE_TOKEN_BOUND, eager_seconds=t_e,
+             eager_launches=eager_launches,
+             **({"captured_nll_equal": main["captured_nll"] == nll} if main else {}),
              **({"fault": "K3 called with lengths + 1: one cache position off"}
                 if fault else {}))
         if fault:
-            launches.pop(arm)
             if not err["max"] > DECODE_TOKEN_BOUND:
                 raise AssertionError(f"eval decode: the planted fault passes the per-token "
                                      f"gate ({err['max']} <= {DECODE_TOKEN_BOUND})")
-        elif not (rel(got, fwd) <= bound and err["max"] <= DECODE_TOKEN_BOUND
+        elif not (main["captured_nll"] == nll and main["rel_gap"] <= bound
+                  and err["max"] <= DECODE_TOKEN_BOUND
                   and all(launches[arm].get(k) for k in need)):
-            raise AssertionError(f"eval decode {arm}: ppl {got} vs forward {fwd} "
-                                 f"(bound {bound}), per token {err['max']} (bound "
-                                 f"{DECODE_TOKEN_BOUND}), or {need} never launched")
+            raise AssertionError(f"eval decode {arm}: captured nll {main['captured_nll']} "
+                                 f"vs the eager twin's {nll}, ppl {main['ppl']} vs forward "
+                                 f"{fwd} (bound {bound}), per token {err['max']} (bound "
+                                 f"{DECODE_TOKEN_BOUND}), or {need} never launched in the "
+                                 f"captured run")
         del params
     del real, fwd_logits
     torch.cuda.empty_cache()
@@ -4209,10 +4425,16 @@ def main() -> int:
                     None, (), "mixtral"),
         "qwen2_57b": (28, "w8a8_g-1_sym", False, False, False, (k1, "gmm_w8a8", k3),
                       None, (), "qwen2_moe_57b"),
+        # the whole expert FFN at qwen2_moe_57b's widths (N 2560: the 16-CTA
+        # cluster), 4 layers
+        "qwen2_57b_fused": (4, "w8a8_g-1_sym", False, False, False, (k12, k1, k3),
+                            fused, ("gmm_w8a8",), "qwen2_moe_57b"),
     }
     # the graph phase's checks, on the serves that run them (graph_checks)
     graph = {"uniform": ("eager", "sync_debug", "sampled"),
-             "mixed_fused": ("eager", "abba"), "ds2": ("eager",),
+             "mixed_fused": ("eager", "abba", "prefill", "ttft"),
+             "ds2": ("eager", "prefill"),
+             "a16_packed": ("prefill",),
              "flex_packed": ("eager",), "uniform_xla": ("eager", "sync_debug"),
              "int8_head": ("eager",)}
     ran = {}
@@ -4306,7 +4528,8 @@ def main() -> int:
          "eval_launches": {st: n[name] for st, n in evals.items() if n.get(name)},
          "ep_launches": ep.get(name, {}),
          **({"schedule": rec[name]["schedule"]} if "schedule" in rec[name] else {}),
-         **{key: rec[name][key] for key in ("body", "prefill", "large", "anchor_decode")
+         **{key: rec[name][key] for key in ("body", "prefill", "large", "anchor_decode",
+                                            "wide")
             if key in rec[name]}}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(smi)

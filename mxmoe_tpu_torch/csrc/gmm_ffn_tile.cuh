@@ -23,7 +23,8 @@
 // decode ~15 experts hold the 16 routed rows, and each expert's weights are
 // read by one cluster, once.
 //
-// Schedule: a thread block cluster of FFN_C = 8 CTAs per logical m-tile
+// Schedule: a thread block cluster of C CTAs per logical m-tile, C = 8
+// (FFN_C) or, where 8 CTAs' slices do not fit, 16 (ffn_cluster below)
 // (gmm_tile_walk.cuh's walk; a tile that straddles two experts is computed
 // once per expert, rows masked). The grid holds the G clusters the card runs
 // at once (cudaOccupancyMaxActiveClusters at this launch's shared memory;
@@ -33,7 +34,7 @@
 // spent a tenth of a launch queueing dead clusters). The walk reads
 // blockIdx.y alone, so a cluster leaves as a whole, between its tiles.
 //  1. gate_up, columns split: CTA r owns the h columns of the 16-column
-//     units [r * N/16 / FFN_C, (r + 1) * N/16 / FFN_C): their gate and up
+//     units [r * N/16 / C, (r + 1) * N/16 / C): their gate and up
 //     weight columns over all of K. Raw [64, 64] weight sub-tiles and the A rows
 //     stream through a DSTAGES-deep ring of 16-byte cp.async pieces,
 //     swizzled by k / 4 (d_swz, gmm_int8_tile.cuh). A warp holds up to two
@@ -49,7 +50,7 @@
 //     memory in f32.
 //  2. The down product's first weight k-tiles are put in flight, then the
 //     row amax: each CTA's partial amax goes to shared memory, a cluster
-//     barrier, and every CTA reads all FFN_C partials through distributed
+//     barrier, and every CTA reads all C partials through distributed
 //     shared memory (mapa + ld.shared::cluster), so every CTA forms the
 //     same scale bits. Each quantizes its own slice into its copy of hq
 //     [32, N] int8 and stores it into the other CTAs' copies (16-byte
@@ -58,7 +59,7 @@
 //     next tile's first barrier orders its stores after this tile's reads).
 //     No device workspace: hq never leaves the cluster.
 //  3. down, columns split: CTA r owns the output columns of the units
-//     [r * H/16 / FFN_C, (r + 1) * H/16 / FFN_C), in passes of 256 (a quad a
+//     [r * H/16 / C, (r + 1) * H/16 / C), in passes of 256 (a quad a
 //     warp: units a and a + 4), A = hq from its own shared memory, weights
 //     through the same ring.
 // Weight pieces ask the L2 for their whole 128-byte line (the CTAs of a
@@ -67,8 +68,20 @@
 // the aligned layout's 32-row padding keeps decode tiles at two.
 // Shared memory (ffn_layout): the ring region (gate_up stages, or down
 // stages + hq) and the f32 h slice: 140 KB at N 1408, H 2048.
-// Cluster size: 8 (the portable limit); 16 CTAs (non-portable) of smaller
-// slices were slower at every shape timed (PERF.md, "PR 8").
+// Cluster size: 8 (the portable limit) wherever a CTA's h slice fits
+// FFN_MAX_HU units (N <= 1536: qwen2_moe's and ds2's 1408 take it); 16 CTAs
+// of smaller slices were slower at every shape timed there (PERF.md, "PR
+// 8"). qwen2_moe_57b's N 2560 would give 8 CTAs 20 units each: the gate_up
+// ring (4 x 46,720 B) and h (41,472 B) take 228,352 B of dynamic shared
+// memory, and with the 4,368 B of static shared memory (sizes[kMaxExperts],
+// the tile's info, partial amax and scales) a CTA would ask 232,720 B, past
+// the 232,448 B a block may have; a warp would also hold three quads (a
+// third acc[4][MI][4] beside the 229-235 registers a thread the body
+// takes) and 10 gate_up pieces a thread instead of 6. So N past 1536 takes
+// a non-portable cluster of 16 CTAs (FFN_C_WIDE), whose slices stay within
+// FFN_MAX_HU (10 units at N 2560, 14 down units at H 3584: 169,984 B) and
+// whose body is the same instance of every per-thread array. N past 3072
+// (mixtral's 14336) is refused: the reference's VMEM check refuses it too.
 
 #pragma once
 
@@ -78,6 +91,7 @@ namespace {
 
 constexpr int FFN_BM = 32;                         // rows of an m-tile
 constexpr int FFN_C = 8;                           // CTAs of a cluster, one m-tile
+constexpr int FFN_C_WIDE = 16;                     // ... past FFN_MAX_HU units a CTA
 constexpr int FFN_THREADS = 256;                   // 8 warps a CTA
 constexpr int FFN_WARPS = FFN_THREADS / 32;
 constexpr int FFN_UNIT = 16;                       // columns of a split unit
@@ -104,11 +118,20 @@ struct FfnWeights {
   bool packed;
 };
 
-// The dynamic shared memory of a launch, in bytes: the ring region holds
-// DSTAGES gate_up stages (A low / high halves, then the gate and the up
-// sub-tiles), or, from the end of gate_up on, DSTAGES down stages and hq
-// [32, N + 16] behind them; h [32, hss] f32 follows. bytes = -1 when a
-// CTA's h slice would exceed FFN_MAX_HU units.
+// The cluster size of widths N: FFN_C while a CTA's h slice fits
+// FFN_MAX_HU units, else FFN_C_WIDE if it fits there, else 0 (refused).
+__host__ __device__ inline int ffn_cluster(int N) {
+  const int nu = N / FFN_UNIT;
+  if ((nu + FFN_C - 1) / FFN_C <= FFN_MAX_HU) return FFN_C;
+  if ((nu + FFN_C_WIDE - 1) / FFN_C_WIDE <= FFN_MAX_HU) return FFN_C_WIDE;
+  return 0;
+}
+
+// The dynamic shared memory of a launch over clusters of C CTAs, in bytes:
+// the ring region holds DSTAGES gate_up stages (A low / high halves, then
+// the gate and the up sub-tiles), or, from the end of gate_up on, DSTAGES
+// down stages and hq [32, N + 16] behind them; h [32, hss] f32 follows.
+// bytes = -1 when a CTA's h slice would exceed FFN_MAX_HU units.
 struct FfnLayout {
   int gsub;       // sub-tiles of the gate part of a stage (= up part), odd
   int gu_stage;   // bytes of a gate_up stage
@@ -120,10 +143,11 @@ struct FfnLayout {
   int bytes;
 };
 
-__host__ __device__ inline FfnLayout ffn_layout(int N, int H) {
+__host__ __device__ inline FfnLayout ffn_layout(int N, int H, int C) {
   FfnLayout L;
-  const int hu = (N / FFN_UNIT + FFN_C - 1) / FFN_C;                   // most h units
-  const int du = ((H + FFN_UNIT - 1) / FFN_UNIT + FFN_C - 1) / FFN_C;  // and down units
+  if (C < 1) C = FFN_C_WIDE;                             // refused below
+  const int hu = (N / FFN_UNIT + C - 1) / C;                           // most h units
+  const int du = ((H + FFN_UNIT - 1) / FFN_UNIT + C - 1) / C;          // and down units
   const int dw = du * FFN_UNIT < FFN_DN_PASS ? du * FFN_UNIT : FFN_DN_PASS;
   L.gsub = (hu * FFN_UNIT + DBN - 1) / DBN | 1;          // odd: up unlike gate
   L.gu_stage = 2 * FFN_A_TILE + 2 * L.gsub * FFN_SUB;
@@ -275,9 +299,9 @@ __device__ __forceinline__ void find_tile_warp(const int* sizes, int E, int M, i
   }
 }
 
-// the FFN of one m-tile on one CTA of its cluster; MI m16 fragments from
-// tile row rb hold every live row. Every thread of the cluster calls it.
-template <int MI, typename OutT>
+// the FFN of one m-tile on one CTA of its cluster of kC; MI m16 fragments
+// from tile row rb hold every live row. Every thread of the cluster calls it.
+template <int MI, int kC, typename OutT>
 __device__ __forceinline__ void ffn_tile(
     int8_t* smem, const FfnLayout& L, float* part_amax, float* row_scale,
     const int8_t* __restrict__ lhs, const float* __restrict__ s_a, FfnWeights wgu,
@@ -288,10 +312,10 @@ __device__ __forceinline__ void ffn_tile(
   const int gr = lane >> 2, tq = lane & 3;
   const unsigned rank = cluster_rank();
   const int NU = N / FFN_UNIT, HU = (H + FFN_UNIT - 1) / FFN_UNIT;
-  const int u0 = rank * NU / FFN_C, hu = (rank + 1) * NU / FFN_C - u0;
+  const int u0 = rank * NU / kC, hu = (rank + 1) * NU / kC - u0;
   const int hw = hu * FFN_UNIT, gc0 = u0 * FFN_UNIT;   // h columns [gc0, gc0 + hw)
-  const int d0 = rank * HU / FFN_C * FFN_UNIT;         // out columns [d0, d1)
-  const int d1 = min((int)(rank + 1) * HU / FFN_C * FFN_UNIT, H);
+  const int d0 = rank * HU / kC * FFN_UNIT;            // out columns [d0, d1)
+  const int d1 = min((int)(rank + 1) * HU / kC * FFN_UNIT, H);
   int8_t* hq = smem + L.hq_off;
   float* hs = reinterpret_cast<float*>(smem + L.hs_off);
 
@@ -485,7 +509,7 @@ __device__ __forceinline__ void ffn_tile(
     const int r = rb + tid;
     float amax = 0.f;
 #pragma unroll
-    for (int q = 0; q < FFN_C; ++q)
+    for (int q = 0; q < kC; ++q)
       amax = fmaxf(amax, dsmem_f32(dsmem_addr(part_amax + r, q)));
     row_scale[r] = __fdiv_rn(fmaxf(amax, 1e-8f), upper);
   }
@@ -507,10 +531,10 @@ __device__ __forceinline__ void ffn_tile(
   // ... and into the other CTAs' hq: 16-byte stores to their shared memory
   {
     const int nl = 16 * MI * hu;          // 16-byte pieces of the slice
-    for (int idx = tid; idx < nl * (FFN_C - 1); idx += FFN_THREADS) {
+    for (int idx = tid; idx < nl * (kC - 1); idx += FFN_THREADS) {
       const int p = idx / nl, pi = idx - p * nl, rr = pi / hu;
       const int off = (rb + rr) * L.hqs + gc0 + (pi - rr * hu) * FFN_UNIT;
-      dsmem_st_v4(dsmem_addr(hq + off, (rank + 1 + p) % FFN_C),
+      dsmem_st_v4(dsmem_addr(hq + off, (rank + 1 + p) % kC),
                   *reinterpret_cast<const int4*>(hq + off));
     }
   }
@@ -584,7 +608,7 @@ __device__ __forceinline__ void ffn_tile(
   }
 }
 
-template <typename OutT, int kStorage>
+template <typename OutT, int kStorage, int kC>
 __global__ void __launch_bounds__(FFN_THREADS, 1)
 gmm_ffn_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
                const int8_t* __restrict__ gu, const float* __restrict__ s_gu,
@@ -600,7 +624,7 @@ gmm_ffn_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
   __shared__ float row_scale[FFN_BM];
 
   const int tid = threadIdx.x;
-  const FfnLayout L = ffn_layout(N, H);
+  const FfnLayout L = ffn_layout(N, H, kC);
   for (int e = tid; e < E; e += FFN_THREADS) sizes[e] = group_sizes[e];
   // the cluster's logical m-tiles blockIdx.y, + gridDim.y, ...: the live
   // tiles come first, so the first dead one ends the walk (of the whole
@@ -626,36 +650,41 @@ gmm_ffn_kernel(const int8_t* __restrict__ lhs, const float* __restrict__ s_a,
     // the tile's live rows [lo, hi): one m16 fragment from row rb when they fit
     const int lo = max(row_lo, m0) - m0, hi = min(row_hi, m0 + FFN_BM) - m0;
     if (hi - lo <= 16)
-      ffn_tile<1>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
+      ffn_tile<1, kC>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
                       out, m0, row_lo, row_hi, min(lo, 16), K, N, H);
     else
-      ffn_tile<2>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
+      ffn_tile<2, kC>(smem, L, part_amax, row_scale, lhs, s_a, wgu, sgu, wd, sd, upper,
                       out, m0, row_lo, row_hi, 0, K, N, H);
   }
 }
 
-// The launch configuration of layout L (a cluster of FFN_C CTAs, its
-// shared memory) and G, the clusters the card runs at once at that shared
-// memory (asked once per size).
-template <typename OutT, int kStorage>
+// The launch configuration of layout L (a cluster of kC CTAs, its shared
+// memory) and G, the clusters the card runs at once at that shared memory
+// (asked once per size). A cluster past 8 CTAs is non-portable: the kernel
+// is allowed it first.
+template <typename OutT, int kStorage, int kC>
 cudaError_t ffn_config(const FfnLayout& L, cudaLaunchConfig_t& cfg,
                        cudaLaunchAttribute (&attr)[1], int& resident) {
-  auto kernel = gmm_ffn_kernel<OutT, kStorage>;
+  auto kernel = gmm_ffn_kernel<OutT, kStorage, kC>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        L.bytes);
   if (e != cudaSuccess) return e;
+  if (kC > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
   cfg = {};
   cfg.blockDim = dim3(FFN_THREADS, 1, 1);
   cfg.dynamicSmemBytes = L.bytes;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = FFN_C;
+  attr[0].val.clusterDim.x = kC;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   static int cached = 0, cached_bytes = -1;
   if (cached_bytes != L.bytes) {
-    cfg.gridDim = dim3(FFN_C, 1, 1);
+    cfg.gridDim = dim3(kC, 1, 1);
     e = cudaOccupancyMaxActiveClusters(&cached, kernel, &cfg);
     if (e != cudaSuccess) return e;
     if (cached < 1) return cudaErrorInvalidConfiguration;
@@ -665,25 +694,25 @@ cudaError_t ffn_config(const FfnLayout& L, cudaLaunchConfig_t& cfg,
   return cudaSuccess;
 }
 
-template <typename OutT, int kStorage>
+template <typename OutT, int kStorage, int kC>
 cudaError_t launch_ffn(const int8_t* lhs, const float* s_a, const int8_t* gu,
                        const float* s_gu, const int* gu_pf, const int* gu_blk,
                        const int8_t* dn, const float* s_d, const int* d_pf,
                        const int* d_blk, const int* gs, const int* abits, void* out,
                        int M, int K, int N, int H, int E, cudaStream_t st) {
-  const FfnLayout L = ffn_layout(N, H);
+  const FfnLayout L = ffn_layout(N, H, kC);
   if (L.bytes < 0) return cudaErrorInvalidValue;
   if (M > 0) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     int resident = 0;
-    cudaError_t e = ffn_config<OutT, kStorage>(L, cfg, attr, resident);
+    cudaError_t e = ffn_config<OutT, kStorage, kC>(L, cfg, attr, resident);
     if (e != cudaSuccess) return e;
     // at most one cluster per logical m-tile
     const int tiles = (M + FFN_BM - 1) / FFN_BM + E - 1;
-    cfg.gridDim = dim3(FFN_C, tiles < resident ? tiles : resident, 1);
+    cfg.gridDim = dim3(kC, tiles < resident ? tiles : resident, 1);
     cfg.stream = st;
-    e = cudaLaunchKernelEx(&cfg, gmm_ffn_kernel<OutT, kStorage>, lhs, s_a, gu, s_gu,
+    e = cudaLaunchKernelEx(&cfg, gmm_ffn_kernel<OutT, kStorage, kC>, lhs, s_a, gu, s_gu,
                            gu_pf, gu_blk, dn, s_d, d_pf, d_blk, gs, abits,
                            static_cast<OutT*>(out), M, K, N, H, E);
     if (e != cudaSuccess) return e;
@@ -692,19 +721,27 @@ cudaError_t launch_ffn(const int8_t* lhs, const float* s_a, const int8_t* gu,
 }
 
 // dynamic shared bytes of a launch; -1 when the widths do not fit the layout
-inline int ffn_smem_bytes(int N, int H) { return ffn_layout(N, H).bytes; }
+inline int ffn_smem_bytes(int N, int H) { return ffn_layout(N, H, ffn_cluster(N)).bytes; }
 
 // G of a bf16-out launch at widths N, H (the grid's clusters), or -(the
 // CUDA error)
-template <int kStorage>
-int gmm_ffn_clusters(int N, int H) {
-  const FfnLayout L = ffn_layout(N, H);
+template <int kStorage, int kC>
+int gmm_ffn_clusters_c(int N, int H) {
+  const FfnLayout L = ffn_layout(N, H, kC);
   if (L.bytes < 0) return -(int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int resident = 0;
-  const cudaError_t e = ffn_config<__nv_bfloat16, kStorage>(L, cfg, attr, resident);
+  const cudaError_t e = ffn_config<__nv_bfloat16, kStorage, kC>(L, cfg, attr, resident);
   return e == cudaSuccess ? resident : -(int)e;
+}
+
+template <int kStorage>
+int gmm_ffn_clusters(int N, int H) {
+  const int C = ffn_cluster(N);
+  if (C == FFN_C) return gmm_ffn_clusters_c<kStorage, FFN_C>(N, H);
+  if (C == FFN_C_WIDE) return gmm_ffn_clusters_c<kStorage, FFN_C_WIDE>(N, H);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // the C entry points' common body; the pf / blk pointers are null for the
@@ -720,11 +757,17 @@ int gmm_ffn_launch(const void* lhs, const void* s_a, const void* gu,
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   auto i32 = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FFN_LAUNCH(T)                                                                 \
-  launch_ffn<T, kStorage>(i8(lhs), f32(s_a), i8(gu), f32(s_gu), i32(gu_pf),           \
-                          i32(gu_blk), i8(dn), f32(s_d), i32(d_pf), i32(d_blk),       \
-                          i32(group_sizes), i32(abits), out, M, K, N, H, E, st)
-  const cudaError_t e = out_is_bf16 ? FFN_LAUNCH(__nv_bfloat16) : FFN_LAUNCH(float);
+#define FFN_LAUNCH(T, CS)                                                             \
+  launch_ffn<T, kStorage, CS>(i8(lhs), f32(s_a), i8(gu), f32(s_gu), i32(gu_pf),        \
+                              i32(gu_blk), i8(dn), f32(s_d), i32(d_pf), i32(d_blk),   \
+                              i32(group_sizes), i32(abits), out, M, K, N, H, E, st)
+  const int C = ffn_cluster(N);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (C == FFN_C)
+    e = out_is_bf16 ? FFN_LAUNCH(__nv_bfloat16, FFN_C) : FFN_LAUNCH(float, FFN_C);
+  else if (C == FFN_C_WIDE)
+    e = out_is_bf16 ? FFN_LAUNCH(__nv_bfloat16, FFN_C_WIDE)
+                    : FFN_LAUNCH(float, FFN_C_WIDE);
 #undef FFN_LAUNCH
   return (int)e;
 }

@@ -28,6 +28,9 @@ extern "C" int mxmoe_gmm_ffn_w8a8(const void* lhs, const void* s_a,
 
 extern "C" int mxmoe_gmm_ffn_smem_bytes(int N, int H) { return ffn_smem_bytes(N, H); }
 
+// the CTAs of a cluster at width N (8 or 16), 0 where N is refused
+extern "C" int mxmoe_gmm_ffn_cluster_size(int N) { return ffn_cluster(N); }
+
 // the clusters a launch's grid holds at widths N, H (bf16 out), or -(error)
 extern "C" int mxmoe_gmm_ffn_w8a8_clusters(int N, int H) {
   return gmm_ffn_clusters<kFfnStacked>(N, H);

@@ -158,30 +158,54 @@ def eval_ppl_decode(
     """Teacher-forced perplexity through the serving decode path: one cached
     step a token (``serving.decode.forward_cached``: the cache write and the
     attention, K3 / K3q on the card, the quantized experts, the int8 lm_head
-    when the params carry one), a bf16 or int8 KV cache made for each batch
-    of windows. Every window scores, a ragged last batch included, so the
+    when the params carry one), a bf16 or int8 KV cache for each batch of
+    windows. Every window scores, a ragged last batch included, so the
     token set is the forward ppl's. The last position has no target, so its
-    step is not taken."""
-    from ..serving.decode import forward_cached
+    step is not taken. On a card each step is one replay of a CUDA graph
+    (``decode_nll``)."""
+    nll, n = decode_nll(params, tokens, cfg, impl, int8_kv, batch)
+    return float(np.exp(nll / max(n, 1)))
+
+
+def decode_nll(params: dict, tokens: np.ndarray, cfg: MoEConfig,
+               impl: MoEImpl = MoEImpl(), int8_kv: bool = False, batch: int = 8,
+               captured: bool = True) -> tuple[float, int]:
+    """``eval_ppl_decode``'s summed negative log-likelihood and its token
+    count. Each batch of windows runs the step
+    (``serving.graph.TeacherForcedGraph``, the counterpart of the
+    reference's jitted ``window_nll``) ``seqlen - 1`` times, each fed by one
+    device copy of the token and its target; on a card each run is a
+    replay, and a ragged last batch is a second graph of its own width, both
+    in one memory pool. ``captured=False`` runs the same step body eagerly
+    on any device (the twin a captured run is held against). Every batch
+    empties its cache first; the host reads the nll once a batch."""
+    from ..serving.graph import TeacherForcedGraph
     from ..serving.kv_cache import init_kv_cache, init_quant_kv_cache
 
     dev = _device_of(params)
     toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=dev)
     n_win, seqlen = toks.shape
     batch = min(batch, n_win)
+
+    def make_cache(b):
+        return (init_quant_kv_cache(cfg, b, seqlen, device=dev) if int8_kv
+                else init_kv_cache(cfg, b, seqlen, torch.bfloat16, device=dev))
+
+    pool = torch.cuda.graph_pool_handle() if captured and dev.type == "cuda" else None
+    graphs: dict = {}            # windows a batch -> its step graph
     total_nll, total_tok = 0.0, 0
     with torch.inference_mode():
         for i in range(0, n_win, batch):
             chunk = toks[i: i + batch]
             b = chunk.shape[0]
-            cache = (init_quant_kv_cache(cfg, b, seqlen, device=dev) if int8_kv
-                     else init_kv_cache(cfg, b, seqlen, torch.bfloat16, device=dev))
-            nll = torch.zeros((), dtype=torch.float32, device=dev)
+            if b not in graphs:
+                graphs[b] = TeacherForcedGraph(params, cfg, impl, make_cache(b), pool,
+                                               eager=not captured)
+            g = graphs[b]
+            g.reset()
             for t in range(seqlen - 1):
-                logits, cache = forward_cached(params, chunk[:, t:t + 1], cache, cfg,
-                                               impl)
-                lp = torch.log_softmax(logits[:, 0].float(), dim=-1)
-                nll -= lp.gather(-1, chunk[:, t + 1:t + 2].long()).sum()
-            total_nll += float(nll)
+                g.feed(chunk[:, t:t + 2])
+                g.run()
+            total_nll += float(g.nll)
             total_tok += b * (seqlen - 1)
-    return float(np.exp(total_nll / max(total_tok, 1)))
+    return total_nll, total_tok

@@ -23,11 +23,14 @@ rows when ``pf[e]``, else two int8 units, from unit ``blk[e]``); its output
 is bitwise K12's on the equivalent int8 codes.
 
 The kernels' design (bound: the live experts' weight bytes): a thread block
-cluster of 8 CTAs per 32-row m-tile. CTA r computes the h columns of its
-share of 16-column units from their gate and up weight columns, the CTAs
-merge their partial row amax through distributed shared memory, each
-quantizes its h slice into its own and the others' copies of hq (stores to
-their shared memory) and computes its share of the output columns. Weights
+cluster of C CTAs per 32-row m-tile, C = 8 where each CTA's share of N fits
+12 16-column units (N <= 1536), else 16 (N <= 3072: qwen2_moe_57b's 2560;
+``ffn_cluster`` in ``csrc/gmm_ffn_tile.cuh``, read by ``ffn_cluster_size``).
+CTA r computes the h columns of its share of 16-column units from their
+gate and up weight columns, the CTAs merge their partial row amax through
+distributed shared memory, each quantizes its h slice into its own and the
+others' copies of hq (stores to their shared memory) and computes its share
+of the output columns. Weights
 stream through a four-deep 16-byte ``cp.async`` ring; hq never leaves the
 cluster (no device workspace). Any split of the columns gives the plain
 versions' bits (int32 sums are exact, the f32 steps are per element and a
@@ -143,8 +146,8 @@ def _check(name, lhs_q, lhs_scale, gu_scale, down_scale, group_sizes, bits,
     req(k % 32 == 0 and n % 64 == 0 and h % 4 == 0,
         f"{name}: K={k} % 32, N={n} % 64, H={h} % 4")
     req(kernels.lib().mxmoe_gmm_ffn_smem_bytes(n, h) > 0,
-        f"{name}: N={n}: h [32, N] f32 over a cluster of 8 CTAs (at most 192 "
-        f"columns each) does not fit their shared memory")
+        f"{name}: N={n}: h [32, N] f32 over a cluster of at most 16 CTAs (at "
+        f"most 192 columns each) does not fit their shared memory")
     req(e <= 1024, f"{name}: at most 1024 experts")
     req(out_dtype in (torch.bfloat16, torch.float32), f"{name}: out dtype {out_dtype}")
 
@@ -233,11 +236,19 @@ def gmm_ffn_mixed_packed(
 
 
 def resident_clusters(n: int, h: int, ragged: bool = False) -> int:
-    """How many clusters of 8 CTAs the card runs at once for K12 (K13 with
-    ``ragged``) at widths N, H, bf16 out: the persistent grid's size, so a
-    launch with more live m-tiles than this runs them in rounds. Needs a
-    card."""
+    """How many clusters (of ``ffn_cluster_size(n)`` CTAs) the card runs at
+    once for K12 (K13 with ``ragged``) at widths N, H, bf16 out: the
+    persistent grid's size, so a launch with more live m-tiles than this
+    runs them in rounds. Needs a card."""
     name = "mixed_packed" if ragged else "w8a8"
     got = getattr(kernels.lib(), f"mxmoe_gmm_ffn_{name}_clusters")(n, h)
     kernels.check(0 if got > 0 else -got, "gmm_ffn resident clusters")
     return got
+
+
+def ffn_cluster_size(n: int) -> int:
+    """The CTAs of the kernels' cluster at expert width N, as the built
+    library computes it (``ffn_cluster``): 8 or 16, 0 where N is refused
+    (mixtral's 14336, which the reference's VMEM check refuses too). Needs
+    a card."""
+    return kernels.lib().mxmoe_gmm_ffn_cluster_size(n)

@@ -120,6 +120,8 @@ _SIGNATURES = {
     # N, H -> dynamic shared bytes of the two calls above (-1: the widths do
     # not fit the layout)
     "mxmoe_gmm_ffn_smem_bytes": [_I, _I],
+    # N -> the CTAs of a cluster of the two calls (8 or 16; 0: refused)
+    "mxmoe_gmm_ffn_cluster_size": [_I],
     # N, H -> the clusters the grid of the call above holds (-error)
     "mxmoe_gmm_ffn_w8a8_clusters": [_I, _I],
     "mxmoe_gmm_ffn_mixed_packed_clusters": [_I, _I],

@@ -25,8 +25,10 @@ decode-sized batches (at most 2048 routed rows), as the reference.
 K3q) at decode, ``xla`` the plain scatter + attention, ``auto`` (the
 default) the fused kernel (``MoEImpl.decode_attn``).
 
-The decode step is the captured one (``graph.DecodeGraph``: one CUDA graph
-of the cached forward and the sampler, replayed a step), as the reference
+The prefill is one captured chunk of all slots' prompts
+(``graph.PrefillGraph``, replayed a repeat) and the decode step the captured
+one (``graph.DecodeGraph``: one CUDA graph of the cached forward and the
+sampler, replayed a step; the two share a memory pool), as the reference
 times its jitted ``forward_cached``. Timed with CUDA events around a fixed
 number of steps ended by a synchronize (the host clock on ``--device
 cpu``); the reference's chain-slope protocol exists for its remote-TPU
@@ -179,21 +181,39 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args):
-    """The benchmark's model and inputs from its arguments -> (device, prefill
-    callable, greedy decoder). ``prefill()`` runs all slots' prompts from the
-    empty cache (the cache argument keeps lengths 0, so every repeat writes
-    the same positions) and returns (logits, cache); ``decoder(logits,
-    cache)`` returns ``decode_steps(n)``: real greedy decode that carries
-    (tokens, cache), a growing fill level, each step a replay of the
-    captured step (``graph.DecodeGraph``; its ``graph`` attribute). With
-    ``captured=False`` each step is an eager ``forward_cached`` call instead,
-    the twin that ``profile_decode`` times beside it."""
+@dataclasses.dataclass
+class Bench:
+    """``setup``'s result: the model, the prompts [slots, prefill] int32,
+    the empty cache they are prefilled into, the graphs' memory pool (None
+    off a card), ``prefill()`` and ``decoder(logits, cache, captured=True)``."""
+    device: object
+    params: dict
+    cfg: object
+    impl: object
+    ptoks: object
+    cache0: object
+    pool: object
+    prefill: object
+    decoder: object
+
+
+def setup(args) -> Bench:
+    """The benchmark's model and inputs from its arguments. ``prefill()``
+    runs all slots' prompts from the empty cache (its lengths reset to 0
+    first, so every repeat writes the same positions) as one replay of the
+    captured chunk (``graph.PrefillGraph``) and returns (logits, cache);
+    ``profile_decode --arm prefill`` times it beside the eager chunk.
+    ``decoder(logits, cache)`` returns ``decode_steps(n)``: real greedy
+    decode that carries (tokens, cache), a growing fill level, each step a
+    replay of the captured step (``graph.DecodeGraph``; its ``graph``
+    attribute). With ``captured=False`` each step is an eager
+    ``forward_cached`` call instead, the twin that ``profile_decode`` times
+    beside it."""
     import torch
 
     from ..models import configs
     from .decode import forward_cached
-    from .graph import DecodeGraph
+    from .graph import DecodeGraph, PrefillGraph
     from .kv_cache import init_kv_cache, init_quant_kv_cache
 
     device = torch.device(args.device or "cuda")
@@ -213,14 +233,19 @@ def setup(args):
     cache0 = init_cache(cfg, args.slots, args.max_len, device=device)
     ptoks = torch.randint(0, cfg.vocab_size, (args.slots, args.prefill),
                           generator=gen, device=device, dtype=torch.int32)
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    chunk = PrefillGraph(params, cfg, impl, cache0, args.prefill, pool)
+    chunk.load(ptoks, torch.full((args.slots,), args.prefill, dtype=torch.int32,
+                                 device=device))
 
     def prefill():
-        return forward_cached(params, ptoks, cache0, cfg, impl)
+        cache0.lengths.zero_()
+        return chunk.run(), cache0
 
     def decoder(logits, cache, captured: bool = True):
         toks = logits[:, -1:].argmax(-1).to(torch.int32)
         if captured:
-            graph = DecodeGraph(params, cfg, impl, cache)
+            graph = DecodeGraph(params, cfg, impl, cache, pool=pool)
             graph.load(toks, torch.ones((args.slots,), dtype=torch.int32,
                                         device=device))
 
@@ -239,7 +264,7 @@ def setup(args):
 
         return decode_steps
 
-    return device, prefill, decoder
+    return Bench(device, params, cfg, impl, ptoks, cache0, pool, prefill, decoder)
 
 
 def main(argv=None):
@@ -247,10 +272,11 @@ def main(argv=None):
 
     import torch
 
-    device, prefill, decoder = setup(args)
+    bench = setup(args)
+    device, prefill, decoder = bench.device, bench.prefill, bench.decoder
     b = args.slots
     with torch.no_grad():
-        prefill()                                                    # warm-up
+        prefill()                                           # capture + warm-up
         prefill_ms = statistics.median(_timed_ms(prefill, device)
                                        for _ in range(3))
         decode_steps = decoder(*prefill())

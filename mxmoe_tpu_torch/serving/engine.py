@@ -13,8 +13,26 @@ the counterpart of the reference's jitted decode fn), captured at the first
 decode step and reused for the Engine's life: the host's last tokens and
 active mask are copied into its static inputs, and the cache (``self.cache``,
 the same buffers for the Engine's life, ``lengths`` included) is written in
-place. Arrivals never recapture: the active mask is data. On the CPU the
-same step body runs eagerly.
+place. Arrivals never recapture: the active mask is data. Every prefill
+chunk replays a graph too (``graph.PrefillGraph``, the counterpart of the
+reference's jitted ``_prefill_slot`` and ``submit_batch`` chunk), a ragged
+last chunk the same one (its length is data):
+
+- ``submit`` (batch-1 chunks of one slot): one graph over a batch-1 staging
+  cache, whatever the slot. The chunks are written there, then the positions
+  they wrote are copied into the slot (known on the host: a chunk writes all
+  its positions, a ragged one's padding too), so the slot's later positions
+  keep what they held, as the eager chunks over the slot's view leave them.
+  One graph and one staging slot instead of one graph a slot: a graph holds
+  its cache's pointers, and each slot's graph would keep its own [1, P, V]
+  f32 logits, 155 MB at qwen2_moe's vocabulary.
+- ``submit_batch`` (full width): one graph over the Engine's cache.
+
+The decode and prefill graphs share one memory pool: they never replay at
+once, and the host reads a chunk's logits before the next replay. On the
+CPU the same bodies run eagerly. ``EngineConfig.cuda_graphs=False`` runs
+every chunk and step eagerly on the card too (the twin a graph is held
+and timed against).
 
 Mesh mode (``Engine(..., mesh=...)``, a 1-D DeviceMesh over the expert
 axis, every rank a process running the same calls): the experts are sharded
@@ -26,8 +44,10 @@ token gathered to all), so every decision is taken alike everywhere. A
 slot's prefill runs on the rank that owns it; the other ranks take part in
 its MoE blocks' collectives (``decode.forward_cached_follow``), the chunk's
 rows spread over the ranks as the JAX package's row blocks are. The mesh
-Engine decodes eagerly (``forward_cached`` a step): its steps hold the EP
-block's collectives, which a graph does not capture here.
+Engine prefills and decodes eagerly (``forward_cached`` a chunk or a step):
+its forwards hold the EP block's collectives, which a graph does not
+capture here (two ranks on one card exchange over the host-staged gloo
+transport, a host round trip inside every MoE block).
 """
 
 from __future__ import annotations
@@ -41,7 +61,7 @@ import torch
 from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl
 from .decode import decode_scan, forward_cached, forward_cached_follow, sample_tokens
-from .graph import DecodeGraph
+from .graph import DecodeGraph, PrefillGraph
 from .kv_cache import init_kv_cache, init_quant_kv_cache
 
 
@@ -66,6 +86,9 @@ class EngineConfig:
     int8_kv: bool = False        # int8 KV cache (QuantKVCache): half the
                                  # cache memory and read bandwidth
     seed: int = 0                # sampling generator seed
+    cuda_graphs: bool = True     # one device: replay CUDA graphs of the
+                                 # prefill chunks and decode steps (False:
+                                 # eager, the twin they are held against)
 
 
 @dataclasses.dataclass
@@ -188,21 +211,30 @@ class Engine:
         self.ecfg = ecfg
         self.impl = impl
         self.device = params["embed"].device
-        if ecfg.int8_kv:
-            self.cache = init_quant_kv_cache(cfg, self._n_local, ecfg.max_len,
-                                             self.device)
-        else:
-            self.cache = init_kv_cache(cfg, self._n_local, ecfg.max_len,
-                                       torch.bfloat16, self.device)
+        self.cache = self._new_cache(self._n_local)
         self.slots = [_Slot() for _ in range(ecfg.batch_slots)]
         self.gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
-        self._graph = None           # the captured decode step (one device)
+        # the captured decode step and prefill chunks (one device), their
+        # shared memory pool and submit's batch-1 staging cache
+        self._graphs = mesh is None and ecfg.cuda_graphs
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self._graphs and self.device.type == "cuda" else None)
+        self._graph = None
+        self._slot_prefill = None
+        self._batch_prefill = None
         self._next_req = 0
         self._last_tokens = np.zeros((ecfg.batch_slots,), np.int32)
         self._results: dict[int, list[int]] = {}
         # host mirror of the per-slot cache lengths (min(len + valid, max_len)
         # is exactly reproducible), so stop decisions need no device read
         self._host_len = np.zeros((ecfg.batch_slots,), np.int64)
+
+    def _new_cache(self, batch: int):
+        """An empty KV cache of ``batch`` slots (int8 with ``int8_kv``)."""
+        if self.ecfg.int8_kv:
+            return init_quant_kv_cache(self.cfg, batch, self.ecfg.max_len, self.device)
+        return init_kv_cache(self.cfg, batch, self.ecfg.max_len, torch.bfloat16,
+                             self.device)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -258,34 +290,61 @@ class Engine:
         # the chunk's rows all lie on the owner; the EP block spreads them
         counts = [p if r == owner else 0 for r in range(self._ep)]
 
-        # batch-1 view of this slot: K/V views write through to the cache
+        # batch-1 view of this slot (K/V views write through to the cache),
+        # or on one device the staging graph's cache (module docstring)
+        g = self._slot_graph() if self._graphs else None
         if mine:
             self.cache.lengths[local] = 0
+            if g is not None:
+                g.cache.lengths.zero_()
         self._host_len[slot] = 0
         last = None
         for off in range(0, len(prompt), p):
             piece = prompt[off: off + p]
             chunk = np.zeros((1, p), np.int32)
             chunk[0, : len(piece)] = piece
+            valid = self._dev(np.asarray([len(piece)], np.int32))
             with (contextlib.nullcontext() if self._mesh is None
                   else self._block.rows(counts)):
                 if not mine:
                     forward_cached_follow(self.params, self.cfg, self.impl)
+                elif g is not None:
+                    g.load(self._dev(chunk), valid)
+                    last = g.run()[0, len(piece) - 1]
                 else:
                     logits, c1 = forward_cached(
                         self.params, self._dev(chunk),
                         _slice_slot_cache(self.cache, local), self.cfg, self.impl,
-                        valid_lengths=self._dev(np.asarray([len(piece)], np.int32)))
+                        valid_lengths=valid)
                     self.cache.lengths[local] = c1.lengths[0]
                     last = logits[0, len(piece) - 1]
             self._host_len[slot] = min(self._host_len[slot] + len(piece),
                                        self.ecfg.max_len)
+        if g is not None:
+            # a chunk writes all its P positions (a ragged one's padding too,
+            # as the reference's scatter does): every written one is copied
+            n = min(-(-len(prompt) // p) * p, self.ecfg.max_len)
+            for f in dataclasses.fields(self.cache):
+                dst, src = getattr(self.cache, f.name), getattr(g.cache, f.name)
+                if f.name == "lengths":
+                    dst[local:local + 1].copy_(src)
+                else:
+                    dst[:, local, :, :n].copy_(src[:, 0, :, :n])
         first_tok = self._sample_first(last, owner)
         st = self.slots[slot]
         st.active, st.request_id, st.max_new = True, rid, max_new_tokens
         st.generated = [first_tok]
         self._last_tokens[slot] = first_tok
         return rid
+
+    def _slot_graph(self) -> PrefillGraph:
+        """``submit``'s chunk graph over a batch-1 staging cache (made at the
+        first call)."""
+        if self._slot_prefill is None:
+            self._slot_prefill = PrefillGraph(self.params, self.cfg, self.impl,
+                                              self._new_cache(1),
+                                              self.ecfg.prefill_chunk, self._pool)
+        return self._slot_prefill
 
     def submit_batch(self, prompts: list[list[int]],
                      max_new_tokens: int = 32) -> list[int]:
@@ -314,10 +373,17 @@ class Engine:
                 piece = pr[off: off + p]
                 chunk[slot, : len(piece)] = piece
                 valid[slot] = len(piece)
-            logits, c = forward_cached(
-                self.params, self._dev(self._local(chunk)), self.cache, self.cfg,
-                self.impl, valid_lengths=self._dev(self._local(valid)))
-            self.cache.lengths.copy_(c.lengths)
+            toks_d, valid_d = self._dev(self._local(chunk)), self._dev(self._local(valid))
+            if self._graphs:
+                if self._batch_prefill is None:
+                    self._batch_prefill = PrefillGraph(self.params, self.cfg, self.impl,
+                                                       self.cache, p, self._pool)
+                self._batch_prefill.load(toks_d, valid_d)
+                logits = self._batch_prefill.run()
+            else:
+                logits, c = forward_cached(self.params, toks_d, self.cache, self.cfg,
+                                           self.impl, valid_lengths=valid_d)
+                self.cache.lengths.copy_(c.lengths)
             for i, n_new in enumerate(self._local(valid)):
                 if n_new > 0:
                     last[i] = logits[i, n_new - 1].float()
@@ -347,7 +413,7 @@ class Engine:
         active mask -> all slots' tokens [B, n] on the host (one read)."""
         last = self._dev(self._local(self._last_tokens))
         valid = self._active_mask()
-        if self._mesh is not None:
+        if not self._graphs:
             toks = []
             for _ in range(n):
                 logits, c = forward_cached(self.params, last[:, None], self.cache,
@@ -360,7 +426,7 @@ class Engine:
         if self._graph is None:
             self._graph = DecodeGraph(self.params, self.cfg, self.impl, self.cache,
                                       self.ecfg.temperature, self.ecfg.top_k,
-                                      self.gen)
+                                      self.gen, self._pool)
         return self._gather(decode_scan(self._graph, last, n, valid))
 
     def step(self) -> int:

@@ -65,37 +65,29 @@ def clone_cache(cache, device=None):
                           for f in dataclasses.fields(cache)})
 
 
-def _kept_writes(s_new: int, s_max: int, lengths, valid):
-    """(slot, chunk index, cache position) of the chunk writes that land:
-    those at or past S_max, or of slots with ``valid`` False, are dropped,
-    never clamped onto a neighbour's history. (The boolean selection reads
-    the mask on the host: prefill syncs once per chunk anyway; a decode
-    step takes ``_decode_writes``, which reads nothing.)"""
+def _chunk_writes(s_new: int, s_max: int, lengths, valid):
+    """The writes of a chunk of S_new <= S_max positions, read nowhere on
+    the host: (slots [B, 1], positions [B, S_new], keep [B, S_new] bool).
+    Slot b's position s lands at ``lengths[b] + s``. A write at or past
+    S_max, or of a slot with ``valid`` False, is dropped, never clamped
+    onto a neighbour's history: it is sent to position ``(lengths[b] + s) %
+    S_max`` of its own slot and writes back what is there (``_write_chunk``).
+    One slot's S_new positions are then distinct, and a dropped one past
+    S_max lies below ``lengths[b]``, on no kept one, so no two writes of one
+    ``index_put_`` meet (their order on a card is undefined); shapes stay
+    static, so a CUDA graph can hold the write."""
     pos = lengths.long()[:, None] + torch.arange(s_new, device=lengths.device)
     keep = pos < s_max
     if valid is not None:
         keep &= valid.bool()[:, None]
-    bi, si = torch.nonzero(keep, as_tuple=True)
-    return bi, si, pos[bi, si]
+    bi = torch.arange(lengths.shape[0], device=lengths.device)[:, None]
+    return bi, pos % s_max, keep
 
 
-def _decode_writes(s_max: int, lengths, valid):
-    """A decode step's writes (S_new = 1) without a host read: (slots, each
-    slot's position, keep [B] bool). A dropped write (position at or past
-    S_max, or ``valid`` False) is given its own slot's last position and
-    writes back what is there, so it lands nowhere, and never on another
-    slot's history; shapes stay static, so a CUDA graph can hold the step."""
-    keep = lengths < s_max
-    if valid is not None:
-        keep &= valid.bool()
-    bi = torch.arange(lengths.shape[0], device=lengths.device)
-    return bi, lengths.long().clamp(max=s_max - 1), keep
-
-
-def _write_step(full, layer: int, bi, pi, keep, new) -> None:
-    """``full[layer, b, :, p] = new[b]`` where ``keep[b]``, else unchanged
-    (``_decode_writes``)."""
-    shape = (-1,) + (1,) * (new.dim() - 1)
+def _write_chunk(full, layer: int, bi, pi, keep, new) -> None:
+    """``full[layer, b, :, pi[b, s]] = new[b, s]`` where ``keep[b, s]``,
+    else unchanged (``_chunk_writes``)."""
+    shape = keep.shape + (1,) * (new.dim() - keep.dim())
     old = full[layer, bi, :, pi]
     full[layer, bi, :, pi] = torch.where(keep.view(shape), new.to(full.dtype), old)
 
@@ -103,15 +95,14 @@ def _write_step(full, layer: int, bi, pi, keep, new) -> None:
 def scatter_layer_cache(full_k, full_v, layer: int, new_k, new_v, lengths,
                         valid=None):
     """Write a chunk into ONE layer of the stacked cache, in place.
-    ``new_k``/``new_v`` token-major [B, S_new, n_kv, hd]."""
-    if new_k.shape[1] == 1:
-        bi, pi, keep = _decode_writes(full_k.shape[3], lengths, valid)
-        _write_step(full_k, layer, bi, pi, keep, new_k[:, 0])
-        _write_step(full_v, layer, bi, pi, keep, new_v[:, 0])
-        return full_k, full_v
-    bi, si, pi = _kept_writes(new_k.shape[1], full_k.shape[3], lengths, valid)
-    full_k[layer, bi, :, pi, :] = new_k[bi, si].to(full_k.dtype)
-    full_v[layer, bi, :, pi, :] = new_v[bi, si].to(full_v.dtype)
+    ``new_k``/``new_v`` token-major [B, S_new, n_kv, hd]. Chunk positions
+    past S_max never land (``pos >= s >= S_max``), so a longer chunk is cut
+    there."""
+    s_max = full_k.shape[3]
+    new_k, new_v = new_k[:, :s_max], new_v[:, :s_max]
+    bi, pi, keep = _chunk_writes(new_k.shape[1], s_max, lengths, valid)
+    _write_chunk(full_k, layer, bi, pi, keep, new_k)
+    _write_chunk(full_v, layer, bi, pi, keep, new_v)
     return full_k, full_v
 
 
@@ -196,18 +187,12 @@ def scatter_layer_cache_quant(ckq, cks, cvq, cvs, layer: int, new_k, new_v,
     """Quantized-cache variant of :func:`scatter_layer_cache`: per-vector
     int8 quant of the chunk, then the same in-place masked write of codes
     and scales."""
-    kq, ks = _quant_vec(new_k)            # [B, S_new, n, hd], [B, S_new, n]
-    vq, vs = _quant_vec(new_v)
-    if new_k.shape[1] == 1:
-        bi, pi, keep = _decode_writes(ckq.shape[3], lengths, valid)
-        for full, new in ((ckq, kq), (cks, ks), (cvq, vq), (cvs, vs)):
-            _write_step(full, layer, bi, pi, keep, new[:, 0])
-        return ckq, cks, cvq, cvs
-    bi, si, pi = _kept_writes(new_k.shape[1], ckq.shape[3], lengths, valid)
-    ckq[layer, bi, :, pi, :] = kq[bi, si]
-    cks[layer, bi, :, pi] = ks[bi, si]
-    cvq[layer, bi, :, pi, :] = vq[bi, si]
-    cvs[layer, bi, :, pi] = vs[bi, si]
+    s_max = ckq.shape[3]
+    kq, ks = _quant_vec(new_k[:, :s_max])   # [B, S_new, n, hd], [B, S_new, n]
+    vq, vs = _quant_vec(new_v[:, :s_max])
+    bi, pi, keep = _chunk_writes(kq.shape[1], s_max, lengths, valid)
+    for full, new in ((ckq, kq), (cks, ks), (cvq, vq), (cvs, vs)):
+        _write_chunk(full, layer, bi, pi, keep, new)
     return ckq, cks, cvq, cvs
 
 

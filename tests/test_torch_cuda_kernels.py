@@ -34,7 +34,8 @@ K12 (the whole FFN) bitwise its plain version, K13 bitwise its plain version
 and K12 on the equivalent int8 codes (also at row counts on the edges of the
 cluster body's m16 / m32 fragments with tiles straddling experts, at
 qwen2_moe's decode and 256-token prefill shapes, each launch counted once,
-and over the width domain), K14 bitwise its plain version and K1 +
+over the width domain and at qwen2_moe_57b's widths on the 16-CTA cluster),
+K14 bitwise its plain version and K1 +
 K2, K15 bitwise K2 / K5 on the same aligned layout (at the four models' K,
 512 groups, N no multiple of its tile; K % 64, N % 16 and 513 groups
 refused), K1 at decode to headline row counts and K 1000-20480. The int8 grouped GEMM's
@@ -58,7 +59,10 @@ and H with codes >= 99.9 % equal to the CPU's and its floats within 1e-5 of
 the largest; the MoE Hessians within rtol 1e-5 of the CPU's; a whole GPTQ
 convert with >= 99 % of each layer's codes equal (the float pass's order,
 amplified; see CARD_CONVERT_AGREEMENT_MIN) and GPTQ's proxy loss within 5 %
-of the CPU's."""
+of the CPU's. The captured decode step and prefill chunk
+(``serving/graph.py``) bitwise their eager twins (logits, tokens and every
+cache byte), the captured Engine bitwise the eager one, and the ticket
+buffers a graph holds shown needed by a mutation run in a subprocess."""
 
 import pytest
 import torch
@@ -1030,15 +1034,17 @@ def test_fused_ffn_refuses_a_width_whose_h_row_does_not_fit(dev):
 
 
 @pytest.mark.parametrize("n,h,fits", [(1408, 4100, True), (1536, 2048, True),
-                                      (2560, 256, False), (14336, 256, False)])
+                                      (2560, 3584, True), (14336, 256, False)])
 def test_fused_ffn_width_domain(dev, n, h, fits):
     """The cluster layout takes every N the single-block body took (N % 64
     == 0 up to 1536, any H % 4: at H 4100 a CTA runs three down passes and
-    a tail narrower than a 16-byte piece), bitwise its plain version; it
-    refuses qwen2_moe_57b's N 2560 and mixtral's 14336 with the message of
-    the test above."""
+    a tail narrower than a 16-byte piece) on 8 CTAs, and qwen2_moe_57b's N
+    2560 / H 3584 on 16 (the reference's kernel takes that width), bitwise
+    its plain version; it refuses mixtral's 14336 with the message of the
+    test above (the reference refuses it too)."""
     from mxmoe_tpu_torch.ops import gmm_ffn
 
+    assert gmm_ffn.ffn_cluster_size(n) == {1408: 8, 1536: 8, 2560: 16, 14336: 0}[n]
     aq, asc, wgu, sgu, wd, sd, gs, bits = _ffn_operands(dev, [3, 0, 20], 64, n, h, n,
                                                         align=1)
     if not fits:
@@ -1050,6 +1056,35 @@ def test_fused_ffn_width_domain(dev, n, h, fits):
     plain = gmm_ffn.gmm_ffn_w8a8_plain(aq, asc, wgu, sgu, wd, sd, gs, bits)
     torch.cuda.synchronize()
     assert torch.equal(got[:rows], plain[:rows])
+
+
+@pytest.mark.parametrize("tokens", [4, 256])
+def test_gmm_ffn_kernels_at_qwen2_moe_57b_widths(dev, tokens):
+    """qwen2_moe_57b's experts (K 3584, N 2560, H 3584, 64 experts, top-8)
+    over the 32-row aligned dispatch, as the fused branch routes a decode
+    step of 4 tokens and a 256-token chunk (2048 routed rows, where "auto"
+    still fuses): K12 and K13 (every other expert packed) on the 16-CTA
+    cluster bitwise their plain versions and each other; qwen2_moe's and
+    ds2's N 1408 keep the 8-CTA one."""
+    from mxmoe_tpu_torch.models.configs import QWEN2_MOE_57B as cfg
+    from mxmoe_tpu_torch.ops import gmm_ffn
+    from mxmoe_tpu_torch.ops.dispatch import make_dispatch, route_topk
+
+    assert gmm_ffn.ffn_cluster_size(1408) == 8
+    assert gmm_ffn.ffn_cluster_size(cfg.moe_intermediate_size) == 16
+    h, n, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    assert gmm_ffn.resident_clusters(n, h) > 0
+    assert gmm_ffn.resident_clusters(n, h, ragged=True) > 0
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    disp = make_dispatch(route_topk(torch.randn((tokens, e), generator=g, device=dev),
+                                    cfg.top_k, cfg.norm_topk_prob), e, align=32)
+    gs = disp.group_sizes
+    m = disp.token_ids.numel()
+    _, _, wgu, sgu, wd, sd, _, bits = _ffn_operands(dev, [1] * e, h, n, h, tokens)
+    aq = torch.randint(-127, 128, (m, h), generator=g, device=dev, dtype=torch.int8)
+    asc = torch.rand((m, 1), generator=g, device=dev) * 0.02 + 1e-3
+    pf = [int(i % 2 == 0) for i in range(e)]
+    _ffn_k12_k13(dev, aq, asc, wgu, sgu, wd, sd, gs, bits, pf, int(gs.sum()))
 
 
 def test_flash_attention_backend_on_the_card(dev):
@@ -2109,3 +2144,219 @@ def test_captured_step_is_its_eager_twin_bitwise(dev, quant, int8_kv, fused, tem
         assert int(t.abs().sum()) == 0
     for b in kernels._barriers.values():
         assert int(b[0]) == 0
+
+
+def _served_2_layers(dev, quant, fused):
+    import dataclasses
+    import functools
+
+    from mxmoe_tpu_torch.models import configs
+    from mxmoe_tpu_torch.serving import bench_serving
+
+    cfg = dataclasses.replace(configs.config_for("qwen2_moe"), num_layers=2)
+    params, impl = bench_serving.init_for_serving(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        functools.partial(bench_serving.quantize_for_serving, quant=quant,
+                          fused_ffn=fused), dev)
+    return cfg, params, impl
+
+
+@pytest.mark.parametrize("quant,int8_kv,fused",
+                         [("w8a8_g-1_sym", False, False),
+                          ("mixed-packed", True, False),
+                          ("mixed-packed", True, True)],
+                         ids=["uniform", "mixed-packed-int8kv", "fused-ffn"])
+def test_captured_prefill_chunk_is_its_eager_twin_bitwise(dev, quant, int8_kv, fused):
+    """A captured prefill chunk (``graph.PrefillGraph``) and its eager twin,
+    ``forward_cached`` over a clone of the same cache (qwen2_moe at full
+    width, 2 layers, 4 slots at 0-300 positions of 512): two 256-token
+    chunks, the second ragged (valid 256 / 100 / 0 / 37: one slot inactive,
+    one whose chunk overflows S_max), bitwise equal logits and every cache
+    byte after each; the launches counted are the warm-up run's and the
+    replays' (the capture's own are not), beside the twin's."""
+    import dataclasses
+
+    from mxmoe_tpu_torch.serving import decode, graph, kv_cache
+
+    cfg, params, impl = _served_2_layers(dev, quant, fused)
+    init = kv_cache.init_quant_kv_cache if int8_kv else kv_cache.init_kv_cache
+    cache = init(cfg, 4, 512, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 300), generator=g, device=dev,
+                           dtype=torch.int32)
+    _, c = decode.forward_cached(params, prompt, cache, cfg, impl,
+                                 valid_lengths=torch.tensor([0, 300, 7, 300],
+                                                            dtype=torch.int32, device=dev))
+    cache.lengths.copy_(c.lengths)
+    cache.lengths[3] = 490                      # 22 free positions
+    twin = kv_cache.clone_cache(cache)
+    chunk = graph.PrefillGraph(params, cfg, impl, cache, 256)
+    kernels.reset_launch_counts()
+    for valid in ([256, 256, 0, 256], [256, 100, 0, 37]):
+        toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=g, device=dev,
+                             dtype=torch.int32)
+        v = torch.tensor(valid, dtype=torch.int32, device=dev)
+        chunk.load(toks, v)
+        got = chunk.run().clone()
+        with torch.no_grad():
+            want, out = decode.forward_cached(params, toks, twin, cfg, impl,
+                                              valid_lengths=v)
+        twin.lengths.copy_(out.lengths)
+        assert torch.equal(got, want)
+        for f in dataclasses.fields(cache):
+            assert torch.equal(getattr(cache, f.name), getattr(twin, f.name)), f.name
+    assert cache.lengths.tolist() == [512, 512, 7, 512]
+    counts = dict(kernels.launches)
+    assert chunk.graph is not None and sum(chunk.counts.values()) > 0
+    # the warm-up run, two replays and the twin's two chunks
+    assert all(counts[k] == 5 * n for k, n in chunk.counts.items()), (counts, chunk.counts)
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["bf16", "int8"])
+def test_engine_captured_prefill_is_the_eager_engine_bitwise(dev, int8_kv):
+    """``Engine.submit`` (the batch-1 staging graph, then the copy into the
+    slot) and ``submit_batch`` (the full-width graph) against an Engine with
+    ``cuda_graphs=False`` (eager chunks over the slot's view and the whole
+    cache): a 300-token prompt (two chunks, the second ragged) and a
+    48-token one, then two prompts at once beside the two active slots;
+    every cache byte, the lengths and the first tokens equal after each, and
+    the same greedy tokens to the end (mixed-packed at full width, 2
+    layers)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+
+    cfg, params, impl = _served_2_layers(dev, "mixed-packed", False)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 48, 513, 20)]
+    engines = [Engine(params, cfg, EngineConfig(batch_slots=4, max_len=1024,
+                                                prefill_chunk=256, int8_kv=int8_kv,
+                                                cuda_graphs=cap), impl)
+               for cap in (True, False)]
+
+    def same():
+        a, b = engines
+        for f in dataclasses.fields(a.cache):
+            assert torch.equal(getattr(a.cache, f.name), getattr(b.cache, f.name)), f.name
+        assert (a._last_tokens == b._last_tokens).all()
+        assert (a._host_len == b._host_len).all()
+
+    for p in prompts[:2]:
+        rids = [e.submit(p, max_new_tokens=6) for e in engines]
+        assert rids[0] == rids[1]
+        same()
+    rids = [e.submit_batch(prompts[2:], max_new_tokens=6) for e in engines]
+    assert rids[0] == rids[1] == [2, 3]
+    same()
+    assert engines[0]._slot_prefill.graph is not None
+    assert engines[0]._batch_prefill.graph is not None
+    outs = [e.run_to_completion(chunk=4) for e in engines]
+    assert outs[0] == outs[1]
+
+
+_TICKET_SCRIPT = r'''
+import dataclasses, functools, sys
+import torch
+from mxmoe_tpu_torch.models import configs
+from mxmoe_tpu_torch.ops import kernels
+from mxmoe_tpu_torch.serving import bench_serving, decode, graph, kv_cache
+
+if sys.argv[1] == "bypassed":
+    class Dropped(list):
+        def append(self, t):
+            pass
+    kernels._retired_tickets = Dropped()
+dev = torch.device("cuda")
+cfg = dataclasses.replace(configs.config_for("qwen2_moe"), num_layers=2)
+params, impl = bench_serving.init_for_serving(
+    cfg, torch.Generator(device=dev).manual_seed(0),
+    functools.partial(bench_serving.quantize_for_serving, quant="mixed-packed"), dev)
+cache = kv_cache.init_quant_kv_cache(cfg, 4, 2048, device=dev)
+g = torch.Generator(device=dev).manual_seed(1)
+prompt = torch.randint(0, cfg.vocab_size, (4, 1800), generator=g, device=dev,
+                       dtype=torch.int32)
+with torch.no_grad():
+    _, c = decode.forward_cached(params, prompt, cache, cfg, impl, valid_lengths=torch.tensor(
+        [1800, 700, 1500, 40], dtype=torch.int32, device=dev))
+cache.lengths.copy_(c.lengths)
+twin = kv_cache.clone_cache(cache)
+tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=dev, dtype=torch.int32)
+valid = torch.ones((4,), dtype=torch.int32, device=dev)
+step = graph.DecodeGraph(params, cfg, impl, cache)
+step.load(tok, valid)
+got, litter = [], []
+for i in range(8):
+    if i == 2:
+        held = kernels.tickets(dev, 0)
+        size, lo = held.numel(), held.data_ptr()
+        hi = lo + 4 * size
+        kernels.tickets(dev, size + 1)
+        del held
+        # write 7s over the memory the old buffer held, if the allocator
+        # gives it out again (it does once freed): allocate on each stream
+        # until the litter covers it
+        covered = set()
+        for s in (torch.cuda.current_stream(dev), graph.capture_stream(dev)):
+            with torch.cuda.stream(s):
+                for _ in range(20000):
+                    t = torch.full((size,), 7, dtype=torch.int32, device=dev)
+                    litter.append(t)
+                    a, b = t.data_ptr(), t.data_ptr() + 4 * size
+                    covered |= {p for p in (lo, hi - 1) if a <= p < b}
+                    if len(covered) == 2:
+                        break
+            if len(covered) == 2:
+                break
+        torch.cuda.synchronize()
+        print("littered" if len(covered) == 2 else "not littered")
+    step.run()
+    got.append(step.logits.clone())
+last, same = tok[:, None], True
+for i in range(8):
+    logits, twin = decode.forward_cached(params, last, twin, cfg, impl, valid_lengths=valid)
+    same = same and torch.equal(got[i], logits)
+    last = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+torch.cuda.synchronize()
+print("equal" if same else "differs")
+print("launches a replay:", step.counts, file=sys.stderr)
+'''
+
+
+@pytest.mark.parametrize("mode", ["kept", "bypassed"])
+def test_replay_after_ticket_growth_needs_the_retired_tickets(dev, mode):
+    """The mutation check of the tickets a graph holds (``ops/kernels.py``
+    ``_retired_tickets``): a decode graph (qwen2_moe full width, 2 layers,
+    mixed-packed + int8 KV at 40-1800 of 2048 positions: the int8 shared
+    expert's split-K GEMMs and K3q over many S-chunks take tickets)
+    replays after the tickets grew, and small blocks
+    are allocated and filled with 7s on both streams until they cover the
+    old buffer's memory, or 20000 a stream. Kept, that memory is never given
+    out and every replay's logits equal an eager twin's; with the retirement
+    bypassed (the old buffer freed), the 7s land on it and the replays give
+    other logits, fail, or hang. Each mode runs in a subprocess with its own time limit, so a
+    hang cannot stall the card run."""
+    import os
+    import subprocess
+    import sys
+
+    kernels.lib()                               # built once, by this process
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        p = subprocess.run([sys.executable, "-c", _TICKET_SCRIPT, mode], cwd=root,
+                           capture_output=True, text=True, timeout=240)
+    except subprocess.TimeoutExpired:
+        assert mode == "bypassed", "the graph over kept tickets hung"
+        print(mode, "ran into its time limit")
+        return
+    out = p.stdout.split()
+    print(mode, p.returncode, out, p.stderr[-300:])
+    if mode == "kept":
+        # the kept buffer is never given out again; the replays are right
+        assert p.returncode == 0 and out == ["not", "littered", "equal"], \
+            (p.stdout, p.stderr[-2000:])
+    else:
+        # the freed buffer was written over, and the graph went wrong on it
+        assert p.returncode != 0 or out == ["littered", "differs"], (p.stdout,
+                                                                     p.stderr[-2000:])
