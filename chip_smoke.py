@@ -259,21 +259,34 @@ failure raises and the script exits non-zero without a result line:
  12. ep       expert parallelism (ep_phase; no new kernel: the ported ones
               per rank). (a) One rank over NCCL: qwen2_moe at full width and
               24 layers, mixed-packed + int8 KV, through Engine(mesh=...) on
-              a one-rank DeviceMesh against the one-device Engine on the same
-              params (K1, K2, K3q, K4 must launch under EP); then
-              parallel.scale_bench at ep 1 (its ep >= 2 rows wait for a
+              a one-rank DeviceMesh, eager (cuda_graphs=False) and captured
+              (its decode step, submit chunk and follower graphs CUDA graphs
+              that hold the EP block's NCCL exchanges): the captured tokens
+              bitwise the eager mesh Engine's, both against the one-device
+              Engine on the same params (K1, K2, K3q, K4 must launch in the
+              captured serve); each graph's warm-up, capture and
+              instantiate seconds and the memory it keeps, both serves'
+              peaks; the mesh decode step and submit's [1, 256] chunk eager
+              and captured in turns (profile_decode.abba: wall and device
+              ms, busy share, host launch calls a step, at most
+              MESH_LAUNCH_CALLS captured; the NCCL kernels a replay ran; the
+              chunk bitwise its eager twin) and the 512-token time to the
+              first token through the mesh submit; then
+              parallel.scale_bench at ep 1, the EP layer and the decode step
+              eager and captured (its ep >= 2 rows wait for a
               machine with more cards), and whether NCCL takes two ranks on
               the one card (a 2-process all_reduce, recorded). (b) Two ranks
               spawned on the one card, the exchange staged through host
-              buffers over gloo (the transport every line names), 4 layers:
+              buffers over gloo (the transport every line names; eager: no
+              graph holds the host copies), 4 layers:
               uniform w8a8 (K1, K2), mixed-packed (K4), flex (K8) and
               mixed-wo (K10), each with K3, at the capacity the float model's
               gate trace gives (its drops printed: none can at 2 ranks and a
               factor of 2 or more), each rank's peak memory; rank 0 serves
               the same requests on one device first. Then one ring SP prefill
               at 2 ranks against forward_logits (float32, within SP_REL of
-              max |logits|). (c) generate --mesh 2 --transport host against
-              generate on one device. Every EP serve's tokens equal the
+              max |logits|). (c) generate --mesh 2 --transport host (eager)
+              against generate on one device. Every EP serve's tokens equal the
               one-device serve's, or part first where the one-device model's
               top-2 margin is within PARITY_BOUND (_margin_rule)
 
@@ -293,12 +306,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import os
 import subprocess
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -3980,6 +3995,10 @@ EP_ONE_RANK_EXPECT = ("quantize_rows", "gmm_w8a8", "gmm_mixed_packed",
                       "decode_attention_update_stacked_q8")
 EP_PROMPT_LENS = (40, 120, 200, 300)
 EP_MAX_NEW = 16
+# host calls (graph launches, copies) a captured mesh decode step may make
+MESH_LAUNCH_CALLS = 5
+# the host-staged serves' note: why they are not captured
+HOST_EAGER = "eager: the host-staged exchange copies through host memory in every MoE block"
 # ring SP prefill against forward_logits, float32 model: max |d| over
 # max |logits| (the ring's online softmax sums in another order than the
 # plain softmax; float32 rounding stays far below)
@@ -4013,18 +4032,24 @@ def _ep_prompts(vocab: int) -> list:
     return [rng.integers(0, vocab, n).tolist() for n in EP_PROMPT_LENS]
 
 
-def _engine_tokens(params, cfg, impl, prompts, int8_kv: bool, mesh=None, ep_cfg=None):
-    """4 requests through the Engine (one device, or the mesh) -> (tokens,
-    engine)."""
+def _engine_tokens(params, cfg, impl, prompts, int8_kv: bool, mesh=None, ep_cfg=None,
+                   cuda_graphs: bool = True, snap=None):
+    """4 requests through the Engine (one device, or the mesh; captured, or
+    eager with ``cuda_graphs`` False) -> (tokens, engine). ``snap``: a list
+    that gets the post-prefill cache (on the host) and last tokens."""
     import torch
 
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
 
     eng = Engine(params, cfg, EngineConfig(batch_slots=4, max_len=1024,
-                                           prefill_chunk=256, int8_kv=int8_kv),
+                                           prefill_chunk=256, int8_kv=int8_kv,
+                                           cuda_graphs=cuda_graphs),
                  impl, mesh=mesh, ep_cfg=ep_cfg)
     with torch.inference_mode():
         rids = [eng.submit(p, max_new_tokens=EP_MAX_NEW) for p in prompts]
+        if snap is not None:
+            snap += [clone_cache(eng.cache, "cpu"), eng._last_tokens.copy()]
         res = eng.run_to_completion(chunk=16)
     return [res[r] for r in rids], eng
 
@@ -4105,7 +4130,8 @@ def _ep_two_ranks(rank: int, out: str, device_type: str) -> None:
             torch.cuda.reset_peak_memory_stats(device)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        got, eng = _engine_tokens(params, cfg, impl, prompts, False, mesh, ep_cfg)
+        got, eng = _engine_tokens(params, cfg, impl, prompts, False, mesh, ep_cfg,
+                                  cuda_graphs=False)
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in kernels.launches.items() if v}
         row = {"quant": quant, "tokens": got, "seconds": seconds,
@@ -4185,6 +4211,105 @@ def nccl_two_ranks_one_card() -> dict:
             and all("NCCL-ALL-REDUCE-OK" in o for o in outs)}
 
 
+def mesh_graph_checks(eng, eager_eng, snap) -> None:
+    """Phase 12 (a)'s checks of the captured one-rank mesh Engine ``eng``
+    after its serve (``snap``: its post-prefill cache on the host and its
+    last tokens then) beside ``eager_eng``, the same serve eager:
+
+    - ``step``: the mesh decode step eager (``forward_cached`` over a clone
+      of the post-prefill cache) and captured (the Engine's graph over its
+      own cache, set back to that state) in turns (``profile_decode.abba``,
+      8 steps a turn): wall and device ms, busy share, kernels and host
+      launch calls a step (at most MESH_LAUNCH_CALLS captured), and the
+      exchange kernels a captured step ran (NCCL's, or the copy that NCCL
+      makes of an equal-split exchange at one rank);
+    - ``chunk``: ``submit``'s chunk, [1, 256] under ``EPMoEBlock.rows`` on a
+      staging cache, eager and captured (``profile_decode.prefill_arms``):
+      logits and every cache byte bitwise, then in turns, a chunk a turn,
+      with its exchange kernels and the graph's set-up seconds and memory;
+    - ``ttft``: a 512-token prompt's time to the first token through each
+      Engine's ``submit`` (``profile_decode.first_token_times``, one submit
+      a turn), the same first token.
+
+    Prints one ``mesh_graph`` line; raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from mxmoe_tpu_torch.serving import profile_decode
+    from mxmoe_tpu_torch.serving.decode import forward_cached
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
+
+    t0 = time.perf_counter()
+    dev, cfg = eng.device, eng.cfg
+    order = ("eager", "captured", "captured", "eager")
+    res = {"layers": cfg.num_layers, "card": smi_line(), "order": order}
+
+    def exchange(turns):
+        names = turns["captured"].pop("by_name")
+        turns["eager"].pop("by_name")
+        return (sorted(k for k in names if "nccl" in k.lower() or "memcpy" in k.lower()),
+                any("nccl" in k.lower() for k in names))
+
+    cache0, last0 = snap
+    slots = eng.cache.lengths.shape[0]
+    valid = torch.ones((slots,), dtype=torch.int32, device=dev)
+    last = torch.as_tensor(np.asarray(last0[:slots], np.int32), device=dev)
+    with torch.inference_mode():
+        for f in dataclasses.fields(eng.cache):
+            getattr(eng.cache, f.name).copy_(getattr(cache0, f.name))
+        eng._graph.load(last, valid)
+        state = {"cache": clone_cache(cache0, dev), "tok": last[:, None]}
+
+        def eager_steps(n):
+            for _ in range(n):
+                lg, state["cache"] = forward_cached(eng.params, state["tok"],
+                                                    state["cache"], cfg, eng.impl,
+                                                    valid_lengths=valid)
+                state["tok"] = lg[:, -1:].argmax(-1).to(torch.int32)
+
+        res["step"] = profile_decode.abba({"eager": eager_steps,
+                                           "captured": eng._graph.run},
+                                          order=order, steps=8)
+        res["step_exchange_kernels"], res["step_nccl"] = exchange(res["step"])
+        del state
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(22)
+        toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen, device=dev,
+                             dtype=torch.int32)
+        arms, chunk, caches = profile_decode.prefill_arms(
+            eng.params, cfg, eng.impl, eng._new_cache(1), toks,
+            torch.tensor([256], dtype=torch.int32, device=dev), eng._pool)
+        arms = {k: profile_decode.in_rows(eng._block, [256], f) for k, f in arms.items()}
+        eager = arms["eager"](1).clone()
+        captured = arms["captured"](1)
+        torch.cuda.synchronize()
+        res["chunk_bitwise"] = bool(torch.equal(eager, captured)) and all(
+            torch.equal(getattr(caches[0], f.name), getattr(caches[1], f.name))
+            for f in dataclasses.fields(caches[0]))
+        del eager, captured
+        res["chunk"] = profile_decode.abba(arms, order=order, steps=1)
+        res["chunk_exchange_kernels"], res["chunk_nccl"] = exchange(res["chunk"])
+        res["chunk_graph"] = {k: getattr(chunk, k) for k in (
+            "warmup_s", "capture_s", "instantiate_s", "kept_bytes", "reserved_bytes")}
+        chunk.release()
+        del arms, chunk, caches
+        torch.cuda.empty_cache()
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 512).tolist()
+        res["ttft_512"] = profile_decode.first_token_times(
+            {"eager": eager_eng, "captured": eng}, prompt, turns=1, order=order)
+    res["seconds"] = time.perf_counter() - t0
+    emit("mesh_graph", **res)
+    failed = []
+    if not res["step"]["captured"]["host_launch_calls_per_step"] <= MESH_LAUNCH_CALLS:
+        failed.append("host launch calls a captured step")
+    if not res["chunk_bitwise"]:
+        failed.append("chunk_bitwise")
+    if not res["ttft_512"]["tokens_equal"]:
+        failed.append("ttft tokens_equal")
+    if failed:
+        raise AssertionError(f"mesh_graph: {failed}")
+
+
 def ep_phase(device: str = "cuda") -> dict:
     """Phase 12: expert parallelism (module docstring). Returns each
     kernel's launches under EP: {kernel: {serve: count}}."""
@@ -4208,10 +4333,12 @@ def ep_phase(device: str = "cuda") -> dict:
             ep_launches.setdefault(k, {})[serve] = v
 
     # (a) one rank over NCCL: qwen2_moe at full width and depth, mixed-packed
-    # + int8 KV, through Engine(mesh=...) against the one-device Engine
+    # + int8 KV, through Engine(mesh=...), eager and captured, against the
+    # one-device Engine
     dist.init_process_group("nccl" if on_card else "gloo",
                             init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
+    engines = []
     try:
         t0 = time.perf_counter()
         cfg, params, impl = _ep_model(24 if on_card else 2, "mixed-packed", dev)
@@ -4219,30 +4346,60 @@ def ep_phase(device: str = "cuda") -> dict:
         t1 = time.perf_counter()
         ref, eng = _engine_tokens(params, cfg, impl, prompts, True)
         one_device_s = time.perf_counter() - t1
+        eng.close()
         del eng
         mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("expert",))
-        _reset_counts()
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter()
-        got, eng = _engine_tokens(params, cfg, impl, prompts, True, mesh,
-                                  EPConfig(capacity_factor=4.0, return_stats=True))
-        serve_s = time.perf_counter() - t1
-        launches = _counts()
+        ep_cfg = EPConfig(capacity_factor=4.0, return_stats=True)
+        serves = {}
+        for arm in ("eager", "captured"):
+            _reset_counts()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            snap = []
+            base = torch.cuda.memory_allocated() if on_card else 0
+            t1 = time.perf_counter()
+            toks, eng = _engine_tokens(params, cfg, impl, prompts, True, mesh, ep_cfg,
+                                       cuda_graphs=arm == "captured", snap=snap)
+            engines.append(eng)
+            serves[arm] = {"tokens": toks, "serve_s": time.perf_counter() - t1,
+                           "launches": _counts(), "snap": snap,
+                           "dropped_assignments": eng.dropped_assignments(),
+                           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                                    if on_card else None),
+                           "peak_bytes_above_start": (torch.cuda.max_memory_allocated()
+                                                      - base if on_card else None)}
+        eager_eng, eng = engines
+        got, launches = serves["captured"]["tokens"], serves["captured"]["launches"]
         rule = _margin_rule(got, ref, prompts, params, cfg, impl)
+        graphs = {name: {k: getattr(g, k) for k in ("warmup_s", "capture_s",
+                                                     "instantiate_s", "kept_bytes",
+                                                     "reserved_bytes")}
+                  for name, g in (("decode", eng._graph), ("submit", eng._slot_prefill))
+                  if g is not None}
         emit("ep", step="one_rank", model="qwen2_moe", layers=cfg.num_layers,
              quant="mixed-packed", int8_kv=True, transport="nccl (direct)" if on_card
-             else "gloo (direct)", ranks=1, tokens=got, vs_one_device=rule,
-             dropped_assignments=eng.dropped_assignments(), serve_s=serve_s,
-             one_device_serve_s=one_device_s,
-             seconds=time.perf_counter() - t0, launches=launches,
-             max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else None)
+             else "gloo (direct)", ranks=1, graphs="captured", tokens=got,
+             eager_mesh_tokens_bitwise=got == serves["eager"]["tokens"],
+             vs_one_device=rule, one_device_serve_s=one_device_s,
+             **{f"{k}{'' if arm == 'captured' else '_eager'}": v
+                for arm, rec in serves.items() for k, v in rec.items()
+                if k not in ("tokens", "snap", "launches")},
+             eager_launches=serves["eager"]["launches"], launches=launches,
+             graph_setup=graphs, seconds=time.perf_counter() - t0)
         record("one_rank_nccl_qwen2_moe_24l_mixed_packed_int8kv", launches)
         missing = [k for k in EP_ONE_RANK_EXPECT if not launches.get(k)]
         if on_card and missing:
             raise AssertionError(f"ep one rank: kernels never launched: {missing}")
-        del eng, params
+        if got != serves["eager"]["tokens"]:
+            raise AssertionError(f"ep one rank: the captured mesh Engine's tokens {got} "
+                                 f"are not the eager one's {serves['eager']['tokens']}")
+        if on_card:
+            mesh_graph_checks(eng, eager_eng, serves["captured"]["snap"])
+        for e in engines:
+            e.close()
+        engines.clear()
+        del eng, eager_eng, params, serves
         # scale_bench at ep 1 (its ep >= 2 rows need more cards)
         if on_card:
             torch.cuda.empty_cache()
@@ -4257,8 +4414,15 @@ def ep_phase(device: str = "cuda") -> dict:
                  seconds=time.perf_counter() - t0,
                  waits_for_more_cards="the ep >= 2 rows need one card a rank: "
                                       f"this machine has {torch.cuda.device_count()}")
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # NCCL's communicator waits, when destroyed, for every graph that holds
+        # its kernels, and the traceback may keep one alive: end here
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    gc.collect()
+    dist.destroy_process_group()
     if on_card:
         torch.cuda.empty_cache()
         emit("ep", step="nccl_two_ranks_one_card", **nccl_two_ranks_one_card())
@@ -4276,7 +4440,7 @@ def ep_phase(device: str = "cuda") -> dict:
         if ranks[0][name]["tokens"] != ranks[1][name]["tokens"]:
             raise AssertionError(f"ep {name}: the two ranks disagree on the tokens")
         emit("ep", step="two_ranks", serve=name, quant=EP_SERVES[name][0], layers=4,
-             transport=ranks[0]["transport"], ranks=2,
+             transport=ranks[0]["transport"], ranks=2, graphs=HOST_EAGER,
              capacity_factor=ranks[0]["capacity_factor"],
              tokens=ranks[0][name]["tokens"],
              vs_one_device=ranks[0][name]["vs_one_device"],
@@ -4319,6 +4483,7 @@ def ep_phase(device: str = "cuda") -> dict:
         cfg, params, impl = _ep_model(4, "mixed-packed", dev)
         rule = _margin_rule([mesh_toks], [one], [gen_prompt], params, cfg, impl)
     emit("ep", step="generate_mesh", args=gen_args + ["--mesh", "2", "--transport", "host"],
+         graphs=HOST_EAGER,
          tokens=mesh_toks, one_device=one, vs_one_device=rule,
          summary=[l for l in p.stdout.splitlines() if "ranks" in l],
          seconds=time.perf_counter() - t0)

@@ -25,7 +25,11 @@ Every rank issues the same collectives in the same order, a rank with no
 live rows included: it sends its empty buckets. The rows a rank hands a
 ``moe_ffn_ep*`` function must be the JAX ``P(axis)`` row block of the
 tokens; :class:`EPMoEBlock` moves a caller's rows there and back where they
-are laid out otherwise (one slot's prefill on the rank that owns it).
+are laid out otherwise (one slot's prefill on the rank that owns it). The
+block's first exchange (the dispatch buffers, or that row move) is issued
+without waiting, and the shared expert runs on the rank's own rows while
+it is in flight (the JAX block adds the shared expert outside its
+``shard_map``, where XLA's scheduler may overlap the two).
 
 Transports (``EPConfig.transport``), chosen by the caller and never switched:
 ``"direct"`` hands the tensors to the group's backend where they are (NCCL
@@ -137,11 +141,25 @@ class EPComm:
         """``all_to_all_single`` over dim 0: equal blocks of ``t`` [ep, ...]
         by default, else the rows ``in_splits`` to each rank, receiving
         ``out_splits`` rows from each."""
+        out, work = self.all_to_all_async(t, out_splits, in_splits)
+        work.wait()
+        return out
+
+    def all_to_all_async(self, t: torch.Tensor, out_splits=None, in_splits=None):
+        """:meth:`all_to_all` issued without waiting -> (out, work): ``out``
+        holds the rows once ``work.wait()`` returned (on a card: once the
+        current stream waited for the exchange, which runs on the
+        communicator's stream). The host transport exchanges at once (its
+        stage copies are synchronous) and returns a work that is done."""
         src = self._stage(t.contiguous())
         rows = t.shape[0] if out_splits is None else sum(out_splits)
         out = torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device=src.device)
-        dist.all_to_all_single(out, src, out_splits, in_splits, group=self.group)
-        return out.to(t.device)
+        if self.transport == "host":
+            dist.all_to_all_single(out, src, out_splits, in_splits, group=self.group)
+            return out.to(t.device), _DONE
+        work = dist.all_to_all_single(out, src, out_splits, in_splits,
+                                      group=self.group, async_op=True)
+        return out, work
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Equal blocks of every rank concatenated over dim 0."""
@@ -161,6 +179,28 @@ class EPComm:
         buf = self._stage(t.contiguous()).clone()
         dist.all_reduce(buf, group=self.group)
         return buf.to(t.device)
+
+
+class _Done:
+    """The work of an exchange that has ended."""
+
+    @staticmethod
+    def wait() -> bool:
+        return True
+
+
+_DONE = _Done()
+
+
+def _exchange(comm: EPComm, bufs, under=None) -> list:
+    """The dispatch buffers over the all-to-all, every one issued before
+    any is waited for; ``under()`` runs while they are in flight."""
+    issued = [comm.all_to_all_async(b) for b in bufs]
+    if under is not None:
+        under()
+    for _, work in issued:
+        work.wait()
+    return [out for out, _ in issued]
 
 
 def _axis_group(mesh, axis):
@@ -212,7 +252,7 @@ def _bucket_assignments(x_local, router, cfg: MoEConfig, ep: int,
     slot = ranks.gather(1, dest[:, None])[:, 0]
     valid = slot < cap
     slot_safe = torch.where(valid, slot, torch.full_like(slot, cap))
-    token_ids = torch.arange(t_l, device=x_local.device).repeat_interleave(k)
+    token_ids = torch.arange(t_l * k, device=x_local.device) // k   # no host read
     return _Buckets(dest, local_exp, slot_safe, valid, flat_w, token_ids, cap)
 
 
@@ -271,10 +311,12 @@ def _maybe_stats(y, b: _Buckets, ep_cfg: EPConfig):
 
 
 def moe_ffn_ep(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
-               ep_cfg: EPConfig, comm: EPComm):
+               ep_cfg: EPConfig, comm: EPComm, under=None):
     """Routed-expert FFN under expert parallelism, float experts through
     ``ops.gmm`` (``ep_cfg.gmm_backend``: the stock grouped product or K11).
-    ``layer_params``: the replicated router and this rank's expert slices."""
+    ``layer_params``: the replicated router and this rank's expert slices.
+    ``under()`` (every ``moe_ffn_ep*`` takes it) runs while the dispatch
+    exchange is in flight."""
     ep = comm.size
     e_local = _cdiv(cfg.num_experts, ep)
     t_l, h = x_local.shape
@@ -283,8 +325,7 @@ def moe_ffn_ep(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
     send_x = _fill_send(b, x_local[b.token_ids], ep)
     send_le = _send_local_exp(b, ep, e_local)
     # recv_x[s] = the rows rank s routed to this rank's experts
-    recv_x = comm.all_to_all(send_x)
-    recv_le = comm.all_to_all(send_le)
+    recv_x, recv_le = _exchange(comm, (send_x, send_le), under)
 
     srt = _sort_recv(recv_le, e_local)
     rows_sorted = recv_x.reshape(ep * b.cap, h)[srt.order]
@@ -297,7 +338,7 @@ def moe_ffn_ep(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
 
 
 def moe_ffn_ep_quant(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
-                     ep_cfg: EPConfig, comm: EPComm, a_bits: int = 8):
+                     ep_cfg: EPConfig, comm: EPComm, a_bits: int = 8, under=None):
     """Expert parallelism with quantized dispatch and compute: tokens are
     quantized once at the source (K1) and the exchange ships int8 codes +
     per-token scales; receivers run K2. Weights pre-quantized
@@ -311,9 +352,7 @@ def moe_ffn_ep_quant(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
     send_x = _fill_send(b, xq[b.token_ids], ep)
     send_s = _fill_send(b, xscale[b.token_ids, 0], ep)
     send_le = _send_local_exp(b, ep, e_local)
-    recv_x = comm.all_to_all(send_x)
-    recv_s = comm.all_to_all(send_s)
-    recv_le = comm.all_to_all(send_le)
+    recv_x, recv_s, recv_le = _exchange(comm, (send_x, send_s, send_le), under)
 
     srt = _sort_recv(recv_le, e_local)
     rows_s = recv_x.reshape(ep * b.cap, h)[srt.order]
@@ -352,7 +391,7 @@ def _unpack_nibbles_lastdim(p: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn_ep_quant_a4(x_local: torch.Tensor, layer_params: dict,
-                        cfg: MoEConfig, ep_cfg: EPConfig, comm: EPComm):
+                        cfg: MoEConfig, ep_cfg: EPConfig, comm: EPComm, under=None):
     """EP dispatch with 4-bit activations nibble-packed on the wire (half
     the int8 dispatch's bytes); receivers unpack to int8 and run K2."""
     ep = comm.size
@@ -366,9 +405,7 @@ def moe_ffn_ep_quant_a4(x_local: torch.Tensor, layer_params: dict,
     send_x = _fill_send(b, _pack_nibbles_lastdim(xq)[b.token_ids], ep)
     send_s = _fill_send(b, xscale[b.token_ids, 0], ep)
     send_le = _send_local_exp(b, ep, e_local)
-    recv_x = comm.all_to_all(send_x)
-    recv_s = comm.all_to_all(send_s)
-    recv_le = comm.all_to_all(send_le)
+    recv_x, recv_s, recv_le = _exchange(comm, (send_x, send_s, send_le), under)
 
     srt = _sort_recv(recv_le, e_local)
     rows = _unpack_nibbles_lastdim(recv_x.reshape(ep * b.cap, h // 2))
@@ -386,7 +423,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn_ep_mixed(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
-                     ep_cfg: EPConfig, comm: EPComm):
+                     ep_cfg: EPConfig, comm: EPComm, under=None):
     """Expert parallelism for per-expert schemes (the MILP's mixes): each
     (token, k) assignment is quantized at the source to its destination
     expert's act bits (K1 with per-row bits, or the flex quantizer) and
@@ -416,9 +453,7 @@ def moe_ffn_ep_mixed(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
     send_x = _fill_send(b, rq, ep)
     send_s = _fill_send(b, rscale, ep)                        # [*, G] rides
     send_le = _send_local_exp(b, ep, e_local)
-    recv_x = comm.all_to_all(send_x)
-    recv_s = comm.all_to_all(send_s)
-    recv_le = comm.all_to_all(send_le)
+    recv_x, recv_s, recv_le = _exchange(comm, (send_x, send_s, send_le), under)
 
     srt = _sort_recv(recv_le, e_local)
     rows_s = recv_x.reshape(ep * b.cap, h)[srt.order]
@@ -452,7 +487,7 @@ def moe_ffn_ep_mixed(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
 
 
 def moe_ffn_ep_wo(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
-                  ep_cfg: EPConfig, comm: EPComm):
+                  ep_cfg: EPConfig, comm: EPComm, under=None):
     """EP for mixes that hold a16 weight-only experts: float rows ride the
     exchange (twice the int8 wire); each receiver quantizes its rows at the
     owning local expert's act bits and runs K10 (``gmm_mixed_wo_wxa``: a16
@@ -466,8 +501,7 @@ def moe_ffn_ep_wo(x_local: torch.Tensor, layer_params: dict, cfg: MoEConfig,
     b = _bucket_assignments(x_local, lp["router"], cfg, ep, ep_cfg.capacity_factor)
     send_x = _fill_send(b, x_local[b.token_ids], ep)          # float payload
     send_le = _send_local_exp(b, ep, e_local)
-    recv_x = comm.all_to_all(send_x)
-    recv_le = comm.all_to_all(send_le)
+    recv_x, recv_le = _exchange(comm, (send_x, send_le), under)
 
     srt = _sort_recv(recv_le, e_local)
     rows_bf = recv_x.reshape(ep * b.cap, h)[srt.order]
@@ -575,7 +609,8 @@ class EPMoEBlock:
     """EP MoE as a drop-in ``moe_block`` for the cached forward (assign to
     ``MoEImpl.ep_moe``): ``block(x [B, S, H], lp, cfg) -> y``. The routed
     experts go through the all-to-all, the shared expert runs on this rank's
-    own rows (replicated weights).
+    own rows (replicated weights) while the block's first exchange is in
+    flight; its output is added after the routed one (``y + shared``).
 
     Row layout: by default this rank's rows are its JAX row block (every rank
     holds as many: a decode step over equal slot shards, a full-width
@@ -583,7 +618,9 @@ class EPMoEBlock:
     the global rows in rank order, ``counts[r]`` of them on rank r, and the
     block moves them to the equal row blocks and back (one slot's prefill on
     the rank that owns the slot: the others call it with no rows). With
-    ``ep_cfg.return_stats`` the dropped assignments add up in ``dropped``."""
+    ``ep_cfg.return_stats`` the dropped assignments add up in ``dropped``,
+    one int32 [1] buffer on the rows' device for the block's life, added to
+    in place (so a CUDA graph of the block adds to it at every replay)."""
 
     def __init__(self, cfg: MoEConfig, mesh, quantized, ep_cfg: EPConfig):
         self.cfg, self.quantized, self.ep_cfg = cfg, quantized, ep_cfg
@@ -599,13 +636,26 @@ class EPMoEBlock:
         finally:
             self._counts = None
 
-    def _routed(self, x_local, lp):
+    @contextlib.contextmanager
+    def drops_kept(self):
+        """Leave ``dropped`` as it was found (a graph's warm-up run, which
+        routes rows that count for nothing)."""
+        held = None if self.dropped is None else self.dropped.clone()
+        try:
+            yield
+        finally:
+            if held is not None:
+                self.dropped.copy_(held)
+            elif self.dropped is not None:
+                self.dropped.zero_()
+
+    def _routed(self, x_local, lp, under=None):
         args = (x_local, lp, self.cfg, self.ep_cfg, self.comm)
         if self.quantized in ("mixed", "mixed-packed", "mixed-wo"):
-            return (moe_ffn_ep_wo if self.ep_cfg.wo_mix else moe_ffn_ep_mixed)(*args)
-        if self.quantized:
-            return moe_ffn_ep_quant(*args)
-        return moe_ffn_ep(*args)
+            body = moe_ffn_ep_wo if self.ep_cfg.wo_mix else moe_ffn_ep_mixed
+        else:
+            body = moe_ffn_ep_quant if self.quantized else moe_ffn_ep
+        return body(*args, under=under)
 
     def _splits(self):
         """(rows this rank sends to each row block, rows each rank's span
@@ -629,18 +679,29 @@ class EPMoEBlock:
     def __call__(self, x: torch.Tensor, lp: dict, cfg_: MoEConfig) -> torch.Tensor:
         b, s, hdim = x.shape
         x2d = x.reshape(-1, hdim)
+        shared = []
+
+        def under():
+            if cfg_.shared_expert_intermediate_size > 0 and x2d.shape[0] > 0:
+                shared.append(shared_expert_ffn(x2d, lp, cfg_))
+
         if self._counts is None:
-            y = self._routed(x2d, lp)
+            y = self._routed(x2d, lp, under)
         else:
             send, recv = self._splits()
-            y = self._routed(self.comm.all_to_all(x2d, recv, send), lp)
+            moved, work = self.comm.all_to_all_async(x2d, recv, send)
+            under()
+            work.wait()
+            y = self._routed(moved, lp)
         if self.ep_cfg.return_stats:
             y, drops = y
-            self.dropped = drops if self.dropped is None else self.dropped + drops
+            if self.dropped is None:
+                self.dropped = torch.zeros((1,), dtype=torch.int32, device=drops.device)
+            self.dropped.add_(drops)
         if self._counts is not None:
             y = self.comm.all_to_all(y, send, recv)
-        if cfg_.shared_expert_intermediate_size > 0 and x2d.shape[0] > 0:
-            y = y + shared_expert_ffn(x2d, lp, cfg_)
+        if shared:
+            y = y + shared[0]
         return y.reshape(b, s, hdim)
 
 

@@ -7,9 +7,18 @@ Weak scaling: the tokens a rank (or, ``--decode``, the slots a rank) stay
 constant, so perfect scaling multiplies the aggregate tokens/s by the rank
 count. Each count N runs the EP MoE layer (bf16 or, ``--quantized``, the
 int8 dispatch) on N ranks over NCCL, one card each (``cuda:r``), timed with
-CUDA events around whole steps (``bench/timing.py::event_ms``, the exchange
-inside the window). A count above this machine's cards prints a row that says
-so and is not run. One JSON line a row.
+CUDA events around whole steps (the exchange inside the window). The layer
+and the decode step are timed as one CUDA graph replay (the reference's
+jitted layer and step; the graph holds the NCCL exchange), with the eager
+calls beside them. The layer's arms (eager, captured and, at one rank, the
+same layer on one device without the EP block) are each profiled over a
+run of calls (``profile_decode.window``: wall and device ms, busy share,
+kernels and host launch calls a call, the costliest kernels by name; the
+exchange runs on NCCL's stream, so a call's kernels are summed over the
+run, not cut out between marker kernels). The host-staged transport cannot
+be captured: its rows time the eager calls only. A count above this
+machine's cards prints a row that says so and is not run. One JSON line a
+row.
 """
 
 from __future__ import annotations
@@ -40,13 +49,49 @@ def _layer(cfg, gen, device, quantized: bool) -> dict:
     return lp
 
 
+def _captured(fn, device):
+    """``fn()`` recorded into one CUDA graph after one warm-up call, both
+    on the capture stream -> the graph's ``replay``."""
+    from ..serving.graph import capture, capture_stream
+
+    side = capture_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    capture(graph, fn, side)
+    torch.cuda.synchronize(device)
+    torch.cuda.current_stream(device).wait_stream(side)
+    return graph.replay
+
+
+TOP_KERNELS = 8    # kernel names a profiled arm lists
+
+
+def _profiled(fn, calls: int = 10, warmup: int = 3) -> dict:
+    """``fn()`` ``warmup`` times, then ``calls`` times timed and profiled
+    (``profile_decode.window``) -> wall and device ms, busy share, kernels
+    and host launch calls a call, and the costliest kernels' device ms and
+    launches a call."""
+    from ..serving.profile_decode import window
+
+    for _ in range(warmup):
+        fn()
+    w = window(lambda n: [fn() for _ in range(n)], calls)
+    by_name = sorted(w.pop("by_name").items(), key=lambda kv: -kv[1][0])
+    w["top_kernels"] = {k: v for k, v in by_name[:TOP_KERNELS]}
+    return w
+
+
 def bench_ep_scaling(cfg, mesh, tokens_per_device: int = 2048,
                      quantized: bool = False, capacity_factor: float = 2.0,
                      device="cuda", transport: str = "direct") -> dict:
     """One row: the EP MoE layer over ``mesh``'s "expert" ranks, this
     rank's ``tokens_per_device`` rows, every rank drawing the same seeded
-    weights and keeping its experts. A collective call: every rank runs it."""
-    from ..bench.timing import event_ms
+    weights and keeping its experts, eager and captured (``_profiled``;
+    ``ms_per_step`` / ``tokens_per_s`` from the captured wall ms on the
+    direct transport). A collective call: every rank runs it."""
     from .ep import EPConfig, ep_comm, make_ep_moe_fn, make_ep_moe_quant_fn
     from .mesh import P, axis_index, axis_size, local_slice
 
@@ -69,12 +114,20 @@ def bench_ep_scaling(cfg, mesh, tokens_per_device: int = 2048,
         args = (lp["router"], lp["expert_gate_up"], lp["expert_down"])
     _, drops = fn(x, *args)                   # untimed: the drop count
     dropped = int(ep_comm(mesh, ecfg).all_reduce_sum(drops)[0])
-    ms = event_ms(lambda: fn(x, *args), reps=10, warmup=3)
+
+    def eager():
+        return fn(x, *args)
+
     t = tokens_per_device * nd
-    row = {"devices": nd, "tokens": t, "ms_per_step": ms,
-           "tokens_per_s": t / (ms * 1e-3), "dropped_assignments": dropped,
+    row = {"devices": nd, "tokens": t, "dropped_assignments": dropped,
            "drop_rate": dropped / (t * cfg.top_k), "quantized": quantized,
-           "transport": transport}
+           "transport": transport, "eager": _profiled(eager)}
+    if transport == "direct":
+        row["captured"] = _profiled(_captured(eager, device))
+    else:
+        row["captured"] = "the host-staged exchange cannot be captured"
+    ms = row["captured" if transport == "direct" else "eager"]["wall_ms"]
+    row.update(ms_per_step=ms, tokens_per_s=t / (ms * 1e-3))
     if nd == 1:
         # the same layer on one device without the EP block: what the
         # exchange, the buckets and the float32 combine cost at one rank
@@ -83,11 +136,13 @@ def bench_ep_scaling(cfg, mesh, tokens_per_device: int = 2048,
 
         if quantized:
             impl = MoEImpl(quant=parse_scheme("w8a8_g-1_sym"))
-            row["one_device_ms"] = event_ms(
-                lambda: moe_ffn_ragged_quant(x, lp, cfg, impl), reps=10, warmup=3)
+
+            def one():
+                return moe_ffn_ragged_quant(x, lp, cfg, impl)
         else:
-            row["one_device_ms"] = event_ms(
-                lambda: moe_ffn_ragged(x, lp, cfg, MoEImpl()), reps=10, warmup=3)
+            def one():
+                return moe_ffn_ragged(x, lp, cfg, MoEImpl())
+        row["one_device"] = _profiled(one)
     return row
 
 
@@ -97,10 +152,13 @@ def bench_decode_scaling(cfg, mesh, slots_per_device: int = 8, max_len: int = 25
     """One row of weak-scaling decode tokens/s: the cached serving step
     (attention, KV write, the EP MoE all-to-all) over ``mesh``'s ranks,
     ``slots_per_device`` slots a rank, ``steps`` greedy steps timed with CUDA
-    events. A collective call."""
+    events: replays of the captured step (``graph.DecodeGraph``, the
+    reference's jitted step; not on the host-staged transport) and the eager
+    loop. A collective call."""
     from ..models.layers import MoEImpl
     from ..models.model import init_params
     from ..serving.decode import forward_cached
+    from ..serving.graph import DecodeGraph
     from ..serving.kv_cache import init_kv_cache
     from .ep import EPConfig, make_ep_moe_block
     from .mesh import axis_size, shard_params
@@ -123,25 +181,42 @@ def bench_decode_scaling(cfg, mesh, slots_per_device: int = 8, max_len: int = 25
     cache = init_kv_cache(cfg, slots_per_device, max_len, torch.bfloat16, device)
     toks = torch.zeros((slots_per_device, 1), dtype=torch.int32, device=device)
 
-    def run(toks, cache):
+    def eager():
+        c, t = cache, toks
         for _ in range(steps):
-            logits, cache = forward_cached(params, toks, cache, cfg, impl)
-            toks = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        return toks, cache
+            logits, c = forward_cached(params, t, c, cfg, impl)
+            t = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
+    arms = {"eager": eager}
+    if transport == "direct":
+        step = DecodeGraph(params, cfg, impl, cache)
+        step.load(toks, torch.ones((slots_per_device,), dtype=torch.int32,
+                                   device=device))
+        arms["captured"] = lambda: step.run(steps)
+    seconds = {}
     with torch.inference_mode():
-        toks, cache = run(toks, cache)                    # warm
-        cache.lengths.zero_()
-        torch.cuda.synchronize(device)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        run(toks, cache)
-        b.record()
-        b.synchronize()
-    dt = a.elapsed_time(b) * 1e-3
+        for name, run in arms.items():
+            run()                                          # warm (the capture)
+            cache.lengths.zero_()
+            torch.cuda.synchronize(device)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            seconds[name] = a.elapsed_time(b) * 1e-3
+            cache.lengths.zero_()
     slots = slots_per_device * nd
-    return {"devices": nd, "slots": slots, "decode_steps": steps,
-            "tokens_per_s_decode": slots * steps / dt, "transport": transport}
+    row = {"devices": nd, "slots": slots, "decode_steps": steps,
+           "eager_tokens_per_s_decode": slots * steps / seconds["eager"],
+           "transport": transport}
+    if "captured" in seconds:
+        row["tokens_per_s_decode"] = slots * steps / seconds["captured"]
+    else:
+        row.update(tokens_per_s_decode=row["eager_tokens_per_s_decode"],
+                   captured="the host-staged exchange cannot be captured")
+    return row
 
 
 def _rank_main(rank: int, args, cfg, nd: int, out: str) -> None:

@@ -208,7 +208,8 @@ def setup(args) -> Bench:
     replay of the captured step (``graph.DecodeGraph``; its ``graph``
     attribute). With ``captured=False`` each step is an eager
     ``forward_cached`` call instead, the twin that ``profile_decode`` times
-    beside it."""
+    beside it; ``model=(params, impl)`` decodes another form of the model
+    (``profile_decode --mesh 1``: the mesh Engine's)."""
     import torch
 
     from ..models import configs
@@ -242,10 +243,11 @@ def setup(args) -> Bench:
         cache0.lengths.zero_()
         return chunk.run(), cache0
 
-    def decoder(logits, cache, captured: bool = True):
+    def decoder(logits, cache, captured: bool = True, model=None):
+        p, m = model or (params, impl)
         toks = logits[:, -1:].argmax(-1).to(torch.int32)
         if captured:
-            graph = DecodeGraph(params, cfg, impl, cache, pool=pool)
+            graph = DecodeGraph(p, cfg, m, cache, pool=pool)
             graph.load(toks, torch.ones((args.slots,), dtype=torch.int32,
                                         device=device))
 
@@ -258,8 +260,8 @@ def setup(args) -> Bench:
 
         def decode_steps(n):
             for _ in range(n):
-                lg, state["cache"] = forward_cached(params, state["toks"],
-                                                    state["cache"], cfg, impl)
+                lg, state["cache"] = forward_cached(p, state["toks"],
+                                                    state["cache"], cfg, m)
                 state["toks"] = lg[:, -1:].argmax(-1).to(torch.int32)
 
         return decode_steps

@@ -43,11 +43,23 @@ keeps the same host bookkeeping (requests, ``_host_len``, each slot's next
 token gathered to all), so every decision is taken alike everywhere. A
 slot's prefill runs on the rank that owns it; the other ranks take part in
 its MoE blocks' collectives (``decode.forward_cached_follow``), the chunk's
-rows spread over the ranks as the JAX package's row blocks are. The mesh
-Engine prefills and decodes eagerly (``forward_cached`` a chunk or a step):
-its forwards hold the EP block's collectives, which a graph does not
-capture here (two ranks on one card exchange over the host-staged gloo
-transport, a host round trip inside every MoE block).
+rows spread over the ranks as the JAX package's row blocks are.
+
+On the direct transport (NCCL on cards, gloo on the CPU) the mesh Engine
+replays graphs as the one-device Engine does, and each graph holds its MoE
+blocks' collectives: the decode step one ``DecodeGraph`` over the rank's
+slot shard (the sampled tokens gathered once a chunk, outside the graph),
+``submit_batch`` one ``PrefillGraph`` over the rank's cache, and ``submit``
+on the owning rank its staging ``PrefillGraph`` inside ``EPMoEBlock.rows``
+while every other rank replays a ``graph.FollowGraph`` keyed by the owner
+(at most ep - 1 a rank, made at first use). All of a rank's graphs share
+the Engine's one pool. The host bookkeeping is the same on every rank, so
+every rank makes, warms up, captures and replays its graphs in the same
+order. The host-staged transport (``EPConfig(transport="host")``: two ranks
+on one card, which NCCL refuses) makes a host round trip inside every MoE
+block, which no graph can hold: it serves with ``cuda_graphs=False`` only.
+NCCL waits, when the process group is destroyed, for every graph that holds
+its kernels: ``close()`` frees the Engine's graphs first.
 """
 
 from __future__ import annotations
@@ -61,7 +73,7 @@ import torch
 from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl
 from .decode import decode_scan, forward_cached, forward_cached_follow, sample_tokens
-from .graph import DecodeGraph, PrefillGraph
+from .graph import DecodeGraph, FollowGraph, PrefillGraph
 from .kv_cache import init_kv_cache, init_quant_kv_cache
 
 
@@ -86,9 +98,10 @@ class EngineConfig:
     int8_kv: bool = False        # int8 KV cache (QuantKVCache): half the
                                  # cache memory and read bandwidth
     seed: int = 0                # sampling generator seed
-    cuda_graphs: bool = True     # one device: replay CUDA graphs of the
-                                 # prefill chunks and decode steps (False:
-                                 # eager, the twin they are held against)
+    cuda_graphs: bool = True     # replay CUDA graphs of the prefill chunks
+                                 # and decode steps (False: eager, the twin
+                                 # they are held against; the host-staged
+                                 # EP transport takes only False)
 
 
 @dataclasses.dataclass
@@ -191,11 +204,19 @@ class Engine:
     comes from ``gate_freq`` (a gate trace's per-expert access frequencies,
     margin 1.5), else 4.0, at least 2.0, and the transport is "direct".
     Assignments past capacity are dropped, and decode then parts from one
-    device's."""
+    device's. ``ecfg.cuda_graphs`` over the host-staged transport raises
+    (module docstring)."""
 
     def __init__(self, params: dict, cfg: MoEConfig,
                  ecfg: EngineConfig = EngineConfig(), impl: MoEImpl = MoEImpl(),
                  mesh=None, ep_cfg=None, gate_freq=None):
+        if (mesh is not None and ep_cfg is not None and ep_cfg.transport == "host"
+                and ecfg.cuda_graphs):
+            raise ValueError(
+                "Engine(mesh, EPConfig(transport='host')) with cuda_graphs=True: "
+                "the host-staged exchange copies every MoE block's rows through "
+                "host memory, which a CUDA graph cannot hold; pass "
+                "EngineConfig(cuda_graphs=False) to serve it eagerly")
         self._block = None
         self.ep_cfg = None
         if mesh is not None:
@@ -214,14 +235,16 @@ class Engine:
         self.cache = self._new_cache(self._n_local)
         self.slots = [_Slot() for _ in range(ecfg.batch_slots)]
         self.gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
-        # the captured decode step and prefill chunks (one device), their
-        # shared memory pool and submit's batch-1 staging cache
-        self._graphs = mesh is None and ecfg.cuda_graphs
+        # the captured decode step and prefill chunks, their shared memory
+        # pool, submit's batch-1 staging graph and the follower graphs
+        # (owner -> FollowGraph) of a mesh
+        self._graphs = ecfg.cuda_graphs
         self._pool = (torch.cuda.graph_pool_handle()
                       if self._graphs and self.device.type == "cuda" else None)
         self._graph = None
         self._slot_prefill = None
         self._batch_prefill = None
+        self._follow: dict[int, FollowGraph] = {}
         self._next_req = 0
         self._last_tokens = np.zeros((ecfg.batch_slots,), np.int32)
         self._results: dict[int, list[int]] = {}
@@ -291,8 +314,8 @@ class Engine:
         counts = [p if r == owner else 0 for r in range(self._ep)]
 
         # batch-1 view of this slot (K/V views write through to the cache),
-        # or on one device the staging graph's cache (module docstring)
-        g = self._slot_graph() if self._graphs else None
+        # or the staging graph's cache (module docstring)
+        g = self._slot_graph(counts) if self._graphs and mine else None
         if mine:
             self.cache.lengths[local] = 0
             if g is not None:
@@ -304,20 +327,23 @@ class Engine:
             chunk = np.zeros((1, p), np.int32)
             chunk[0, : len(piece)] = piece
             valid = self._dev(np.asarray([len(piece)], np.int32))
-            with (contextlib.nullcontext() if self._mesh is None
-                  else self._block.rows(counts)):
-                if not mine:
-                    forward_cached_follow(self.params, self.cfg, self.impl)
-                elif g is not None:
-                    g.load(self._dev(chunk), valid)
-                    last = g.run()[0, len(piece) - 1]
-                else:
-                    logits, c1 = forward_cached(
-                        self.params, self._dev(chunk),
-                        _slice_slot_cache(self.cache, local), self.cfg, self.impl,
-                        valid_lengths=valid)
-                    self.cache.lengths[local] = c1.lengths[0]
-                    last = logits[0, len(piece) - 1]
+            if not mine and self._graphs:
+                self._follow_graph(owner, counts).run()
+            elif g is not None:
+                g.load(self._dev(chunk), valid)
+                last = g.run()[0, len(piece) - 1]
+            else:
+                with (contextlib.nullcontext() if self._mesh is None
+                      else self._block.rows(counts)):
+                    if not mine:
+                        forward_cached_follow(self.params, self.cfg, self.impl)
+                    else:
+                        logits, c1 = forward_cached(
+                            self.params, self._dev(chunk),
+                            _slice_slot_cache(self.cache, local), self.cfg,
+                            self.impl, valid_lengths=valid)
+                        self.cache.lengths[local] = c1.lengths[0]
+                        last = logits[0, len(piece) - 1]
             self._host_len[slot] = min(self._host_len[slot] + len(piece),
                                        self.ecfg.max_len)
         if g is not None:
@@ -337,14 +363,24 @@ class Engine:
         self._last_tokens[slot] = first_tok
         return rid
 
-    def _slot_graph(self) -> PrefillGraph:
+    def _slot_graph(self, counts) -> PrefillGraph:
         """``submit``'s chunk graph over a batch-1 staging cache (made at the
-        first call)."""
+        first call), on a mesh under the ranks' row counts ``counts`` of a
+        chunk of this rank's (the same at every call)."""
         if self._slot_prefill is None:
-            self._slot_prefill = PrefillGraph(self.params, self.cfg, self.impl,
-                                              self._new_cache(1),
-                                              self.ecfg.prefill_chunk, self._pool)
+            self._slot_prefill = PrefillGraph(
+                self.params, self.cfg, self.impl, self._new_cache(1),
+                self.ecfg.prefill_chunk, self._pool,
+                rows=None if self._mesh is None else counts)
         return self._slot_prefill
+
+    def _follow_graph(self, owner: int, counts) -> FollowGraph:
+        """This rank's part of ``submit``'s chunk on the slots of rank
+        ``owner`` (made at the first call for that owner)."""
+        if owner not in self._follow:
+            self._follow[owner] = FollowGraph(self.params, self.cfg, self.impl,
+                                              counts, self._pool)
+        return self._follow[owner]
 
     def submit_batch(self, prompts: list[list[int]],
                      max_new_tokens: int = 32) -> list[int]:
@@ -402,6 +438,17 @@ class Engine:
             self._last_tokens[slot] = int(first[slot])
             rids.append(rid)
         return rids
+
+    def close(self) -> None:
+        """Free the Engine's graphs (before the process group is destroyed,
+        which waits for every graph that holds NCCL kernels); a later call
+        captures anew."""
+        for g in (self._graph, self._slot_prefill, self._batch_prefill,
+                  *self._follow.values()):
+            if g is not None:
+                g.release()
+        self._graph = self._slot_prefill = self._batch_prefill = None
+        self._follow.clear()
 
     def _finish(self, st: _Slot) -> None:
         self._results[st.request_id] = st.generated

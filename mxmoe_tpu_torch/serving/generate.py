@@ -25,9 +25,12 @@ environment, else the command spawns N processes on this host. Rank r uses
 ``cuda:r`` over NCCL (``--transport direct``, the default), the CPU over gloo
 with ``--device cpu``, or ``cuda:(r mod #cards)`` with every exchange staged
 through host buffers over gloo (``--transport host``: two ranks on one card,
-which NCCL refuses). Every rank draws the same seeded weights and keeps its
-slices; rank 0 prints. ``--capacity-factor`` sets the EP capacity headroom,
-``--gate-trace`` derives it from a gate trace (the worst layer's
+which NCCL refuses). On the direct transport the mesh Engine replays CUDA
+graphs of its steps and chunks (their NCCL exchanges inside), as on one
+device; the host-staged one serves eagerly (``cuda_graphs=False``: no graph
+holds its host copies). Every rank draws the same seeded weights and keeps
+its slices; rank 0 prints. ``--capacity-factor`` sets the EP capacity
+headroom, ``--gate-trace`` derives it from a gate trace (the worst layer's
 ``capacity_factor_from_freq``, at least 2).
 """
 
@@ -226,7 +229,8 @@ def _serve(args):
     eng = Engine(params, cfg, EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
         prefill_chunk=min(256, args.max_len // 2),
-        temperature=args.temperature, seed=args.seed), impl,
+        temperature=args.temperature, seed=args.seed,
+        cuda_graphs=not (args.mesh and args.transport == "host")), impl,
         mesh=mesh, ep_cfg=ep_cfg)
     prompt = [int(t) % cfg.vocab_size for t in args.prompt.split()]
 
@@ -250,6 +254,7 @@ def _serve(args):
         print(f"{where}: prefill {t_prefill * 1e3:.1f} ms; decode {len(out)} tok in "
               f"{t_decode * 1e3:.1f} ms = {len(out) / max(t_decode, 1e-9):.1f} tok/s",
               flush=True)
+    eng.close()
     if own_group:
         import torch.distributed as dist
 

@@ -17,19 +17,34 @@ inside the graph:
   against one graph of a 16-step chunk and kept (PERF.md §5).
 - ``PrefillGraph``: a chunk's tokens [B, P] and valid lengths [B]; a replay
   runs the chunk and leaves its logits [B, P, V] in ``logits``. A ragged
-  last chunk replays the same graph: its length is data.
+  last chunk replays the same graph: its length is data. Under expert
+  parallelism, ``rows`` (the ranks' row counts) runs the chunk inside
+  ``EPMoEBlock.rows``: one slot's chunk on the rank that owns it.
 - ``TeacherForcedGraph``: ``eval_ppl_decode``'s step, the token and its
   target [b, 2] fed by one device copy a replay; a replay adds the target's
   negative log-probability to the on-device ``nll``.
+- ``FollowGraph``: under expert parallelism, a rank's part of one slot's
+  prefill chunk that another rank owns (``decode.forward_cached_follow``:
+  every MoE layer's collectives with no rows of its own), inside
+  ``EPMoEBlock.rows``, the ranks' row counts fixed at capture.
+
+A graph whose ``MoEImpl.ep_moe`` is the expert-parallel block holds the
+block's collectives (NCCL kernels on the communicator's stream, joined to
+the capture stream by the block's waits). Every rank must then warm up,
+capture and replay its graphs in the same order as the others, as it runs
+the eager collectives: the mesh Engine makes the same calls on every rank.
+NCCL's communicator waits, when the process group is destroyed, for every
+graph that holds its kernels: ``release()`` frees a graph first.
 
 Masks and lengths are data, not shape: arrivals and departures never
 recapture.
 
 On a card the first ``run`` warms the body up on a side stream with every
 slot inactive (no cache write lands, the lengths stay, the state the body
-advances is restored after it: the warm-up changes no state), so that the
-kernel library is loaded, the shared tickets are grown and cuBLAS has its
-workspace before the capture; then it captures the body and replays it.
+advances is restored after it, the EP block's drop counter included: the
+warm-up changes no state), so that the kernel library is loaded, the shared
+tickets are grown, cuBLAS has its workspace and NCCL its communicator
+before the capture; then it captures the body and replays it.
 A failed capture or replay raises; there is no eager path beside it. On the
 CPU (the caller's choice of device) the same body runs eagerly, as it does
 on a card for a graph made with ``eager=True`` (the twin a replay is held
@@ -44,12 +59,16 @@ before its decode steps).
 
 Launches are counted per replay: the capture's counts are taken out of
 ``kernels.launches`` (``kernels.recording_launches``) and added back at
-every replay. A sampled step (``temperature > 0``) draws from ``gen``,
-registered with the graph, so replays advance it as eager steps would.
+every replay. ``kept_bytes`` / ``reserved_bytes``: the device memory a
+capture left allocated (its live outputs) and the growth of the memory the
+allocator reserved over it (a graph's share of a shared pool). A sampled
+step (``temperature > 0``) draws from ``gen``, registered with the graph,
+so replays advance it as eager steps would.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -58,7 +77,7 @@ import torch
 from ..models.configs import MoEConfig
 from ..models.layers import MoEImpl
 from ..ops import kernels
-from .decode import forward_cached, sample_tokens
+from .decode import forward_cached, forward_cached_follow, sample_tokens
 
 
 _capture_streams: dict = {}
@@ -105,6 +124,7 @@ class _Graphed:
         self.graph = None
         self.counts: dict = {}
         self.warmup_s = self.capture_s = self.instantiate_s = None
+        self.kept_bytes = self.reserved_bytes = None
 
     @property
     def device(self) -> torch.device:
@@ -115,6 +135,10 @@ class _Graphed:
 
     def _quiet(self):
         raise NotImplementedError
+
+    def release(self) -> None:
+        """Free the captured graph (the next ``run`` captures anew)."""
+        self.graph = None
 
     def _generator(self) -> torch.Generator | None:
         """The generator the body draws from, registered with the graph."""
@@ -131,14 +155,27 @@ class _Graphed:
         self.graph.replay()
         kernels.add_launches(self.counts)
 
+    def _warmup(self):
+        """Run the body once with nothing landing (``_quiet``), the EP
+        block's drop counter held -> the function that restores what the
+        run changed (call it once the run has ended)."""
+        restore = contextlib.ExitStack()
+        drops_kept = getattr(self.impl.ep_moe, "drops_kept", None)
+        if drops_kept is not None:
+            restore.enter_context(drops_kept())
+        restore.callback(self._quiet())
+        self._body()
+        return restore.close
+
     def _capture(self) -> None:
         dev = self.device
         side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        allocated, reserved = (torch.cuda.memory_allocated(dev),
+                               torch.cuda.memory_reserved(dev))
         t0 = time.perf_counter()
         with torch.cuda.stream(side):       # after what the caller enqueued
-            restore = self._quiet()
-            self._body()
+            restore = self._warmup()
         torch.cuda.synchronize(dev)
         restore()
         t1 = time.perf_counter()
@@ -152,6 +189,8 @@ class _Graphed:
         torch.cuda.synchronize(dev)
         self.warmup_s, self.capture_s = t1 - t0, t2 - t1
         self.instantiate_s = time.perf_counter() - t2
+        self.kept_bytes = torch.cuda.memory_allocated(dev) - allocated
+        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = graph
 
@@ -222,11 +261,14 @@ class PrefillGraph(_Graphed):
     lengths [B] (slots with 0 write nothing), ``run()`` replays it (or, on
     the CPU, runs its body) and returns the chunk's logits [B, P, V], the
     graph's static output (``logits``), valid until the next replay of a
-    graph of its pool. The cache's ``lengths`` advance inside the graph."""
+    graph of its pool. The cache's ``lengths`` advance inside the graph.
+    ``rows``: the ranks' row counts the chunk runs under (module
+    docstring)."""
 
     def __init__(self, params: dict, cfg: MoEConfig, impl: MoEImpl, cache,
-                 chunk: int, pool=None):
+                 chunk: int, pool=None, rows=None):
         super().__init__(params, cfg, impl, cache, pool)
+        self.rows = None if rows is None else list(rows)
         b, dev = cache.lengths.shape[0], cache.lengths.device
         self.tokens = torch.zeros((b, chunk), dtype=torch.int32, device=dev)
         self.valid = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -239,7 +281,9 @@ class PrefillGraph(_Graphed):
         self.valid.copy_(valid)
 
     def _body(self) -> None:
-        with torch.no_grad():
+        rows = (contextlib.nullcontext() if self.rows is None
+                else self.impl.ep_moe.rows(self.rows))
+        with torch.no_grad(), rows:
             logits, cache = forward_cached(self.params, self.tokens, self.cache,
                                            self.cfg, self.impl,
                                            valid_lengths=self.valid)
@@ -303,6 +347,33 @@ class TeacherForcedGraph(_Graphed):
             self.valid.fill_(1)
             self.nll.copy_(nll)
         return restore
+
+    def run(self) -> None:
+        self._replay()
+
+
+class FollowGraph(_Graphed):
+    """This rank's part of a prefill chunk that another rank owns under
+    expert parallelism (module docstring): every MoE layer's EP block with
+    no rows of its own, under ``impl.ep_moe.rows(rows)``, the ranks' row
+    counts fixed at capture. ``run()`` replays it (or, on the CPU, runs its
+    body); it has no output."""
+
+    def __init__(self, params: dict, cfg: MoEConfig, impl: MoEImpl, rows,
+                 pool=None):
+        super().__init__(params, cfg, impl, None, pool)
+        self.rows = list(rows)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def _body(self) -> None:
+        with torch.no_grad(), self.impl.ep_moe.rows(self.rows):
+            forward_cached_follow(self.params, self.cfg, self.impl)
+
+    def _quiet(self):
+        return lambda: None             # nothing lands: no rows, no cache
 
     def run(self) -> None:
         self._replay()

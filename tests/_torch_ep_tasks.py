@@ -6,6 +6,7 @@ returns numpy results. Imports torch and the port only."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -192,10 +193,14 @@ def _impl(impl_kw: dict):
 
 
 def engine(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, prompts, max_new,
-           cap, batch=False, gate_freq=None):
+           cap, batch=False, gate_freq=None, chunk=0, stats=False, rounds=1):
     """The mesh Engine over ranks [0, ep) serving ``prompts`` (submit one by
-    one, or submit_batch) -> (greedy tokens, capacity factor, local cache
-    slots, local expert count)."""
+    one, or submit_batch; ``rounds`` times, each after the last drained;
+    decode in ``chunk``-step chunks when > 1) -> (greedy tokens of the first
+    round, capacity factor, local cache slots, local expert count, {"rounds":
+    every round's tokens, "dropped": dropped_assignments() (``stats``: the
+    EP blocks count them), "follow": the owners of the rank's follower
+    graphs, "graphs": the graphs made})."""
     from mxmoe_tpu_torch.params_from_jax import params_from_jax
     from mxmoe_tpu_torch.parallel.ep import EPConfig
     from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
@@ -204,17 +209,194 @@ def engine(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, prompts, max_new,
     if rank >= ep:
         return None
     cfg = model_config(spec)
-    ep_cfg = None if cap is None else EPConfig(capacity_factor=cap)
+    ep_cfg = None if cap is None else EPConfig(capacity_factor=cap, return_stats=stats)
     eng = Engine(params_from_jax(params_np, "cpu"), cfg, EngineConfig(**ecfg_kw),
                  _impl(impl_kw), mesh=mesh, ep_cfg=ep_cfg, gate_freq=gate_freq)
+    toks = []
     with torch.inference_mode():
-        if batch:
-            rids = eng.submit_batch(prompts, max_new_tokens=max_new)
-        else:
-            rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
-        eng.run_to_completion()
+        for _ in range(rounds):
+            if batch:
+                rids = eng.submit_batch(prompts, max_new_tokens=max_new)
+            else:
+                rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+            eng.run_to_completion(chunk=chunk)
+            toks.append([eng.result(r) for r in rids])
     lp = eng.params["layers"]
     experts = next(v.shape[1] for k, v in lp.items()
                    if k.startswith("expert_") and not k.endswith("_qcat"))
-    return ([eng.result(r) for r in rids], eng.ep_cfg.capacity_factor,
-            eng.cache.lengths.shape[0], experts)
+    graphs = [name for name in ("_graph", "_slot_prefill", "_batch_prefill")
+              if getattr(eng, name) is not None]
+    return (toks[0], eng.ep_cfg.capacity_factor, eng.cache.lengths.shape[0], experts,
+            {"rounds": toks, "dropped": eng.dropped_assignments(),
+             "follow": sorted(eng._follow), "graphs": graphs})
+
+
+def engine_modes(rank, world, *args):
+    """``engine(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, ...)``
+    with ``cuda_graphs`` True (the graph objects; their bodies run eagerly
+    on the CPU) and False -> {True: ..., False: ...}."""
+    ep, spec, params_np, impl_kw, ecfg_kw, *rest = args
+    return {mode: engine(rank, world, ep, spec, params_np, impl_kw,
+                         {**ecfg_kw, "cuda_graphs": mode}, *rest)
+            for mode in (True, False)}
+
+
+def warmup_drops(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, prompts, cap):
+    """A graph's warm-up and its restore (``_Graphed._warmup``) on the mesh
+    Engine's graphs after it served ``prompts`` (submit_batch, then one
+    submit, then decode): for each graph the drop buffer before, after the
+    warm-up's body, and after the restore; and whether the cache, the static
+    inputs and the lengths came back as they were."""
+    import dataclasses
+
+    from mxmoe_tpu_torch.params_from_jax import params_from_jax
+    from mxmoe_tpu_torch.parallel.ep import EPConfig
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+    from mxmoe_tpu_torch.serving.kv_cache import clone_cache
+
+    mesh = expert_mesh(ep)
+    if rank >= ep:
+        return None
+    eng = Engine(params_from_jax(params_np, "cpu"), model_config(spec),
+                 EngineConfig(**ecfg_kw), _impl(impl_kw), mesh=mesh,
+                 ep_cfg=EPConfig(capacity_factor=cap, return_stats=True))
+    with torch.inference_mode():
+        eng.submit_batch(prompts[:ep - 1], max_new_tokens=4)
+        eng.submit(prompts[-1], max_new_tokens=4)          # into the last rank's slot
+        eng.step()
+        graphs = {"decode": eng._graph, "batch": eng._batch_prefill,
+                  "owner" if rank == ep - 1 else "follow":
+                  eng._slot_prefill if rank == ep - 1 else eng._follow[ep - 1]}
+        out = {}
+        for name, g in graphs.items():
+            caches = [c for c in (eng.cache, getattr(g, "cache", None)) if c is not None]
+            before_caches = [clone_cache(c) for c in caches]
+            inputs = {k: getattr(g, k).clone() for k in ("tokens", "valid")
+                      if hasattr(g, k)}
+            before = int(eng._block.dropped[0])
+            restore = g._warmup()
+            grown = int(eng._block.dropped[0])
+            restore()
+            out[name] = {
+                "drops": (before, grown, int(eng._block.dropped[0])),
+                "state_kept": all(
+                    torch.equal(getattr(c, f.name), getattr(b, f.name))
+                    for c, b in zip(caches, before_caches)
+                    for f in dataclasses.fields(c))
+                and all(torch.equal(getattr(g, k), v) for k, v in inputs.items())}
+    return out
+
+
+def shared_under_exchange(rank, world, ep, spec, lp_np, x_np, cap, counts, layout):
+    """The uniform EP block (its shared expert run while its first exchange
+    is in flight) against the block written out synchronously (every
+    exchange waited for, then the shared expert added), over ``x_np``'s
+    rows laid out as the JAX row blocks (``layout`` "blocks") or as
+    ``counts`` a rank under ``rows(counts)`` -> (bitwise equal, the block's
+    exchanges issued ("issue"), waited for ("wait") and its shared expert
+    ("shared") in order, the rank's rows)."""
+    from mxmoe_tpu_torch.models.layers import shared_expert_ffn
+    from mxmoe_tpu_torch.params_from_jax import params_from_jax
+    from mxmoe_tpu_torch.parallel import ep as tep
+
+    mesh = expert_mesh(ep)
+    if rank >= ep:
+        return None
+    cfg = model_config(spec)
+    lp = _local_layer(params_from_jax(lp_np, "cpu"), cfg, mesh, ep)
+    block = tep.make_ep_moe_block(cfg, mesh, True, tep.EPConfig(capacity_factor=cap))
+    comm = block.comm
+    events = []
+    issue, ffn = comm.all_to_all_async, tep.shared_expert_ffn
+
+    class Logged:
+        def __init__(self, work):
+            self.work = work
+
+        def wait(self):
+            events.append("wait")
+            return self.work.wait()
+
+    def issue_logged(*a, **kw):
+        events.append("issue")
+        out, work = issue(*a, **kw)
+        return out, Logged(work)
+
+    def ffn_logged(*a, **kw):
+        events.append("shared")
+        return ffn(*a, **kw)
+
+    x = torch.from_numpy(x_np)
+    if layout == "blocks":
+        t = x.shape[0] // ep
+        mine = x[rank * t:(rank + 1) * t]
+        rows = contextlib.nullcontext()
+    else:
+        start = sum(counts[:rank])
+        mine = x[start:start + counts[rank]]
+        rows = block.rows(counts)
+    with torch.inference_mode():
+        comm.all_to_all_async, tep.shared_expert_ffn = issue_logged, ffn_logged
+        try:
+            with rows:
+                y = block(mine[None], lp, cfg)[0]
+        finally:
+            comm.all_to_all_async, tep.shared_expert_ffn = issue, ffn
+        # the synchronous block
+        if layout == "blocks":
+            ref = tep.moe_ffn_ep_quant(mine, lp, cfg, block.ep_cfg, comm)
+        else:
+            with block.rows(counts):
+                send, recv = block._splits()
+            moved = comm.all_to_all(mine, recv, send)
+            ref = comm.all_to_all(tep.moe_ffn_ep_quant(moved, lp, cfg, block.ep_cfg,
+                                                       comm), send, recv)
+        if mine.shape[0]:
+            ref = ref + shared_expert_ffn(mine, lp, cfg)
+    return bool(torch.equal(y, ref)), events, int(mine.shape[0])
+
+
+def guarded_graph_bodies(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, prompts):
+    """The mesh Engine with its graphs' bodies run under
+    ``_torch_host_guard.HostReadGuard`` (the kernels' plain versions
+    exempt): submit_batch, a submit into each rank's slot (owner and
+    follower graphs) and two decode steps -> the graphs' names whose body ran
+    guarded."""
+    from _torch_host_guard import HostReadGuard, exempt_plain_versions
+    from mxmoe_tpu_torch.params_from_jax import params_from_jax
+    from mxmoe_tpu_torch.serving import graph as tgraph
+    from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
+
+    mesh = expert_mesh(ep)
+    if rank >= ep:
+        return None
+    replaced = []
+
+    def set_(obj, name, value):
+        replaced.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    guard = HostReadGuard()
+    ran = set()
+    replay = tgraph._Graphed._replay
+
+    def guarded(self):
+        ran.add(type(self).__name__)
+        with guard:
+            replay(self)
+
+    try:
+        exempt_plain_versions(guard, set_)
+        set_(tgraph._Graphed, "_replay", guarded)
+        eng = Engine(params_from_jax(params_np, "cpu"), model_config(spec),
+                     EngineConfig(**ecfg_kw), _impl(impl_kw), mesh=mesh)
+        with torch.inference_mode():
+            eng.submit_batch(prompts[:1], max_new_tokens=3)
+            for p in prompts[1:ep]:
+                eng.submit(p, max_new_tokens=3)
+            eng.step()
+            eng.step_chunk(2)
+    finally:
+        for obj, name, value in reversed(replaced):
+            setattr(obj, name, value)
+    return sorted(ran)

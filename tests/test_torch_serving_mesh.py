@@ -101,20 +101,24 @@ def pool():
     p.close()
 
 
+class References(dict):
+    """Each case's params (numpy) and the JAX Engine(mesh)'s tokens, made at
+    the first look-up; for "batch" ("batch:<case>"), the tokens of its
+    submit_batch over the "mixed" case's (the case's) params."""
+
+    def __missing__(self, key):
+        batch = key.startswith("batch")
+        name = (key.partition(":")[2] or "mixed") if batch else key
+        e, layers, seed, schemes, pack, shared, max_len, max_new, impl_kw = CASES[name]
+        cfg, params = _params(e, layers, seed, schemes, pack, shared)
+        toks = _jax_engine(params, cfg, impl_kw, max_len, max_new, float(e), batch=batch)
+        self[key] = toks if batch else (jax.tree_util.tree_map(np.asarray, params), toks)
+        return self[key]
+
+
 @pytest.fixture(scope="module")
 def references():
-    """Each case's params (numpy) and the JAX Engine(mesh)'s tokens; for
-    "batch", those of its submit_batch over the "mixed" case's params."""
-    out = {}
-    for name, (e, layers, seed, schemes, pack, shared, max_len, max_new,
-               impl_kw) in CASES.items():
-        cfg, params = _params(e, layers, seed, schemes, pack, shared)
-        toks = _jax_engine(params, cfg, impl_kw, max_len, max_new, float(e))
-        out[name] = (jax.tree_util.tree_map(np.asarray, params), toks)
-        if name == "mixed":
-            out["batch"] = _jax_engine(params, cfg, impl_kw, max_len, max_new,
-                                       float(e), batch=True)
-    return out
+    return References()
 
 
 @pytest.mark.parametrize("name", list(CASES))
