@@ -275,7 +275,17 @@ failure raises and the script exits non-zero without a result line:
               parallel.scale_bench at ep 1, the EP layer and the decode step
               eager and captured (its ep >= 2 rows wait for a
               machine with more cards), and whether NCCL takes two ranks on
-              the one card (a 2-process all_reduce, recorded). (b) Two ranks
+              the one card (a 2-process all_reduce, recorded); then the
+              tensor-parallel forward (tp_one_rank; `tp` lines): qwen2_moe
+              bf16 at full width and 24 layers on a (1, 1) ("data",
+              "expert") mesh, [2, 512] tokens, K11 per rank: its logits
+              bitwise forward_logits on the card, captured by
+              serving.graph.ForwardGraph bitwise eager (K11 launched by a
+              replay), eager and captured TP and captured forward_logits in
+              turns (wall and device ms, busy share, kernels and host launch
+              calls a forward, peak GB); make_sharded_forward (w8a8: K1, K2)
+              and make_sp_prefill_forward (K11), 4 layers, each captured
+              bitwise eager; the phase's added seconds. (b) Two ranks
               spawned on the one card, the exchange staged through host
               buffers over gloo (the transport every line names; eager: no
               graph holds the host copies), 4 layers:
@@ -285,7 +295,11 @@ failure raises and the script exits non-zero without a result line:
               factor of 2 or more), each rank's peak memory; rank 0 serves
               the same requests on one device first. Then one ring SP prefill
               at 2 ranks against forward_logits (float32, within SP_REL of
-              max |logits|). (c) generate --mesh 2 --transport host (eager)
+              max |logits|), and the tensor-parallel forward on the same
+              model over a (1, 2) mesh (30 experts, 8 q and 8 kv heads and
+              2816 gate and 2816 up columns of the shared expert a rank;
+              K11; within SP_REL of max |logits| on each rank; each rank's
+              peak GB). (c) generate --mesh 2 --transport host (eager)
               against generate on one device. Every EP serve's tokens equal the
               one-device serve's, or part first where the one-device model's
               top-2 margin is within PARITY_BOUND (_margin_rule)
@@ -4163,6 +4177,40 @@ def _ep_two_ranks(rank: int, out: str, device_type: str) -> None:
                          "bound": SP_REL * float(ref.abs().max())}
     if not err <= SP_REL * float(ref.abs().max()):
         raise AssertionError(f"ep: ring SP prefill on rank {rank}: {err}")
+    # the tensor-parallel forward over a (1, 2) ("data", "expert") mesh, the
+    # sums staged through host buffers: the rank's heads, experts and shared
+    # columns, every token
+    from mxmoe_tpu_torch.parallel.mesh import shard_params
+    from mxmoe_tpu_torch.parallel.sharded import make_tp_forward
+
+    tp_mesh = DeviceMesh("cpu", [[0, 1]], mesh_dim_names=("data", "expert"))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    local = shard_params(floats, tp_mesh)
+    with torch.inference_mode():
+        got = make_tp_forward(cfg, tp_mesh, impl, transport="host")(local, toks)
+    err = float((got - ref).abs().max())
+    lp = local["layers"]
+    res["tp_forward"] = {
+        "tokens": int(toks.shape[1]), "mesh": {"data": 1, "expert": 2},
+        "seconds": time.perf_counter() - t0,
+        "local": {"experts": int(lp["expert_gate_up"].shape[1]),
+                  "q_heads": int(lp["wq"].shape[-1]) // cfg.head_dim,
+                  "kv_heads": int(lp["wk"].shape[-1]) // cfg.head_dim,
+                  "shared_gate_cols": int(lp["shared_gate_up"].shape[-1]) // 2,
+                  "shared_up_cols": int(lp["shared_gate_up"].shape[-1]) // 2},
+        "launches": {k: v for k, v in kernels.launches.items() if v},
+        "max_abs_err": err, "max_abs_logit": float(ref.abs().max()),
+        "bound": SP_REL * float(ref.abs().max()),
+        "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                    if device.type == "cuda" else None)}
+    if not err <= SP_REL * float(ref.abs().max()):
+        raise AssertionError(f"ep: tensor-parallel forward on rank {rank}: {err}")
+    if device.type == "cuda" and not res["tp_forward"]["launches"].get("gmm_bf16"):
+        raise AssertionError(f"ep: tensor-parallel forward on rank {rank}: no K11")
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
 
@@ -4310,6 +4358,191 @@ def mesh_graph_checks(eng, eager_eng, snap) -> None:
         raise AssertionError(f"mesh_graph: {failed}")
 
 
+# the tensor-parallel forward at one rank: qwen2_moe bf16 at full width and
+# depth on [2, 512] tokens; the captured expert- and sequence-parallel
+# forwards at TP_SHARDED_LAYERS (cut for time)
+TP_LAYERS, TP_TOKENS, TP_SHARDED_LAYERS = 24, (2, 512), 4
+TP_ORDER = ("tp_eager", "tp_captured", "forward_logits_captured",
+            "forward_logits_captured", "tp_captured", "tp_eager")
+TP_STEPS = 4
+
+
+def _peak_gb(fn, dev) -> dict | None:
+    """What one call of ``fn`` holds on the device, in GB (None on the CPU):
+    ``before``, allocated when it starts (the params, the graphs' live
+    outputs and what earlier phases keep), and ``added``, its peak above
+    that, its own. A replay allocates nothing: its graph's memory is its
+    pool's (``graph_setup``'s ``reserved_bytes``)."""
+    import torch
+
+    if dev.type != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return {"before": before / 1e9,
+            "added": (torch.cuda.max_memory_allocated(dev) - before) / 1e9}
+
+
+def tp_one_rank(dev) -> dict:
+    """Phase 12 (a)'s tensor-parallel checks, on the phase's one-rank process
+    group (NCCL on the card):
+
+    - ``tp``: ``parallel.sharded.make_tp_forward`` on a (1, 1) ("data",
+      "expert") mesh over ``shard_params``, qwen2_moe bf16 at full width and
+      TP_LAYERS deep, ``MoEImpl(gmm_backend="pallas")``, tokens TP_TOKENS:
+      eager, and captured by ``serving.graph.ForwardGraph`` (bitwise the
+      eager logits; K11 launched by a replay, counted from 0 just before
+      it); the logits bitwise ``forward_logits`` on the same card (one rank
+      runs the same products in the same order, and a one-rank all-reduce
+      copies); then the TP forward eager and captured and ``forward_logits``
+      captured in turns (``profile_decode.abba``, TP_ORDER, TP_STEPS
+      forwards a window): wall and device ms, busy share, kernels and host
+      launch calls a forward, each arm's own peak GB above what it starts
+      with (``_peak_gb``);
+    - ``sharded`` / ``sp``: ``make_sharded_forward(quantized=True)`` over the
+      first TP_SHARDED_LAYERS layers' experts in w8a8 (K1, K2) and
+      ``make_sp_prefill_forward`` over the same layers in bf16 (K11), each
+      captured by ``ForwardGraph``, bitwise its eager twin, its launches a
+      replay.
+
+    Prints one ``tp`` line a step and returns each kernel's launches a
+    replay: {kernel: {step: count}}; raises on a failed check."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.models.model import forward_logits
+    from mxmoe_tpu_torch.parallel import sharded
+    from mxmoe_tpu_torch.parallel.mesh import shard_params
+    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+    from mxmoe_tpu_torch.serving import profile_decode
+    from mxmoe_tpu_torch.serving.graph import ForwardGraph
+
+    on_card = dev.type == "cuda"
+    launches: dict = {}
+    t0 = time.perf_counter()
+    cfg, floats = _full_width_model(TP_LAYERS if on_card else 2, 23)
+    impl = MoEImpl(gmm_backend="pallas")
+    mesh = DeviceMesh(dev.type, [[0]], mesh_dim_names=("data", "expert"))
+    local = shard_params(floats, mesh)
+    fwd = sharded.make_tp_forward(cfg, mesh, impl)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, TP_TOKENS, generator=gen, device=dev,
+                         dtype=torch.int32)
+
+    def plain(params, tokens):
+        return forward_logits(params, tokens, cfg, impl)
+
+    def replayed(graph, what: str) -> dict:
+        """One replay's launches, counted from 0 (the first run captured)."""
+        graph.run(toks)
+        _reset_counts()
+        graph.run(toks)
+        counts = _counts()
+        for k, v in counts.items():
+            launches.setdefault(k, {})[what] = v
+        return counts
+
+    with torch.inference_mode():
+        eager = fwd(local, toks)
+        ref = plain(floats, toks)
+        graphs = {"tp": ForwardGraph(fwd, local, toks),
+                  "forward_logits": ForwardGraph(plain, floats, toks)}
+        tp_counts = replayed(graphs["tp"], "tp_captured")
+        captured = graphs["tp"].logits.clone()
+        res = {"model": "qwen2_moe", "layers": cfg.num_layers, "tokens": TP_TOKENS,
+               "mesh": {"data": 1, "expert": 1}, "card": smi_line() if on_card else None,
+               "params_gb": sum(t.numel() * t.element_size() for t in (
+                   floats["embed"], floats["final_norm"], floats["lm_head"],
+                   *floats["layers"].values())) / 1e9,
+               "captured_bitwise_eager": bool(torch.equal(captured, eager)),
+               "vs_forward_logits": {
+                   "bitwise": bool(torch.equal(eager, ref)),
+                   "max_abs_err": float((eager.float() - ref.float()).abs().max()),
+                   "max_abs_logit": float(ref.float().abs().max())},
+               "finite": bool(torch.isfinite(captured).all()),
+               "launches_per_replay": tp_counts}
+        del eager, ref, captured
+        if on_card:
+            arms = {"tp_eager": lambda: fwd(local, toks),
+                    "tp_captured": lambda: graphs["tp"].run(toks),
+                    "forward_logits_captured": lambda: graphs["forward_logits"].run(toks)}
+            def forwards(f):
+                def run(n):
+                    for _ in range(n):
+                        f()
+                return run
+
+            res["turns"] = profile_decode.abba({k: forwards(f) for k, f in arms.items()},
+                                               order=TP_ORDER, steps=TP_STEPS)
+            for arm in res["turns"].values():
+                arm.pop("by_name")
+            res["peak_gb"] = {k: _peak_gb(f, dev) for k, f in arms.items()}
+            res["graph_setup"] = {name: {k: getattr(g, k) for k in (
+                "warmup_s", "capture_s", "instantiate_s", "kept_bytes", "reserved_bytes")}
+                for name, g in graphs.items()}
+            cap, fl = (res["turns"][k]["device_ms"] for k in ("tp_captured",
+                                                               "forward_logits_captured"))
+            res["tp_captured_over_forward_logits_device_ms"] = cap / fl
+        for g in graphs.values():
+            g.release()
+        del graphs
+    res["seconds"] = time.perf_counter() - t0
+    emit("tp", step="tp_forward", **res)
+    failed = [k for k in ("captured_bitwise_eager", "finite") if not res[k]]
+    if not res["vs_forward_logits"]["bitwise"]:
+        failed.append("vs_forward_logits bitwise (one rank: the same products in "
+                      "the same order)")
+    if on_card and not tp_counts.get("gmm_bf16"):
+        failed.append("gmm_bf16 never launched by a replay")
+    if failed:
+        raise AssertionError(f"tp forward: {failed}")
+
+    # the earlier sharded forwards captured, TP_SHARDED_LAYERS deep
+    cut = dataclasses.replace(cfg, num_layers=TP_SHARDED_LAYERS)
+    floats = {**floats, "layers": {k: v[:TP_SHARDED_LAYERS]
+                                   for k, v in floats["layers"].items()}}
+    del local
+    if on_card:
+        torch.cuda.empty_cache()
+    ep_mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("expert",))
+    seq_mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("seq",))
+    for step, expect in (("sharded", ("quantize_rows", "gmm_w8a8")), ("sp", ("gmm_bf16",))):
+        t1 = time.perf_counter()
+        if step == "sharded":
+            params = quantize_model_experts_uniform(floats, parse_scheme("w8a8_g-1_sym"))
+            params = shard_params(params, ep_mesh,
+                                  sharded.ep_param_shardings(params, ep_mesh))
+            fn = sharded.make_sharded_forward(cut, ep_mesh, quantized=True)
+        else:
+            params = floats
+            fn = sharded.make_sp_prefill_forward(cut, seq_mesh, "seq", impl)
+        with torch.inference_mode():
+            eager = fn(params, toks)
+            graph = ForwardGraph(fn, params, toks)
+            counts = replayed(graph, f"{step}_captured")
+            row = {"layers": cut.num_layers, "tokens": TP_TOKENS,
+                   "captured_bitwise_eager": bool(torch.equal(graph.logits, eager)),
+                   "launches_per_replay": counts, "seconds": time.perf_counter() - t1}
+            graph.release()
+        del graph, eager, params
+        emit("tp", step=step, **row)
+        missing = [k for k in expect if on_card and not counts.get(k)]
+        if not row["captured_bitwise_eager"] or missing:
+            raise AssertionError(f"tp {step}: bitwise {row['captured_bitwise_eager']}, "
+                                 f"never launched {missing}")
+    del floats
+    if on_card:
+        torch.cuda.empty_cache()
+    emit("tp", step="phase", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def ep_phase(device: str = "cuda") -> dict:
     """Phase 12: expert parallelism (module docstring). Returns each
     kernel's launches under EP: {kernel: {serve: count}}."""
@@ -4414,6 +4647,10 @@ def ep_phase(device: str = "cuda") -> dict:
                  seconds=time.perf_counter() - t0,
                  waits_for_more_cards="the ep >= 2 rows need one card a rank: "
                                       f"this machine has {torch.cuda.device_count()}")
+        # the tensor-parallel forward and the sharded forwards captured
+        for k, v in tp_one_rank(dev).items():
+            for step, n in v.items():
+                ep_launches.setdefault(k, {})[f"one_rank_nccl_{step}"] = n
     except BaseException:
         # NCCL's communicator waits, when destroyed, for every graph that holds
         # its kernels, and the traceback may keep one alive: end here
@@ -4454,6 +4691,12 @@ def ep_phase(device: str = "cuda") -> dict:
     emit("ep", step="sp_prefill", transport=ranks[0]["transport"],
          per_rank=[x["sp_prefill"] for x in ranks],
          seconds_two_rank_job=time.perf_counter() - t0)
+    emit("tp", step="two_ranks", transport=ranks[0]["transport"],
+         graphs="eager: the host-staged sums copy through host memory in every layer",
+         model="qwen2_moe", layers=2, dtype="float32",
+         per_rank=[x["tp_forward"] for x in ranks])
+    for r, x in enumerate(ranks):
+        record(f"two_ranks_host_tp_forward_rank{r}", x["tp_forward"]["launches"])
 
     # (c) generate --mesh 2 as a user calls it, against generate on one device
     t0 = time.perf_counter()

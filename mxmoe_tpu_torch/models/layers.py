@@ -76,7 +76,7 @@ import torch.nn.functional as F
 
 from .configs import MoEConfig
 from ..ops import act_quant
-from ..ops.dispatch import (combine_tokens, expert_of_rows, gather_tokens,
+from ..ops.dispatch import (Routing, combine_tokens, expert_of_rows, gather_tokens,
                             make_dispatch, route_topk)
 from ..ops.gmm import gmm
 from ..ops.gmm_ffn import gmm_ffn_mixed_packed, gmm_ffn_w8a8
@@ -200,20 +200,43 @@ def _online_had(h: torch.Tensor, impl: MoEImpl) -> torch.Tensor:
     return matmul_hadU(h)
 
 
+def _expert_block_routing(routing: Routing, first: int, count: int) -> Routing:
+    """The assignments to experts [first, first + count) renumbered from 0;
+    every other one sent to the dead group ``count`` with weight 0. On the
+    device: no host read."""
+    ids = routing.expert_ids - first
+    mine = (ids >= 0) & (ids < count)
+    return Routing(torch.where(mine, routing.weights, torch.zeros_like(routing.weights)),
+                   torch.where(mine, ids, torch.full_like(ids, count)))
+
+
 def moe_ffn_ragged(x2d: torch.Tensor, lp: dict, cfg: MoEConfig,
-                   impl: MoEImpl) -> torch.Tensor:
+                   impl: MoEImpl, experts: tuple[int, int] | None = None) -> torch.Tensor:
     """The float path: sort tokens by expert, two grouped matmuls, combine.
     With ``act_bits_gateup`` / ``act_bits_down`` [E] in the layer (fake-
     quantized experts) each expert's rows are fake-quantized to its
     activation width before each product (per token, or per k-group where
-    the family carries ``act_gsize_*``)."""
+    the family carries ``act_gsize_*``).
+
+    ``experts`` = (first, count): the layer's expert stack holds only experts
+    [first, first + count) (a rank's block under tensor parallelism). All
+    tokens are routed over every expert; the assignments to other experts
+    sort into a trailing dead group that the grouped products leave out
+    (their rows lie past the groups' sum) and the combine masks (weight 0),
+    so the output is this block's share of the layer's sum."""
     if "expert_gate_up" not in lp:
         raise ValueError("moe_ffn_ragged: the layer carries no float expert weights "
                          "(expert_gate_up); quantized experts need MoEImpl.quant")
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
                          cfg.routed_scaling_factor)
-    disp = make_dispatch(routing, cfg.num_experts, align=impl.dispatch_align)
+    groups = cfg.num_experts
+    if experts is not None:
+        routing, groups = _expert_block_routing(routing, *experts), experts[1]
+    disp = make_dispatch(routing, groups + (experts is not None),
+                         align=impl.dispatch_align)
+    if experts is not None:
+        disp = disp._replace(group_sizes=disp.group_sizes[:groups])
     xs = gather_tokens(x2d, disp)                                   # [rows, H]
     mixed_act = "act_bits_gateup" in lp
     if mixed_act:
@@ -485,10 +508,17 @@ def shared_expert_ffn(x2d: torch.Tensor, lp: dict, cfg: MoEConfig) -> torch.Tens
         out = _act_fq_per_row(h, bits[1].expand(t)) @ lp["shared_down"]
     else:
         out = silu_mul(x2d @ lp["shared_gate_up"]) @ lp["shared_down"]
-    if cfg.has_shared_expert_gate:
-        gate = torch.sigmoid(x2d @ lp["shared_gate"])               # [T, 1]
-        out = out * gate.to(out.dtype)
-    return out
+    return shared_expert_gate(out, x2d, lp, cfg)
+
+
+def shared_expert_gate(out: torch.Tensor, x2d: torch.Tensor, lp: dict,
+                       cfg: MoEConfig) -> torch.Tensor:
+    """The shared expert's output times qwen2_moe's sigmoid gate (``out``
+    itself for a family without the gate)."""
+    if not cfg.has_shared_expert_gate:
+        return out
+    gate = torch.sigmoid(x2d @ lp["shared_gate"])                   # [T, 1]
+    return out * gate.to(out.dtype)
 
 
 def moe_block(x: torch.Tensor, lp: dict, cfg: MoEConfig,

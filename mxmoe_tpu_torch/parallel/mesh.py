@@ -16,12 +16,26 @@ the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dims
   embed / lm_head / norms / router -> replicated
   tokens [B, S]                 -> P("data", None)
 
-The TP specs serve the JAX package's GSPMD dense forward only; the port has
-no tensor-parallel forward, and expert parallelism takes
-``parallel.sharded.ep_param_shardings`` (experts sharded, the rest
+These specs are those of the JAX package's GSPMD forward
+(``jax.jit(forward_logits)`` over its ``shard_params``), whose port is
+``parallel.sharded.make_tp_forward``: each rank runs its heads, its block of
+the shared expert's columns and rows and its E/ep experts on its "data"
+block of the tokens, and sums the partial outputs over "expert" (GSPMD
+inserts those sums itself). Expert parallelism takes
+``parallel.sharded.ep_param_shardings`` instead (experts sharded, the rest
 replicated). A mesh's ``device_type`` names the collective backend's
-devices: "cuda" for NCCL, "cpu" for gloo (which the host-staged EP
-transport rides with the tensors on the card).
+devices: "cuda" for NCCL, "cpu" for gloo (which the host-staged transport
+rides with the tensors on the card).
+
+Two cuts of the default layout are not contiguous blocks. A fused gate_up
+matrix split by columns gives rank r gate block r followed by up block r
+(``gate_up_slice``; the same number of bytes as a contiguous block, which
+would give rank 0 every gate column at ep 2, while ``silu_mul`` halves the
+columns it is given). An expert count that ``"expert"`` does not divide is
+padded with never-routed phantom experts (``ep.pad_expert_arrays``, as the
+EP paths do; the JAX package's ``device_put`` refuses the uneven split).
+Heads that ``"expert"`` does not divide are refused by the forward
+(``sharded.tp_local_config``), where GSPMD would pad the head shard.
 """
 
 from __future__ import annotations
@@ -82,6 +96,11 @@ _LAYER_SPECS = {
 def param_shardings(params: dict, mesh: DeviceMesh | None = None) -> dict:
     """The spec tree matching the float model's params (the JAX package's
     ``param_shardings``; ``mesh`` is not read: the specs name its dims)."""
+    unknown = sorted(set(params) - {"embed", "layers", "final_norm", "lm_head"})
+    unknown += sorted(set(params["layers"]) - set(_LAYER_SPECS))
+    if unknown:
+        raise KeyError(f"param_shardings: no spec for the keys {unknown}: the specs "
+                       "cover the float GQA params, as the JAX package's do")
     return {
         "embed": P(None, None),
         "layers": {k: _LAYER_SPECS[k] for k in params["layers"]},
@@ -130,14 +149,40 @@ def local_slice(t: torch.Tensor, spec, mesh: DeviceMesh) -> torch.Tensor:
     return out if out is t else out.clone()
 
 
+def gate_up_slice(t: torch.Tensor, spec, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of a fused gate_up matrix [..., 2N] whose last dim
+    ``spec`` splits: gate block r (of the first N columns) followed by up
+    block r (of the last N), each N/n wide, the layout ``silu_mul`` takes
+    apart. Every other dim is cut as :func:`local_slice` cuts it."""
+    n_cols = t.shape[-1] // 2
+    halves = [local_slice(t.narrow(-1, i * n_cols, n_cols), spec, mesh) for i in (0, 1)]
+    return torch.cat(halves, dim=-1)
+
+
 def shard_params(params: dict, mesh: DeviceMesh, shardings: dict | None = None) -> dict:
     """The rank-local params: every leaf sliced by its spec
-    (``param_shardings`` by default)."""
-    specs = param_shardings(params, mesh) if shardings is None else shardings
+    (``param_shardings`` by default). A ``*gate_up`` leaf split by columns
+    is cut by :func:`gate_up_slice` (gate block r, then up block r: the
+    rank holds the bytes of its contiguous block's share, laid out so that
+    its SwiGLU pairs gate column j with up column j). With the default
+    specs, expert stacks whose E the "expert" size does not divide are
+    padded with phantom experts first (module docstring)."""
+    if shardings is None:
+        specs = param_shardings(params, mesh)
+        from .ep import pad_expert_arrays
 
-    def walk(tree, spec):
+        e = params["layers"]["router"].shape[-1]
+        params = {**params, "layers": pad_expert_arrays(
+            params["layers"], e, axis_size(mesh, "expert"))}
+    else:
+        specs = shardings
+
+    def walk(tree, spec, name=""):
         if isinstance(tree, dict):
-            return {k: walk(v, spec[k]) for k, v in tree.items()}
+            return {k: walk(v, spec[k], k) for k, v in tree.items()}
+        if name.endswith("gate_up") and spec[-1] is not None \
+                and axis_size(mesh, spec[-1]) > 1:
+            return gate_up_slice(tree, spec, mesh)
         return local_slice(tree, spec, mesh)
 
     return walk(params, specs)

@@ -3,7 +3,11 @@ CUDA graph each of the cached forward, replayed (the port's counterparts of
 the reference's ``jax.jit(partial(forward_cached, ...), donate_argnums=2)``,
 ``mxmoe_tpu/serving/engine.py:242``, its jitted ``decode_scan``, its jitted
 ``_prefill_slot`` and ``submit_batch`` chunk, ``:240`` and ``:307``, and
-``eval_ppl_decode``'s jitted ``window_nll``, ``mxmoe_tpu/eval/evaluator.py:232``).
+``eval_ppl_decode``'s jitted ``window_nll``, ``mxmoe_tpu/eval/evaluator.py:232``);
+and the compiled full forward over a process group (``ForwardGraph``: the
+counterpart of the reference's ``jax.jit`` of its tensor-parallel
+``forward_logits``, of ``make_sharded_forward`` and of
+``make_sp_prefill_forward``, ``mxmoe_tpu/parallel/sharded.py:124``).
 
 Each graph holds, for one (params, config, MoEImpl, cache), its static
 inputs and the cache itself, whose K/V and ``lengths`` are written in place
@@ -27,6 +31,13 @@ inside the graph:
   prefill chunk that another rank owns (``decode.forward_cached_follow``:
   every MoE layer's collectives with no rows of its own), inside
   ``EPMoEBlock.rows``, the ranks' row counts fixed at capture.
+- ``ForwardGraph``: any ``forward(params, tokens) -> logits`` over a static
+  token buffer [B, S] (``parallel.sharded``'s tensor-parallel, expert-parallel
+  and sequence-parallel forwards, or ``models.model.forward_logits``); a
+  replay leaves the logits in ``logits``. It holds no cache. A forward over
+  the host-staged transport (``forward.transport == "host"``) is refused,
+  as the mesh ``Engine`` refuses it: its collectives copy through host
+  memory, which a graph cannot hold.
 
 A graph whose ``MoEImpl.ep_moe`` is the expert-parallel block holds the
 block's collectives (NCCL kernels on the communicator's stream, joined to
@@ -377,3 +388,44 @@ class FollowGraph(_Graphed):
 
     def run(self) -> None:
         self._replay()
+
+
+class ForwardGraph(_Graphed):
+    """``forward(params, tokens) -> logits`` captured once over a static
+    token buffer of ``tokens``' shape, dtype and device (module docstring):
+    ``run(tokens)`` copies the tokens in, replays (or, on the CPU, runs the
+    body) and returns ``logits``, the graph's static
+    output, valid until the next replay of a graph of its pool. Every rank
+    of the forward's process group replays its graphs in the same order.
+    ``release()`` frees the graph; do so before the process group is
+    destroyed."""
+
+    def __init__(self, forward, params: dict, tokens: torch.Tensor, pool=None):
+        if getattr(forward, "transport", "direct") == "host":
+            raise ValueError(
+                "ForwardGraph over the host-staged transport: its collectives copy "
+                "through host memory, which a CUDA graph cannot hold; call the "
+                "forward eagerly")
+        super().__init__(params, None, MoEImpl(), None, pool)
+        self.forward = forward
+        self.tokens = tokens.clone()
+        self.logits = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.tokens.device
+
+    def _body(self) -> None:
+        with torch.no_grad():
+            self.logits = self.forward(self.params, self.tokens)
+
+    def _quiet(self):
+        def restore():                  # nothing lands: the body keeps no state
+            self.logits = None
+        return restore
+
+    def run(self, tokens: torch.Tensor | None = None) -> torch.Tensor:
+        if tokens is not None:
+            self.tokens.copy_(tokens)
+        self._replay()
+        return self.logits

@@ -15,11 +15,12 @@ from torch.distributed.device_mesh import DeviceMesh
 
 
 def model_config(spec):
-    """(family, num_experts, num_layers, overrides) -> the port's config."""
+    """(family, num_experts, num_layers, overrides: a dict or its pairs) ->
+    the port's config."""
     from mxmoe_tpu_torch.models import configs
 
     family, e, layers, kw = spec
-    return dataclasses.replace(getattr(configs, family)(e, layers), **kw)
+    return dataclasses.replace(getattr(configs, family)(e, layers), **dict(kw))
 
 
 def expert_mesh(ep: int, name: str = "expert"):
@@ -400,3 +401,33 @@ def guarded_graph_bodies(rank, world, ep, spec, params_np, impl_kw, ecfg_kw, pro
         for obj, name, value in reversed(replaced):
             setattr(obj, name, value)
     return sorted(ran)
+
+
+def tp_forward(rank, world, dp, ep, spec, params_np, toks_np, layout="blocks"):
+    """make_tp_forward over a ("data", "expert") = (dp, ep) mesh of every
+    rank, on this rank's data block of the tokens -> its logits. ``layout``
+    "blocks" slices the params by ``shard_params`` (gate block r, then up
+    block r); "contiguous" cuts every split dim in one contiguous block,
+    gate_up's columns too."""
+    from mxmoe_tpu_torch.params_from_jax import params_from_jax
+    from mxmoe_tpu_torch.parallel.mesh import local_slice, param_shardings, shard_params
+    from mxmoe_tpu_torch.parallel.sharded import make_tp_forward
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+
+    mesh = DeviceMesh("cpu", torch.arange(dp * ep).reshape(dp, ep),
+                      mesh_dim_names=("data", "expert"))
+    cfg = model_config(spec)
+    params = params_from_jax(params_np, "cpu")
+    if layout == "blocks":
+        local = shard_params(params, mesh)
+    else:
+        specs = param_shardings(params, mesh)
+        local = {k: ({n: local_slice(t, specs[k][n], mesh) for n, t in v.items()}
+                     if isinstance(v, dict) else local_slice(v, specs[k], mesh))
+                 for k, v in params.items()}
+    toks = torch.from_numpy(toks_np)
+    b = toks.shape[0] // dp
+    d = mesh.get_local_rank("data")
+    fwd = make_tp_forward(cfg, mesh, MoEImpl(gmm_backend="pallas"))
+    with torch.inference_mode():
+        return fwd(local, toks[d * b:(d + 1) * b]).numpy()

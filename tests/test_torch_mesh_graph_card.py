@@ -17,7 +17,13 @@ through the mesh ``Engine``'s params and EP block (``Engine.params`` /
   chunks, the second ragged;
 - the captured mesh Engine bitwise the eager one (``cuda_graphs=False``):
   submits, a ``submit_batch`` and chunked decode;
-- ``cuda_graphs=True`` over ``transport="host"`` raises; ``False`` serves.
+- ``cuda_graphs=True`` over ``transport="host"`` raises; ``False`` serves;
+- ``graph.ForwardGraph`` over the three forwards of ``parallel.sharded``
+  (the tensor-parallel forward on a (1, 1) ("data", "expert") mesh with K11,
+  the expert-parallel forward over w8a8 experts with K1 + K2, the
+  sequence-parallel prefill), each captured bitwise its eager twin over two
+  token batches, then ``release()``d before the process group is destroyed
+  (which waits for every graph that holds NCCL kernels).
 
 Run on the card: ``python -m pytest tests/test_torch_mesh_graph_card.py
 --noconftest -q``. Imports no JAX."""
@@ -44,6 +50,7 @@ from mxmoe_tpu_torch.parallel.multihost import free_port
 from mxmoe_tpu_torch.serving import bench_serving, decode, graph, kv_cache
 from mxmoe_tpu_torch.serving.engine import Engine, EngineConfig
 
+FORWARDS = ("tp", "ep_forward", "sp")
 mode = sys.argv[1]
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
@@ -52,9 +59,50 @@ dist.init_process_group("gloo" if host else "nccl",
                         init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
 mesh = DeviceMesh("cpu" if host else "cuda", [0], mesh_dim_names=("expert",))
 cfg = dataclasses.replace(configs.config_for("qwen2_moe"), num_layers=2)
-params, impl = bench_serving.init_for_serving(
-    cfg, torch.Generator(device=dev).manual_seed(0),
-    functools.partial(bench_serving.quantize_for_serving, quant="mixed-packed"), dev)
+if mode not in FORWARDS:
+    params, impl = bench_serving.init_for_serving(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        functools.partial(bench_serving.quantize_for_serving, quant="mixed-packed"), dev)
+
+
+def forward_graph(name):
+    """One of parallel.sharded's forwards at one NCCL rank, eager and through
+    graph.ForwardGraph over two token batches -> [captured, bitwise,
+    launches a replay]; the graph released."""
+    from mxmoe_tpu_torch.models.layers import MoEImpl
+    from mxmoe_tpu_torch.models.model import init_params
+    from mxmoe_tpu_torch.ops import kernels
+    from mxmoe_tpu_torch.parallel import sharded
+    from mxmoe_tpu_torch.parallel.mesh import shard_params
+    from mxmoe_tpu_torch.quant.qparams import quantize_model_experts_uniform
+    from mxmoe_tpu_torch.quant.schemes import parse_scheme
+
+    floats = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    impl = MoEImpl(gmm_backend="pallas")
+    if name == "tp":
+        tp_mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "expert"))
+        fwd, p = sharded.make_tp_forward(cfg, tp_mesh, impl), shard_params(floats, tp_mesh)
+    elif name == "ep_forward":
+        p = quantize_model_experts_uniform(floats, parse_scheme("w8a8_g-1_sym"))
+        p = shard_params(p, mesh, sharded.ep_param_shardings(p, mesh))
+        fwd = sharded.make_sharded_forward(cfg, mesh, quantized=True)
+    else:
+        seq = DeviceMesh("cuda", [0], mesh_dim_names=("seq",))
+        fwd, p = sharded.make_sp_prefill_forward(cfg, seq, "seq", impl), floats
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = [torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2)]
+    fg = graph.ForwardGraph(fwd, p, toks[0])
+    same = True
+    with torch.inference_mode():
+        for t in toks:
+            got = fg.run(t).clone()
+            same = same and torch.equal(got, fwd(p, t))
+    torch.cuda.synchronize()
+    out = ["captured", fg.graph is not None, "bitwise", same,
+           "launches", sum(fg.counts.values())]
+    fg.release()
+    return out
 
 
 def fields_equal(a, b):
@@ -63,6 +111,8 @@ def fields_equal(a, b):
 
 
 def main():
+    if mode in FORWARDS:
+        return forward_graph(mode)
     if host:
         try:
             Engine(params, cfg, EngineConfig(batch_slots=2), impl, mesh=mesh,
@@ -197,6 +247,8 @@ except BaseException:
     sys.stderr.flush()
     os._exit(1)
 dist.destroy_process_group()
+if mode in FORWARDS:
+    print("destroyed", flush=True)
 '''
 
 
@@ -249,3 +301,13 @@ def test_captured_mesh_engine_is_the_eager_mesh_engine(dev):
 def test_graphs_over_the_host_transport_raise_on_the_card(dev):
     out = _run("host")
     assert out == ["raised", "True", "served", "4"], out
+
+
+@pytest.mark.parametrize("forward", ["tp", "ep_forward", "sp"])
+def test_captured_sharded_forward_is_its_eager_twin_bitwise(dev, forward):
+    """``ForwardGraph`` over the tensor-parallel, expert-parallel (w8a8) and
+    sequence-parallel forwards at one NCCL rank: bitwise eager over two token
+    batches; after ``release()`` the group is destroyed (``destroyed``)."""
+    out = _run(forward)
+    assert out[:4] == ["captured", "True", "bitwise", "True"], out
+    assert int(out[5]) > 0 and out[-1] == "destroyed", out
