@@ -1,0 +1,11 @@
+"""Decode attention (``serving/decode_attention.py``,
+``csrc/decode_attention*.cu``): device milliseconds of the
+``kernel_families/decode_attn.json`` kernels that start inside
+``Engine.step`` calls of the profiled sub-window, per step."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.ranges.get("bm.step"):
+        return None
+    s = run.trace.device_s_in("bm.step", run.kernel_patterns("decode_attn"))
+    return s / len(run.trace.ranges["bm.step"]) * 1e3 if s else None
